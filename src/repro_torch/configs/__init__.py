@@ -1,0 +1,23 @@
+"""Config registry: ``get_config(arch_id)``.  The port carries the paper
+CNN; the LLM configurations arrive with their model families."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import (  # noqa: F401
+    FLConfig,
+    ModelConfig,
+    OptimizerConfig,
+)
+
+# arch id -> module name
+_ARCH_MODULES = {
+    "cnn-paper": "cnn_paper",
+}
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+    return mod.CONFIG

@@ -1,0 +1,112 @@
+"""Task registry — the learning tasks a federated scenario can run.
+
+A ``TaskSpec`` owns data synthesis + client partitioning, batch
+construction, per-example label counting and the eval metrics.  The port
+carries the classification task (the paper's CNN track); generation arrives
+with the NanoGPT family.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple, Type
+
+from repro_torch.data.synthetic import make_image_data
+
+
+class TaskSpec:
+    """Base class for tasks.  Subclass, implement the hooks, and register
+    with ``@register_task(name, *aliases)``."""
+
+    name: str = ""
+    kind: str = ""              # batch/metric shape family; defaults to name
+    default_family: str = ""    # model family used when ScenarioConfig.model=""
+    default_lr: float = 0.05
+    default_batch: int = 20
+
+    def build_data(self, cfg, model_cfg, partition) -> Tuple[Dict, Tuple]:
+        """Synthesize the federation's data: ``(clients, test)`` where
+        ``clients`` maps client id -> (x, y) numpy arrays."""
+        raise NotImplementedError
+
+    def make_batch(self, x, y) -> Dict:
+        raise NotImplementedError
+
+    def labels_per_example(self, y_shape) -> int:
+        raise NotImplementedError
+
+    def eval_metrics(self, correct: int, loss: float,
+                     total: int) -> Dict[str, float]:
+        return {"acc": correct / max(total, 1), "loss": loss / max(total, 1)}
+
+
+TASKS: Dict[str, Type[TaskSpec]] = {}
+
+
+def register_task(*names: str):
+    """Class decorator registering a ``TaskSpec`` under ``names``."""
+    if not names:
+        raise ValueError("register_task needs at least one name")
+
+    def deco(cls: Type[TaskSpec]) -> Type[TaskSpec]:
+        cls.name = names[0]
+        if not cls.kind:
+            cls.kind = names[0]
+        for n in names:
+            TASKS[n] = cls
+        return cls
+    return deco
+
+
+def get_task(name: str) -> TaskSpec:
+    try:
+        return TASKS[name]()
+    except KeyError:
+        raise ValueError(f"unknown task {name!r}; registered: "
+                         f"{sorted(TASKS)}") from None
+
+
+def resolve_task(task) -> TaskSpec:
+    """Accept a ``TaskSpec`` instance, class, or registered name."""
+    if isinstance(task, TaskSpec):
+        return task
+    if isinstance(task, type) and issubclass(task, TaskSpec):
+        return task()
+    return get_task(task)
+
+
+def _check_parts(parts, num_clients: int, partitioner_desc: str):
+    empty = [k for k, idx in enumerate(parts) if len(idx) == 0]
+    if len(parts) != num_clients or empty:
+        raise ValueError(
+            f"partitioner {partitioner_desc} produced "
+            f"{len(parts)} partitions with empty clients {empty} for "
+            f"{num_clients} clients; increase samples_per_client or soften "
+            f"the skew parameters")
+
+
+@register_task("classification", "image")
+class ClassificationTask(TaskSpec):
+    """Image classification (the paper's CNN track): class-conditional
+    synthetic images, accuracy + mean NLL metrics."""
+
+    default_family = "cnn"
+    default_lr = 0.05
+    default_batch = 20
+
+    def build_data(self, cfg, model_cfg, partition):
+        data = make_image_data(cfg.num_clients * cfg.samples_per_client,
+                               image_size=cfg.image_size, seed=cfg.seed,
+                               noise=cfg.noise)
+        parts = partition(len(data.labels), data.labels, cfg.num_clients,
+                          cfg.seed)
+        _check_parts(parts, cfg.num_clients, cfg.partitioner)
+        clients = {k: (data.images[idx], data.labels[idx])
+                   for k, idx in enumerate(parts)}
+        test = make_image_data(cfg.test_n, image_size=cfg.image_size,
+                               seed=cfg.seed + 999, noise=cfg.noise)
+        return clients, (test.images, test.labels)
+
+    def make_batch(self, x, y):
+        return {"images": x, "labels": y}
+
+    def labels_per_example(self, y_shape) -> int:
+        return 1

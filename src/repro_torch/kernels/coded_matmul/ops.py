@@ -1,0 +1,71 @@
+"""Wrappers for the coded matmul kernels: CUDA tensors launch the kernel in
+``csrc/coded_matmul.cu``, CPU tensors run the plain version in ``ref.py``.
+
+The JAX wrappers padded to (8, 128) multiples for the TPU's tiling; the CUDA
+kernel masks ragged edges itself, so nothing is padded here."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch import kernels as K
+from repro_torch.kernels.coded_matmul.ref import (coded_matmul_ref,
+                                                  coded_matmul_rounds_ref)
+
+MAX_S = 16          # kMaxS in csrc/coded_matmul.cu
+_OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _launch(coeff: torch.Tensor, w: torch.Tensor,
+            out_dtype: torch.dtype) -> torch.Tensor:
+    """coeff (C,S), w (G,S,P) on one CUDA device -> (G,C,P)."""
+    c, s = coeff.shape
+    g, s2, p = w.shape
+    if s != s2:
+        raise ValueError(f"coeff {tuple(coeff.shape)} does not match w "
+                         f"{tuple(w.shape)}")
+    if not 1 <= s <= MAX_S:
+        raise ValueError(f"code dimension S={s} outside [1, {MAX_S}]")
+    for name, t in (("coeff", coeff), ("w", w)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if out_dtype not in _OUT_DTYPES:
+        raise TypeError(f"out_dtype must be one of {_OUT_DTYPES}")
+    out = torch.empty((g, c, p), dtype=out_dtype, device=w.device)
+    vec = p % 4 == 0 and K.aligned16(w, out)
+    err = K.load_library().repro_coded_matmul(
+        coeff.data_ptr(), w.data_ptr(), out.data_ptr(), g, c, s, p,
+        int(out_dtype == torch.bfloat16), int(vec), K.stream_of(w))
+    K.check_launch(err, "coded_matmul")
+    return out
+
+
+def coded_matmul(coeff: torch.Tensor, w: torch.Tensor,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """(C,S) @ (S,P) -> (C,P), fp32 accumulate; ``out_dtype`` is float32
+    (default) or bfloat16 storage for the result."""
+    if not K.on_cuda(coeff, w):
+        return coded_matmul_ref(coeff, w, out_dtype)
+    if w.dim() != 2 or coeff.dim() != 2:
+        raise ValueError("coded_matmul takes coeff (C,S) and w (S,P)")
+    out = _launch(coeff, w.unsqueeze(0), out_dtype or torch.float32)[0]
+    K.LAUNCHES["coded_matmul"] += 1
+    return out
+
+
+def coded_matmul_rounds(coeff: torch.Tensor, w: torch.Tensor,
+                        out_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
+    """(C,S) @ (G,S,P) -> (G,C,P): the all-rounds encode, read straight from
+    the stacked history with no concatenate copy."""
+    if not K.on_cuda(coeff, w):
+        return coded_matmul_rounds_ref(coeff, w, out_dtype)
+    if w.dim() != 3 or coeff.dim() != 2:
+        raise ValueError("coded_matmul_rounds takes coeff (C,S) and "
+                         "w (G,S,P)")
+    out = _launch(coeff, w, out_dtype or torch.float32)
+    K.LAUNCHES["coded_matmul_rounds"] += 1
+    return out

@@ -1,0 +1,46 @@
+"""Parameter initialization and the bridge to the reference's weights.
+
+The init rules are ``repro.models.params.RealInit``'s: ``normal`` leaves
+draw N(0, 1) * scale / sqrt(fan_in), with fan_in the product of the first
+``in_dims`` dims (the last dim for vectors), and ``zeros`` leaves are zero.
+The draws come from a ``torch.Generator``, so they follow the same
+distribution as ``jax.random`` but not its bits; a run that needs the
+reference's exact weights passes them in through ``from_numpy_params``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.tree import tree_map
+
+Device = Union[str, torch.device]
+
+
+def draw(gen: torch.Generator, shape: Tuple[int, ...], init: str = "normal",
+         scale: float = 1.0, in_dims: int = 1,
+         fan_in: Optional[int] = None) -> torch.Tensor:
+    """One float32 CPU leaf under the reference's init rules."""
+    if init == "normal":
+        if fan_in is None:
+            fan_in = (int(np.prod(shape[:in_dims])) if len(shape) > 1
+                      else max(shape[-1], 1))
+        std = scale / np.sqrt(fan_in)
+        return torch.randn(shape, generator=gen, dtype=torch.float32) * std
+    if init == "zeros":
+        return torch.zeros(shape, dtype=torch.float32)
+    raise ValueError(init)
+
+
+def from_numpy_params(tree, device: Device = "cpu"):
+    """A tree of numpy arrays (e.g. the reference's ``init_params`` pulled
+    to the host) as a tree of tensors on ``device``, bit for bit."""
+    return tree_map(lambda a: torch.from_numpy(np.array(a, copy=True)).to(
+        device), tree)
+
+
+def to_numpy_params(tree):
+    """The inverse of ``from_numpy_params``."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)

@@ -1,0 +1,197 @@
+"""Coding parity of the PyTorch port against ``repro.core.coding`` and the
+reference kernels' oracles, on the CPU: the port runs its kernels' plain
+versions; the reference runs both its jnp path and its Pallas kernels in
+interpret mode (``use_kernel=True``).  Tolerances are the ones
+tests/test_kernels.py uses: 1e-5 for fp32, 2e-2 for bf16 slices, 1e-4 for
+the calibrate accumulate; flatten helpers must match exactly."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import coding as jc
+from repro.kernels.calibrate.ref import calibrate_update_ref as j_cal_ref
+from repro.kernels.coded_matmul.ref import coded_matmul_ref as j_cm_ref
+from repro_torch.core import coding as tc
+from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.calibrate.ops import calibrate_update
+from repro_torch.kernels.calibrate.ref import calibrate_update_ref
+from repro_torch.kernels.coded_matmul.ops import (coded_matmul,
+                                                  coded_matmul_rounds)
+from repro_torch.kernels.coded_matmul.ref import (coded_matmul_ref,
+                                                  coded_matmul_rounds_ref)
+
+torch.set_num_threads(1)
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _w(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _np(x):
+    return np.asarray(x.float().numpy() if isinstance(x, torch.Tensor) else x,
+                      np.float32)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("c,s,p", [(20, 4, 257), (8, 2, 130), (5, 1, 3)])
+def test_encode_matches_reference(use_kernel, c, s, p):
+    w = _w((s, p), c + p)
+    ref = jc.encode(jc.CodingScheme(s, c), jnp.asarray(w),
+                    use_kernel=use_kernel)
+    got = tc.encode(tc.CodingScheme(s, c), torch.from_numpy(w))
+    assert got.shape == (c, p) and got.dtype == torch.float32
+    np.testing.assert_allclose(_np(got), _np(ref), **TOL)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_encode_batched_matches_reference(use_kernel):
+    mats = [_w((4, 100 + 7 * g), g) for g in range(3)]
+    ref = jc.encode_batched(jc.CodingScheme(4, 12),
+                            [jnp.asarray(m) for m in mats],
+                            use_kernel=use_kernel)
+    got = tc.encode_batched(tc.CodingScheme(4, 12),
+                            [torch.from_numpy(m) for m in mats])
+    assert len(got) == len(ref) == 3
+    for a, b in zip(ref, got):
+        np.testing.assert_allclose(_np(b), _np(a), **TOL)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_encode_rounds_matches_reference(use_kernel):
+    sch = jc.CodingScheme(3, 10)
+    hist = _w((4, 3, 150), 11)
+    enc = np.asarray(sch.encode_matrix(), np.float32)
+    ref = jc.encode_rounds(jnp.asarray(enc), jnp.asarray(hist),
+                           use_kernel=use_kernel)
+    got = tc.encode_rounds(torch.from_numpy(enc), torch.from_numpy(hist))
+    assert got.shape == (4, 10, 150)
+    np.testing.assert_allclose(_np(got), _np(ref), **TOL)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("ids", [list(range(20)), [0, 5, 10, 15],
+                                 [1, 2, 3, 8, 13, 17, 19]])
+def test_decode_erasure_matches_reference(use_kernel, ids):
+    w = _w((4, 200), 3)
+    slices = np.asarray(jc.encode(jc.CodingScheme(4, 20), jnp.asarray(w)))
+    sub = slices[ids]
+    ref = jc.decode_erasure(jc.CodingScheme(4, 20), jnp.asarray(sub), ids,
+                            use_kernel=use_kernel)
+    got = tc.decode_erasure(tc.CodingScheme(4, 20), torch.from_numpy(sub),
+                            ids)
+    np.testing.assert_allclose(_np(got), _np(ref), **TOL)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("available,bad", [
+    (None, []), ([0, 1, 2, 3, 6, 9, 12, 15, 18, 19], []),
+    (None, [2, 8, 12]), (list(range(1, 20)), [4, 11])])
+def test_decode_robust_matches_reference(use_kernel, available, bad):
+    w = _w((4, 64), 5)
+    slices = np.array(jc.encode(jc.CodingScheme(4, 20), jnp.asarray(w)))
+    rng = np.random.default_rng(9)
+    slices[bad] += rng.standard_normal((len(bad), 64)).astype(np.float32) * 10
+    rw, rlost, rbad = jc.decode_robust(jc.CodingScheme(4, 20),
+                                       jnp.asarray(slices), available,
+                                       use_kernel=use_kernel)
+    tw, tlost, tbad = tc.decode_robust(tc.CodingScheme(4, 20),
+                                       torch.from_numpy(slices), available)
+    assert (rlost, rbad) == (tlost, tbad)
+    np.testing.assert_allclose(_np(tw), _np(rw), **TOL)
+
+
+@pytest.mark.parametrize("c,s,p", [(20, 4, 333), (1, 1, 5), (16, 3, 128)])
+def test_plain_kernels_match_reference_oracles(c, s, p):
+    coeff, w = _w((c, s), 1), _w((s, p), 2)
+    ref = j_cm_ref(jnp.asarray(coeff), jnp.asarray(w))
+    got = coded_matmul_ref(torch.from_numpy(coeff), torch.from_numpy(w))
+    np.testing.assert_allclose(_np(got), _np(ref), **TOL)
+    hist = _w((3, s, p), 4)
+    ref_r = jnp.stack([j_cm_ref(jnp.asarray(coeff), jnp.asarray(h))
+                       for h in hist])
+    got_r = coded_matmul_rounds_ref(torch.from_numpy(coeff),
+                                    torch.from_numpy(hist))
+    np.testing.assert_allclose(_np(got_r), _np(ref_r), **TOL)
+
+
+@pytest.mark.parametrize("m,p", [(4, 1000), (1, 7), (9, 4096)])
+def test_calibrate_plain_matches_reference(m, p):
+    w, d, cf = _w((p,), 1), _w((m, p), 2), _w((m,), 3)
+    ref = j_cal_ref(jnp.asarray(w), jnp.asarray(d), jnp.asarray(cf))
+    got = calibrate_update_ref(*map(torch.from_numpy, (w, d, cf)))
+    np.testing.assert_allclose(_np(got), _np(ref), rtol=1e-4, atol=1e-4)
+
+
+def test_wrappers_use_plain_versions_on_cpu():
+    """CPU tensors take the plain versions and count no kernel launch."""
+    before = dict(LAUNCHES)
+    coeff, w = torch.from_numpy(_w((6, 2), 1)), torch.from_numpy(_w((2, 9), 2))
+    torch.testing.assert_close(coded_matmul(coeff, w),
+                               coded_matmul_ref(coeff, w), rtol=0, atol=0)
+    h = torch.from_numpy(_w((2, 2, 9), 3))
+    torch.testing.assert_close(coded_matmul_rounds(coeff, h),
+                               coded_matmul_rounds_ref(coeff, h),
+                               rtol=0, atol=0)
+    v, d, cf = (torch.from_numpy(_w(s, i)) for i, s in
+                enumerate([(9,), (2, 9), (2,)]))
+    torch.testing.assert_close(calibrate_update(v, d, cf),
+                               calibrate_update_ref(v, d, cf), rtol=0, atol=0)
+    assert LAUNCHES == before
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_bf16_slices_match_reference(use_kernel):
+    w = _w((4, 512), 2)
+    ref = jc.encode(jc.CodingScheme(4, 16), jnp.asarray(w),
+                    use_kernel=use_kernel, out_dtype=jnp.bfloat16)
+    got = tc.encode(tc.CodingScheme(4, 16), torch.from_numpy(w),
+                    out_dtype="bfloat16")
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), np.asarray(ref, np.float32),
+                               rtol=2e-2, atol=2e-2)
+    ids = [0, 5, 10, 15]
+    rdec = jc.decode_erasure(jc.CodingScheme(4, 16), ref[jnp.asarray(ids)],
+                             ids)
+    tdec = tc.decode_erasure(tc.CodingScheme(4, 16), got[ids], ids)
+    assert tdec.dtype == torch.float32
+    np.testing.assert_allclose(_np(tdec), _np(rdec), rtol=2e-2, atol=2e-2)
+
+
+def _stacked_tree(m, seed):
+    rng = np.random.default_rng(seed)
+    return {"conv": {"w": rng.standard_normal((m, 3, 3, 4)).astype(np.float32)},
+            "dense": {"w": rng.standard_normal((m, 7, 5)).astype(np.float32),
+                      "b": rng.standard_normal((m, 5)).astype(np.float32)},
+            "a": rng.standard_normal((m, 2)).astype(np.float32)}
+
+
+def _to_torch(tree):
+    return jax.tree.map(torch.from_numpy, tree)
+
+
+def test_flatten_helpers_match_exactly():
+    tree = _stacked_tree(3, 0)
+    jf, jspec = jc.tree_to_flat_stacked(jax.tree.map(jnp.asarray, tree))
+    tf, tspec = tc.tree_to_flat_stacked(_to_torch(tree))
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    one = jax.tree.map(lambda a: a[1], tree)
+    j1, _ = jc.tree_to_flat(jax.tree.map(jnp.asarray, one))
+    t1, t1spec = tc.tree_to_flat(_to_torch(one))
+    np.testing.assert_array_equal(t1.numpy(), np.asarray(j1))
+    np.testing.assert_array_equal(tf[1].numpy(), t1.numpy())
+    back = tc.flat_to_tree(t1, t1spec)
+    for a, b in zip(jax.tree.leaves(one), jax.tree.leaves(
+            jax.tree.map(lambda t: t.numpy(), back))):
+        np.testing.assert_array_equal(a, b)
+    sback = tc.flat_to_stacked_tree(tf, tspec)
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(
+            jax.tree.map(lambda t: t.numpy(), sback))):
+        np.testing.assert_array_equal(a, b)
+    spec = tc.StackedRowSpec((4, 9, 2), int(tf.shape[1]), tspec)
+    trees = tc.flat_to_client_trees(tf.reshape(-1), spec)
+    assert list(trees) == [4, 9, 2]
+    np.testing.assert_array_equal(trees[9]["dense"]["b"].numpy(),
+                                  tree["dense"]["b"][1])

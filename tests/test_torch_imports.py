@@ -1,0 +1,108 @@
+"""Import hygiene of the PyTorch port: ``repro_torch`` and ``chip_smoke.py``
+never import ``jax`` or anything of ``repro`` (checked both by importing
+every module in a fresh interpreter and by scanning the sources), and the
+entry points refuse to fall back to the CPU silently."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+torch.set_num_threads(1)
+
+
+def _modules():
+    out = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(PORT.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        out.append(".".join(parts))
+    return out
+
+
+def _forbidden(name: str) -> bool:
+    root = name.split(".")[0]
+    return root in FORBIDDEN
+
+
+def test_importing_every_module_loads_no_jax_or_repro():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(len(sys.modules), bad)\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
+                         [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_no_jax_or_repro(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                "import_module", "__import__"):
+            for arg in node.args:
+                if isinstance(arg, ast.Constant) and isinstance(
+                        arg.value, str) and _forbidden(arg.value):
+                    bad.append(arg.value)
+    assert not bad, f"{path}: imports {bad}"
+
+
+def _tiny_sim_args():
+    import dataclasses
+    from repro_torch.configs import FLConfig, get_config
+    cfg = dataclasses.replace(get_config("cnn-paper"), image_size=8,
+                              cnn_channels=(4, 8), d_model=16)
+    fl = FLConfig(num_clients=4, clients_per_round=4, num_shards=2,
+                  local_epochs=1, global_rounds=1)
+    return cfg, fl, {}
+
+
+def test_simulator_without_device_raises_when_no_gpu(monkeypatch):
+    """No card and no ``device="cpu"``: the entry point raises instead of
+    running on the CPU."""
+    from repro_torch.fl import FLSimulator
+    from repro_torch.fl.experiment import ScenarioConfig, run_scenario
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg, fl, data = _tiny_sim_args()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FLSimulator(cfg, fl, data, task="classification")
+    with pytest.raises(RuntimeError):
+        FLSimulator(cfg, fl, data, task="classification", device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_scenario(ScenarioConfig(num_clients=4, clients_per_round=4,
+                                    num_shards=2, global_rounds=1,
+                                    local_epochs=1, samples_per_client=10,
+                                    image_size=8))
+    sim = FLSimulator(cfg, fl, data, task="classification", device="cpu")
+    assert sim.device.type == "cpu"
+
+
+def test_kernel_wrappers_reject_mixed_devices():
+    from repro_torch.kernels import on_cuda
+    assert on_cuda(torch.zeros(1)) is False
+    with pytest.raises(ValueError):
+        on_cuda(torch.zeros(1), torch.zeros(1, device="meta"))
