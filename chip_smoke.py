@@ -7,29 +7,53 @@ Phases (any failed check raises, and the script exits non-zero):
    TF32 switches (both off for the port's fp32 math).
 2. build   — compile the hand-written kernels under
    ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a and load them.
-3. kernels — hold each kernel against its plain PyTorch version at the main
-   path's shapes and at ragged small ones (fp32: |k - r| <= 1e-5 + 1e-5|r|;
-   bf16: within one bf16 ulp), and time kernel, plain version and one
-   library call (device time from the CUPTI trace of torch.profiler; CUDA
-   events where it records nothing) beside the kernel's bound at 3.35 TB/s
-   and 67 TFLOP/s fp32 (H100 SXM data-sheet peaks).
-4. small   — a tiny scenario on the card and on the CPU (plain versions):
-   StoreStats equal, models within rtol 1e-3 / atol 1e-4.
-5. main    — the paper CNN at full width (conv 16/32, fc 128, 28x28x1) in
-   the paper's federation (100 clients, 20 per stage, S=4, L=10, G=30,
-   100 samples per client): one stage on the fused engine with the coded
+3. kernels — hold each kernel against its plain PyTorch version at the
+   shapes each main path of phase 5 gives it (the coding kernels at the
+   CNN's and at the mamba family's sizes, ``PATHS``; the scan kernels at
+   the mamba path's) and at ragged small ones, and time kernel, plain version
+   and one library call where one exists (device time from the CUPTI trace
+   of torch.profiler; CUDA events where it records nothing) beside the
+   kernel's bound at the H100 SXM data-sheet peaks: 3.35 TB/s, 67 TFLOP/s
+   fp32, and for ``exp`` 16 per clock per SM on 132 SMs at 1.98 GHz.
+   Tolerances: coded_matmul / rounds / calibrate fp32 |k - r| <= 1e-5 +
+   1e-5|r|, bf16 within one bf16 ulp; ssm_scan |k - r| <= 2e-4 + 2e-4|r|
+   (tests/test_kernels.py's tolerance for this kernel); ssm_scan_bwd
+   |k - r| <= 1e-3|r| + 1e-4 max|r| (fp32 sums over up to 16,384 channels
+   and 2,048 steps in another order than autograd's).
+4. small   — tiny classification and generation (mamba) scenarios on the
+   card and on the CPU (plain versions): StoreStats equal, models within
+   rtol 1e-3 / atol 1e-4.
+5. main    — two federated main paths through the port's entry points, each
+   with its launch counts zeroed just before and read just after:
+   (a) the paper CNN at full width (conv 16/32, fc 128, 28x28x1) in the
+   paper's federation (100 clients, 20 per stage, S=4, L=10, 100 samples
+   per client) with G cut from 30 to 10 rounds, (b) the generation task
+   with the mamba family (``ScenarioConfig.paper_full(task="generation",
+   model="mamba")``: the paper's federation with G=30, 100 sequences of 64
+   tokens per client).  Each: one stage on the fused engine with the coded
    store, one SE request, one batched SE request over two shards, one stage
-   on the stage engine.  Launch counts are zeroed just before and read just
-   after; every kernel must have launched.  Then the checks: decoded round-0
-   locals average to the stored round-1 global, a decode from another
-   S-subset agrees, untouched shards are bit-identical, the ensemble is
-   above chance.  Last, one fused shard round is profiled: wall time,
-   device-busy time, idle share and the kernels that take the time.
-6. report  — one JSON line listing the kernels, the card's name and power
-   limit, and the final line ``{"ok": true, "device": {...}}``.
+   on the stage engine; every kernel of the path must have launched.  Then
+   the checks: decoded round-0 locals average to the stored round-1
+   global, a decode from another S-subset agrees, untouched shards are
+   bit-identical, the ensemble is above chance (CNN test accuracy > 0.1;
+   mamba perplexity < 109, the uniform guess over the 109 symbols, on ten
+   clients the stage did not sample: the task's test stream has a word
+   inventory of its own).  Last, one fused shard round is profiled: wall
+   time, device-busy time, idle share and the kernels that take the time.
+6. full    — one mamba mixer of jamba-1.5-large-398b at its published width
+   (d_model 8192, d_inner 16384, state 16, conv 4, dt_rank 512; 420,331,520
+   parameters) through ``mamba_block``, forward and backward on fp32
+   inputs of shape (2, 4096, 8192): ``train_4k``'s sequence length, batch
+   cut from 256 to 2, one mixer instead of 72 layers.  The scan kernels are
+   timed alone at that shape, and the whole block.
+7. report  — one JSON line listing the kernels (each row's numbers from
+   the path it was ported for, every path's launches and times under
+   ``by_path``), the card's name and power limit, and the final line
+   ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -39,10 +63,16 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM, fp32 outside the tensor cores
+# exp on the special-function units: 16 per clock per SM, 132 SMs, 1.98 GHz
+EXP_PER_S = 16 * 132 * 1.98e9
+
+
+T_START = time.perf_counter()
 
 
 def log(tag: str, **kw) -> None:
-    print(json.dumps({"phase": tag, **kw}), flush=True)
+    print(json.dumps({"phase": tag, "t_s": time.perf_counter() - T_START,
+                      **kw}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -113,18 +143,28 @@ def device_ms(fn, iters: int):
 
 
 def timed(fn, iters: int) -> dict:
+    """Device time per call: CUPTI, cross-checked against CUDA events.  A
+    call of a millisecond or more keeps the device busy between its two
+    events, so there the event time is device time, and a CUPTI sum under
+    0.9 of it means the trace lost records: the event time is used."""
     ms, timer = device_ms(fn, iters)
-    return {"ms": ms, "timer": timer, "event_ms": time_ms(fn, iters)}
+    ev = time_ms(fn, iters)
+    if ev >= 1.0 and ms < 0.9 * ev:
+        ms, timer = ev, "events (trace short)"
+    return {"ms": ms, "timer": timer, "event_ms": ev}
 
 
-def bound(nbytes: int, flops: int):
+def bound(nbytes: int, flops: int, exps: int = 0):
+    """The least time for the work: bytes over the memory rate, or the
+    operations over their peak rates (fp32 FLOPs, exps), the larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = max(flops / FP32_FLOPS_PER_S, exps / EXP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(got, ref, name: str) -> dict:
-    """Max abs/rel error and the pass test: fp32 |k-r| <= 1e-5 + 1e-5|r|,
+def compare(got, ref, name: str, rtol: float = 1e-5,
+            atol: float = 1e-5) -> dict:
+    """Max abs/rel error and the pass test: fp32 |k-r| <= atol + rtol|r|,
     bf16 within one bf16 ulp of the larger magnitude."""
     import torch
     if got.shape != ref.shape or got.dtype != ref.dtype:
@@ -141,8 +181,8 @@ def compare(got, ref, name: str) -> dict:
         ok = bool((diff <= ulp).all())
         tol = "1 bf16 ulp"
     else:
-        ok = bool((diff <= 1e-5 + 1e-5 * r.abs()).all())
-        tol = "1e-5 + 1e-5*|ref|"
+        ok = bool((diff <= atol + rtol * r.abs()).all())
+        tol = f"{atol:.3g} + {rtol:.3g}*|ref|"
     del diff, k, r
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
@@ -160,8 +200,18 @@ def times(kernel, plain, library, iters: int) -> dict:
             "library_ms": device_ms(library, iters)[0] if library else None}
 
 
-def check_kernels(torch, K):
-    """Phase 3: every kernel against its plain version, and timed."""
+# The coding kernels' shapes on each main path: parameters per client and
+# the rounds G the path runs (M = 5 clients per shard, C = 20 coded slices
+# of S = 4 shards).  Each path checks its own model's size against these.
+PATHS = {"cnn": {"p_client": 206_922, "rounds": 10},
+         "mamba": {"p_client": 61_984, "rounds": 30}}
+CLIENTS_PER_SHARD = 5
+
+
+def check_kernels(torch, K, path: str, model_cfg, ragged: bool):
+    """Phase 3: every coding kernel against its plain version at the shapes
+    ``path`` gives it (and, with ``ragged``, at ragged small ones), timed.
+    Returns {kernel: row} of the path's own shapes."""
     from repro_torch.core import coding, unlearning
     from repro_torch.core.tree import tree_map
     from repro_torch.kernels.calibrate.ops import calibrate_update
@@ -171,174 +221,321 @@ def check_kernels(torch, K):
     from repro_torch.kernels.coded_matmul.ref import (coded_matmul_ref,
                                                       coded_matmul_rounds_ref)
     from repro_torch.models import init_params
-    from repro_torch.configs import get_config
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    p_client = 206_922                      # cnn-paper parameters
-    p_shard = 5 * p_client                  # M = 5 clients per shard
+    p_client, g_rounds = PATHS[path]["p_client"], PATHS[path]["rounds"]
+    p_shard = CLIENTS_PER_SHARD * p_client
     heads = {}
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
-    # coded_matmul: stage encode (G=30 rounds concatenated), fp32 and bf16;
+    # coded_matmul: the stage encode (G rounds concatenated), fp32 and bf16;
     # the erasure decode (4,4)@(4, M*P); ragged shapes
-    cm_cases = [("encode", 20, 4, 30 * p_shard, torch.float32, 20),
-                ("encode_bf16", 20, 4, 30 * p_shard, torch.bfloat16, 20),
-                ("decode", 4, 4, p_shard, torch.float32, 100),
-                ("ragged_p", 20, 4, 1029, torch.float32, 50),
-                ("c1_s1", 1, 1, 7, torch.float32, 50),
-                ("c33_s16", 33, 16, 4099, torch.bfloat16, 50)]
+    cm_cases = [("encode", 20, 4, g_rounds * p_shard, torch.float32, 20),
+                ("encode_bf16", 20, 4, g_rounds * p_shard, torch.bfloat16,
+                 20),
+                ("decode", 4, 4, p_shard, torch.float32, 100)]
+    if ragged:
+        cm_cases += [("ragged_p", 20, 4, 1029, torch.float32, 50),
+                     ("c1_s1", 1, 1, 7, torch.float32, 50),
+                     ("c33_s16", 33, 16, 4099, torch.bfloat16, 50)]
     for label, c, s, p, dt, iters in cm_cases:
         coeff, w = randn(c, s), randn(s, p)
         err = compare(coded_matmul(coeff, w, out_dtype=dt),
-                      coded_matmul_ref(coeff, w, dt), f"coded_matmul/{label}")
+                      coded_matmul_ref(coeff, w, dt),
+                      f"coded_matmul/{path}/{label}")
         ob = 2 if dt == torch.bfloat16 else 4
         b_ms, b_by = bound(4 * (c * s + s * p) + ob * c * p, 2 * c * s * p)
         row = times(lambda: coded_matmul(coeff, w, out_dtype=dt),
                     lambda: coded_matmul_ref(coeff, w, dt),
                     (lambda: torch.matmul(coeff, w))
                     if dt == torch.float32 else None, iters)
-        row.update(kernel="coded_matmul", case=label, shape=[c, s, p],
-                   out_dtype=str(dt), **err, bound_ms=b_ms, bound_by=b_by,
-                   roofline_share=b_ms / row["ms"])
+        row.update(kernel="coded_matmul", path=path, case=label,
+                   shape=[c, s, p], out_dtype=str(dt), **err, bound_ms=b_ms,
+                   bound_by=b_by, roofline_share=b_ms / row["ms"])
         log("kernel", **row)
         if label == "encode":
             heads["coded_matmul"] = row
             # the non-kernel copy around it: encode_batched's concatenate
-            mats = list(w.reshape(s, 30, p_shard).unbind(1))
+            mats = list(w.reshape(s, g_rounds, p_shard).unbind(1))
             mats = [m.contiguous() for m in mats]
             sch = coding.CodingScheme(4, 20)
-            log("copy", what="encode_batched concatenate (30 rounds)",
+            log("copy", path=path,
+                what=f"encode_batched concatenate ({g_rounds} rounds)",
                 concat=timed(lambda: torch.cat(mats, dim=1), iters),
                 encode_batched=timed(
                     lambda: coding.encode_batched(sch, mats), iters))
+            del mats
         del coeff, w
 
     # coded_matmul_rounds: the stage engine's encode of the (G,S,M*P) history
-    for label, c, s, g, p, iters in [("stage_encode", 20, 4, 30, p_shard, 20),
-                                     ("ragged", 3, 2, 2, 5, 50)]:
+    cr_cases = [("stage_encode", 20, 4, g_rounds, p_shard, 20)]
+    if ragged:
+        cr_cases += [("ragged", 3, 2, 2, 5, 50)]
+    for label, c, s, g, p, iters in cr_cases:
         coeff, w = randn(c, s), randn(g, s, p)
         err = compare(coded_matmul_rounds(coeff, w),
                       coded_matmul_rounds_ref(coeff, w),
-                      f"coded_matmul_rounds/{label}")
+                      f"coded_matmul_rounds/{path}/{label}")
         b_ms, b_by = bound(4 * (c * s + g * s * p + g * c * p),
                            2 * g * c * s * p)
         row = times(lambda: coded_matmul_rounds(coeff, w),
                     lambda: coded_matmul_rounds_ref(coeff, w),
                     lambda: torch.matmul(coeff, w), iters)
-        row.update(kernel="coded_matmul_rounds", case=label,
-                   shape=[c, s, g, p], **err, bound_ms=b_ms, bound_by=b_by,
+        row.update(kernel="coded_matmul_rounds", path=path, case=label,
+                   shape=[c, s, g, p], float4_branch=p % 4 == 0, **err,
+                   bound_ms=b_ms, bound_by=b_by,
                    roofline_share=b_ms / row["ms"])
         log("kernel", **row)
         if label == "stage_encode":
             heads["coded_matmul_rounds"] = row
         del coeff, w
 
-    # calibrate: M' = 4 retained clients of the CNN; ragged shapes
-    for label, m, p, iters in [("se_round", 4, p_client, 500),
-                               ("m1_ragged", 1, 7, 200),
-                               ("m9", 9, 4097, 200)]:
+    # calibrate: M' = 4 retained clients of the path's model; ragged shapes
+    cal_cases = [("se_round", 4, p_client, 500)]
+    if ragged:
+        cal_cases += [("m1_ragged", 1, 7, 200), ("m9", 9, 4097, 200)]
+    for label, m, p, iters in cal_cases:
         w, d, cf = randn(p), randn(m, p), randn(m)
         err = compare(calibrate_update(w, d, cf),
-                      calibrate_update_ref(w, d, cf), f"calibrate/{label}")
+                      calibrate_update_ref(w, d, cf),
+                      f"calibrate/{path}/{label}")
         b_ms, b_by = bound(4 * (p + m * p + m + p), 2 * m * p)
         row = times(lambda: calibrate_update(w, d, cf),
                     lambda: calibrate_update_ref(w, d, cf),
                     lambda: torch.addmv(w, d.t(), cf), iters)
-        row.update(kernel="calibrate", case=label, shape=[m, p], **err,
-                   bound_ms=b_ms, bound_by=b_by,
+        row.update(kernel="calibrate", path=path, case=label, shape=[m, p],
+                   **err, bound_ms=b_ms, bound_by=b_by,
                    roofline_share=b_ms / row["ms"])
         log("kernel", **row)
         if label == "se_round":
             heads["calibrate"] = row
             # calibrate_stacked around the kernel: norms, coefficients,
             # flatten copies of the model and the deltas, unflatten
-            model = init_params(get_config("cnn-paper"), 0, dev)
+            model = init_params(model_cfg, 0, dev)
             deltas = tree_map(lambda v: v.unsqueeze(0).expand(
                 m, *v.shape).contiguous(), model)
             norms = torch.ones(m, device=dev)
-            log("copy", what="calibrate_stacked (norms + flatten + kernel "
-                "+ unflatten) at M'=4", **timed(
+            log("copy", path=path, what="calibrate_stacked (norms + flatten "
+                f"+ kernel + unflatten) at M'={m}", **timed(
                     lambda: unlearning.calibrate_stacked(model, deltas,
                                                          norms), iters))
+            del model, deltas
         del w, d, cf
     torch.cuda.empty_cache()
     return heads
 
 
+SSM_FWD_FLOPS = 6     # per (sequence, step, channel, state): dt*a, the
+#                       decay and input products, the add, c*h and its sum
+SSM_BWD_FLOPS = 20    # the h recompute (4) and the gradient formulas (16)
+
+
+def ssm_inputs(torch, gen, bsz, s, d, n, g):
+    """The scan's inputs at one shape, as the model gives them: softplus-
+    sized dt, unit-normal b, c, x, a = -exp(U[0, 1.5)) per group."""
+    dev = gen.device
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(randn(bsz, s, d) * 0.5 - 2.0)
+    a = -torch.exp(torch.rand(g, d, n, generator=gen, device=dev) * 1.5)
+    return [dt, randn(bsz, s, n), randn(bsz, s, n), randn(bsz, s, d),
+            a if g > 1 else a[0].contiguous(), randn(bsz, d, n) * 0.1]
+
+
+def ssm_work(bsz, s, d, n, g, backward: bool):
+    """(bytes, flops, exps) the scan's forward or backward function needs:
+    each input read once and each output written once; one exp per
+    (sequence, step, channel, state)."""
+    seq, st = bsz * s * d, bsz * s * n
+    small = g * d * n + 2 * bsz * d * n          # a; h0 and h_last / dh0
+    if backward:          # in: dt, x, gy, b, c, a, h0, g_hlast
+        nbytes = 4 * (5 * seq + 4 * st + 2 * g * d * n + 3 * bsz * d * n)
+    else:                 # in: dt, x, b, c, a, h0; out: y, h_last
+        nbytes = 4 * (3 * seq + 2 * st + small)
+    work = bsz * s * d * n
+    return nbytes, work * (SSM_BWD_FLOPS if backward else SSM_FWD_FLOPS), work
+
+
+def check_ssm(torch, K):
+    """Phase 3b: the scan's forward and backward kernels against the plain
+    loop and autograd through it, at the mamba main path's shapes, at
+    ragged small ones, and at jamba's full width with S = 2048 (where the
+    plain loop's autograd graph fits in memory)."""
+    from repro_torch.kernels.ssm_scan import ops
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    heads = {}
+    cases = [("fused_stage", 50, 64, 64, 8, 5, 50),     # 5 clients x 10
+             ("stage_engine", 200, 64, 64, 8, 20, 20),  # 20 clients x 10
+             ("ragged_n8_g3", 3, 37, 70, 8, 3, 20),
+             ("ragged_n16_g2", 4, 19, 33, 16, 2, 20),
+             ("ragged_n5", 2, 9, 300, 5, 1, 20),
+             ("full_width_s2048", 2, 2048, 16384, 16, 1, 3)]
+    for label, bsz, s, d, n, g, iters in cases:
+        args = ssm_inputs(torch, gen, bsz, s, d, n, g)
+        # forward, no checkpoints
+        with torch.no_grad():
+            yk, hk = ops.ssm_scan(*args)
+            yr, hr = ssm_scan_ref(*args)
+            err = compare(yk, yr, f"ssm_scan/{label}/y", 2e-4, 2e-4)
+            compare(hk, hr, f"ssm_scan/{label}/h_last", 2e-4, 2e-4)
+            row = times(lambda: ops.ssm_scan(*args),
+                        lambda: ssm_scan_ref(*args), None, iters)
+        del yk, hk, yr, hr
+        nb, fl, ex = ssm_work(bsz, s, d, n, g, backward=False)
+        b_ms, b_by = bound(nb, fl, ex)
+        row.update(kernel="ssm_scan", case=label, shape=[bsz, s, d, n, g],
+                   **err, bound_ms=b_ms, bound_by=b_by,
+                   roofline_share=b_ms / row["ms"])
+        log("kernel", **row)
+        if label == "fused_stage":
+            heads["ssm_scan"] = row
+        # backward: the kernel from the forward's checkpoints against
+        # autograd through the plain loop, on the same cotangents
+        gg = ops._check(*args)
+        _, _, ckpt = ops._fwd(*args, gg, keep=True)
+        gy = torch.randn(bsz, s, d, generator=gen, device="cuda")
+        ghl = torch.randn(bsz, d, n, generator=gen, device="cuda")
+
+        def kernel_bwd():
+            return ops._bwd(*args[:5], ckpt, gy, ghl, gg)
+        got = kernel_bwd()
+        leaves = [t.detach().clone().requires_grad_(True) for t in args]
+        yr, hr = ssm_scan_ref(*leaves)
+
+        def plain_bwd():
+            return torch.autograd.grad((yr, hr), leaves, (gy, ghl),
+                                       retain_graph=True)
+        want = plain_bwd()
+        errs = {}
+        for nm, k_, r_ in zip(("ddt", "db", "dc", "dx", "da", "dh0"), got,
+                              want):
+            atol = 1e-4 * float(r_.abs().max())
+            errs[nm] = compare(k_.reshape(r_.shape), r_,
+                               f"ssm_scan_bwd/{label}/{nm}", 1e-3, atol)
+        del got, want
+        row = times(kernel_bwd, plain_bwd, None, iters)
+        del yr, hr, leaves
+        nb, fl, ex = ssm_work(bsz, s, d, n, g, backward=True)
+        b_ms, b_by = bound(nb, fl, ex)
+        worst = max(errs.values(), key=lambda e: e["max_abs_err"])
+        row.update(kernel="ssm_scan_bwd", case=label,
+                   shape=[bsz, s, d, n, g],
+                   max_abs_err=worst["max_abs_err"],
+                   per_grad={k: [v["max_abs_err"], v["tol"]]
+                             for k, v in errs.items()},
+                   bound_ms=b_ms, bound_by=b_by,
+                   roofline_share=b_ms / row["ms"])
+        log("kernel", **row)
+        if label == "fused_stage":
+            heads["ssm_scan_bwd"] = row
+        del args, ckpt, gy, ghl
+        torch.cuda.empty_cache()
+    return heads
+
+
+def _small_run(cfg, dev):
+    from repro_torch.core.tree import tree_map
+    from repro_torch.fl.experiment import build_session
+    session, _ = build_session(cfg, device=dev)
+    rep = session.run(1, schedule=cfg.schedule)
+    res = rep.stages[0].unlearn[0]
+    return (rep.store_stats.to_dict(), res.cost_units,
+            {s: tree_map(lambda v: v.cpu(), m)
+             for s, m in res.models.items()})
+
+
 def check_small(torch):
-    """Phase 4: a tiny scenario on the card against the same run on the
-    CPU through the kernels' plain versions."""
+    """Phase 4: tiny scenarios on the card against the same runs on the
+    CPU through the kernels' plain versions: the paper CNN's
+    classification, and generation with the mamba family (the scenario-zoo
+    configuration of tests/test_scenario_zoo.py)."""
+    from repro_torch.core.tree import leaves_with_paths, tree_leaves
     from repro_torch.fl.experiment import (RequestSchedule, ScenarioConfig,
-                                           UnlearnRequest, build_session)
-    out = {}
-    for dev in ("cuda", "cpu"):
-        cfg = ScenarioConfig(num_clients=8, clients_per_round=4,
-                             num_shards=2, local_epochs=2, global_rounds=2,
-                             samples_per_client=20, image_size=8,
-                             local_batch=10, schedule=RequestSchedule(
-                                 [UnlearnRequest(lambda plan: [
-                                     plan.shard_clients[0][0]])]))
-        session, _ = build_session(cfg, device=dev)
-        rep = session.run(1, schedule=cfg.schedule)
-        res = rep.stages[0].unlearn[0]
-        out[dev] = (rep.store_stats.to_dict(), res.cost_units,
-                    {s: {k: v.cpu() for k, v in m.items()}
-                     for s, m in res.models.items()})
-    (gs, gc, gm), (cs, cc, cm) = out["cuda"], out["cpu"]
-    if gs != cs or gc != cc:
-        raise AssertionError(f"small run: StoreStats/cost differ on the card "
-                             f"({gs}, {gc}) and the CPU ({cs}, {cc})")
-    worst = 0.0
-    for s in cm:
-        for k in cm[s]:
-            torch.testing.assert_close(gm[s][k], cm[s][k], rtol=1e-3,
-                                       atol=1e-4)
-            worst = max(worst, float((gm[s][k] - cm[s][k]).abs().max()))
-    log("small", store_stats_equal=True, cost_units=gc,
-        max_abs_diff_vs_cpu=worst, tol="rtol 1e-3, atol 1e-4")
+                                           UnlearnRequest)
+
+    def schedule():
+        return RequestSchedule([UnlearnRequest(
+            lambda plan: [plan.shard_clients[0][0]])])
+    configs = {
+        "classification": dict(num_clients=8, clients_per_round=4,
+                               num_shards=2, local_epochs=2, global_rounds=2,
+                               samples_per_client=20, image_size=8,
+                               local_batch=10),
+        "generation_mamba": dict(task="generation", model="mamba",
+                                 partitioner="zipf",
+                                 partitioner_kwargs={"exponent": 0.5},
+                                 num_clients=8, clients_per_round=4,
+                                 num_shards=2, local_epochs=1,
+                                 global_rounds=2, samples_per_client=6,
+                                 seq_len=16, test_n=20, local_batch=2)}
+    for name, kw in configs.items():
+        out = {dev: _small_run(ScenarioConfig(schedule=schedule(), **kw), dev)
+               for dev in ("cuda", "cpu")}
+        (gs, gc, gm), (cs, cc, cm) = out["cuda"], out["cpu"]
+        if gs != cs or gc != cc:
+            raise AssertionError(f"small {name}: StoreStats/cost differ on "
+                                 f"the card ({gs}, {gc}) and the CPU ({cs}, "
+                                 f"{cc})")
+        worst = 0.0
+        for s in cm:
+            for (path, g), c in zip(leaves_with_paths(gm[s]),
+                                    tree_leaves(cm[s])):
+                torch.testing.assert_close(g, c, rtol=1e-3, atol=1e-4,
+                                           msg=f"{name} {s}/{path}")
+                worst = max(worst, float((g - c).abs().max()))
+        log("small", scenario=name, store_stats_equal=True, cost_units=gc,
+            max_abs_diff_vs_cpu=worst, tol="rtol 1e-3, atol 1e-4")
 
 
-def rel_err(a: dict, b: dict) -> float:
-    num = max(float((a[k].float() - b[k].float()).abs().max()) for k in b)
-    den = max(float(b[k].float().abs().max()) for k in b)
+def rel_err(a, b) -> float:
+    from repro_torch.core.tree import tree_leaves
+    pairs = list(zip(tree_leaves(a), tree_leaves(b)))
+    num = max(float((x.float() - y.float()).abs().max()) for x, y in pairs)
+    den = max(float(y.float().abs().max()) for _, y in pairs)
     return num / den
 
 
-def main_path(torch, K, model_cfg, fl, scen, local_batch=20):
-    """Phase 5: the paper's pipeline through the port's entry points at
-    ``model_cfg`` / ``fl`` with ``scen``'s data fields; launch counts are
-    read around the driving."""
-    from repro_torch.configs import OptimizerConfig
+def main_path(torch, K, name, make_sim, test, need, metric_ok):
+    """Phase 5: the paper's pipeline through the port's entry points:
+    ``make_sim()`` builds a fresh simulator, ``test`` is the task's test
+    set, ``need`` the kernels the path must launch and ``metric_ok(m)``
+    the ensemble check on ``m = {"test": ..., "held_out": ...}``, where
+    ``held_out`` is the data of ten clients the stage did not sample.
+    Launch counts are read around the driving."""
+    import numpy as np
     from repro_torch.core import unlearning
-    from repro_torch.data.federated import get_partitioner
-    from repro_torch.fl import FLSimulator
+    from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.fl.experiment import FederatedSession, UnlearnRequest
-    from repro_torch.fl.tasks import ClassificationTask
 
-    task = ClassificationTask()
-    clients, (tx, ty) = task.build_data(scen, model_cfg,
-                                        get_partitioner("iid"))
-
-    def simulator():
-        return FLSimulator(model_cfg, fl, clients, task,
-                           opt_cfg=OptimizerConfig(name="sgd", lr=0.05,
-                                                   grad_clip=0.0),
-                           local_batch=local_batch, seed=0)
-
+    tx, ty = test
+    fused_sim, staged_sim = make_sim(), make_sim()
+    # the shapes phase 3 checked the coding kernels at are this path's
+    n_params = sum(v.numel() for v in tree_leaves(fused_sim.init_model(0)))
+    want = PATHS[name]
+    if (n_params, fused_sim.fl.global_rounds,
+            fused_sim.fl.clients_per_shard) != (
+            want["p_client"], want["rounds"], CLIENTS_PER_SHARD):
+        raise AssertionError(f"{name}: P={n_params}, G="
+                             f"{fused_sim.fl.global_rounds}, M="
+                             f"{fused_sim.fl.clients_per_shard}; phase 3 "
+                             f"checked {want}, M={CLIENTS_PER_SHARD}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     walls = {}
-    fused = FederatedSession(simulator(), store_kind="coded", engine="fused")
+    fused = FederatedSession(fused_sim, store_kind="coded", engine="fused")
     t0 = time.perf_counter()
     rec = fused.run_stage()
     torch.cuda.synchronize()
     walls["train_fused_s"] = time.perf_counter() - t0
     plan = rec.plan
-    before = {s: {k: v.clone() for k, v in m.items()}
+    before = {s: tree_map(torch.clone, m)
               for s, m in rec.shard_models.items()}
     victim = plan.shard_clients[0][0]
     t0 = time.perf_counter()
@@ -348,76 +545,88 @@ def main_path(torch, K, model_cfg, fl, scen, local_batch=20):
     t0 = time.perf_counter()
     batched = fused.unlearn(UnlearnRequest(pair, request_id="se-2"))[0]
     walls["unlearn_batched_se_s"] = time.perf_counter() - t0
-    staged = FederatedSession(simulator(), store_kind="coded", engine="stage")
+    staged = FederatedSession(staged_sim, store_kind="coded", engine="stage")
     t0 = time.perf_counter()
     srec = staged.run_stage()
     torch.cuda.synchronize()
     walls["train_stage_engine_s"] = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    log("main", launches=launches, peak_mem_bytes=peak, **walls)
-    missing = [k for k, n in launches.items() if n == 0]
+    log("main", path=name, launches=launches, peak_mem_bytes=peak, **walls)
+    missing = [k for k in need if launches[k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+        raise AssertionError(f"{name}: kernels never launched on the main "
+                             f"path: {missing}")
 
     # -- checks -----------------------------------------------------------
     sch = rec.store.scheme
     other = [i for i in range(sch.num_clients)
              if i not in set(sch.quorum().tolist())]
-    for name, r in (("fused", rec), ("stage", srec)):
+    for eng, r in (("fused", rec), ("stage", srec)):
         for s, cs in r.plan.shard_clients.items():
             stored0 = r.store.get_shard(0, s)
-            stacked = {k: torch.stack([stored0[c][k] for c in cs])
-                       for k in stored0[cs[0]]}
+            stacked = tree_map(lambda *vs: torch.stack(vs),
+                               *[stored0[c] for c in cs])
             fedavg = unlearning.stacked_mean(stacked)
             e = rel_err(fedavg, r.round_globals[s][1])
             alt = r.store.get_shard(0, s, available=other)
             e_alt = max(rel_err(alt[c], stored0[c]) for c in cs)
-            log("check", engine=name, shard=s,
+            log("check", path=name, engine=eng, shard=s,
                 decoded_fedavg_vs_round1_rel_err=e,
                 other_subset_decode_rel_err=e_alt)
             if not (e <= 1e-4 and e_alt <= 1e-4):
-                raise AssertionError(f"{name} shard {s}: decode check "
+                raise AssertionError(f"{name} {eng} shard {s}: decode check "
                                      f"failed ({e}, {e_alt})")
     slice_diff = max(
         float((srec.store._slices[g].float()
                - rec.store._slices[g].float()).abs().max())
         / float(rec.store._slices[g].float().abs().max())
-        for g in (0, fl.global_rounds - 1))
-    log("check", stage_vs_fused_slices_rel_diff=slice_diff)
+        for g in (0, fused_sim.fl.global_rounds - 1))
+    log("check", path=name, stage_vs_fused_slices_rel_diff=slice_diff)
 
     for res, hit in ((se, [0]), (batched, [1, 2])):
         if res.impacted_shards != hit:
             raise AssertionError(f"impacted {res.impacted_shards} != {hit}")
         for s, m in res.models.items():
-            for k, v in m.items():
-                if not bool(torch.isfinite(v).all()):
-                    raise AssertionError(f"non-finite unlearned model {s}/{k}")
-            if s not in hit:
-                for k in m:
-                    if not torch.equal(m[k], before[s][k]):
-                        raise AssertionError(f"untouched shard {s} changed")
-    acc = {"trained": fused.sim.evaluate(rec.shard_models, tx, ty),
-           "se": fused.sim.evaluate(se.models, tx, ty),
-           "batched_se": fused.sim.evaluate(batched.models, tx, ty),
-           "stage_engine": staged.sim.evaluate(srec.shard_models, tx, ty)}
-    log("check", ensemble=acc, se_cost_units=se.cost_units,
+            if not all(bool(torch.isfinite(v).all())
+                       for v in tree_leaves(m)):
+                raise AssertionError(f"{name}: non-finite unlearned model "
+                                     f"{s}")
+            if s not in hit and not all(
+                    torch.equal(a, b) for a, b in
+                    zip(tree_leaves(m), tree_leaves(before[s]))):
+                raise AssertionError(f"{name}: untouched shard {s} changed")
+    sampled = set(plan.clients)
+    held = [c for c in sorted(fused_sim.client_data) if c not in sampled][:10]
+    hx = np.concatenate([fused_sim.client_data[c][0] for c in held])
+    hy = np.concatenate([fused_sim.client_data[c][1] for c in held])
+
+    def scores(sim, models):
+        return {"test": sim.evaluate(models, tx, ty),
+                "held_out": sim.evaluate(models, hx, hy)}
+    metrics = {"trained": scores(fused.sim, rec.shard_models),
+               "se": scores(fused.sim, se.models),
+               "batched_se": scores(fused.sim, batched.models),
+               "stage_engine": scores(staged.sim, srec.shard_models)}
+    log("check", path=name, ensemble=metrics, held_out_clients=held,
+        se_cost_units=se.cost_units,
         batched_se_cost_units=batched.cost_units,
         store_stats=rec.store.stats.to_dict())
-    for name, m in acc.items():
-        if not m["acc"] > 0.1:
-            raise AssertionError(f"{name} ensemble at or below chance: {m}")
-    profile_round(torch, fused.sim, plan)
+    for which, m in metrics.items():
+        if not metric_ok(m):
+            raise AssertionError(f"{name}: {which} ensemble fails its "
+                                 f"check: {m}")
+    profile_round(torch, fused.sim, plan, name)
     return launches
 
 
-def profile_round(torch, sim, plan):
+def profile_round(torch, sim, plan, name):
     """Where a stage's time goes: one fused ``shard_round`` (M clients, L
     epochs) timed on the host clock, then traced for its device time."""
+    from repro_torch.core.tree import tree_map
     clients = plan.shard_clients[sorted(plan.shard_clients)[0]]
     xs, ys = sim._stack_client_data(clients)
-    w = {k: v.unsqueeze(0) for k, v in sim.init_model(0).items()}
+    w = tree_map(lambda v: v.unsqueeze(0), sim.init_model(0))
 
     def run():
         sim.shard_round(w, xs[None], ys[None], sim.fl.local_epochs, "flat")
@@ -430,11 +639,147 @@ def profile_round(torch, sim, plan):
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     steps = sim.fl.local_epochs * (xs.shape[1] // sim.local_batch)
-    log("profile", what=f"one fused shard_round: {len(clients)} clients, "
-        f"{steps} SGD steps", wall_ms=wall_ms, device_busy_ms=busy_ms,
+    log("profile", path=name, what=f"one fused shard_round: {len(clients)} "
+        f"clients, {steps} SGD steps", wall_ms=wall_ms,
+        device_busy_ms=busy_ms,
         device_idle_share=(max(0.0, 1 - busy_ms / wall_ms) if by_name
                            else None),
         top_ms=[[n[:80], ms] for n, ms in top])
+
+
+def cnn_path(torch, K):
+    """Phase 5a: the paper CNN at full width, cut from G = 30 to
+    ``PATHS["cnn"]["rounds"]`` rounds to keep the script's time."""
+    from repro_torch.configs import FLConfig, OptimizerConfig, get_config
+    from repro_torch.data.federated import get_partitioner
+    from repro_torch.fl import FLSimulator
+    from repro_torch.fl.experiment import ScenarioConfig
+    from repro_torch.fl.tasks import ClassificationTask
+
+    model_cfg = get_config("cnn-paper")
+    fl = FLConfig(num_clients=100, clients_per_round=20, num_shards=4,
+                  local_epochs=10,
+                  global_rounds=PATHS["cnn"]["rounds"], retrain_ratio=2)
+    task = ClassificationTask()
+    clients, test = task.build_data(ScenarioConfig.paper_full(noise=0.25),
+                                    model_cfg, get_partitioner("iid"))
+
+    def make_sim():
+        return FLSimulator(model_cfg, fl, clients, task,
+                           opt_cfg=OptimizerConfig(name="sgd", lr=0.05,
+                                                   grad_clip=0.0),
+                           local_batch=20, seed=0)
+    return main_path(torch, K, "cnn", make_sim, test,
+                     ("coded_matmul", "coded_matmul_rounds", "calibrate"),
+                     lambda m: m["test"]["acc"] > 0.1)
+
+
+def mamba_path(torch, K):
+    """Phase 5b: the generation task with the mamba family in the paper's
+    federation, built by the port's own entry point."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.fl.experiment import ScenarioConfig, build_simulator
+
+    cfg = ScenarioConfig.paper_full(task="generation", model="mamba")
+    sim, test = build_simulator(cfg)
+    log("config", path="mamba", model=dataclasses.asdict(sim.cfg),
+        params=sum(v.numel() for v in tree_leaves(sim.init_model(0))),
+        lr=sim.opt.lr, local_batch=sim.local_batch,
+        sequences_per_client=int(sim.client_data[0][0].shape[0]),
+        seq_len=cfg.seq_len)
+    built = [sim]
+
+    def make_sim():
+        return built.pop() if built else build_simulator(cfg)[0]
+    vocab = sim.cfg.vocab_size
+    # the task's test stream draws its own word inventory (seed + 999), so
+    # its perplexity measures another vocabulary of words; the check reads
+    # clients of the same stream that the stage did not train on
+    return main_path(torch, K, "mamba", make_sim, test,
+                     tuple(K.LAUNCHES),
+                     lambda m: m["held_out"]["ppl"] < vocab)
+
+
+def full_width(torch, K):
+    """Phase 6: one jamba-1.5-large mamba mixer at its published width,
+    forward and backward through ``mamba_block`` at train_4k's sequence
+    length, batch 2, fp32."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels.ssm_scan import ops
+    from repro_torch.models.mamba import d_inner, dt_rank, init_mamba
+    from repro_torch.models.mamba import mamba_block
+    from repro_torch.models.params import RealInit
+
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b"),
+                              param_dtype="float32", compute_dtype="float32")
+    bsz, s = 2, SHAPES["train_4k"].seq_len
+    t0 = time.perf_counter()
+    p = init_mamba(RealInit(torch.Generator().manual_seed(0)), cfg)
+    p = tree_map(lambda v: v[None].to("cuda").requires_grad_(True), p)
+    n_params = sum(v.numel() for v in tree_leaves(p))
+    x = torch.randn(1, bsz, s, cfg.d_model, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+    x.requires_grad_(True)
+    init_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        y, (_, h_last) = mamba_block(p, x, cfg)
+        loss = (y * y).mean()
+        grads = torch.autograd.grad(loss, [x, *tree_leaves(p)])
+        return y, h_last, grads
+    y, h_last, grads = step()                 # warm-up, checked below
+    torch.cuda.synchronize()
+    K.reset_launches()
+    iters = 3
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        step()
+    b.record()
+    b.synchronize()
+    block_ms = a.elapsed_time(b) / iters
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ok = (tuple(y.shape) == (1, bsz, s, cfg.d_model)
+          and tuple(h_last.shape) == (1, bsz, d_inner(cfg),
+                                      cfg.ssm_state_dim)
+          and bool(torch.isfinite(y).all())
+          and all(bool(torch.isfinite(g).all()) for g in grads))
+    if not ok or launches["ssm_scan"] != iters or \
+            launches["ssm_scan_bwd"] != iters:
+        raise AssertionError(f"full-width mixer: shapes/finite {ok}, "
+                             f"launches {launches}")
+    del y, h_last, grads
+    # the scan alone at the mixer's shape
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n, di = cfg.ssm_state_dim, d_inner(cfg)
+    args = ssm_inputs(torch, gen, bsz, s, di, n, 1)
+    with torch.no_grad():
+        fwd = timed(lambda: ops.ssm_scan(*args), 5)
+    g = ops._check(*args)
+    _, _, ckpt = ops._fwd(*args, g, keep=True)
+    gy = torch.randn(bsz, s, di, generator=gen, device="cuda")
+    ghl = torch.randn(bsz, di, n, generator=gen, device="cuda")
+    bwd = timed(lambda: ops._bwd(*args[:5], ckpt, gy, ghl, g), 5)
+    fb = bound(*ssm_work(bsz, s, di, n, 1, backward=False))
+    bb = bound(*ssm_work(bsz, s, di, n, 1, backward=True))
+    log("full", model="jamba-1.5-large-398b mamba mixer",
+        d_model=cfg.d_model, d_inner=di, state=n, conv=cfg.ssm_conv_width,
+        dt_rank=dt_rank(cfg), params=n_params, input=[bsz, s, cfg.d_model],
+        reduced={"depth": "one mamba mixer of 72 layers (attention, MoE and "
+                          "dense FFN layers left out)",
+                 "batch": "train_4k's 256 cut to 2"},
+        init_s=init_s, block_fwd_bwd_ms=block_ms, launches=launches,
+        peak_mem_bytes=peak,
+        ssm_scan=dict(fwd, bound_ms=fb[0], bound_by=fb[1]),
+        ssm_scan_bwd=dict(bwd, bound_ms=bb[0], bound_by=bb[1]))
+    del p, x, args, ckpt, gy, ghl
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -451,7 +796,6 @@ def main() -> int:
         return 1
     from repro_torch import kernels as K
 
-    t_start = time.perf_counter()
     smi = nvidia_smi()
     K.resolve_device("cuda")
     log("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
@@ -465,33 +809,49 @@ def main() -> int:
              if "registers" in ln or "spill" in ln]
     log("build", build_s=K.BUILD_INFO["build_s"], ptxas=ptxas)
 
-    heads = check_kernels(torch, K)
+    from repro_torch.configs import get_config
+    from repro_torch.fl.families import get_model_family
+    heads = {"cnn": check_kernels(torch, K, "cnn", get_config("cnn-paper"),
+                                  ragged=True),
+             "mamba": check_kernels(torch, K, "mamba",
+                                    get_model_family("mamba").build(None),
+                                    ragged=False)}
+    heads["mamba"].update(check_ssm(torch, K))
     check_small(torch)
-    from repro_torch.configs import FLConfig, get_config
-    from repro_torch.fl.experiment import ScenarioConfig
-    launches = main_path(
-        torch, K, get_config("cnn-paper"),
-        FLConfig(num_clients=100, clients_per_round=20, num_shards=4,
-                 local_epochs=10, global_rounds=30, retrain_ratio=2),
-        ScenarioConfig.paper_full(noise=0.25))
+    # each path's own counts, zeroed just before it and read just after
+    launches = {"cnn": cnn_path(torch, K), "mamba": mamba_path(torch, K)}
+    full_width(torch, K)
 
-    sources = {"coded_matmul": ("src/repro_torch/kernels/csrc/coded_matmul.cu",
-                                "src/repro/kernels/coded_matmul/kernel.py:47"),
-               "coded_matmul_rounds": (
-                   "src/repro_torch/kernels/csrc/coded_matmul.cu",
-                   "src/repro/kernels/coded_matmul/kernel.py:82"),
-               "calibrate": ("src/repro_torch/kernels/csrc/calibrate.cu",
-                             "src/repro/kernels/calibrate/kernel.py:28")}
+    # one row per kernel, its numbers from the path it was ported for; the
+    # launches and times on every path under "by_path"
+    cu = "src/repro_torch/kernels/csrc/"
+    coded = "src/repro/kernels/coded_matmul/kernel.py"
+    sources = {"coded_matmul": (cu + "coded_matmul.cu", coded + ":47", "cnn"),
+               "coded_matmul_rounds": (cu + "coded_matmul.cu", coded + ":82",
+                                       "cnn"),
+               "calibrate": (cu + "calibrate.cu",
+                             "src/repro/kernels/calibrate/kernel.py:28",
+                             "cnn"),
+               "ssm_scan": (cu + "ssm_scan.cu",
+                            "src/repro/kernels/ssm_scan/kernel.py:59",
+                            "mamba"),
+               "ssm_scan_bwd": (cu + "ssm_scan.cu",
+                                "src/repro/kernels/ssm_scan/ops.py:51",
+                                "mamba")}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     rows = []
-    for name, (source, replaces) in sources.items():
-        h = heads[name]
+    for name, (source, replaces, path) in sources.items():
+        by_path = {p: {"launches": launches[p][name],
+                       **{k: heads[p][name][k] for k in keys
+                          if name in heads[p]}}
+                   for p in launches}
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": h["max_abs_err"], "ms": h["ms"],
-                     "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
-                     "bound_by": h["bound_by"],
-                     "library_ms": h["library_ms"]})
-    log("done", total_s=time.perf_counter() - t_start)
+                     "replaces": replaces, "path": path,
+                     "launches": launches[path][name],
+                     **{k: heads[path][name][k] for k in keys},
+                     "by_path": by_path})
+    log("done", total_s=time.perf_counter() - T_START)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

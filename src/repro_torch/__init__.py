@@ -5,6 +5,8 @@ sits at the same relative path.  It imports ``torch`` and numpy only —
 never ``jax`` and nothing of ``repro``.  Entry points (``FLSimulator``,
 ``build_simulator``, ``FederatedSession``, ``run_scenario``) run on the CUDA
 card unless the caller passes ``device="cpu"``; without a card they raise.
-On CUDA tensors the coded store, the encode and the eq. 3 accumulate run
-through the hand-written Hopper kernels under ``repro_torch/kernels``.
+It runs the paper CNN's classification task and the generation task with
+the mamba family.  On CUDA tensors the coded store, the encode, the eq. 3
+accumulate and the mamba scan (forward and backward) run through the
+hand-written Hopper kernels under ``repro_torch/kernels``.
 """

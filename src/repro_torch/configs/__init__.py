@@ -1,5 +1,6 @@
 """Config registry: ``get_config(arch_id)``.  The port carries the paper
-CNN; the LLM configurations arrive with their model families."""
+CNN and jamba-1.5-large (whose mamba mixer it runs); the other LLM
+configurations arrive with their model families."""
 from __future__ import annotations
 
 import importlib
@@ -8,10 +9,13 @@ from repro_torch.configs.base import (  # noqa: F401
     FLConfig,
     ModelConfig,
     OptimizerConfig,
+    SHAPES,
+    ShapeConfig,
 )
 
 # arch id -> module name
 _ARCH_MODULES = {
+    "jamba-1.5-large-398b": "jamba_1p5_large_398b",
     "cnn-paper": "cnn_paper",
 }
 

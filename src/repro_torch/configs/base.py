@@ -1,7 +1,7 @@
-"""Configuration dataclasses of the port: the model, the federation and the
-optimizer.  Field names and defaults follow ``repro.configs.base``; the
-port keeps only the fields the paper CNN, its federation and sgd/sgdm
-read (the transformer, MoE, SSM and adamw fields arrive with their code)."""
+"""Configuration dataclasses of the port: the model, the input shapes, the
+federation and the optimizer.  Field names and defaults follow
+``repro.configs.base``; the federation and optimizer keep only the fields
+the port's paths read (adamw's fields arrive with adamw)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -10,19 +10,92 @@ from typing import Tuple
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyper-parameters.  ``family="cnn"`` is the paper's conv
-    classifier (2 conv + 2 pool + 2 fully-connected layers)."""
+    """Architecture hyper-parameters, with ``repro.configs.base``'s field
+    names and defaults.
+
+    ``family`` selects the block stack; the port runs ``cnn`` (the paper's
+    conv classifier) and, for the LM families, the ``mamba`` layer kind of
+    ``hybrid`` stacks.  Attention, MoE and rwkv layers raise
+    ``NotImplementedError`` until their slices land (ROADMAP queue 1).
+    """
 
     name: str
     family: str
-    d_model: int                   # fc hidden width for the CNN
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
     source: str = ""
+
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0          # per-expert hidden dim (0 -> d_ff)
+    moe_every: int = 1         # MoE FFN on every k-th layer
+    moe_impl: str = "einsum"
+    moe_capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+    # --- layer pattern ---
+    # Repeating pattern of layer kinds in {"global","local","mamba","rwkv"},
+    # tiled to num_layers (remainder unrolled).
+    layer_pattern: Tuple[str, ...] = ("global",)
+    ssm_chunk_dtype: str = "float32"  # the port's scan runs in float32 only
+    mamba_impl: str = "chunked"       # both values run the ssm_scan kernel
+
+    # --- ssm ---
+    ssm_state_dim: int = 16        # mamba d_state
+    ssm_conv_width: int = 4        # mamba conv1d width
+    ssm_expand: int = 2            # mamba d_inner = expand * d_model
+
+    # --- norm / misc ---
+    norm_type: str = "rmsnorm"     # rmsnorm | layernorm | nonparametric
+    act: str = "silu"              # silu | gelu (tanh approximation) | relu
+    tie_embeddings: bool = False
+    logit_softcap: float = 0.0
+
+    # --- frontends ---
+    frontend: str = ""
 
     # --- cnn (paper model) ---
     cnn_channels: Tuple[int, ...] = (16, 32)
     image_size: int = 28
     image_channels: int = 1
     num_classes: int = 10
+
+    # --- numerics ---
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.num_experts and self.moe_d_ff == 0:
+            object.__setattr__(self, "moe_d_ff", self.d_ff)
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Expand layer_pattern to num_layers entries."""
+        pat = self.layer_pattern
+        reps = (self.num_layers + len(pat) - 1) // len(pat)
+        return tuple((pat * reps)[: self.num_layers])
+
+    def ffn_is_moe(self, layer_idx: int) -> bool:
+        return bool(self.num_experts) and (
+            layer_idx % self.moe_every == self.moe_every - 1)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+}
 
 
 @dataclass(frozen=True)

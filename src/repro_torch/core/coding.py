@@ -21,7 +21,8 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core.tree import leaves_with_paths, tree_unflatten
+from repro_torch.core.tree import (empty_paths, leaves_with_paths,
+                                   tree_unflatten)
 from repro_torch.kernels.coded_matmul.ops import (coded_matmul,
                                                   coded_matmul_rounds)
 
@@ -323,18 +324,19 @@ def tree_to_flat(tree) -> Tuple[torch.Tensor, object]:
     items = list(leaves_with_paths(tree))
     flat = torch.cat([leaf.reshape(-1).float() for _, leaf in items])
     spec = ([p for p, _ in items],
-            [(tuple(leaf.shape), leaf.dtype) for _, leaf in items])
+            [(tuple(leaf.shape), leaf.dtype) for _, leaf in items],
+            empty_paths(tree))
     return flat, spec
 
 
 def flat_to_tree(flat: torch.Tensor, spec) -> object:
-    paths, shapes = spec
+    paths, shapes, empties = spec
     leaves, off = [], 0
     for shape, dtype in shapes:
         n = int(np.prod(shape)) if shape else 1
         leaves.append(flat[off: off + n].reshape(shape).to(dtype))
         off += n
-    return tree_unflatten(paths, leaves)
+    return tree_unflatten(paths, leaves, empties)
 
 
 def tree_to_flat_stacked(tree) -> Tuple[torch.Tensor, object]:
@@ -346,20 +348,21 @@ def tree_to_flat_stacked(tree) -> Tuple[torch.Tensor, object]:
     flat = torch.cat([leaf.reshape(m, -1).float() for _, leaf in items],
                      dim=1)
     spec = ([p for p, _ in items],
-            [(tuple(leaf.shape[1:]), leaf.dtype) for _, leaf in items])
+            [(tuple(leaf.shape[1:]), leaf.dtype) for _, leaf in items],
+            empty_paths(tree))
     return flat, spec
 
 
 def flat_to_stacked_tree(flat: torch.Tensor, spec) -> object:
     """Inverse of ``tree_to_flat_stacked``: (M, P) -> stacked (M, ...) tree."""
-    paths, shapes = spec
+    paths, shapes, empties = spec
     m = flat.shape[0]
     leaves, off = [], 0
     for shape, dtype in shapes:
         n = int(np.prod(shape)) if shape else 1
         leaves.append(flat[:, off: off + n].reshape((m, *shape)).to(dtype))
         off += n
-    return tree_unflatten(paths, leaves)
+    return tree_unflatten(paths, leaves, empties)
 
 
 @dataclass(frozen=True)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import unlearning
+from repro_torch.core.tree import tree_map
 
 
 @dataclass
@@ -96,9 +97,8 @@ class UnlearnContext:
 
     def local_train(self, w, xs, ys, epochs: int):
         """Stacked local training of the M clients from one model."""
-        from repro_torch.fl.simulator import _broadcast
-        p0 = _broadcast({k: v.unsqueeze(0) for k, v in w.items()},
-                        (xs.shape[0],))
+        from repro_torch.fl.simulator import _broadcast, _lift
+        p0 = _broadcast(_lift(w), (xs.shape[0],))
         return self.sim.local_train(p0, xs, ys, epochs)
 
     def stacked_mean(self, stacked):
@@ -235,14 +235,14 @@ class ShardedEraser(UnlearnFramework):
 
     def _run_batched(self, ctx: UnlearnContext, jobs):
         """All impacted shards retrain together through ``calib_stage``."""
-        ws = {k: torch.stack([j[4][k] for j in jobs]) for k in jobs[0][4]}
+        ws = tree_map(lambda *vs: torch.stack(vs), *[j[4] for j in jobs])
         xs = torch.stack([j[2] for j in jobs])
         ys = torch.stack([j[3] for j in jobs])
         nmats = torch.stack([j[5] for j in jobs], dim=1)      # (G', K, M')
         out = ctx.calib_stage(ws, xs, ys, nmats)
         models, cost = {}, 0.0
         for i, (s, retained, *_rest, n_r) in enumerate(jobs):
-            models[s] = {k: v[i] for k, v in out.items()}
+            models[s] = tree_map(lambda v, i=i: v[i], out)
             cost += n_r * len(retained) * ctx.retrain_epochs
         return models, cost
 

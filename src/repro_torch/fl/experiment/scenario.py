@@ -42,6 +42,7 @@ class ScenarioConfig:
     samples_per_client: int = 80
     image_size: int = 14
     noise: float = 0.25
+    seq_len: int = 48
     test_n: int = 400
     # federation
     num_clients: int = 20
@@ -114,7 +115,7 @@ class ScenarioConfig:
         """The paper's full setting (100 clients, G=30, L=10)."""
         base = dict(num_clients=100, clients_per_round=20, num_shards=4,
                     local_epochs=10, global_rounds=30, samples_per_client=100,
-                    image_size=28, test_n=1000)
+                    image_size=28, seq_len=64, test_n=1000)
         base.update(overrides)
         return cls(**base)
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import coding
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.stores.store import RoundPayload
 
 ENGINES = ("stage", "fused")
@@ -51,8 +52,8 @@ def train_stage(sim, store_kind: str = "coded", rounds: Optional[int] = None,
     g_rounds = rounds or fl.global_rounds
     plan = sim.mgr.new_stage()
     if init_fn is not None:
-        w0 = {k: v.to(sim.device, torch.float32)
-              for k, v in init_fn(plan.stage).items()}
+        w0 = tree_map(lambda v: v.to(sim.device, torch.float32),
+                      init_fn(plan.stage))
     else:
         w0 = sim.init_model(plan.stage)
     store = sim._make_store(store_kind, plan,
@@ -80,7 +81,7 @@ def _stackable(plan, data) -> bool:
 
 def _flat_row_len(w0) -> int:
     """Per-client flat parameter length P."""
-    return sum(int(np.prod(v.shape)) for v in w0.values())
+    return sum(int(np.prod(v.shape)) for v in tree_leaves(w0))
 
 
 def _norms_dict(plan, shards, arr, g_rounds):
@@ -120,11 +121,11 @@ def _run_stage_program(sim, plan, store, w0, data, g_rounds, kind,
             else:
                 payload = RoundPayload.from_stacked(
                     g, plan.shard_clients,
-                    {s: {k: v[i] for k, v in hist[g].items()}
+                    {s: tree_map(lambda v, i=i: v[i], hist[g])
                      for i, s in enumerate(shards)})
             store.put_round(payload)
     store.flush()
-    shard_models = {s: {k: v[i] for k, v in final.items()}
+    shard_models = {s: tree_map(lambda v, i=i: v[i], final)
                     for i, s in enumerate(shards)}
     round_globals = {s: StackedRoundGlobals(round_in, final, i)
                      for i, s in enumerate(shards)}
@@ -150,13 +151,13 @@ def _run_fused(sim, plan, store, w0, data, g_rounds, kind):
         for s in shards:
             round_globals[s].append(ws[s])
             xs, ys = data[s]
-            stacked = {k: v.float().unsqueeze(0) for k, v in ws[s].items()}
+            stacked = tree_map(lambda v: v.float().unsqueeze(0), ws[s])
             new, out, nrm = sim.shard_round(stacked, xs.unsqueeze(0),
                                             ys.unsqueeze(0), fl.local_epochs,
                                             kind)
-            ws[s] = {k: v[0] for k, v in new.items()}
+            ws[s] = tree_map(lambda v: v[0], new)
             payload[s] = (out[0] if kind == "flat"
-                          else {k: v[0] for k, v in out.items()})
+                          else tree_map(lambda v: v[0], out))
             norms_dev[s].append(nrm[0])
         if kind == "flat":
             store.put_round(RoundPayload.from_flat(

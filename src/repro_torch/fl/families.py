@@ -1,10 +1,13 @@
 """Model-family registry — adapters that build a ``ModelConfig`` for one
-``ScenarioConfig`` and declare the task kind they play.  The port carries
-the paper CNN; the LM families arrive with their models and kernels."""
+``ScenarioConfig``, declare the task kind they play and name the kernel ops
+their forward routes through.  The port carries the paper CNN and the
+mamba family (through the ``ssm_scan`` forward and backward kernels); the
+transformer/NanoGPT, rwkv6 and moe families arrive with their models and
+kernels."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Type
+from typing import Dict, Optional, Tuple, Type
 
 from repro_torch.configs import ModelConfig, get_config
 
@@ -15,6 +18,7 @@ class ModelFamily:
 
     name: str = ""
     task: str = "generation"            # task kind this family plays
+    kernel_ops: Tuple[str, ...] = ()    # kernel ops the forward routes through
     default_lr: Optional[float] = None  # None -> the task's default
     default_batch: Optional[int] = None
 
@@ -58,3 +62,26 @@ class CNNFamily(ModelFamily):
         return dataclasses.replace(get_config("cnn-paper"),
                                    image_size=cfg.image_size, d_model=48,
                                    cnn_channels=(8, 16))
+
+
+_TINY_LM = dict(num_layers=2, d_model=32, d_ff=64, vocab_size=109,
+                param_dtype="float32", compute_dtype="float32")
+
+
+@register_model_family("mamba")
+class MambaFamily(ModelFamily):
+    """Selective-SSM stack (jamba-style mamba blocks) training through the
+    ``ssm_scan`` kernels (``repro.fl.families.MambaFamily``: 2 layers,
+    d_model 32, d_inner 64, state 8, vocab 109 padded to 512)."""
+
+    task = "generation"
+    kernel_ops = ("ssm_scan",)
+    default_lr = 0.1
+
+    def build(self, cfg) -> ModelConfig:
+        return ModelConfig(name="mamba-fl", family="hybrid",
+                           layer_pattern=("mamba",), num_heads=4,
+                           num_kv_heads=4, ssm_state_dim=8, ssm_expand=2,
+                           mamba_impl="pallas", norm_type="layernorm",
+                           act="gelu", source="scenario zoo (mamba)",
+                           **_TINY_LM)

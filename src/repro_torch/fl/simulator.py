@@ -32,6 +32,7 @@ import torch
 from repro_torch.configs.base import FLConfig, ModelConfig, OptimizerConfig
 from repro_torch.core import coding, unlearning
 from repro_torch.core.sharding import ShardManager, StagePlan
+from repro_torch.core.tree import tree_leaves, tree_map, tree_replace_leaves
 from repro_torch.fl.tasks import resolve_task
 from repro_torch.kernels import resolve_device
 from repro_torch.models import (init_params, stacked_loss_fn,
@@ -40,25 +41,29 @@ from repro_torch.optim import make_optimizer
 from repro_torch.stores.store import StoreStats, make_store
 
 
-def _broadcast(params: dict, lead: Tuple[int, ...]) -> dict:
+def _broadcast(params, lead: Tuple[int, ...]):
     """Each leaf of a stacked (K, ...) tree repeated over new axes after K:
     (K, ...) -> (K*prod(lead), ...).  ``lead`` = (M,) turns K shard models
     into the K*M clients' starting models."""
-    out = {}
-    for k, v in params.items():
+    def rep(v):
         k0 = v.shape[0]
         shape = (k0, *lead, *v.shape[1:])
-        out[k] = (v.float().reshape(k0, *(1,) * len(lead), *v.shape[1:])
-                  .expand(shape).reshape(-1, *v.shape[1:]).contiguous())
-    return out
+        return (v.float().reshape(k0, *(1,) * len(lead), *v.shape[1:])
+                .expand(shape).reshape(-1, *v.shape[1:]).contiguous())
+    return tree_map(rep, params)
 
 
-def _stack(trees: Sequence[dict]) -> dict:
-    return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+def _stack(trees: Sequence):
+    return tree_map(lambda *vs: torch.stack(vs), *trees)
 
 
-def _row(tree: dict, i: int) -> dict:
-    return {k: v[i] for k, v in tree.items()}
+def _row(tree, i: int):
+    return tree_map(lambda v: v[i], tree)
+
+
+def _lift(tree):
+    """One model as a stack of one."""
+    return tree_map(lambda v: v.unsqueeze(0), tree)
 
 
 class StackedRoundGlobals:
@@ -158,10 +163,10 @@ class FLSimulator:
         self._opt_init, self._opt_update = make_optimizer(self.opt)
 
     # ------------------------------------------------------------ models
-    def init_model(self, salt: int) -> dict:
+    def init_model(self, salt: int):
         if self.init_fn is not None:
-            return {k: v.to(self.device, torch.float32)
-                    for k, v in self.init_fn(salt).items()}
+            return tree_map(lambda v: v.to(self.device, torch.float32),
+                            self.init_fn(salt))
         return init_params(self.cfg, self.seed + salt, self.device)
 
     def _stack_client_data(self, clients: Sequence[int]):
@@ -181,16 +186,15 @@ class FLSimulator:
                           **store_options)
 
     # ------------------------------------------------------------ training
-    def _grads(self, params: dict, x: torch.Tensor, y: torch.Tensor) -> dict:
+    def _grads(self, params, x: torch.Tensor, y: torch.Tensor):
         """Per-model gradients of a stack of B models, one backward pass."""
         with torch.enable_grad():
-            leaves = {k: v.detach().requires_grad_(True)
-                      for k, v in params.items()}
+            leaves = tree_map(lambda v: v.detach().requires_grad_(True),
+                              params)
             batch = self.task_spec.make_batch(x, y)
             loss = self._loss(leaves, batch).sum()
-            keys = list(leaves)
-            grads = torch.autograd.grad(loss, [leaves[k] for k in keys])
-        return dict(zip(keys, grads))
+            grads = torch.autograd.grad(loss, tree_leaves(leaves))
+        return tree_replace_leaves(leaves, grads)
 
     @torch.no_grad()
     def local_train(self, params: dict, xs: torch.Tensor, ys: torch.Tensor,
@@ -222,8 +226,7 @@ class FLSimulator:
                                    ys.reshape(k * m, *ys.shape[2:]), epochs)
         deltas = unlearning.stacked_sub(locals_, p0)
         norms = unlearning.stacked_norms(deltas).reshape(k, m)
-        grouped = {n: v.reshape(k, m, *v.shape[1:])
-                   for n, v in locals_.items()}
+        grouped = tree_map(lambda v: v.reshape(k, m, *v.shape[1:]), locals_)
         new_ws = unlearning.stacked_mean(grouped, dim=1)
         if payload == "flat":
             out = coding.tree_to_flat_stacked(locals_)[0].reshape(k, m, -1)
@@ -236,8 +239,7 @@ class FLSimulator:
                     stored_norms: torch.Tensor, epochs: int) -> dict:
         """One SE/FE calibrated-retraining round (eq. 3) of one shard:
         stacked retraining of its M clients + the stacked calibration."""
-        p0 = _broadcast({k: v.unsqueeze(0) for k, v in w.items()},
-                        (xs.shape[0],))
+        p0 = _broadcast(_lift(w), (xs.shape[0],))
         locals_ = self.local_train(p0, xs, ys, epochs)
         deltas = unlearning.stacked_sub(locals_, w)
         return unlearning.calibrate_stacked(w, deltas, stored_norms)
@@ -256,9 +258,9 @@ class FLSimulator:
             locals_ = self.local_train(p0, xf, yf, epochs)
             deltas = unlearning.stacked_sub(locals_, p0)
             ws = _stack([unlearning.calibrate_stacked(
-                _row(ws, i), {n: v[i * m:(i + 1) * m]
-                              for n, v in deltas.items()}, nmats[g, i])
-                for i in range(k)])
+                _row(ws, i),
+                tree_map(lambda v, i=i: v[i * m:(i + 1) * m], deltas),
+                nmats[g, i]) for i in range(k)])
         return ws
 
     def _get_stage_program(self, epochs: int, kind: str, g_rounds: int,
@@ -277,7 +279,7 @@ class FLSimulator:
         @torch.no_grad()
         def stage_body(w0, xs, ys):
             s, m = xs.shape[:2]
-            ws = _broadcast({k: v.unsqueeze(0) for k, v in w0.items()}, (s,))
+            ws = _broadcast(_lift(w0), (s,))
             round_in, hist = [], []
             norms = torch.empty((g_rounds, s, m), device=xs.device)
             for g in range(g_rounds):

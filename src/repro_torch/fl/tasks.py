@@ -2,14 +2,21 @@
 
 A ``TaskSpec`` owns data synthesis + client partitioning, batch
 construction, per-example label counting and the eval metrics.  The port
-carries the classification task (the paper's CNN track); generation arrives
-with the NanoGPT family.
+carries the classification task (the paper's CNN track) and the generation
+task (accuracy, perplexity and bits per char; its default family, the
+paper's NanoGPT ``"transformer"``, arrives with attention, so a generation
+scenario names its family, e.g. ``model="mamba"``).  The MIA features and
+canaries arrive with the verify suite.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple, Type
 
-from repro_torch.data.synthetic import make_image_data
+import numpy as np
+
+from repro_torch.data.synthetic import (lm_examples, make_char_data,
+                                        make_image_data)
 
 
 class TaskSpec:
@@ -110,3 +117,40 @@ class ClassificationTask(TaskSpec):
 
     def labels_per_example(self, y_shape) -> int:
         return 1
+
+
+@register_task("generation", "lm")
+class GenerationTask(TaskSpec):
+    """Next-token generation (the paper's NanoGPT track, open to every LM
+    family): zipfian char stream, perplexity / bits-per-char metrics."""
+
+    default_family = "transformer"
+    default_lr = 0.3
+    default_batch = 10
+
+    def build_data(self, cfg, model_cfg, partition):
+        stream = make_char_data(cfg.num_clients * cfg.samples_per_client
+                                * cfg.seq_len + cfg.seq_len + 1,
+                                vocab_size=model_cfg.vocab_size, seed=cfg.seed)
+        toks, labs = lm_examples(stream, cfg.seq_len)
+        # generation examples carry no class label: label-skew partitioners
+        # raise their own error
+        parts = partition(len(toks), None, cfg.num_clients, cfg.seed)
+        _check_parts(parts, cfg.num_clients, cfg.partitioner)
+        clients = {k: (toks[idx], labs[idx]) for k, idx in enumerate(parts)}
+        test_stream = make_char_data(cfg.test_n * cfg.seq_len + 1,
+                                     vocab_size=model_cfg.vocab_size,
+                                     seed=cfg.seed + 999)
+        return clients, lm_examples(test_stream, cfg.seq_len)
+
+    def make_batch(self, x, y):
+        return {"tokens": x, "labels": y}
+
+    def labels_per_example(self, y_shape) -> int:
+        return int(np.prod(y_shape[1:]))
+
+    def eval_metrics(self, correct, loss, total):
+        nll = loss / max(total, 1)
+        return {"acc": correct / max(total, 1), "loss": nll,
+                "ppl": float(math.exp(min(nll, 30.0))),
+                "bpc": nll / math.log(2.0)}

@@ -3,6 +3,9 @@
 coded_matmul        — Lagrange encode / erasure decode: (C,S) @ (S,P).
 coded_matmul_rounds — the all-rounds encode: (C,S) @ (G,S,P) -> (G,C,P).
 calibrate           — eq. (3) accumulate: w + coeffs @ deltas.
+ssm_scan            — the selective-SSM (mamba) scan, forward.
+ssm_scan_bwd        — its backward (a reverse-time scan + a fixed-order
+                      reduce over blocks).
 
 The sources live in ``csrc/``.  ``load_library`` compiles them with ``nvcc``
 (one process per source, started together) into one shared library with a
@@ -34,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel name -> launches since the last ``reset_launches``
-LAUNCHES = {"coded_matmul": 0, "coded_matmul_rounds": 0, "calibrate": 0}
+LAUNCHES = {"coded_matmul": 0, "coded_matmul_rounds": 0, "calibrate": 0,
+            "ssm_scan": 0, "ssm_scan_bwd": 0}
 
 # last build's wall time and compiler output (``-Xptxas -v``)
 BUILD_INFO: dict = {}
@@ -144,6 +148,14 @@ def load_library() -> ctypes.CDLL:
     lib.repro_coded_matmul.restype = i32
     lib.repro_calibrate.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, ptr]
     lib.repro_calibrate.restype = i32
+    lib.repro_ssm_scan_fwd.argtypes = [ptr] * 9 + [i64] * 5 + [ptr]
+    lib.repro_ssm_scan_fwd.restype = i32
+    lib.repro_ssm_scan_bwd.argtypes = [ptr] * 15 + [i64] * 5 + [ptr]
+    lib.repro_ssm_scan_bwd.restype = i32
+    lib.repro_ssm_scan_bwd_workspace.argtypes = [i64] * 4
+    lib.repro_ssm_scan_bwd_workspace.restype = i64
+    lib.repro_ssm_scan_ckpt_steps.argtypes = []
+    lib.repro_ssm_scan_ckpt_steps.restype = i32
     BUILD_INFO.update(build_s=time.perf_counter() - t0, path=str(so),
                       log=log, built=bool(log))
     return lib

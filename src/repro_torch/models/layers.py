@@ -1,0 +1,118 @@
+"""Shared layers on a stack of K models: norms, gated MLP, embeddings
+(``repro.models.layers``).
+
+Every parameter leaf carries a leading model axis (K, ...) and every
+activation is (K, ..., d): model k is applied to activations[k], which is
+the reference's layer under ``vmap`` over the client models.  RoPE arrives
+with attention.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+ACTS = {
+    "silu": F.silu,
+    # jax.nn.gelu defaults to the tanh approximation
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+}
+
+
+def pad_vocab(vocab: int, multiple: int = 512) -> int:
+    """Pad vocab to a multiple of 512, as the reference does."""
+    return ((vocab + multiple - 1) // multiple) * multiple
+
+
+def per_model(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A (K, d) leaf shaped to broadcast against activations (K, ..., d)."""
+    return v.reshape(v.shape[0], *(1,) * (x.dim() - 2), v.shape[-1])
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(K, ..., a) @ (K, a, b) -> (K, ..., b): one batched product."""
+    k = x.shape[0]
+    out = torch.bmm(x.reshape(k, -1, x.shape[-1]), w)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_norm(fac, cfg: ModelConfig):
+    if cfg.norm_type == "nonparametric":
+        return {}
+    return {"scale": fac.param((cfg.d_model,), init="ones")}
+
+
+def apply_norm(p, x: torch.Tensor, cfg: ModelConfig,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Scale-only layernorm or rmsnorm, computed in fp32."""
+    x32 = x.float()
+    if cfg.norm_type in ("layernorm", "nonparametric"):
+        mu = x32.mean(-1, keepdim=True)
+        var = torch.square(x32 - mu).mean(-1, keepdim=True)
+        y = (x32 - mu) * torch.rsqrt(var + eps)
+    else:  # rmsnorm
+        var = torch.square(x32).mean(-1, keepdim=True)
+        y = x32 * torch.rsqrt(var + eps)
+    if p:
+        y = y * per_model(p["scale"].float(), y)
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(fac, cfg: ModelConfig, d_ff: Optional[int] = None):
+    d_ff = d_ff or cfg.d_ff
+    return {
+        "wi_gate": fac.param((cfg.d_model, d_ff)),
+        "wi_up": fac.param((cfg.d_model, d_ff)),
+        "wo": fac.param((d_ff, cfg.d_model)),
+    }
+
+
+def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = ACTS[cfg.act](matmul(x, p["wi_gate"])) * matmul(x, p["wi_up"])
+    return matmul(h, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def init_embed(fac, cfg: ModelConfig):
+    v = pad_vocab(cfg.vocab_size)
+    p = {"table": fac.param((v, cfg.d_model), scale=1.0)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = fac.param((cfg.d_model, v))
+    return p
+
+
+def apply_embed(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """tokens (K, ...) int -> (K, ..., d): model k's table rows."""
+    table = p["table"]
+    k, v = table.shape[:2]
+    base = torch.arange(k, device=tokens.device) * v
+    idx = tokens.long() + base.reshape(k, *(1,) * (tokens.dim() - 1))
+    return F.embedding(idx, table.reshape(k * v, table.shape[-1]))
+
+
+def apply_unembed(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    v = pad_vocab(cfg.vocab_size)
+    if cfg.tie_embeddings:
+        logits = matmul(x, p["table"].transpose(1, 2))
+    else:
+        logits = matmul(x, p["unembed"])
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    # the padded vocab entries never win
+    pad = torch.arange(v, device=x.device) >= cfg.vocab_size
+    return logits.masked_fill(pad, -1e9)

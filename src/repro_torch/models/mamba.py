@@ -1,0 +1,103 @@
+"""Mamba selective-SSM block (jamba's recurrent layer) on a stack of K
+models (``repro.models.mamba``).
+
+The recurrence runs through the ``ssm_scan`` kernel for both
+``mamba_impl`` values: the K models' sequences go into one launch, with
+each model's own ``a = -exp(a_log)`` as one group of the kernel's grouped
+``a``.  The scan keeps its state in fp32; ``ssm_chunk_dtype`` other than
+float32 is the reference's bf16 chunk option for its XLA path and is not
+ported.  Decode (``mamba_decode_step``) arrives with serving.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ssm_scan.ops import ssm_scan
+from repro_torch.models.layers import matmul, per_model
+
+
+def d_inner(cfg: ModelConfig) -> int:
+    return cfg.ssm_expand * cfg.d_model
+
+
+def dt_rank(cfg: ModelConfig) -> int:
+    return max(cfg.d_model // 16, 1)
+
+
+def init_mamba(fac, cfg: ModelConfig):
+    d, di, n = cfg.d_model, d_inner(cfg), cfg.ssm_state_dim
+    r, w = dt_rank(cfg), cfg.ssm_conv_width
+    return {
+        "in_proj": fac.param((d, 2 * di)),
+        "conv_w": fac.param((w, di), scale=0.5),
+        "conv_b": fac.param((di,), init="zeros"),
+        "x_proj": fac.param((di, r + 2 * n)),
+        "dt_proj": fac.param((r, di)),
+        "dt_bias": fac.param((di,), init="constant", scale=-2.0),
+        # log(-A): A = -exp(a_log)
+        "a_log": fac.param((di, n), init="uniform", scale=1.5),
+        "d_skip": fac.param((di,), init="ones"),
+        "out_proj": fac.param((di, d)),
+    }
+
+
+def _conv1d_causal(x, conv_w, conv_b):
+    """Depthwise causal conv of each model's sequences: x (K, ..., S, di);
+    conv_w (K, w, di); conv_b (K, di).  A sum over the w taps with zero
+    left padding.  Returns (y, the last w-1 inputs)."""
+    taps = conv_w.unbind(1)
+    w, s = len(taps), x.shape[-2]
+    xp = F.pad(x, (0, 0, w - 1, 0))
+    y = sum(xp[..., i:i + s, :] * per_model(taps[i], x) for i in range(w))
+    return y + per_model(conv_b, x), xp[..., s:, :]
+
+
+def _ssm_params(p, x, cfg: ModelConfig):
+    """x: (K, ..., T, di) -> dt (K, ..., T, di), B_ and C_ (K, ..., T, n)."""
+    n, r = cfg.ssm_state_dim, dt_rank(cfg)
+    xdb = matmul(x, p["x_proj"])
+    dt_lo, b_, c_ = torch.split(xdb, [r, n, n], dim=-1)
+    dt = F.softplus(matmul(dt_lo, p["dt_proj"])
+                    + per_model(p["dt_bias"].to(xdb.dtype), xdb))
+    return dt, b_, c_
+
+
+def mamba_scan(p, x, cfg: ModelConfig, h0=None):
+    """Selective scan over post-conv activations x (K, bs, S, di).
+    Returns (y (K, bs, S, di), h_last (K, bs, di, n))."""
+    if cfg.ssm_chunk_dtype != "float32":
+        raise NotImplementedError(
+            f"ssm_chunk_dtype={cfg.ssm_chunk_dtype!r}: the port's scan keeps "
+            f"its chunk internals in float32")
+    k, bs, s, di = x.shape
+    n = cfg.ssm_state_dim
+    a = -torch.exp(p["a_log"].float())                       # (K, di, n)
+    dt, b_, c_ = _ssm_params(p, x, cfg)
+    if h0 is None:
+        h0 = torch.zeros((k * bs, di, n), dtype=torch.float32,
+                         device=x.device)
+    else:
+        h0 = h0.reshape(k * bs, di, n).float().contiguous()
+
+    def seqs(t):
+        return t.float().reshape(k * bs, s, t.shape[-1]).contiguous()
+    y, h_last = ssm_scan(seqs(dt), seqs(b_), seqs(c_), seqs(x),
+                         a.contiguous(), h0)
+    y = y.reshape(k, bs, s, di) + x.float() * per_model(
+        p["d_skip"].float(), x)
+    return y.to(x.dtype), h_last.reshape(k, bs, di, n)
+
+
+def mamba_block(p, x, cfg: ModelConfig, state=None):
+    """Full block (training and prefill form). x: (K, bs, S, d).
+    Returns (y, (conv_state, h_last))."""
+    if state is not None:
+        raise NotImplementedError("the mamba decode path (state carried "
+                                  "across calls) arrives with serving")
+    xin, z = torch.chunk(matmul(x, p["in_proj"]), 2, dim=-1)
+    xc, new_conv = _conv1d_causal(xin, p["conv_w"], p["conv_b"])
+    y, h_last = mamba_scan(p, F.silu(xc), cfg)
+    y = y * F.silu(z)
+    return matmul(y, p["out_proj"]), (new_conv, h_last)

@@ -2,7 +2,9 @@
 
 The init rules are ``repro.models.params.RealInit``'s: ``normal`` leaves
 draw N(0, 1) * scale / sqrt(fan_in), with fan_in the product of the first
-``in_dims`` dims (the last dim for vectors), and ``zeros`` leaves are zero.
+``in_dims`` dims (the last dim for vectors); ``uniform`` leaves draw
+U[0, scale); ``zeros``, ``ones`` and ``constant`` (= scale) leaves are
+filled.
 The draws come from a ``torch.Generator``, so they follow the same
 distribution as ``jax.random`` but not its bits; a run that needs the
 reference's exact weights passes them in through ``from_numpy_params``.
@@ -31,7 +33,27 @@ def draw(gen: torch.Generator, shape: Tuple[int, ...], init: str = "normal",
         return torch.randn(shape, generator=gen, dtype=torch.float32) * std
     if init == "zeros":
         return torch.zeros(shape, dtype=torch.float32)
+    if init == "ones":
+        return torch.ones(shape, dtype=torch.float32)
+    if init == "uniform":
+        return torch.rand(shape, generator=gen, dtype=torch.float32) * scale
+    if init == "constant":
+        return torch.full(shape, float(scale), dtype=torch.float32)
     raise ValueError(init)
+
+
+class RealInit:
+    """Draws real leaves from one CPU generator: the port's counterpart of
+    ``repro.models.params.RealInit`` (without names or logical axes, which
+    only the reference's mesh sharding reads)."""
+
+    def __init__(self, gen: torch.Generator):
+        self.gen = gen
+
+    def param(self, shape: Tuple[int, ...], init: str = "normal",
+              scale: float = 1.0, in_dims: int = 1,
+              fan_in: Optional[int] = None) -> torch.Tensor:
+        return draw(self.gen, tuple(shape), init, scale, in_dims, fan_in)
 
 
 def from_numpy_params(tree, device: Device = "cpu"):

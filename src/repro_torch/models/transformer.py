@@ -1,0 +1,142 @@
+"""Block stacks for the decoder LM on a stack of K models
+(``repro.models.transformer``, train mode).
+
+Layers are grouped into superblocks, one repetition of
+``cfg.layer_pattern``; the parameters of the ``n_full`` full repetitions
+are stacked along a ``layers`` axis (``params["stack"]["p<i>"]``, leaves
+(K, n_full, ...)) and the remainder layers sit under ``params["rem"]``.
+The reference scans the stack with ``lax.scan``; the port walks it with a
+Python loop.  The reference's ``remat="block"`` (``jax.checkpoint``)
+changes no numbers and has no counterpart here.
+
+The port carries the ``mamba`` layer kind with its dense FFN.  Attention
+("global"/"local", ROADMAP queue 1 item 9), rwkv (item 11), MoE FFNs (item
+11), the audio/vlm frontends and the prefill/decode caches raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree import tree_map
+from repro_torch.models import mamba as mb
+from repro_torch.models.layers import (apply_embed, apply_mlp, apply_norm,
+                                       apply_unembed, init_embed, init_mlp,
+                                       init_norm)
+
+_LATER = {
+    "global": "attention layers arrive with NanoGPT (ROADMAP queue 1 item 9)",
+    "local": "attention layers arrive with NanoGPT (ROADMAP queue 1 item 9)",
+    "rwkv": "rwkv layers arrive with the rwkv6 family and its wkv kernel "
+            "(ROADMAP queue 1 item 11)",
+}
+
+
+def check_kinds(cfg: ModelConfig) -> None:
+    """Raise for the layer kinds, FFNs and frontends not ported yet."""
+    if cfg.family in ("audio", "vlm") or cfg.frontend:
+        raise NotImplementedError(f"the {cfg.family!r} family's frontend is "
+                                  f"not ported yet (ROADMAP queue 1)")
+    for i, kind in enumerate(cfg.layer_kinds):
+        if kind in _LATER:
+            raise NotImplementedError(f"layer kind {kind!r}: {_LATER[kind]}")
+        if kind != "mamba":
+            raise ValueError(kind)
+        if cfg.ffn_is_moe(i % len(cfg.layer_pattern)):
+            raise NotImplementedError("MoE FFNs arrive with the moe family "
+                                      "(ROADMAP queue 1 item 11)")
+
+
+def pattern_info(cfg: ModelConfig) -> Tuple[int, int, int]:
+    plen = len(cfg.layer_pattern)
+    n_full = cfg.num_layers // plen
+    rem = cfg.num_layers % plen
+    if cfg.num_experts and n_full > 1:
+        assert plen % cfg.moe_every == 0, (
+            "layer_pattern length must be a multiple of moe_every so the "
+            "MoE placement is identical across stacked superblocks")
+    return plen, n_full, rem
+
+
+class _Stacked:
+    """Wraps a factory, prepending a (n,) 'layers' dim to every param.  A
+    normal leaf's fan_in comes from the unstacked shape, as the
+    reference's ``_Stacked`` computes it."""
+
+    def __init__(self, fac, n: int):
+        self.fac, self.n = fac, n
+
+    def param(self, shape, init="normal", scale=1.0, in_dims=1, fan_in=None):
+        if fan_in is None and init == "normal":
+            fan_in = (int(np.prod(shape[:in_dims])) if len(shape) > 1
+                      else max(shape[-1], 1))
+        return self.fac.param((self.n,) + tuple(shape), init=init,
+                              scale=scale, fan_in=fan_in)
+
+
+def _init_block(fac, cfg: ModelConfig, kind: str, pat_idx: int):
+    if kind != "mamba":       # check_kinds has refused the others
+        raise ValueError(kind)
+    return {
+        "ln1": init_norm(fac, cfg),
+        "mamba": mb.init_mamba(fac, cfg),
+        "ln2": init_norm(fac, cfg),
+        "ffn": init_mlp(fac, cfg),
+    }
+
+
+def init_lm(fac, cfg: ModelConfig):
+    """Full parameter tree of one LM (no model axis)."""
+    check_kinds(cfg)
+    plen, n_full, rem = pattern_info(cfg)
+    params: Dict[str, Any] = {"embed": init_embed(fac, cfg)}
+    stack: Dict[str, Any] = {}
+    if n_full:
+        sfac = _Stacked(fac, n_full)
+        for pidx, kind in enumerate(cfg.layer_pattern):
+            stack[f"p{pidx}"] = _init_block(sfac, cfg, kind, pidx)
+    params["stack"] = stack
+    params["rem"] = {f"r{j}": _init_block(
+        fac, cfg, cfg.layer_kinds[n_full * plen + j], j % plen)
+        for j in range(rem)}
+    params["final_ln"] = init_norm(fac, cfg)
+    return params
+
+
+def apply_block_train(p, x, cfg: ModelConfig, kind: str, pat_idx: int):
+    """One layer in train mode: x (K, bs, S, d) -> (x, aux)."""
+    if kind != "mamba":       # check_kinds has refused the others
+        raise ValueError(kind)
+    y, _state = mb.mamba_block(p["mamba"], apply_norm(p["ln1"], x, cfg), cfg)
+    x = x + y
+    x = x + apply_mlp(p["ffn"], apply_norm(p["ln2"], x, cfg), cfg)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward_train(params, cfg: ModelConfig, batch):
+    """Returns (logits (K, bs, S, V), aux_loss).  batch: tokens (K, bs, S)."""
+    check_kinds(cfg)
+    plen, n_full, rem = pattern_info(cfg)
+    x = apply_embed(params["embed"], batch["tokens"], cfg).to(
+        getattr(torch, cfg.compute_dtype))
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    # each stacked leaf (K, n_full, ...) split once into its n_full layers
+    layers = {f"p{pidx}": tree_map(lambda v: v.unbind(1),
+                                   params["stack"][f"p{pidx}"])
+              for pidx in range(plen)} if n_full else {}
+    for layer in range(n_full):
+        for pidx, kind in enumerate(cfg.layer_pattern):
+            p = tree_map(lambda vs: vs[layer], layers[f"p{pidx}"])
+            x, aux = apply_block_train(p, x, cfg, kind, pidx)
+            aux_total = aux_total + aux
+    for j in range(rem):
+        kind = cfg.layer_kinds[n_full * plen + j]
+        x, aux = apply_block_train(params["rem"][f"r{j}"], x, cfg, kind,
+                                   j % plen)
+        aux_total = aux_total + aux
+    x = apply_norm(params["final_ln"], x, cfg)
+    return apply_unembed(params["embed"], x, cfg), aux_total

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import coding
-from repro_torch.core.tree import tree_leaves
+from repro_torch.core.tree import tree_leaves, tree_map
 
 
 def tree_bytes(tree) -> int:
@@ -42,7 +42,7 @@ class _StackedRow:
     idx: int
 
     def materialize(self):
-        return {k: v[self.idx] for k, v in self.stacked.items()}
+        return tree_map(lambda v: v[self.idx], self.stacked)
 
     def stacked_rows(self) -> int:
         return tree_leaves(self.stacked)[0].shape[0]

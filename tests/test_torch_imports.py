@@ -106,3 +106,20 @@ def test_kernel_wrappers_reject_mixed_devices():
     assert on_cuda(torch.zeros(1)) is False
     with pytest.raises(ValueError):
         on_cuda(torch.zeros(1), torch.zeros(1, device="meta"))
+
+
+@pytest.mark.parametrize("arch", ["cnn-paper", "mamba"])
+def test_init_params_without_device_raises_when_no_gpu(monkeypatch, arch):
+    """``init_params`` defaults to the card, as the other entry points do:
+    with none it raises instead of drawing CPU weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.fl.families import get_model_family
+    from repro_torch.models import init_params
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = (get_config(arch) if arch == "cnn-paper"
+           else get_model_family(arch).build(None))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg, 0)
+    assert all(v.device.type == "cpu"
+               for v in tree_leaves(init_params(cfg, 0, device="cpu")))

@@ -61,7 +61,7 @@ def test_from_numpy_params_round_trips():
 
 def test_port_init_follows_reference_rules():
     """Same keys, shapes and per-leaf std rules as the reference."""
-    p, t = _jparams(0), init_params(TCFG, seed=0)
+    p, t = _jparams(0), init_params(TCFG, seed=0, device="cpu")
     assert sorted(t) == sorted(p)
     for k in p:
         assert tuple(t[k].shape) == p[k].shape
