@@ -1,6 +1,7 @@
 """Config registry: ``get_config(arch_id)``.  The port carries the paper
-CNN and jamba-1.5-large (whose mamba mixer it runs); the other LLM
-configurations arrive with their model families."""
+CNN, jamba-1.5-large (whose mamba mixer it runs) and rwkv6-3b (whose rwkv
+layer it runs); the other LLM configurations arrive with their model
+families."""
 from __future__ import annotations
 
 import importlib
@@ -16,6 +17,7 @@ from repro_torch.configs.base import (  # noqa: F401
 # arch id -> module name
 _ARCH_MODULES = {
     "jamba-1.5-large-398b": "jamba_1p5_large_398b",
+    "rwkv6-3b": "rwkv6_3b",
     "cnn-paper": "cnn_paper",
 }
 

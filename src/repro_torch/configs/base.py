@@ -15,8 +15,9 @@ class ModelConfig:
 
     ``family`` selects the block stack; the port runs ``cnn`` (the paper's
     conv classifier) and, for the LM families, the ``mamba`` layer kind of
-    ``hybrid`` stacks.  Attention, MoE and rwkv layers raise
-    ``NotImplementedError`` until their slices land (ROADMAP queue 1).
+    ``hybrid`` stacks and the ``rwkv`` layer kind of ``ssm`` stacks.
+    Attention and MoE layers raise ``NotImplementedError`` until their
+    slices land (ROADMAP queue 1).
     """
 
     name: str
@@ -45,10 +46,12 @@ class ModelConfig:
     ssm_chunk_dtype: str = "float32"  # the port's scan runs in float32 only
     mamba_impl: str = "chunked"       # both values run the ssm_scan kernel
 
-    # --- ssm ---
+    # --- ssm / rwkv ---
     ssm_state_dim: int = 16        # mamba d_state
     ssm_conv_width: int = 4        # mamba conv1d width
     ssm_expand: int = 2            # mamba d_inner = expand * d_model
+    rwkv_head_dim: int = 64
+    rwkv_impl: str = "chunked"     # both values run the wkv kernel
 
     # --- norm / misc ---
     norm_type: str = "rmsnorm"     # rmsnorm | layernorm | nonparametric

@@ -1,9 +1,9 @@
 """Model-family registry — adapters that build a ``ModelConfig`` for one
 ``ScenarioConfig``, declare the task kind they play and name the kernel ops
-their forward routes through.  The port carries the paper CNN and the
-mamba family (through the ``ssm_scan`` forward and backward kernels); the
-transformer/NanoGPT, rwkv6 and moe families arrive with their models and
-kernels."""
+their forward routes through.  The port carries the paper CNN, the mamba
+family (through the ``ssm_scan`` forward and backward kernels) and the
+rwkv6 family (through the ``wkv`` forward and backward kernels); the
+transformer/NanoGPT and moe families arrive with their models."""
 from __future__ import annotations
 
 import dataclasses
@@ -84,4 +84,23 @@ class MambaFamily(ModelFamily):
                            num_kv_heads=4, ssm_state_dim=8, ssm_expand=2,
                            mamba_impl="pallas", norm_type="layernorm",
                            act="gelu", source="scenario zoo (mamba)",
+                           **_TINY_LM)
+
+
+@register_model_family("rwkv6", "rwkv")
+class RWKV6Family(ModelFamily):
+    """Attention-free RWKV-6 stack training through the ``wkv`` kernels
+    (``repro.fl.families.RWKV6Family``: 2 layers, d_model 32, 2 heads of
+    16, d_ff 64, vocab 109 padded to 512)."""
+
+    task = "generation"
+    kernel_ops = ("wkv",)
+    default_lr = 0.1
+
+    def build(self, cfg) -> ModelConfig:
+        return ModelConfig(name="rwkv6-fl", family="ssm",
+                           layer_pattern=("rwkv",), num_heads=2,
+                           num_kv_heads=2, rwkv_head_dim=16,
+                           rwkv_impl="pallas", norm_type="layernorm",
+                           act="silu", source="scenario zoo (rwkv6)",
                            **_TINY_LM)

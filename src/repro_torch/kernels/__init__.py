@@ -6,6 +6,9 @@ calibrate           — eq. (3) accumulate: w + coeffs @ deltas.
 ssm_scan            — the selective-SSM (mamba) scan, forward.
 ssm_scan_bwd        — its backward (a reverse-time scan + a fixed-order
                       reduce over blocks).
+wkv                 — the RWKV-6 WKV recurrence, forward.
+wkv_bwd             — its backward (a reverse-time walk from the forward's
+                      checkpoints + a fixed-order reduce of du).
 
 The sources live in ``csrc/``.  ``load_library`` compiles them with ``nvcc``
 (one process per source, started together) into one shared library with a
@@ -38,7 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name -> launches since the last ``reset_launches``
 LAUNCHES = {"coded_matmul": 0, "coded_matmul_rounds": 0, "calibrate": 0,
-            "ssm_scan": 0, "ssm_scan_bwd": 0}
+            "ssm_scan": 0, "ssm_scan_bwd": 0, "wkv": 0, "wkv_bwd": 0}
 
 # last build's wall time and compiler output (``-Xptxas -v``)
 BUILD_INFO: dict = {}
@@ -156,6 +159,12 @@ def load_library() -> ctypes.CDLL:
     lib.repro_ssm_scan_bwd_workspace.restype = i64
     lib.repro_ssm_scan_ckpt_steps.argtypes = []
     lib.repro_ssm_scan_ckpt_steps.restype = i32
+    lib.repro_wkv_fwd.argtypes = [ptr] * 9 + [i64] * 5 + [ptr]
+    lib.repro_wkv_fwd.restype = i32
+    lib.repro_wkv_bwd.argtypes = [ptr] * 15 + [i64] * 5 + [ptr]
+    lib.repro_wkv_bwd.restype = i32
+    lib.repro_wkv_ckpt_steps.argtypes = []
+    lib.repro_wkv_ckpt_steps.restype = i32
     BUILD_INFO.update(build_s=time.perf_counter() - t0, path=str(so),
                       log=log, built=bool(log))
     return lib

@@ -9,9 +9,10 @@ The reference scans the stack with ``lax.scan``; the port walks it with a
 Python loop.  The reference's ``remat="block"`` (``jax.checkpoint``)
 changes no numbers and has no counterpart here.
 
-The port carries the ``mamba`` layer kind with its dense FFN.  Attention
-("global"/"local", ROADMAP queue 1 item 9), rwkv (item 11), MoE FFNs (item
-11), the audio/vlm frontends and the prefill/decode caches raise
+The port carries the ``mamba`` layer kind with its dense FFN and the
+``rwkv`` layer kind (time-mix and channel-mix, from zero states).
+Attention ("global"/"local", ROADMAP queue 1 item 9), MoE FFNs (item 11),
+the audio/vlm frontends and the prefill/decode caches raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_map
 from repro_torch.models import mamba as mb
+from repro_torch.models import rwkv6 as rw
 from repro_torch.models.layers import (apply_embed, apply_mlp, apply_norm,
                                        apply_unembed, init_embed, init_mlp,
                                        init_norm)
@@ -31,8 +33,6 @@ from repro_torch.models.layers import (apply_embed, apply_mlp, apply_norm,
 _LATER = {
     "global": "attention layers arrive with NanoGPT (ROADMAP queue 1 item 9)",
     "local": "attention layers arrive with NanoGPT (ROADMAP queue 1 item 9)",
-    "rwkv": "rwkv layers arrive with the rwkv6 family and its wkv kernel "
-            "(ROADMAP queue 1 item 11)",
 }
 
 
@@ -44,7 +44,7 @@ def check_kinds(cfg: ModelConfig) -> None:
     for i, kind in enumerate(cfg.layer_kinds):
         if kind in _LATER:
             raise NotImplementedError(f"layer kind {kind!r}: {_LATER[kind]}")
-        if kind != "mamba":
+        if kind not in ("mamba", "rwkv"):
             raise ValueError(kind)
         if cfg.ffn_is_moe(i % len(cfg.layer_pattern)):
             raise NotImplementedError("MoE FFNs arrive with the moe family "
@@ -79,6 +79,9 @@ class _Stacked:
 
 
 def _init_block(fac, cfg: ModelConfig, kind: str, pat_idx: int):
+    if kind == "rwkv":        # no ffn: channel-mix is the rwkv layer's FFN
+        return {"ln1": init_norm(fac, cfg), "ln2": init_norm(fac, cfg),
+                "rwkv": rw.init_rwkv(fac, cfg)}
     if kind != "mamba":       # check_kinds has refused the others
         raise ValueError(kind)
     return {
@@ -109,12 +112,23 @@ def init_lm(fac, cfg: ModelConfig):
 
 def apply_block_train(p, x, cfg: ModelConfig, kind: str, pat_idx: int):
     """One layer in train mode: x (K, bs, S, d) -> (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "rwkv":
+        km, bs, _, d = x.shape
+        hh, nn = rw.rwkv_heads(cfg)
+        prev = torch.zeros((km, bs, d), dtype=x.dtype, device=x.device)
+        h0 = torch.zeros((km, bs, hh, nn, nn), dtype=torch.float32,
+                         device=x.device)
+        x, _state = rw.rwkv_block(
+            p["rwkv"], x, cfg, (prev, h0, prev),
+            lambda i, v: apply_norm(p[("ln1", "ln2")[i]], v, cfg))
+        return x, aux
     if kind != "mamba":       # check_kinds has refused the others
         raise ValueError(kind)
     y, _state = mb.mamba_block(p["mamba"], apply_norm(p["ln1"], x, cfg), cfg)
     x = x + y
     x = x + apply_mlp(p["ffn"], apply_norm(p["ln2"], x, cfg), cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def forward_train(params, cfg: ModelConfig, batch):
