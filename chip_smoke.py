@@ -8,47 +8,63 @@ Phases (any failed check raises, and the script exits non-zero):
 2. build   — compile the hand-written kernels under
    ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a and load them.
 3. kernels — hold each kernel against its plain PyTorch version at the
-   shapes each main path of phase 5 gives it (the coding kernels at the
-   CNN's, the mamba family's and the rwkv6 family's sizes, ``PATHS``; the
-   scan kernels at the mamba path's, the wkv kernels at the rwkv6 path's
-   and at rwkv6-3b's full width) and at ragged small ones, and time kernel,
-   plain version and one library call where one exists (device time from
-   the CUPTI trace of torch.profiler; CUDA events where it records nothing
-   or less than the kernel's bound) beside the
-   kernel's bound at the H100 SXM data-sheet peaks: 3.35 TB/s, 67 TFLOP/s
-   fp32, and for ``exp`` 16 per clock per SM on 132 SMs at 1.98 GHz.
-   Tolerances: coded_matmul / rounds / calibrate fp32 |k - r| <= 1e-5 +
-   1e-5|r|, bf16 within one bf16 ulp; ssm_scan |k - r| <= 2e-4 + 2e-4|r|
-   (tests/test_kernels.py's tolerance for this kernel); ssm_scan_bwd
-   |k - r| <= 1e-3|r| + 1e-4 max|r| (fp32 sums over up to 16,384 channels
-   and 2,048 steps in another order than autograd's); wkv |k - r| <= 5e-4
-   + 5e-4|r| (tests/test_kernels.py's tolerance for this kernel); wkv_bwd
-   as ssm_scan_bwd.
-4. small   — tiny classification and generation (mamba, rwkv6) scenarios
-   on the card and on the CPU (plain versions): StoreStats equal, models
-   within rtol 1e-3 / atol 1e-4.  The rwkv6 stage amplifies fp32 rounding
-   chaotically (a CPU run ends as far from itself with one-ulp-perturbed
-   initial weights as from the card), so there one SGD step's loss and
-   gradients are held at 1e-5 rel and 1e-4|r| + 5e-5 max|r|, and the
-   stage's models to twice that one-ulp spread.
-5. main    — three federated main paths through the port's entry points,
+   shapes each path of phases 5 and 6 gives it (the coding kernels and
+   encode_decode at the CNN's, the mamba, rwkv6 and NanoGPT families'
+   sizes, ``PATHS``; the scan kernels at the mamba path's, the wkv kernels
+   at the rwkv6 path's and at rwkv6-3b's full width, the window-attention
+   kernels at the small local-attention model's and at gemma3-27b's full
+   width) and at ragged small ones, and time kernel, plain version and one
+   library call where one exists (device time from the CUPTI trace of
+   torch.profiler; CUDA events where it records nothing or less than the
+   kernel's bound) beside the kernel's bound at the H100 SXM data-sheet
+   peaks: 3.35 TB/s, 67 TFLOP/s fp32, and for ``exp`` 16 per clock per SM
+   on 132 SMs at 1.98 GHz.
+   Tolerances: coded_matmul / rounds / calibrate / encode_decode fp32
+   |k - r| <= 1e-5 + 1e-5|r|, bf16 within one bf16 ulp; encode_decode's
+   round trip returns w within 1e-3 (all clients) and 2e-3 (S of them), as
+   tests/test_round_engine.py holds the reference's; ssm_scan |k - r| <=
+   2e-4 + 2e-4|r| (tests/test_kernels.py's tolerance for this kernel);
+   ssm_scan_bwd |k - r| <= 1e-3|r| + 1e-4 max|r| (fp32 sums over up to
+   16,384 channels and 2,048 steps in another order than autograd's); wkv
+   |k - r| <= 5e-4 + 5e-4|r| (tests/test_kernels.py's tolerance for this
+   kernel); wkv_bwd as ssm_scan_bwd; window_attention |k - r| <= 1e-5 +
+   1e-4|r|; window_attention_bwd each gradient within 1e-4 of its largest
+   entry (softmax sums over up to 1,024 keys and the G query heads of a kv
+   head in another order), two launches bit-identical.
+4. small   — tiny scenarios on the card and on the CPU (plain versions):
+   classification, and generation with the mamba, rwkv6 and NanoGPT
+   families (tests/test_scenario_zoo.py's configuration), and a local-
+   attention model (NanoGPT cut to 2 layers "local", "global", d_model 64,
+   4 heads of 16 over 2 kv heads, window 16 < 64 tokens) through the port's
+   FLSimulator: StoreStats equal, models within rtol 1e-3 / atol 1e-4.  The
+   rwkv6 stage amplifies fp32 rounding chaotically (a CPU run ends as far
+   from itself with one-ulp-perturbed initial weights as from the card), so
+   there the stage's models are held to twice that one-ulp spread.  For
+   rwkv6, NanoGPT and the local-attention model one SGD step's loss and
+   gradients are held at 1e-5 rel and 1e-4|r| + 5e-5 max|r|.
+5. main    — four federated main paths through the port's entry points,
    each with its launch counts zeroed just before and read just after:
    (a) the paper CNN at full width (conv 16/32, fc 128, 28x28x1) in the
    paper's federation (100 clients, 20 per stage, S=4, L=10, 100 samples
    per client) with G cut from 30 to 10 rounds, (b) the generation task
    with the mamba family (``ScenarioConfig.paper_full(task="generation",
-   model="mamba", global_rounds=10)``: the paper's federation with G cut
-   from 30 to 10, 100 sequences of 64 tokens per client), (c) the same with
-   the rwkv6 family (``model="rwkv6"``).  Each: one stage on the fused
-   engine with the coded store, one SE request, one batched SE request over
-   two shards, one stage on the stage engine; every kernel of the path must
-   have launched.  Then
+   model="mamba", global_rounds=5)``: the paper's federation with G cut
+   from 30 to 5, 100 sequences of 64 tokens per client), (c) the same with
+   the rwkv6 family (``model="rwkv6"``), (d) the same with the task's
+   default family, the paper's NanoGPT (no ``model=``), G cut from 30 to
+   10, whose global attention layers run the plain blockwise path and no
+   kernel of their own.  The mamba and rwkv6 paths' G went from 10 to 5
+   when the NanoGPT path arrived, to keep the script near half its time
+   limit.  Each: one stage on the fused engine with the coded store, one SE
+   request, one batched SE request over two shards, one stage on the stage
+   engine; every kernel of the path must have launched.  Then
    the checks: decoded round-0 locals average to the stored round-1
    global, a decode from another S-subset agrees, untouched shards are
-   bit-identical, the ensemble is above chance (CNN test accuracy > 0.1;
-   mamba and rwkv6 perplexity < 109, the uniform guess over the 109
-   symbols, on ten clients the stage did not sample: the task's test
-   stream has a word
+   bit-identical, the two engines' coded slices are compared (logged; where
+   they differ, beside round 0 retrained from initial weights moved by one
+   ulp, the gap fp32 rounding alone opens), the ensemble is above chance (CNN test accuracy > 0.1;
+   LM perplexity < 109, the uniform guess over the 109 symbols, on ten
+   clients the stage did not sample: the task's test stream has a word
    inventory of its own).  Last, one fused shard round is profiled: wall
    time, device-busy time, idle share and the kernels that take the time.
 6. full    — one mamba mixer of jamba-1.5-large-398b at its published width
@@ -62,6 +78,13 @@ Phases (any failed check raises, and the script exits non-zero):
    time-mix, ln2, channel-mix), forward and backward on fp32 input (8,
    4096, 2560): batch cut from 256 to 8, one layer of 32, no embedding.
    The wkv kernels are timed alone at that shape, and the whole layer.
+   Then one local (sliding-window) layer of gemma3-27b at its published
+   width (d_model 5376, 32 heads of 128 over 16 kv heads, window 1024,
+   d_ff 21504; 412,887,552 parameters) through ``apply_block_train`` (ln1,
+   q/k/v, RoPE, window attention, wo, ln2, gated MLP), forward and
+   backward on fp32 input (2, 4096, 5376): batch cut from 256 to 2, one
+   layer of 62, no embedding.  Its launch counts are zeroed before and
+   read after; the window kernels are timed alone at that shape.
 7. report  — one JSON line listing the kernels (each row's numbers from
    the path it was ported for, every path's launches and times under
    ``by_path``), the card's name and power limit, and the final line
@@ -230,8 +253,9 @@ def times(kernel, plain, library, iters: int) -> dict:
 # the rounds G the path runs (M = 5 clients per shard, C = 20 coded slices
 # of S = 4 shards).  Each path checks its own model's size against these.
 PATHS = {"cnn": {"p_client": 206_922, "rounds": 10},
-         "mamba": {"p_client": 61_984, "rounds": 10},
-         "rwkv6": {"p_client": 62_304, "rounds": 10}}
+         "mamba": {"p_client": 61_984, "rounds": 5},
+         "rwkv6": {"p_client": 62_304, "rounds": 5},
+         "nanogpt": {"p_client": 32_912, "rounds": 10}}
 CODING = ("coded_matmul", "coded_matmul_rounds", "calibrate")
 CLIENTS_PER_SHARD = 5
 
@@ -244,9 +268,11 @@ def check_kernels(torch, K, path: str, model_cfg, ragged: bool):
     from repro_torch.core.tree import tree_map
     from repro_torch.kernels.calibrate.ops import calibrate_update
     from repro_torch.kernels.calibrate.ref import calibrate_update_ref
-    from repro_torch.kernels.coded_matmul.ops import (coded_matmul,
+    from repro_torch.kernels.coded_matmul.ops import (coded_encode_decode,
+                                                      coded_matmul,
                                                       coded_matmul_rounds)
-    from repro_torch.kernels.coded_matmul.ref import (coded_matmul_ref,
+    from repro_torch.kernels.coded_matmul.ref import (coded_encode_decode_ref,
+                                                      coded_matmul_ref,
                                                       coded_matmul_rounds_ref)
     from repro_torch.models import init_params
 
@@ -351,6 +377,39 @@ def check_kernels(torch, K, path: str, model_cfg, ragged: bool):
                                                          norms), iters))
             del model, deltas
         del w, d, cf
+
+    # encode_decode: the round trip of one (S, P) shard matrix at the path's
+    # client size, from all C clients and from S of them (the
+    # slice-verification check; it runs on no path)
+    sch = coding.CodingScheme(4, 20)
+    c, s = sch.num_clients, sch.num_shards
+    w = randn(s, p_client)
+    for label, ids in (("all_clients", None), ("s_subset", [1, 6, 12, 19])):
+        enc, dec = (torch.tensor(m, dtype=torch.float32, device=dev)
+                    for m in coding.encode_decode_operators(sch, ids))
+        got = coding.encode_decode(sch, w, ids)
+        if not torch.equal(got, coded_encode_decode(enc, dec, w)):
+            raise AssertionError(f"encode_decode/{path}/{label}: the coding "
+                                 f"entry point and the wrapper differ")
+        err = compare(got, coded_encode_decode_ref(enc, dec, w),
+                      f"encode_decode/{path}/{label}")
+        tol = 1e-3 if ids is None else 2e-3
+        trip = compare(got, w, f"encode_decode/{path}/{label}/round_trip",
+                       tol, tol)
+        b_ms, b_by = bound(4 * (2 * c * s + 2 * s * p_client),
+                           4 * c * s * p_client)
+        row = times(lambda: coded_encode_decode(enc, dec, w),
+                    lambda: coded_encode_decode_ref(enc, dec, w),
+                    lambda: torch.linalg.multi_dot([dec, enc, w]), 200)
+        row.update(kernel="encode_decode", path=path, case=label,
+                   shape=[c, s, p_client], round_trip_max_abs_err=trip[
+                       "max_abs_err"], **err)
+        share(row, b_ms, b_by)
+        log("kernel", **row)
+        if label == "all_clients":
+            heads["encode_decode"] = row
+        del enc, dec, got
+    del w
     torch.cuda.empty_cache()
     return heads
 
@@ -586,6 +645,124 @@ def check_wkv(torch, K):
     return heads
 
 
+def window_pairs(s: int, window: int) -> int:
+    """(query, key) pairs of one head: sum over i < s of min(i + 1, w)."""
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def window_work(b, s, h, kv, hd, window, backward: bool):
+    """(bytes, flops, exps) the attention's forward or backward function
+    needs: each input read once and each output written once; 4 hd FLOPs
+    per (query, key) pair forward (q.k and p v), 10 hd backward (the
+    recomputed q.k, dO.v, dV, dQ, dK), one exp per pair."""
+    pairs = b * h * window_pairs(s, window)
+    q_el, kv_el, rows = b * s * h * hd, b * s * kv * hd, b * h * s
+    if backward:    # in: q, k, v, o, dO, lse; out: dq, dk, dv
+        return 4 * (4 * q_el + 4 * kv_el + rows), 10 * hd * pairs, pairs
+    return 4 * (2 * q_el + 2 * kv_el + rows), 4 * hd * pairs, pairs
+
+
+# the small local-attention model's shape: 2 clients of a shard x batch 2
+LOCAL_SMALL = dict(name="nanogpt-local", num_layers=2,
+                   layer_pattern=("local", "global"), d_model=64,
+                   num_heads=4, num_kv_heads=2, head_dim=16,
+                   sliding_window=16)
+
+
+def check_window(torch, K):
+    """Phase 3d: the window-attention forward and backward kernels against
+    the dense masked softmax and autograd through it, at ragged shapes, at
+    the small local-attention model's stage shape and at gemma3-27b's full
+    width (B 2, S 4096, 32 heads of 128 over 16 kv heads, window 1024),
+    timed beside F.scaled_dot_product_attention with the boolean window
+    mask (fp32; the kv heads expanded before the timed call)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.window_attn import ops
+    from repro_torch.kernels.window_attn.ref import window_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    heads = {}
+    cases = [("ragged", 2, 200, 4, 2, 64, 50, 20),
+             ("hd128_window_ge_s", 1, 300, 4, 4, 128, 512, 20),
+             ("local_small", 4, 64, 4, 2, 16, 16, 50),
+             ("gemma3_full_width", 2, 4096, 32, 16, 128, 1024, 3)]
+    for label, b, s, h, kv, hd, window, iters in cases:
+        q, k, v = (torch.randn(b, s, n, hd, generator=gen, device="cuda")
+                   for n in (h, kv, kv))
+        pos = torch.arange(s, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] >
+                                                 pos[:, None] - window)
+        lq, lk, lv = (t.transpose(1, 2).repeat_interleave(h // t.shape[2], 1)
+                      for t in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask)
+        with torch.no_grad():
+            want = window_attention_ref(q, k, v, window)
+            err = compare(ops._fwd(q, k, v, window)[0], want,
+                          f"window_attention/{label}", 1e-4, 1e-5)
+            # the library call's own distance from the plain version (not a
+            # check: it may run at another precision)
+            lib_err = float((library().transpose(1, 2) - want).abs().max())
+            del want
+            row = times(lambda: ops._fwd(q, k, v, window),
+                        lambda: window_attention_ref(q, k, v, window),
+                        library, iters)
+        b_ms, b_by = bound(*window_work(b, s, h, kv, hd, window, False))
+        row.update(kernel="window_attention", case=label,
+                   shape=[b, s, h, kv, hd, window],
+                   library_max_abs_err=lib_err, **err)
+        share(row, b_ms, b_by)
+        log("kernel", **row)
+        heads[label] = {"window_attention": row}
+        # backward: the kernels from the forward's O and log-sum-exp against
+        # autograd through the dense softmax, on the same cotangent
+        o, lse = ops._fwd(q, k, v, window)
+        do = torch.randn(b, s, h, hd, generator=gen, device="cuda")
+
+        def kernel_bwd():
+            return ops._bwd(q, k, v, o, lse, do, window)
+        got, again = kernel_bwd(), kernel_bwd()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"window_attention_bwd/{label}: two runs "
+                                 f"differ")
+        del again
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = window_attention_ref(*leaves, window)
+
+        def plain_bwd():
+            return torch.autograd.grad(out, leaves, do, retain_graph=True)
+        errs = {}
+        for nm, k_, r_ in zip(("dq", "dk", "dv"), got, plain_bwd()):
+            errs[nm] = compare(k_, r_, f"window_attention_bwd/{label}/{nm}",
+                               0.0, 1e-4 * float(r_.abs().max()))
+        del got
+        row = timed(kernel_bwd, iters)
+        row["plain_ms"] = device_ms(plain_bwd, iters)[0]
+        del out, leaves
+        torch.cuda.empty_cache()
+        ll = [t.detach().clone().requires_grad_(True) for t in (lq, lk, lv)]
+        lout = F.scaled_dot_product_attention(*ll, attn_mask=mask)
+        ldo = do.transpose(1, 2)
+        row["library_ms"] = device_ms(lambda: torch.autograd.grad(
+            lout, ll, ldo, retain_graph=True), iters)[0]
+        del ll, lout
+        b_ms, b_by = bound(*window_work(b, s, h, kv, hd, window, True))
+        worst = max(errs.values(), key=lambda e: e["max_abs_err"])
+        row.update(kernel="window_attention_bwd", case=label,
+                   shape=[b, s, h, kv, hd, window],
+                   max_abs_err=worst["max_abs_err"], bit_identical=True,
+                   per_grad={nm: [e["max_abs_err"], e["tol"]]
+                             for nm, e in errs.items()})
+        share(row, b_ms, b_by)
+        log("kernel", **row)
+        heads[label]["window_attention_bwd"] = row
+        del q, k, v, lq, lk, lv, o, lse, do, mask
+        torch.cuda.empty_cache()
+    return heads
+
+
 def _small_run(cfg, dev, init_fn=None):
     from repro_torch.core.tree import tree_map
     from repro_torch.fl.experiment import build_session
@@ -611,19 +788,18 @@ def _ulp_perturbed(torch, model_cfg, seed: int):
     return init_fn
 
 
-def check_first_step(torch, family: str) -> dict:
-    """The loss and gradients of one SGD step of ``family``'s model at its
-    initial weights, on the card and on the CPU: loss within 1e-5 rel, each
-    gradient leaf within 1e-4|r| + 5e-5 max|r| (tests/test_torch_rwkv6.py's
-    tolerance against the reference)."""
+def check_first_step(torch, name: str, cfg, seq: int = 16) -> dict:
+    """The loss and gradients of one SGD step of the model ``cfg`` (called
+    ``name``) at its initial weights on (4, ``seq``) tokens, on the card
+    and on the CPU: loss within 1e-5 rel, each gradient leaf within
+    1e-4|r| + 5e-5 max|r| (tests/test_torch_rwkv6.py's tolerance against
+    the reference)."""
     import numpy as np
     from repro_torch.core.tree import leaves_with_paths, tree_leaves, tree_map
-    from repro_torch.fl.families import get_model_family
     from repro_torch.models import init_params, loss_fn
 
-    cfg = get_model_family(family).build(None)
     rng = np.random.default_rng(0)
-    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16))
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, seq))
                                  .astype(np.int32)) for k in ("tokens",
                                                               "labels")}
     out = {}
@@ -635,23 +811,60 @@ def check_first_step(torch, family: str) -> dict:
             loss, tree_leaves(p))], [path for path, _ in leaves_with_paths(p)])
     (lg, gg, paths), (lc, gc, _) = out["cuda"], out["cpu"]
     if abs(lg - lc) > 1e-5 * abs(lc):
-        raise AssertionError(f"first step {family}: loss {lg} on the card, "
+        raise AssertionError(f"first step {name}: loss {lg} on the card, "
                              f"{lc} on the CPU")
     worst = 0.0
     for path, g, c in zip(paths, gg, gc):
         cmax = float(c.abs().max())
         torch.testing.assert_close(g, c, rtol=1e-4, atol=5e-5 * cmax,
-                                   msg=f"first step {family} {path}")
+                                   msg=f"first step {name} {path}")
         worst = max(worst, float((g - c).abs().max()) / max(cmax, 1e-30))
     return {"loss_card": lg, "loss_cpu": lc,
             "grad_max_abs_err_of_leaf_max": worst}
 
 
-def check_small(torch):
+def _small_local_run(torch, K, dev):
+    """One stage and one SE request of the local-attention model through
+    the port's FLSimulator (tests/test_scenario_zoo.py's federation at 64
+    tokens per sequence, so the local layers take the sliding-window
+    path), with the launch counts around it."""
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data.federated import get_partitioner
+    from repro_torch.fl import FLSimulator
+    from repro_torch.fl.experiment import (FederatedSession, RequestSchedule,
+                                           ScenarioConfig, UnlearnRequest)
+    from repro_torch.fl.tasks import GenerationTask
+
+    cfg = dataclasses.replace(get_config("nanogpt-paper"), **LOCAL_SMALL)
+    scfg = ScenarioConfig(task="generation", num_clients=8,
+                          clients_per_round=4, num_shards=2, local_epochs=1,
+                          global_rounds=2, samples_per_client=6, seq_len=64,
+                          test_n=20, local_batch=2)
+    task = GenerationTask()
+    clients, _ = task.build_data(scfg, cfg, get_partitioner("iid"))
+    sim = FLSimulator(cfg, scfg.fl_config(), clients, task,
+                      opt_cfg=OptimizerConfig(name="sgd", lr=0.3,
+                                              grad_clip=0.0),
+                      local_batch=2, seed=0, device=dev)
+    session = FederatedSession(sim, store_kind="coded", engine="fused")
+    K.reset_launches()
+    rep = session.run(1, schedule=RequestSchedule([UnlearnRequest(
+        lambda plan: [plan.shard_clients[0][0]])]))
+    launches = dict(K.LAUNCHES)
+    res = rep.stages[0].unlearn[0]
+    return cfg, launches, (rep.store_stats.to_dict(), res.cost_units,
+                           {s: tree_map(lambda v: v.cpu(), m)
+                            for s, m in res.models.items()})
+
+
+def check_small(torch, K):
     """Phase 4: tiny scenarios on the card against the same runs on the
     CPU through the kernels' plain versions: the paper CNN's
-    classification, and generation with the mamba and rwkv6 families (the
-    scenario-zoo configuration of tests/test_scenario_zoo.py).
+    classification, generation with the mamba, rwkv6 and NanoGPT families
+    (the scenario-zoo configuration of tests/test_scenario_zoo.py), and
+    the local-attention model through the FLSimulator.  Returns the local
+    run's launch counts.
 
     One stage of the rwkv6 scenario amplifies fp32 rounding chaotically:
     the CPU run itself ends as far from a CPU run whose initial weights
@@ -684,6 +897,10 @@ def check_small(torch):
                                  seq_len=16, test_n=20, local_batch=2)}
     configs["generation_rwkv6"] = dict(configs["generation_mamba"],
                                        model="rwkv6")
+    configs["generation_nanogpt"] = {k: v for k, v in
+                                     configs["generation_mamba"].items()
+                                     if k != "model"}
+    first = {}
     for name, kw in configs.items():
         cfg = ScenarioConfig(schedule=schedule(), **kw)
         out = {dev: _small_run(cfg, dev) for dev in ("cuda", "cpu")}
@@ -693,8 +910,10 @@ def check_small(torch):
                                  f"the card ({gs}, {gc}) and the CPU ({cs}, "
                                  f"{cc})")
         worst = gap(gm, cm)
+        if name in ("generation_rwkv6", "generation_nanogpt"):
+            fam = get_model_family(cfg.model)
+            first[name] = check_first_step(torch, cfg.model, fam.build(cfg))
         if name == "generation_rwkv6":
-            first = check_first_step(torch, "rwkv6")
             init_fn = _ulp_perturbed(torch, get_model_family(
                 "rwkv6").build(cfg), cfg.seed)
             spread = gap(_small_run(cfg, "cpu", init_fn)[2], cm)
@@ -705,7 +924,7 @@ def check_small(torch):
             log("small", scenario=name, store_stats_equal=True,
                 cost_units=gc, max_abs_diff_vs_cpu=worst,
                 cpu_one_ulp_spread=spread, tol="2 x one-ulp spread",
-                first_step=first)
+                first_step=first[name])
             continue
         for s in cm:
             for (path, g), c in zip(leaves_with_paths(gm[s]),
@@ -713,7 +932,28 @@ def check_small(torch):
                 torch.testing.assert_close(g, c, rtol=1e-3, atol=1e-4,
                                            msg=f"{name} {s}/{path}")
         log("small", scenario=name, store_stats_equal=True, cost_units=gc,
-            max_abs_diff_vs_cpu=worst, tol="rtol 1e-3, atol 1e-4")
+            max_abs_diff_vs_cpu=worst, tol="rtol 1e-3, atol 1e-4",
+            first_step=first.get(name))
+
+    # the local-attention model: its local layers through the window kernels
+    cfg, launches, (gs, gc, gm) = _small_local_run(torch, K, "cuda")
+    _, _, (cs, cc, cm) = _small_local_run(torch, K, "cpu")
+    missing = [k for k in ("window_attention", "window_attention_bwd")
+               if launches[k] == 0]
+    if missing or gs != cs or gc != cc:
+        raise AssertionError(f"small local attention: kernels not launched "
+                             f"{missing}, StoreStats/cost on the card ({gs}, "
+                             f"{gc}) and the CPU ({cs}, {cc})")
+    for s_ in cm:
+        for (path, g), c in zip(leaves_with_paths(gm[s_]),
+                                tree_leaves(cm[s_])):
+            torch.testing.assert_close(g, c, rtol=1e-3, atol=1e-4,
+                                       msg=f"local attention {s_}/{path}")
+    log("small", scenario="local_attention", model=dataclasses.asdict(cfg),
+        launches=launches, store_stats_equal=True, cost_units=gc,
+        max_abs_diff_vs_cpu=gap(gm, cm), tol="rtol 1e-3, atol 1e-4",
+        first_step=check_first_step(torch, "local_attention", cfg, seq=64))
+    return launches
 
 
 def rel_err(a, b) -> float:
@@ -734,7 +974,8 @@ def main_path(torch, K, name, make_sim, test, need, metric_ok):
     import numpy as np
     from repro_torch.core import unlearning
     from repro_torch.core.tree import tree_leaves, tree_map
-    from repro_torch.fl.experiment import FederatedSession, UnlearnRequest
+    from repro_torch.fl.experiment import (FederatedSession, UnlearnRequest,
+                                           train_stage)
 
     tx, ty = test
     fused_sim, staged_sim = make_sim(), make_sim()
@@ -800,12 +1041,24 @@ def main_path(torch, K, name, make_sim, test, need, metric_ok):
             if not (e <= 1e-4 and e_alt <= 1e-4):
                 raise AssertionError(f"{name} {eng} shard {s}: decode check "
                                      f"failed ({e}, {e_alt})")
-    slice_diff = max(
+    slice_diff = [
         float((srec.store._slices[g].float()
                - rec.store._slices[g].float()).abs().max())
         / float(rec.store._slices[g].float().abs().max())
-        for g in (0, fused_sim.fl.global_rounds - 1))
-    log("check", path=name, stage_vs_fused_slices_rel_diff=slice_diff)
+        for g in (0, fused_sim.fl.global_rounds - 1)]
+    # set the engines' gap beside the gap fp32 rounding alone opens: round
+    # 0 again on the fused engine, from initial weights moved by one ulp
+    spread = None
+    if slice_diff[0] > 0:
+        usim = make_sim()
+        urec = train_stage(usim, engine="fused", rounds=1,
+                           init_fn=_ulp_perturbed(torch, usim.cfg, usim.seed))
+        spread = (float((urec.store._slices[0].float()
+                         - rec.store._slices[0].float()).abs().max())
+                  / float(rec.store._slices[0].float().abs().max()))
+        del usim, urec
+    log("check", path=name, stage_vs_fused_slices_rel_diff=max(slice_diff),
+        first_and_last_round=slice_diff, one_ulp_round0_rel_spread=spread)
 
     for res, hit in ((se, [0]), (batched, [1, 2])):
         if res.impacted_shards != hit:
@@ -896,22 +1149,29 @@ def cnn_path(torch, K):
                      lambda m: m["test"]["acc"] > 0.1)
 
 
-# each generation family's own kernels, launched in every SGD step
+# each generation family's own kernels, launched in every SGD step; the
+# NanoGPT family's global attention layers run the plain blockwise path
 LM_KERNELS = {"mamba": ("ssm_scan", "ssm_scan_bwd"),
-              "rwkv6": ("wkv", "wkv_bwd")}
+              "rwkv6": ("wkv", "wkv_bwd"),
+              "nanogpt": ()}
 
 
 def lm_path(torch, K, family: str):
-    """Phase 5b/5c: the generation task with ``family`` in the paper's
+    """Phase 5b-5d: the generation task with ``family`` in the paper's
     federation, built by the port's own entry point, with G cut from 30 to
-    ``PATHS[family]["rounds"]``."""
+    ``PATHS[family]["rounds"]``; NanoGPT is the task's default family, so
+    its scenario names none."""
     from repro_torch.core.tree import tree_leaves
     from repro_torch.fl.experiment import ScenarioConfig, build_simulator
 
     rounds = PATHS[family]["rounds"]
-    cfg = ScenarioConfig.paper_full(task="generation", model=family,
-                                    global_rounds=rounds)
+    named = {} if family == "nanogpt" else {"model": family}
+    cfg = ScenarioConfig.paper_full(task="generation", global_rounds=rounds,
+                                    **named)
     sim, test = build_simulator(cfg)
+    if family == "nanogpt":
+        log("config", path=family, attention="global layers only: the "
+            "plain blockwise path, no window kernel (as the reference's)")
     log("config", path=family, model=dataclasses.asdict(sim.cfg),
         params=sum(v.numel() for v in tree_leaves(sim.init_model(0))),
         lr=sim.opt.lr, local_batch=sim.local_batch,
@@ -1099,6 +1359,95 @@ def full_width_rwkv(torch, K):
     return launches
 
 
+def full_width_gemma(torch, K):
+    """Phase 6c: one gemma3-27b local (sliding-window) layer at its
+    published width, forward and backward through ``apply_block_train`` at
+    train_4k's sequence length, batch 2, fp32; its launch counts zeroed
+    before and read after."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels.window_attn import ops
+    from repro_torch.models.attention import init_attention
+    from repro_torch.models.layers import init_mlp, init_norm
+    from repro_torch.models.params import RealInit
+    from repro_torch.models.transformer import apply_block_train
+
+    cfg = dataclasses.replace(get_config("gemma3-27b"), param_dtype="float32",
+                              compute_dtype="float32")
+    bsz, s = 2, SHAPES["train_4k"].seq_len
+    h, kv, hd, window = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                         cfg.sliding_window)
+    t0 = time.perf_counter()
+    fac = RealInit(torch.Generator().manual_seed(0))
+    p = {"ln1": init_norm(fac, cfg), "attn": init_attention(fac, cfg),
+         "ln2": init_norm(fac, cfg), "ffn": init_mlp(fac, cfg)}
+    p = tree_map(lambda v: v[None].to("cuda").requires_grad_(True), p)
+    n_params = sum(v.numel() for v in tree_leaves(p))
+    x = torch.randn(1, bsz, s, cfg.d_model, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+    x.requires_grad_(True)
+    init_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        y, _aux = apply_block_train(p, x, cfg, "local", 0)
+        loss = (y * y).mean()
+        grads = torch.autograd.grad(loss, [x, *tree_leaves(p)])
+        return y, grads
+    y, grads = step()                         # warm-up, checked below
+    torch.cuda.synchronize()
+    K.reset_launches()
+    iters = 3
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        step()
+    b.record()
+    b.synchronize()
+    block_ms = a.elapsed_time(b) / iters
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ok = (n_params == 412_887_552
+          and tuple(y.shape) == (1, bsz, s, cfg.d_model)
+          and bool(torch.isfinite(y).all())
+          and all(tuple(g.shape) == tuple(v.shape) and
+                  bool(torch.isfinite(g).all())
+                  for g, v in zip(grads, [x, *tree_leaves(p)])))
+    if not ok or launches["window_attention"] != iters or \
+            launches["window_attention_bwd"] != iters:
+        raise AssertionError(f"full-width gemma3 layer: params {n_params}, "
+                             f"shapes/finite {ok}, launches {launches}")
+    del y, grads
+    # the window kernels alone at the layer's shape
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn(bsz, s, n, hd, generator=gen, device="cuda")
+               for n in (h, kv, kv))
+    with torch.no_grad():
+        fwd = timed(lambda: ops._fwd(q, k, v, window), 5)
+    o, lse = ops._fwd(q, k, v, window)
+    do = torch.randn(bsz, s, h, hd, generator=gen, device="cuda")
+    bwd = timed(lambda: ops._bwd(q, k, v, o, lse, do, window), 5)
+    fb = bound(*window_work(bsz, s, h, kv, hd, window, False))
+    bb = bound(*window_work(bsz, s, h, kv, hd, window, True))
+    log("full", model="gemma3-27b local attention layer",
+        d_model=cfg.d_model, heads=h, kv_heads=kv, head_dim=hd,
+        window=window, d_ff=cfg.d_ff, params=n_params,
+        input=[bsz, s, cfg.d_model],
+        reduced={"depth": "one local layer of 62 (embedding, unembedding "
+                          "and the global layers left out)",
+                 "batch": "train_4k's 256 cut to 2"},
+        init_s=init_s, block_fwd_bwd_ms=block_ms, launches=launches,
+        peak_mem_bytes=peak,
+        window_kernels_share=(fwd["ms"] + bwd["ms"]) / block_ms,
+        window_attention=dict(fwd, bound_ms=fb[0], bound_by=fb[1]),
+        window_attention_bwd=dict(bwd, bound_ms=bb[0], bound_by=bb[1]))
+    del p, x, q, k, v, o, lse, do
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     src = root / "src"
@@ -1136,18 +1485,23 @@ def main() -> int:
                                    ragged=False)
     heads["mamba"].update(check_ssm(torch, K))
     heads["rwkv6"].update(check_wkv(torch, K))
-    check_small(torch)
+    window = check_window(torch, K)
+    heads["local_small"] = window["local_small"]
+    heads["gemma3"] = window["gemma3_full_width"]
     # each path's own counts, zeroed just before it and read just after
-    launches = {"cnn": cnn_path(torch, K)}
+    launches = {"local_small": check_small(torch, K)}
+    launches["cnn"] = cnn_path(torch, K)
     for fam in LM_KERNELS:
         launches[fam] = lm_path(torch, K, fam)
     full_width(torch, K)
     full_width_rwkv(torch, K)
+    launches["gemma3"] = full_width_gemma(torch, K)
 
     # one row per kernel, its numbers from the path it was ported for; the
     # launches and times on every path under "by_path"
     cu = "src/repro_torch/kernels/csrc/"
     coded = "src/repro/kernels/coded_matmul/kernel.py"
+    window_tpu = "src/repro/kernels/window_attn/kernel.py:66"
     sources = {"coded_matmul": (cu + "coded_matmul.cu", coded + ":47", "cnn"),
                "coded_matmul_rounds": (cu + "coded_matmul.cu", coded + ":82",
                                        "cnn"),
@@ -1163,20 +1517,33 @@ def main() -> int:
                "wkv": (cu + "wkv.cu", "src/repro/kernels/wkv/kernel.py:55",
                        "rwkv6"),
                "wkv_bwd": (cu + "wkv.cu", "src/repro/kernels/wkv/ops.py:51",
-                           "rwkv6")}
+                           "rwkv6"),
+               # slice verification: on no path of either package; its
+               # numbers from its own check at the CNN's P
+               "encode_decode": (cu + "coded_matmul.cu", coded + ":119",
+                                 None),
+               # the gemma3-27b local layer; the TPU kernel had no backward
+               "window_attention": (cu + "window_attn.cu", window_tpu,
+                                    "gemma3"),
+               "window_attention_bwd": (cu + "window_attn.cu", window_tpu,
+                                        "gemma3")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     rows = []
     for name, (source, replaces, path) in sources.items():
         by_path = {p: {"launches": launches[p][name],
                        **{k: heads[p][name][k] for k in keys
-                          if name in heads[p]}}
+                          if name in heads.get(p, {})}}
                    for p in launches}
+        head = heads[path or "cnn"][name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "path": path,
-                     "launches": launches[path][name],
-                     **{k: heads[path][name][k] for k in keys},
-                     "by_path": by_path})
+                     "launches": launches[path][name] if path else 0,
+                     **{k: head[k] for k in keys},
+                     "by_path": by_path,
+                     **({} if path else {"note": "runs on no path in either "
+                                                 "package (slice "
+                                                 "verification only)"})})
     log("done", total_s=time.perf_counter() - T_START)
     print(json.dumps({"kernels": rows}))
     print(smi)

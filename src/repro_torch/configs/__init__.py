@@ -1,5 +1,6 @@
 """Config registry: ``get_config(arch_id)``.  The port carries the paper
-CNN, jamba-1.5-large (whose mamba mixer it runs) and rwkv6-3b (whose rwkv
+CNN, the paper's NanoGPT, jamba-1.5-large (whose mamba mixer it runs),
+rwkv6-3b (whose rwkv layer it runs) and gemma3-27b (whose local attention
 layer it runs); the other LLM configurations arrive with their model
 families."""
 from __future__ import annotations
@@ -18,6 +19,8 @@ from repro_torch.configs.base import (  # noqa: F401
 _ARCH_MODULES = {
     "jamba-1.5-large-398b": "jamba_1p5_large_398b",
     "rwkv6-3b": "rwkv6_3b",
+    "gemma3-27b": "gemma3_27b",
+    "nanogpt-paper": "nanogpt_paper",
     "cnn-paper": "cnn_paper",
 }
 

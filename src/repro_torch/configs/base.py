@@ -14,10 +14,11 @@ class ModelConfig:
     names and defaults.
 
     ``family`` selects the block stack; the port runs ``cnn`` (the paper's
-    conv classifier) and, for the LM families, the ``mamba`` layer kind of
-    ``hybrid`` stacks and the ``rwkv`` layer kind of ``ssm`` stacks.
-    Attention and MoE layers raise ``NotImplementedError`` until their
-    slices land (ROADMAP queue 1).
+    conv classifier) and, for the LM families, the ``global`` and ``local``
+    attention layer kinds of ``dense`` stacks, the ``mamba`` layer kind of
+    ``hybrid`` stacks and the ``rwkv`` layer kind of ``ssm`` stacks.  MoE
+    FFNs raise ``NotImplementedError`` until their slice lands (ROADMAP
+    queue 1).
     """
 
     name: str
@@ -28,6 +29,7 @@ class ModelConfig:
     num_kv_heads: int
     d_ff: int
     vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // num_heads
     source: str = ""
 
     # --- MoE ---
@@ -43,6 +45,10 @@ class ModelConfig:
     # Repeating pattern of layer kinds in {"global","local","mamba","rwkv"},
     # tiled to num_layers (remainder unrolled).
     layer_pattern: Tuple[str, ...] = ("global",)
+    sliding_window: int = 4096
+    rope_theta: float = 10_000.0
+    attn_block_skip: bool = False   # triangle-only causal blocks
+    attn_block_q: int = 512         # q tile; 0 = whole seq
     ssm_chunk_dtype: str = "float32"  # the port's scan runs in float32 only
     mamba_impl: str = "chunked"       # both values run the ssm_scan kernel
 
@@ -73,6 +79,8 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
 
     def __post_init__(self):
+        if self.head_dim == 0 and self.num_heads:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
         if self.num_experts and self.moe_d_ff == 0:
             object.__setattr__(self, "moe_d_ff", self.d_ff)
 

@@ -10,8 +10,9 @@ located by Berlekamp-Welch or consensus decoding (eq. 11).
 The coefficient matrices and the error localization stay float64 numpy on
 the host, copied from ``repro.core.coding`` with the same arithmetic, so
 they match the reference bit for bit.  The products over P run through the
-``coded_matmul`` / ``coded_matmul_rounds`` wrappers: the CUDA kernels for
-tensors on the card, their plain versions for tensors on the CPU.
+``coded_matmul`` / ``coded_matmul_rounds`` / ``coded_encode_decode``
+wrappers: the CUDA kernels for tensors on the card, their plain versions
+for tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ import torch
 
 from repro_torch.core.tree import (empty_paths, leaves_with_paths,
                                    tree_unflatten)
-from repro_torch.kernels.coded_matmul.ops import (coded_matmul,
+from repro_torch.kernels.coded_matmul.ops import (coded_encode_decode,
+                                                  coded_matmul,
                                                   coded_matmul_rounds)
 
 DTypeLike = Union[None, str, torch.dtype]
@@ -195,6 +197,32 @@ def decode_erasure(scheme: CodingScheme, slices: torch.Tensor,
                         device=slices.device)
     sl = slices.index_select(0, rows).float().contiguous()
     return coded_matmul(dm, sl)
+
+
+def encode_decode_operators(scheme: CodingScheme,
+                            client_ids: Optional[Sequence[int]] = None
+                            ) -> Tuple[np.ndarray, np.ndarray]:
+    """The float64 (C, S) encode and (S, C) decode matrices of the round
+    trip from ``client_ids`` (default: all C); the decode matrix has zero
+    columns for the unused clients."""
+    ids = list(client_ids) if client_ids is not None else \
+        list(range(scheme.num_clients))
+    d, used = scheme.decode_matrix(ids)
+    dec = np.zeros((scheme.num_shards, scheme.num_clients), np.float64)
+    dec[:, [int(i) for i in used]] = d
+    return scheme.encode_matrix(), dec
+
+
+def encode_decode(scheme: CodingScheme, shard_params: torch.Tensor,
+                  client_ids: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """The code round trip: encode (S, P) to C slices and decode it again
+    from ``client_ids`` (default: all C), the slice-verification path.  One
+    ``coded_encode_decode`` launch streams ``dec @ (enc @ w)`` per column
+    tile, so the (C, P) coded intermediate never reaches device memory."""
+    enc, dec = encode_decode_operators(scheme, client_ids)
+    dev = shard_params.device
+    return coded_encode_decode(_matrix(enc, dev), _matrix(dec, dev),
+                               shard_params.float().contiguous())
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """Model-family registry — adapters that build a ``ModelConfig`` for one
 ``ScenarioConfig``, declare the task kind they play and name the kernel ops
-their forward routes through.  The port carries the paper CNN, the mamba
-family (through the ``ssm_scan`` forward and backward kernels) and the
-rwkv6 family (through the ``wkv`` forward and backward kernels); the
-transformer/NanoGPT and moe families arrive with their models."""
+their forward routes through.  The port carries the paper CNN, the paper's
+NanoGPT (the generation task's default family), the mamba family (through
+the ``ssm_scan`` forward and backward kernels) and the rwkv6 family
+(through the ``wkv`` forward and backward kernels); the moe family arrives
+with its model."""
 from __future__ import annotations
 
 import dataclasses
@@ -62,6 +63,18 @@ class CNNFamily(ModelFamily):
         return dataclasses.replace(get_config("cnn-paper"),
                                    image_size=cfg.image_size, d_model=48,
                                    cnn_channels=(8, 16))
+
+
+@register_model_family("transformer", "nanogpt")
+class TransformerFamily(ModelFamily):
+    """The paper's NanoGPT (4 layers, d_model 16, 4 heads, vocab 109;
+    ``repro.fl.families.TransformerFamily``).  Its global attention layers
+    run the plain blockwise path, as the reference's do."""
+
+    task = "generation"
+
+    def build(self, cfg) -> ModelConfig:
+        return get_config("nanogpt-paper")
 
 
 _TINY_LM = dict(num_layers=2, d_model=32, d_ff=64, vocab_size=109,

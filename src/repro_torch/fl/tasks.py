@@ -3,10 +3,10 @@
 A ``TaskSpec`` owns data synthesis + client partitioning, batch
 construction, per-example label counting and the eval metrics.  The port
 carries the classification task (the paper's CNN track) and the generation
-task (accuracy, perplexity and bits per char; its default family, the
-paper's NanoGPT ``"transformer"``, arrives with attention, so a generation
-scenario names its family, e.g. ``model="mamba"``).  The MIA features and
-canaries arrive with the verify suite.
+task (accuracy, perplexity and bits per char; its default family is the
+paper's NanoGPT, ``"transformer"``, and ``model="mamba"`` or ``"rwkv6"``
+picks another).  The MIA features and canaries arrive with the verify
+suite.
 """
 from __future__ import annotations
 

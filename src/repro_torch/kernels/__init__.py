@@ -9,6 +9,12 @@ ssm_scan_bwd        — its backward (a reverse-time scan + a fixed-order
 wkv                 — the RWKV-6 WKV recurrence, forward.
 wkv_bwd             — its backward (a reverse-time walk from the forward's
                       checkpoints + a fixed-order reduce of du).
+encode_decode       — the slice-verification round trip dec @ (enc @ w)
+                      with the coded intermediate kept on chip.
+window_attention    — causal sliding-window flash attention, forward.
+window_attention_bwd — its backward (FlashAttention-2 form: one kernel
+                      over query tiles for dQ, one over key tiles for dK
+                      and dV).
 
 The sources live in ``csrc/``.  ``load_library`` compiles them with ``nvcc``
 (one process per source, started together) into one shared library with a
@@ -41,7 +47,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name -> launches since the last ``reset_launches``
 LAUNCHES = {"coded_matmul": 0, "coded_matmul_rounds": 0, "calibrate": 0,
-            "ssm_scan": 0, "ssm_scan_bwd": 0, "wkv": 0, "wkv_bwd": 0}
+            "ssm_scan": 0, "ssm_scan_bwd": 0, "wkv": 0, "wkv_bwd": 0,
+            "encode_decode": 0, "window_attention": 0,
+            "window_attention_bwd": 0}
 
 # last build's wall time and compiler output (``-Xptxas -v``)
 BUILD_INFO: dict = {}
@@ -145,10 +153,13 @@ def load_library() -> ctypes.CDLL:
         for o in objs:
             os.remove(o)
     lib = ctypes.CDLL(str(so))
-    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    ptr, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                          ctypes.c_float)
     lib.repro_coded_matmul.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64,
                                        i32, i32, ptr]
     lib.repro_coded_matmul.restype = i32
+    lib.repro_encode_decode.argtypes = [ptr] * 4 + [i64] * 3 + [i32, ptr]
+    lib.repro_encode_decode.restype = i32
     lib.repro_calibrate.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, ptr]
     lib.repro_calibrate.restype = i32
     lib.repro_ssm_scan_fwd.argtypes = [ptr] * 9 + [i64] * 5 + [ptr]
@@ -165,6 +176,12 @@ def load_library() -> ctypes.CDLL:
     lib.repro_wkv_bwd.restype = i32
     lib.repro_wkv_ckpt_steps.argtypes = []
     lib.repro_wkv_ckpt_steps.restype = i32
+    lib.repro_window_attn_fwd.argtypes = ([ptr] * 5 + [i64] * 6 + [f32]
+                                          + [i64] * 9 + [ptr])
+    lib.repro_window_attn_fwd.restype = i32
+    lib.repro_window_attn_bwd.argtypes = ([ptr] * 10 + [i64] * 6 + [f32]
+                                          + [i64] * 9 + [ptr])
+    lib.repro_window_attn_bwd.restype = i32
     BUILD_INFO.update(build_s=time.perf_counter() - t0, path=str(so),
                       log=log, built=bool(log))
     return lib

@@ -10,10 +10,12 @@ from typing import Optional
 import torch
 
 from repro_torch import kernels as K
-from repro_torch.kernels.coded_matmul.ref import (coded_matmul_ref,
+from repro_torch.kernels.coded_matmul.ref import (coded_encode_decode_ref,
+                                                  coded_matmul_ref,
                                                   coded_matmul_rounds_ref)
 
 MAX_S = 16          # kMaxS in csrc/coded_matmul.cu
+MAX_CS = 4096       # kMaxCS in csrc/coded_matmul.cu
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -68,4 +70,36 @@ def coded_matmul_rounds(coeff: torch.Tensor, w: torch.Tensor,
                          "w (G,S,P)")
     out = _launch(coeff, w, out_dtype or torch.float32)
     K.LAUNCHES["coded_matmul_rounds"] += 1
+    return out
+
+
+def coded_encode_decode(enc: torch.Tensor, dec: torch.Tensor,
+                        w: torch.Tensor) -> torch.Tensor:
+    """The fused round trip dec (S,C) @ (enc (C,S) @ w (S,P)) -> (S,P), fp32,
+    with the (C,P) coded intermediate never in device memory."""
+    if not K.on_cuda(enc, dec, w):
+        return coded_encode_decode_ref(enc, dec, w)
+    if enc.dim() != 2 or dec.dim() != 2 or w.dim() != 2:
+        raise ValueError("coded_encode_decode takes enc (C,S), dec (S,C) "
+                         "and w (S,P)")
+    c, s = enc.shape
+    if dec.shape != (s, c) or w.shape[0] != s:
+        raise ValueError(f"enc {tuple(enc.shape)}, dec {tuple(dec.shape)} "
+                         f"and w {tuple(w.shape)} do not agree")
+    if not 1 <= s <= MAX_S or c * s > MAX_CS:
+        raise ValueError(f"S={s} outside [1, {MAX_S}] or C*S={c * s} above "
+                         f"{MAX_CS}")
+    for name, t in (("enc", enc), ("dec", dec), ("w", w)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    p = w.shape[1]
+    out = torch.empty_like(w)
+    vec = p % 4 == 0 and K.aligned16(w, out)
+    err = K.load_library().repro_encode_decode(
+        enc.data_ptr(), dec.data_ptr(), w.data_ptr(), out.data_ptr(), c, s, p,
+        int(vec), K.stream_of(w))
+    K.check_launch(err, "encode_decode")
+    K.LAUNCHES["encode_decode"] += 1
     return out

@@ -19,3 +19,10 @@ def coded_matmul_rounds_ref(coeff: torch.Tensor, w: torch.Tensor,
     """coeff: (C, S); w: (G, S, P) -> (G, C, P): per-round ``coeff @ w[g]``."""
     out = torch.einsum("cs,gsp->gcp", coeff.float(), w.float())
     return out.to(out_dtype or torch.float32)
+
+
+def coded_encode_decode_ref(enc: torch.Tensor, dec: torch.Tensor,
+                            w: torch.Tensor) -> torch.Tensor:
+    """enc: (C, S); dec: (S, C); w: (S, P) -> (S, P) = dec @ (enc @ w), the
+    slice-verification round trip, in fp32."""
+    return dec.float() @ (enc.float() @ w.float())

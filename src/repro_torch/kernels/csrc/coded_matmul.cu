@@ -24,6 +24,19 @@
 //     round-to-nearest-even like torch's and XLA's casts;
 //   * 64-bit element offsets throughout (G*C*P passes 2^31 at real sizes);
 //   * ragged P is masked in the kernel: no padding copies.
+//
+// encode_decode_kernel (below) replaces the Pallas TPU kernel
+// encode_decode_kernel in the same kernel.py: the slice-verification round trip
+// out (S,P) = dec (S,C) @ (enc (C,S) @ w (S,P)), with the (C, P) coded
+// intermediate never written to device memory.  It reads w once and writes
+// out once (8 S bytes per column) against 4 C S FLOPs per column: bytes
+// bound it (at C = 20, S = 4 that is 10 FLOP per byte, under the fp32
+// ridge of 20).  Each thread holds 4 columns of w's S rows in registers;
+// for each client c it forms the coded value enc[c] . w (its 4 columns in
+// registers) and adds dec[:, c] times it to the S output rows, so C only
+// sets the work per column, not the registers; enc and dec sit in shared
+// memory and every read of them is a broadcast.  The template bound on S
+// (4, 8 or 16) keeps the two (S x 4) register tiles as small as S allows.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,6 +48,7 @@ constexpr int kCols = 4;                    // columns of P per thread
 constexpr int kTileP = kThreads * kCols;    // columns of P per block
 constexpr int kBlockC = 32;                 // output rows per block
 constexpr int kMaxS = 16;                   // largest code dimension
+constexpr int kMaxCS = 4096;                // largest C*S of encode_decode
 
 __device__ __forceinline__ void store1(float* o, float v) { *o = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* o, float v) {
@@ -138,6 +152,85 @@ void launch(const float* coeff, const float* w, void* out, int64_t G,
     coded_matmul_kernel<OutT, false><<<grid, kThreads, 0, st>>>(coeff, w, o, C, S, P);
 }
 
+template <int SMAX, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+encode_decode_kernel(const float* __restrict__ enc, const float* __restrict__ dec,
+                     const float* __restrict__ w, float* __restrict__ out,
+                     int C, int S, int64_t P) {
+  __shared__ float se[kMaxCS], sd[kMaxCS];
+  for (int i = threadIdx.x; i < C * S; i += kThreads) {
+    se[i] = enc[i];               // (C, S) row-major
+    sd[i] = dec[i];               // (S, C) row-major
+  }
+  __syncthreads();
+  const int64_t tile = static_cast<int64_t>(blockIdx.x) * kTileP;
+  float x[SMAX][kCols], acc[SMAX][kCols];
+  int64_t col[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j)
+    col[j] = kVec ? tile + static_cast<int64_t>(threadIdx.x) * kCols + j
+                  : tile + threadIdx.x + j * kThreads;
+  if (kVec && col[0] >= P) return;
+#pragma unroll
+  for (int s = 0; s < SMAX; ++s) {
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[s][j] = 0.f;
+    if (s < S) {
+      if (kVec) {
+        const float4 v = *reinterpret_cast<const float4*>(w + s * P + col[0]);
+        x[s][0] = v.x; x[s][1] = v.y; x[s][2] = v.z; x[s][3] = v.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) x[s][j] = col[j] < P ? w[s * P + col[j]] : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) x[s][j] = 0.f;
+    }
+  }
+  for (int c = 0; c < C; ++c) {
+    float coded[kCols] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int s = 0; s < SMAX; ++s) {
+      if (s < S) {
+        const float e = se[c * S + s];
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) coded[j] = fmaf(e, x[s][j], coded[j]);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < SMAX; ++s) {
+      if (s < S) {
+        const float d = sd[s * C + c];
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) acc[s][j] = fmaf(d, coded[j], acc[s][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < SMAX; ++s) {
+    if (s < S) {
+      if (kVec) {
+        store4(out + s * P + col[0], acc[s]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kCols; ++j)
+          if (col[j] < P) out[s * P + col[j]] = acc[s][j];
+      }
+    }
+  }
+}
+
+template <int SMAX>
+void launch_ed(const float* enc, const float* dec, const float* w, float* out,
+               int C, int S, int64_t P, bool vec, cudaStream_t st) {
+  const dim3 grid(static_cast<unsigned>((P + kTileP - 1) / kTileP));
+  if (vec)
+    encode_decode_kernel<SMAX, true><<<grid, kThreads, 0, st>>>(enc, dec, w, out, C, S, P);
+  else
+    encode_decode_kernel<SMAX, false><<<grid, kThreads, 0, st>>>(enc, dec, w, out, C, S, P);
+}
+
 }  // namespace
 
 // coeff (C,S) f32, w (G,S,P) f32, out (G,C,P) f32 or bf16; all contiguous
@@ -157,5 +250,25 @@ extern "C" int repro_coded_matmul(const float* coeff, const float* w,
     launch<__nv_bfloat16>(coeff, w, out, G, C, static_cast<int>(S), P, vec, st);
   else
     launch<float>(coeff, w, out, G, C, static_cast<int>(S), P, vec, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// enc (C,S), dec (S,C), w (S,P) and out (S,P) fp32, contiguous on the
+// device; S <= 16 and C*S <= 4096.  vec = 1 only when P % 4 == 0 and w and
+// out are 16-byte aligned.  Returns cudaGetLastError() after the launch.
+extern "C" int repro_encode_decode(const float* enc, const float* dec,
+                                   const float* w, float* out, int64_t C,
+                                   int64_t S, int64_t P, int vec, void* stream) {
+  if (C < 1 || S < 1 || S > kMaxS || C * S > kMaxCS || P < 1 ||
+      (P + kTileP - 1) / kTileP > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int c = static_cast<int>(C), s = static_cast<int>(S);
+  if (S <= 4)
+    launch_ed<4>(enc, dec, w, out, c, s, P, vec, st);
+  else if (S <= 8)
+    launch_ed<8>(enc, dec, w, out, c, s, P, vec, st);
+  else
+    launch_ed<16>(enc, dec, w, out, c, s, P, vec, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,105 @@
+"""Wrapper for the sliding-window attention kernels: CUDA tensors launch the
+forward and backward kernels in ``csrc/window_attn.cu`` through a
+``torch.autograd.Function``; CPU tensors run the dense masked softmax in
+``ref.py`` under autograd.
+
+The JAX wrapper expanded the GQA heads with ``repeat``, transposed to
+(B*H, S, hd) and padded S to its block and hd to 128 for the TPU's tiling;
+the CUDA kernels read q, k and v in the model's (B, S, heads, hd) layout
+through their strides, map query head h to kv head h // (H // KV) and mask
+ragged S and hd themselves, so nothing is copied or padded here.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import kernels as K
+from repro_torch.kernels.window_attn.ref import window_attention_ref
+
+MAX_HD = 128        # kMaxHd in csrc/window_attn.cu
+
+
+def _check(q, k, v, window: int) -> None:
+    """Validate shapes, dtypes, layout and the window."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)} must be (B, S, H, hd) and k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} both "
+                         f"(B, S, KV, hd)")
+    bsz, s, h, hd = q.shape
+    if k.shape[:2] != (bsz, s) or k.shape[3] != hd:
+        raise ValueError(f"k {tuple(k.shape)} must be ({bsz}, {s}, KV, {hd})")
+    if h % k.shape[2]:
+        raise ValueError(f"H={h} query heads do not split over KV="
+                         f"{k.shape[2]} kv heads")
+    if not 1 <= hd <= MAX_HD:
+        raise ValueError(f"head dim hd={hd} outside [1, {MAX_HD}]")
+    if int(window) < 1:
+        raise ValueError(f"window={window} must be at least 1")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}'s head dim must be contiguous")
+
+
+def _strides(*ts):
+    return [st for t in ts for st in t.stride()[:3]]
+
+
+def _fwd(q, k, v, window: int):
+    bsz, s, h, hd = q.shape
+    o = torch.empty((bsz, s, h, hd), dtype=torch.float32, device=q.device)
+    lse = torch.empty((bsz, h, s), dtype=torch.float32, device=q.device)
+    err = K.load_library().repro_window_attn_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), bsz, s, h, k.shape[2], hd, window, hd ** -0.5,
+        *_strides(q, k, v), K.stream_of(q))
+    K.check_launch(err, "window_attention")
+    K.LAUNCHES["window_attention"] += 1
+    return o, lse
+
+
+def _bwd(q, k, v, o, lse, do, window: int):
+    bsz, s, h, hd = q.shape
+    dq = torch.empty_like(o)
+    dk = torch.empty((bsz, s, k.shape[2], hd), dtype=torch.float32,
+                     device=q.device)
+    dv = torch.empty_like(dk)
+    delta = torch.empty_like(lse)
+    err = K.load_library().repro_window_attn_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), bsz, s, h, k.shape[2], hd, window,
+        hd ** -0.5, *_strides(q, k, v), K.stream_of(q))
+    K.check_launch(err, "window_attention_bwd")
+    K.LAUNCHES["window_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _WindowAttention(torch.autograd.Function):
+    """Forward kernel (O and the row log-sum-exp); in backward, the
+    backward kernels, recomputing P from q, k and the log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        o, lse = _fwd(q, k, v, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.window = window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _bwd(q, k, v, o, lse, do.contiguous(), ctx.window)
+        return dq, dk, dv, None
+
+
+def window_attention(q, k, v, window: int):
+    """Causal sliding-window attention, differentiable.  q: (B, S, H, hd),
+    k, v: (B, S, KV, hd) with H % KV == 0 and hd <= 128, float32, head dim
+    contiguous.  Query i attends keys j with i - window < j <= i.  Returns
+    (B, S, H, hd) float32."""
+    if not K.on_cuda(q, k, v):
+        return window_attention_ref(q, k, v, window)
+    _check(q, k, v, window)
+    return _WindowAttention.apply(q, k, v, int(window))

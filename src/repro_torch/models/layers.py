@@ -1,10 +1,9 @@
-"""Shared layers on a stack of K models: norms, gated MLP, embeddings
-(``repro.models.layers``).
+"""Shared layers on a stack of K models: norms, gated MLP, embeddings,
+RoPE (``repro.models.layers``).
 
 Every parameter leaf carries a leading model axis (K, ...) and every
 activation is (K, ..., d): model k is applied to activations[k], which is
-the reference's layer under ``vmap`` over the client models.  RoPE arrives
-with attention.
+the reference's layer under ``vmap`` over the client models.
 """
 from __future__ import annotations
 
@@ -116,3 +115,26 @@ def apply_unembed(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     # the padded vocab entries never win
     pad = torch.arange(v, device=x.device) >= cfg.vocab_size
     return logits.masked_fill(pad, -1e9)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    t = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (t / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Split-halves rotation in fp32.  x: (..., seq, heads, head_dim);
+    positions: (..., seq), broadcast against x's leading dims."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # (hd/2,)
+    ang = positions[..., :, None].float() * freqs             # (..., seq, hd/2)
+    cos = torch.cos(ang)[..., None, :]                        # (..., seq, 1, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

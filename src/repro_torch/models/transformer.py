@@ -9,11 +9,11 @@ The reference scans the stack with ``lax.scan``; the port walks it with a
 Python loop.  The reference's ``remat="block"`` (``jax.checkpoint``)
 changes no numbers and has no counterpart here.
 
-The port carries the ``mamba`` layer kind with its dense FFN and the
-``rwkv`` layer kind (time-mix and channel-mix, from zero states).
-Attention ("global"/"local", ROADMAP queue 1 item 9), MoE FFNs (item 11),
-the audio/vlm frontends and the prefill/decode caches raise
-``NotImplementedError``.
+The port carries the attention layer kinds (``global`` and ``local``,
+sliding-window) and the ``mamba`` layer kind, each with its dense FFN, and
+the ``rwkv`` layer kind (time-mix and channel-mix, from zero states).  MoE
+FFNs (ROADMAP queue 1 item 11), the audio/vlm frontends and the
+prefill/decode caches raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,16 +24,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_map
+from repro_torch.kernels.window_attn.ops import window_attention
+from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import rwkv6 as rw
 from repro_torch.models.layers import (apply_embed, apply_mlp, apply_norm,
-                                       apply_unembed, init_embed, init_mlp,
-                                       init_norm)
+                                       apply_rope, apply_unembed, init_embed,
+                                       init_mlp, init_norm, matmul)
 
-_LATER = {
-    "global": "attention layers arrive with NanoGPT (ROADMAP queue 1 item 9)",
-    "local": "attention layers arrive with NanoGPT (ROADMAP queue 1 item 9)",
-}
+KINDS = ("global", "local", "mamba", "rwkv")
 
 
 def check_kinds(cfg: ModelConfig) -> None:
@@ -42,9 +41,7 @@ def check_kinds(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"the {cfg.family!r} family's frontend is "
                                   f"not ported yet (ROADMAP queue 1)")
     for i, kind in enumerate(cfg.layer_kinds):
-        if kind in _LATER:
-            raise NotImplementedError(f"layer kind {kind!r}: {_LATER[kind]}")
-        if kind not in ("mamba", "rwkv"):
+        if kind not in KINDS:
             raise ValueError(kind)
         if cfg.ffn_is_moe(i % len(cfg.layer_pattern)):
             raise NotImplementedError("MoE FFNs arrive with the moe family "
@@ -82,14 +79,41 @@ def _init_block(fac, cfg: ModelConfig, kind: str, pat_idx: int):
     if kind == "rwkv":        # no ffn: channel-mix is the rwkv layer's FFN
         return {"ln1": init_norm(fac, cfg), "ln2": init_norm(fac, cfg),
                 "rwkv": rw.init_rwkv(fac, cfg)}
-    if kind != "mamba":       # check_kinds has refused the others
+    if kind in ("global", "local"):
+        mixer = {"attn": attn.init_attention(fac, cfg)}
+    elif kind == "mamba":
+        mixer = {"mamba": mb.init_mamba(fac, cfg)}
+    else:                     # check_kinds has refused the others
         raise ValueError(kind)
-    return {
-        "ln1": init_norm(fac, cfg),
-        "mamba": mb.init_mamba(fac, cfg),
-        "ln2": init_norm(fac, cfg),
-        "ffn": init_mlp(fac, cfg),
-    }
+    return {"ln1": init_norm(fac, cfg), **mixer, "ln2": init_norm(fac, cfg),
+            "ffn": init_mlp(fac, cfg)}
+
+
+def _attention(p, h, cfg: ModelConfig, kind: str) -> torch.Tensor:
+    """q/k/v projections, RoPE, attention and the output projection of a
+    stack of K models: h (K, bs, S, d) -> (K, bs, S, d).  The model axis
+    folds into the batch for the attention, which holds no parameters."""
+    km, bs, s, d = h.shape
+    hh, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def proj(w, heads):
+        return matmul(h, w.reshape(km, d, heads * hd)).reshape(
+            km * bs, s, heads, hd)
+    positions = torch.arange(s, dtype=torch.int32, device=h.device)[None]
+    q = apply_rope(proj(p["wq"], hh), positions, cfg.rope_theta)
+    k = apply_rope(proj(p["wk"], kv), positions, cfg.rope_theta)
+    v = proj(p["wv"], kv)
+    if kind == "local" and cfg.sliding_window and s > cfg.sliding_window:
+        o = window_attention(q, k, v, cfg.sliding_window).to(q.dtype)
+    else:
+        win = cfg.sliding_window if kind == "local" else 0
+        if cfg.attn_block_skip:
+            o = attn.causal_skip_attention(q, k, v, window=win)
+        else:
+            o = attn.blockwise_attention(q, k, v, causal=True, window=win,
+                                         block_q=cfg.attn_block_q or s)
+    return matmul(o.reshape(km, bs, s, hh * hd),
+                  p["wo"].reshape(km, hh * hd, d))
 
 
 def init_lm(fac, cfg: ModelConfig):
@@ -123,10 +147,13 @@ def apply_block_train(p, x, cfg: ModelConfig, kind: str, pat_idx: int):
             p["rwkv"], x, cfg, (prev, h0, prev),
             lambda i, v: apply_norm(p[("ln1", "ln2")[i]], v, cfg))
         return x, aux
-    if kind != "mamba":       # check_kinds has refused the others
+    h = apply_norm(p["ln1"], x, cfg)
+    if kind in ("global", "local"):
+        x = x + _attention(p["attn"], h, cfg, kind)
+    elif kind == "mamba":
+        x = x + mb.mamba_block(p["mamba"], h, cfg)[0]
+    else:                     # check_kinds has refused the others
         raise ValueError(kind)
-    y, _state = mb.mamba_block(p["mamba"], apply_norm(p["ln1"], x, cfg), cfg)
-    x = x + y
     x = x + apply_mlp(p["ffn"], apply_norm(p["ln2"], x, cfg), cfg)
     return x, aux
 

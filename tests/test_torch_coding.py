@@ -3,7 +3,9 @@ reference kernels' oracles, on the CPU: the port runs its kernels' plain
 versions; the reference runs both its jnp path and its Pallas kernels in
 interpret mode (``use_kernel=True``).  Tolerances are the ones
 tests/test_kernels.py uses: 1e-5 for fp32, 2e-2 for bf16 slices, 1e-4 for
-the calibrate accumulate; flatten helpers must match exactly."""
+the calibrate accumulate; flatten helpers must match exactly.  The
+encode-decode round trip returns w within tests/test_round_engine.py's
+1e-3 (all clients) and 2e-3 (a subset of ids)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,9 +19,11 @@ from repro_torch.core import coding as tc
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.calibrate.ops import calibrate_update
 from repro_torch.kernels.calibrate.ref import calibrate_update_ref
-from repro_torch.kernels.coded_matmul.ops import (coded_matmul,
+from repro_torch.kernels.coded_matmul.ops import (coded_encode_decode,
+                                                  coded_matmul,
                                                   coded_matmul_rounds)
-from repro_torch.kernels.coded_matmul.ref import (coded_matmul_ref,
+from repro_torch.kernels.coded_matmul.ref import (coded_encode_decode_ref,
+                                                  coded_matmul_ref,
                                                   coded_matmul_rounds_ref)
 
 torch.set_num_threads(1)
@@ -101,6 +105,38 @@ def test_decode_robust_matches_reference(use_kernel, available, bad):
                                        torch.from_numpy(slices), available)
     assert (rlost, rbad) == (tlost, tbad)
     np.testing.assert_allclose(_np(tw), _np(rw), **TOL)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("s,c,p,ids", [(4, 20, 321, None),
+                                       (4, 20, 1000, [1, 4, 9, 17]),
+                                       (3, 15, 64, [2, 6, 9, 14]),
+                                       (2, 8, 5, None)])
+def test_encode_decode_matches_reference(use_kernel, s, c, p, ids):
+    """Both of the reference's forms: the precomposed (S, S) operator and
+    its fused Pallas kernel."""
+    w = _w((s, p), p)
+    ref = jc.encode_decode(jc.CodingScheme(s, c), jnp.asarray(w), ids,
+                           use_kernel=use_kernel)
+    got = tc.encode_decode(tc.CodingScheme(s, c), torch.from_numpy(w), ids)
+    assert got.shape == (s, p) and got.dtype == torch.float32
+    np.testing.assert_allclose(_np(got), _np(ref), **TOL)
+    tol = 1e-3 if ids is None else 2e-3
+    np.testing.assert_allclose(_np(got), w, rtol=tol, atol=tol)
+
+
+def test_encode_decode_plain_version():
+    """On CPU tensors the wrapper is the plain ``dec @ (enc @ w)`` and
+    launches nothing; it agrees with the product in float64."""
+    enc, dec, w = _w((20, 4), 1), _w((4, 20), 2), _w((4, 77), 3)
+    before = dict(LAUNCHES)
+    args = [torch.from_numpy(a) for a in (enc, dec, w)]
+    got = coded_encode_decode(*args)
+    assert LAUNCHES == before
+    torch.testing.assert_close(got, coded_encode_decode_ref(*args), rtol=0,
+                               atol=0)
+    want = dec.astype(np.float64) @ (enc.astype(np.float64) @ w)
+    np.testing.assert_allclose(_np(got), want, **TOL)
 
 
 @pytest.mark.parametrize("c,s,p", [(20, 4, 333), (1, 1, 5), (16, 3, 128)])

@@ -99,8 +99,11 @@ def test_generation_batches_and_metrics():
     assert m["ppl"] == pytest.approx(np.exp(2.0))
     assert m["bpc"] == pytest.approx(2.0 / np.log(2.0))
     assert set(task.make_batch(1, 2)) == {"tokens", "labels"}
-    with pytest.raises(ValueError, match="unknown model family"):
-        build_simulator(ScenarioConfig(task="generation"), device="cpu")
+    # the task's default family is the paper's NanoGPT
+    sim, _ = build_simulator(ScenarioConfig(task="generation",
+                                            samples_per_client=2),
+                             device="cpu")
+    assert sim.cfg.name == "nanogpt-paper"
 
 
 # -------------------------------------------------- LM trees in the store

@@ -252,8 +252,8 @@ def test_configs_match_reference():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(layer_pattern=("global",)), "item 9"),
-    (dict(layer_pattern=("local",)), "item 9"),
+    (dict(family="audio"), "frontend"),
+    (dict(frontend="vision"), "frontend"),
     (dict(num_experts=4, experts_per_token=2), "item 11")])
 def test_unported_layer_kinds_raise(change, match):
     cfg = dataclasses.replace(get_model_family("mamba").build(None), **change)
