@@ -7,8 +7,6 @@ import torch
 from repro_torch import kernels as K
 from repro_torch.kernels.calibrate.ref import calibrate_update_ref
 
-MAX_M = 1024        # kMaxM in csrc/calibrate.cu
-
 
 def calibrate_update(w: torch.Tensor, deltas: torch.Tensor,
                      coeffs: torch.Tensor) -> torch.Tensor:
@@ -23,8 +21,6 @@ def calibrate_update(w: torch.Tensor, deltas: torch.Tensor,
         raise ValueError(f"shapes w {tuple(w.shape)}, deltas "
                          f"{tuple(deltas.shape)}, coeffs {tuple(coeffs.shape)}"
                          f" do not agree")
-    if not 1 <= m <= MAX_M:
-        raise ValueError(f"M={m} outside [1, {MAX_M}]")
     for name, t in (("w", w), ("deltas", deltas), ("coeffs", coeffs)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")

@@ -14,8 +14,6 @@ from repro_torch.kernels.coded_matmul.ref import (coded_encode_decode_ref,
                                                   coded_matmul_ref,
                                                   coded_matmul_rounds_ref)
 
-MAX_S = 16          # kMaxS in csrc/coded_matmul.cu
-MAX_CS = 4096       # kMaxCS in csrc/coded_matmul.cu
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -27,8 +25,6 @@ def _launch(coeff: torch.Tensor, w: torch.Tensor,
     if s != s2:
         raise ValueError(f"coeff {tuple(coeff.shape)} does not match w "
                          f"{tuple(w.shape)}")
-    if not 1 <= s <= MAX_S:
-        raise ValueError(f"code dimension S={s} outside [1, {MAX_S}]")
     for name, t in (("coeff", coeff), ("w", w)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -86,9 +82,6 @@ def coded_encode_decode(enc: torch.Tensor, dec: torch.Tensor,
     if dec.shape != (s, c) or w.shape[0] != s:
         raise ValueError(f"enc {tuple(enc.shape)}, dec {tuple(dec.shape)} "
                          f"and w {tuple(w.shape)} do not agree")
-    if not 1 <= s <= MAX_S or c * s > MAX_CS:
-        raise ValueError(f"S={s} outside [1, {MAX_S}] or C*S={c * s} above "
-                         f"{MAX_CS}")
     for name, t in (("enc", enc), ("dec", dec), ("w", w)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")

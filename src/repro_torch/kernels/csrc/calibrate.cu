@@ -7,7 +7,8 @@
 // What bounds it on an H100: memory.  Each output element reads M + 1 floats
 // and writes one for 2*M FLOPs, about 0.4 FLOP per byte.  So the design is
 // one pass over P:
-//   * the M coefficients sit in shared memory;
+//   * the M coefficients sit in shared memory, in chunks of kChunkM = 1024
+//     taken in ascending m (one chunk for M <= 1024), so any M is served;
 //   * 256 threads, 4 columns each: 16-byte float4 loads of w and of every
 //     delta row when P % 4 == 0 and the buffers are 16-byte aligned, else
 //     coalesced scalar loads strided by the block;
@@ -25,40 +26,54 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kCols = 4;
 constexpr int kTileP = kThreads * kCols;
-constexpr int kMaxM = 1024;
+constexpr int kChunkM = 1024;
 
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 calibrate_kernel(const float* __restrict__ w, const float* __restrict__ d,
                  const float* __restrict__ coeffs, float* __restrict__ out,
                  int M, int64_t P) {
-  __shared__ float sc[kMaxM];
-  for (int i = threadIdx.x; i < M; i += kThreads) sc[i] = coeffs[i];
-  __syncthreads();
+  __shared__ float sc[kChunkM];
   const int64_t tile = static_cast<int64_t>(blockIdx.x) * kTileP;
   if (kVec) {
     const int64_t p = tile + static_cast<int64_t>(threadIdx.x) * kCols;
-    if (p >= P) return;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int m = 0; m < M; ++m) {
-      const float k = sc[m];
-      const float4 v = *reinterpret_cast<const float4*>(d + m * P + p);
-      acc.x = fmaf(k, v.x, acc.x);
-      acc.y = fmaf(k, v.y, acc.y);
-      acc.z = fmaf(k, v.z, acc.z);
-      acc.w = fmaf(k, v.w, acc.w);
+    for (int m0 = 0; m0 < M; m0 += kChunkM) {
+      const int nm = M - m0 < kChunkM ? M - m0 : kChunkM;
+      __syncthreads();                 // the last chunk is read
+      for (int i = threadIdx.x; i < nm; i += kThreads) sc[i] = coeffs[m0 + i];
+      __syncthreads();
+      if (p >= P) continue;
+#pragma unroll 4
+      for (int m = 0; m < nm; ++m) {
+        const float k = sc[m];
+        const float4 v =
+            *reinterpret_cast<const float4*>(d + (m0 + m) * P + p);
+        acc.x = fmaf(k, v.x, acc.x);
+        acc.y = fmaf(k, v.y, acc.y);
+        acc.z = fmaf(k, v.z, acc.z);
+        acc.w = fmaf(k, v.w, acc.w);
+      }
     }
+    if (p >= P) return;
     const float4 b = *reinterpret_cast<const float4*>(w + p);
     *reinterpret_cast<float4*>(out + p) =
         make_float4(b.x + acc.x, b.y + acc.y, b.z + acc.z, b.w + acc.w);
   } else {
     float acc[kCols] = {0.f, 0.f, 0.f, 0.f};
-    for (int m = 0; m < M; ++m) {
-      const float k = sc[m];
+    for (int m0 = 0; m0 < M; m0 += kChunkM) {
+      const int nm = M - m0 < kChunkM ? M - m0 : kChunkM;
+      __syncthreads();                 // the last chunk is read
+      for (int i = threadIdx.x; i < nm; i += kThreads) sc[i] = coeffs[m0 + i];
+      __syncthreads();
+#pragma unroll 4
+      for (int m = 0; m < nm; ++m) {
+        const float k = sc[m];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int64_t p = tile + threadIdx.x + j * kThreads;
-        if (p < P) acc[j] = fmaf(k, d[m * P + p], acc[j]);
+        for (int j = 0; j < kCols; ++j) {
+          const int64_t p = tile + threadIdx.x + j * kThreads;
+          if (p < P) acc[j] = fmaf(k, d[(m0 + m) * P + p], acc[j]);
+        }
       }
     }
 #pragma unroll
@@ -77,7 +92,8 @@ calibrate_kernel(const float* __restrict__ w, const float* __restrict__ d,
 extern "C" int repro_calibrate(const float* w, const float* deltas,
                                const float* coeffs, float* out, int64_t M,
                                int64_t P, int vec, void* stream) {
-  if (M < 1 || M > kMaxM || P < 1 || (P + kTileP - 1) / kTileP > 0x7fffffffLL)
+  if (M < 1 || M > 0x7fffffffLL || P < 1 ||
+      (P + kTileP - 1) / kTileP > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((P + kTileP - 1) / kTileP));
   cudaStream_t st = static_cast<cudaStream_t>(stream);

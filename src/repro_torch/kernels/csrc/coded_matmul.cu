@@ -37,6 +37,22 @@
 // sets the work per column, not the registers; enc and dec sit in shared
 // memory and every read of them is a broadcast.  The template bound on S
 // (4, 8 or 16) keeps the two (S x 4) register tiles as small as S allows.
+//
+// Any code dimension.  The register tiles above hold S <= 16 (kMaxS) and
+// encode_decode's shared tables C*S <= 4096 (kMaxCS); larger shapes take
+// two more kernels, with the same sums in the same order:
+//   * coded_matmul_deep_kernel (S > 16): a 2-column register tile walked
+//     over S in chunks of 16 rows; each thread keeps all kBlockC = 32 output
+//     rows as accumulators (two blocks of 8 warps per SM), loads a chunk's
+//     16 rows before its FMAs, and reads the chunk's coefficients as float4
+//     broadcasts from shared memory;
+//   * encode_decode_deep_kernel (S > 16 or C*S > 4096): one column per
+//     thread; clients pass in chunks of kChunkC whose coded values stay in
+//     registers (the (C, P) intermediate never reaches device memory), and
+//     the S output rows take each chunk's terms in ascending c, carried
+//     between chunks in the output itself; the chunk's enc and dec columns
+//     pass through a shared table kChunkS rows of s at a time, so no size
+//     is bounded.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,8 +63,12 @@ constexpr int kThreads = 256;
 constexpr int kCols = 4;                    // columns of P per thread
 constexpr int kTileP = kThreads * kCols;    // columns of P per block
 constexpr int kBlockC = 32;                 // output rows per block
-constexpr int kMaxS = 16;                   // largest code dimension
-constexpr int kMaxCS = 4096;                // largest C*S of encode_decode
+constexpr int kMaxS = 16;                   // largest S of the register tile
+constexpr int kMaxCS = 4096;                // largest C*S of the shared tables
+constexpr int kDeepCols = 2;                // columns per thread, S > 16
+constexpr int kDeepTileP = kThreads * kDeepCols;
+constexpr int kChunkS = 64;                 // rows of s per table chunk
+constexpr int kChunkC = 32;                 // clients per register chunk
 
 __device__ __forceinline__ void store1(float* o, float v) { *o = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* o, float v) {
@@ -139,13 +159,114 @@ coded_matmul_kernel(const float* __restrict__ coeff,
   }
 }
 
+__device__ __forceinline__ void store2(float* o, const float* a) {
+  *reinterpret_cast<float2*>(o) = make_float2(a[0], a[1]);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* o, const float* a) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a[0], a[1]);
+}
+
+// S > 16: a register tile like coded_matmul_kernel's, walked over S in
+// chunks of kMaxS rows.  A thread keeps all kBlockC output rows of its
+// kDeepCols columns as accumulators and, for each chunk, loads the chunk's
+// rows of its columns (float2 when kVec) before the FMAs, so 16 loads are
+// in flight; the chunk's coefficients sit in shared memory as [c][s] and
+// are read as float4 broadcasts.  The sum over s runs in ascending order.
+template <typename OutT, bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+coded_matmul_deep_kernel(const float* __restrict__ coeff,
+                         const float* __restrict__ w, OutT* __restrict__ out,
+                         int64_t C, int S, int64_t P) {
+  __shared__ __align__(16) float sc[kBlockC][kMaxS];
+  const int64_t g = blockIdx.z;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.y) * kBlockC;
+  const int nc = static_cast<int>(C - c0 < kBlockC ? C - c0 : kBlockC);
+  const float* wg = w + g * S * P;
+  OutT* og = out + g * C * P;
+  const int64_t tile = static_cast<int64_t>(blockIdx.x) * kDeepTileP;
+  int64_t col[kDeepCols];
+#pragma unroll
+  for (int j = 0; j < kDeepCols; ++j)
+    col[j] = kVec ? tile + static_cast<int64_t>(threadIdx.x) * kDeepCols + j
+                  : tile + threadIdx.x + j * kThreads;
+  float acc[kBlockC][kDeepCols];
+#pragma unroll
+  for (int c = 0; c < kBlockC; ++c)
+#pragma unroll
+    for (int j = 0; j < kDeepCols; ++j) acc[c][j] = 0.f;
+  for (int s0 = 0; s0 < S; s0 += kMaxS) {
+    const int ns = S - s0 < kMaxS ? S - s0 : kMaxS;
+    __syncthreads();                  // the last chunk's coefficients are read
+    for (int i = threadIdx.x; i < kBlockC * kMaxS; i += kThreads) {
+      const int c = i / kMaxS, s = i % kMaxS;
+      sc[c][s] = (c < nc && s < ns) ? coeff[(c0 + c) * S + s0 + s] : 0.f;
+    }
+    __syncthreads();
+    float x[kMaxS][kDeepCols];
+#pragma unroll
+    for (int s = 0; s < kMaxS; ++s) {
+      const float* row = wg + static_cast<int64_t>(s0 + s) * P;
+      if (kVec) {
+        const float2 v = s < ns && col[0] < P
+                             ? *reinterpret_cast<const float2*>(row + col[0])
+                             : make_float2(0.f, 0.f);
+        x[s][0] = v.x; x[s][1] = v.y;
+      } else {
+#pragma unroll
+        for (int j = 0; j < kDeepCols; ++j)
+          x[s][j] = s < ns && col[j] < P ? row[col[j]] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kBlockC; ++c) {
+      if (c >= nc) break;
+#pragma unroll
+      for (int s4 = 0; s4 < kMaxS; s4 += 4) {
+        if (s4 >= ns) break;
+        const float4 k = *reinterpret_cast<const float4*>(&sc[c][s4]);
+        const float kk[4] = {k.x, k.y, k.z, k.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (s4 + e < ns)
+#pragma unroll
+            for (int j = 0; j < kDeepCols; ++j)
+              acc[c][j] = fmaf(kk[e], x[s4 + e][j], acc[c][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kBlockC; ++c) {
+    if (c >= nc) break;
+    OutT* orow = og + (c0 + c) * P;
+    if (kVec) {
+      if (col[0] < P) store2(orow + col[0], acc[c]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kDeepCols; ++j)
+        if (col[j] < P) store1(orow + col[j], acc[c][j]);
+    }
+  }
+}
+
 template <typename OutT>
 void launch(const float* coeff, const float* w, void* out, int64_t G,
             int64_t C, int S, int64_t P, bool vec, cudaStream_t st) {
+  OutT* o = static_cast<OutT*>(out);
+  if (S > kMaxS) {
+    const dim3 grid(static_cast<unsigned>((P + kDeepTileP - 1) / kDeepTileP),
+                    static_cast<unsigned>((C + kBlockC - 1) / kBlockC),
+                    static_cast<unsigned>(G));
+    if (vec)
+      coded_matmul_deep_kernel<OutT, true><<<grid, kThreads, 0, st>>>(
+          coeff, w, o, C, S, P);
+    else
+      coded_matmul_deep_kernel<OutT, false><<<grid, kThreads, 0, st>>>(
+          coeff, w, o, C, S, P);
+    return;
+  }
   const dim3 grid(static_cast<unsigned>((P + kTileP - 1) / kTileP),
                   static_cast<unsigned>((C + kBlockC - 1) / kBlockC),
                   static_cast<unsigned>(G));
-  OutT* o = static_cast<OutT*>(out);
   if (vec)
     coded_matmul_kernel<OutT, true><<<grid, kThreads, 0, st>>>(coeff, w, o, C, S, P);
   else
@@ -221,6 +342,73 @@ encode_decode_kernel(const float* __restrict__ enc, const float* __restrict__ de
   }
 }
 
+// S > 16 or C*S > 4096: one column per thread, tile + threadIdx.x.  For
+// each chunk of up to kChunkC clients, the coded values enc[c] . w of this
+// column are formed in registers (sum over s ascending), then each output
+// row adds dec[s, c] * coded[c] in ascending c onto its sum so far, which
+// lives in ``out`` between chunks (fp32 stores and loads are exact).  The
+// chunk's enc and dec columns pass through shared memory kChunkS rows of s
+// at a time, as [s][c], read as float4 broadcasts.
+__global__ void __launch_bounds__(kThreads)
+encode_decode_deep_kernel(const float* __restrict__ enc,
+                          const float* __restrict__ dec,
+                          const float* __restrict__ w, float* __restrict__ out,
+                          int C, int S, int64_t P) {
+  __shared__ __align__(16) float tab[kChunkS][kChunkC];
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const bool live = p < P;
+  for (int c0 = 0; c0 < C; c0 += kChunkC) {
+    const int nc = C - c0 < kChunkC ? C - c0 : kChunkC;
+    float coded[kChunkC];
+#pragma unroll
+    for (int i = 0; i < kChunkC; ++i) coded[i] = 0.f;
+    for (int s0 = 0; s0 < S; s0 += kChunkS) {
+      const int ns = S - s0 < kChunkS ? S - s0 : kChunkS;
+      __syncthreads();                // the last table is read
+      for (int t = threadIdx.x; t < kChunkS * kChunkC; t += kThreads) {
+        const int s = t / kChunkC, i = t % kChunkC;
+        tab[s][i] = s < ns && i < nc
+                        ? enc[static_cast<int64_t>(c0 + i) * S + s0 + s] : 0.f;
+      }
+      __syncthreads();
+      for (int s = 0; s < ns && live; ++s) {
+        const float x = w[(s0 + s) * P + p];
+#pragma unroll
+        for (int i4 = 0; i4 < kChunkC; i4 += 4) {
+          const float4 e = *reinterpret_cast<const float4*>(&tab[s][i4]);
+          coded[i4 + 0] = fmaf(e.x, x, coded[i4 + 0]);
+          coded[i4 + 1] = fmaf(e.y, x, coded[i4 + 1]);
+          coded[i4 + 2] = fmaf(e.z, x, coded[i4 + 2]);
+          coded[i4 + 3] = fmaf(e.w, x, coded[i4 + 3]);
+        }
+      }
+    }
+    for (int s0 = 0; s0 < S; s0 += kChunkS) {
+      const int ns = S - s0 < kChunkS ? S - s0 : kChunkS;
+      __syncthreads();
+      for (int t = threadIdx.x; t < kChunkS * kChunkC; t += kThreads) {
+        const int s = t / kChunkC, i = t % kChunkC;
+        tab[s][i] = s < ns && i < nc
+                        ? dec[static_cast<int64_t>(s0 + s) * C + c0 + i] : 0.f;
+      }
+      __syncthreads();
+      for (int s = 0; s < ns && live; ++s) {
+        float* o = out + (s0 + s) * P + p;
+        float acc = c0 == 0 ? 0.f : *o;
+#pragma unroll
+        for (int i4 = 0; i4 < kChunkC; i4 += 4) {
+          const float4 d = *reinterpret_cast<const float4*>(&tab[s][i4]);
+          acc = fmaf(d.x, coded[i4 + 0], acc);
+          acc = fmaf(d.y, coded[i4 + 1], acc);
+          acc = fmaf(d.z, coded[i4 + 2], acc);
+          acc = fmaf(d.w, coded[i4 + 3], acc);
+        }
+        *o = acc;
+      }
+    }
+  }
+}
+
 template <int SMAX>
 void launch_ed(const float* enc, const float* dec, const float* w, float* out,
                int C, int S, int64_t P, bool vec, cudaStream_t st) {
@@ -241,7 +429,7 @@ extern "C" int repro_coded_matmul(const float* coeff, const float* w,
                                   void* out, int64_t G, int64_t C, int64_t S,
                                   int64_t P, int out_bf16, int vec,
                                   void* stream) {
-  if (G < 1 || C < 1 || S < 1 || S > kMaxS || P < 1 || G > 65535 ||
+  if (G < 1 || C < 1 || S < 1 || S > 0x7fffffffLL || P < 1 || G > 65535 ||
       (C + kBlockC - 1) / kBlockC > 65535 ||
       (P + kTileP - 1) / kTileP > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -254,17 +442,21 @@ extern "C" int repro_coded_matmul(const float* coeff, const float* w,
 }
 
 // enc (C,S), dec (S,C), w (S,P) and out (S,P) fp32, contiguous on the
-// device; S <= 16 and C*S <= 4096.  vec = 1 only when P % 4 == 0 and w and
-// out are 16-byte aligned.  Returns cudaGetLastError() after the launch.
+// device.  vec = 1 only when P % 4 == 0 and w and out are 16-byte aligned.
+// Returns cudaGetLastError() after the launch.
 extern "C" int repro_encode_decode(const float* enc, const float* dec,
                                    const float* w, float* out, int64_t C,
                                    int64_t S, int64_t P, int vec, void* stream) {
-  if (C < 1 || S < 1 || S > kMaxS || C * S > kMaxCS || P < 1 ||
-      (P + kTileP - 1) / kTileP > 0x7fffffffLL)
+  if (C < 1 || S < 1 || C > 0x7fffffffLL || S > 0x7fffffffLL || P < 1 ||
+      (P + kThreads - 1) / kThreads > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int c = static_cast<int>(C), s = static_cast<int>(S);
-  if (S <= 4)
+  if (S > kMaxS || C * S > kMaxCS) {
+    const dim3 grid(static_cast<unsigned>((P + kThreads - 1) / kThreads));
+    encode_decode_deep_kernel<<<grid, kThreads, 0, st>>>(enc, dec, w, out, c,
+                                                         s, P);
+  } else if (S <= 4)
     launch_ed<4>(enc, dec, w, out, c, s, P, vec, st);
   else if (S <= 8)
     launch_ed<8>(enc, dec, w, out, c, s, P, vec, st);

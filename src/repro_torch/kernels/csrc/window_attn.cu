@@ -14,30 +14,53 @@
 // model path differentiates its jnp local path instead).
 //
 // What bounds it on an H100.  Per (query, key) pair in the window the
-// forward does 4 hd FLOPs (q.k and p v) and one exp; the backward 10 hd
-// (dV, dP, dQ, dK and the recomputed q.k, counted once).  At gemma3-27b's
-// local layer (B 2, S 4096, 32 heads of 128, window 1024) that is 120 GFLOP
-// forward against 0.40 GB of inputs and outputs: operations bound it by a
-// factor of 15 at 67 TFLOP/s fp32.  fp32 parity rules out TF32, so the
-// products run on the CUDA cores.
+// forward does 4 hd FLOPs (q.k and p v) and one exp; the backward's work is
+// 10 hd (dV, dP, dQ, dK and the recomputed q.k, counted once).  At
+// gemma3-27b's local layer (B 2, S 4096, 32 heads of 128, window 1024:
+// 234,913,792 pairs) that is 120 GFLOP forward and 301 GFLOP backward
+// against 0.40 and 0.81 GB of inputs and outputs: the products bound both.
+// The card computes fp32-accurate products fastest on its tensor cores in
+// 3xTF32 (below): 495 / 3 = 165 TFLOP/s against 67 TFLOP/s on the CUDA
+// cores, so the bounds are 0.73 ms forward and 1.82 ms backward.
 //
-// Design.  A block of 256 threads owns one (64-query or 64-key) tile of one
-// head and walks only the 64-wide tiles of the other side that its window
-// reaches, as the TPU grid's span did.  Tiles sit in shared memory with rows
-// padded by 4 floats, so the 16-byte reads of 8 neighbouring rows fall in
-// distinct banks.  Thread (ty, tx) of a 16 x 16 grid computes score rows
-// 4 ty .. 4 ty + 3 at key columns tx + 16 c (c < 4), and output rows
-// 4 ty .. 4 ty + 3 at head-dim columns 4 tx + 64 c' (float4 groups); the
-// row reductions of the softmax are shuffles over the 16 lanes tx.
-//  * forward: online softmax in base 2 (scores pre-scaled by log2 e), K and
-//    then V staged through one buffer; writes O and lse.
-//  * backward, FlashAttention-2 form, P recomputed from q, k and lse:
-//    D_i = dO_i.O_i (wattn_bwd_delta_kernel), dS = P o (dO V^T - D),
-//    dQ = scale dS K (wattn_bwd_dq_kernel, over query tiles) and dV = P^T dO,
-//    dK = scale dS^T Q (wattn_bwd_dkv_kernel, over key tiles; it sums the
-//    G query heads of its kv head and their query tiles in a fixed order).
-//    No atomics: two runs give the same bits.
+// Forward (CUDA cores).  A block of 256 threads owns one 64-query tile of
+// one head and walks only the 64-wide key tiles its window reaches, as the
+// TPU grid's span did.  Tiles sit in shared memory with rows padded by 4
+// floats.  Thread (ty, tx) of a 16 x 16 grid computes score rows 4 ty ..
+// 4 ty + 3 at key columns tx + 16 c (c < 4), and output rows at head-dim
+// columns 4 tx + 64 c' (float4 groups); the softmax's row reductions are
+// shuffles over the 16 lanes tx.  Online softmax in base 2 (scores
+// pre-scaled by log2 e), K and then V staged through one buffer; writes O
+// and lse.
+//
+// Backward (tensor cores, 3xTF32), FlashAttention-2 form, P recomputed from
+// q, k and lse: D_i = dO_i.O_i (wattn_bwd_delta_kernel), dS = P o (dO V^T -
+// D), dQ = scale dS K (wattn_bwd_dq_kernel, over query tiles) and dV = P^T
+// dO, dK = scale dS^T Q (wattn_bwd_dkv_kernel, over key tiles; it sums the
+// G query heads of its kv head and their query tiles in a fixed order).  No
+// atomics: two runs give the same bits.  Both kernels recompute q.k and
+// dO.v, so they issue 14 hd FLOPs per pair against the work's 10 hd.
+//  * Every product is a warp-level mma.sync.m16n8k8 with TF32 operands and
+//    fp32 accumulation.  Each fp32 operand x is split as hi = cvt.rna.tf32
+//    (x) and lo = cvt.rna.tf32(x - hi), and acc += a_lo b_hi + a_hi b_lo +
+//    a_hi b_hi.  hi carries x's leading 11 significant bits and lo the next
+//    11, so hi + lo is x within about 2^-22 |x|; the dropped a_lo b_lo and
+//    that residue cost about 2^-21 of each product, the size of fp32's own
+//    rounding (2^-24) amplified by a few ulps, where plain TF32 keeps only
+//    2^-11.  (PyTorch's memory-efficient attention takes fp32 the same way,
+//    cutlass::arch::OpMultiplyAddFastF32.)
+//  * A block of 8 warps owns one 64-row tile; a warp computes a 16 x 32
+//    score tile (S and dP, fused in one k loop) and a 16 x hd/2 output tile.
+//    Scores stay in MMA accumulators through the softmax; P and dS pass to
+//    the output products (where they are A operands) through a 64 x 64
+//    shared tile.  The streamed tiles (K and V for dQ; Q, dO, lse and D for
+//    dK/dV) are double-buffered by cp.async, so the next tile's loads
+//    overlap this tile's MMAs; the block's own tiles load once.
+//  * Shared memory at hd 128: 213,504 bytes (dQ) and 230,400 (dK/dV), one
+//    block of 8 warps per SM; the MMAs' issue rate and the operand splits
+//    on the CUDA cores bound it, not memory.
 #include <cstdint>
+#include <initializer_list>
 #include <cuda_runtime.h>
 
 namespace {
@@ -262,215 +285,435 @@ wattn_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ do
   }
 }
 
-// The rows q0 .. q0+63 of lse (as log2) and D of head (b, h), zero outside S.
-__device__ __forceinline__ void load_rows(float* sL, float* sD,
-                                          const float* __restrict__ lse,
-                                          const float* __restrict__ delta,
-                                          int64_t bh, int q0, int S) {
-  for (int i = threadIdx.x; i < kTile; i += kThreads) {
-    const int qi = q0 + i;
+// ---- backward on the tensor cores, 3xTF32 --------------------------------
+//
+// Each block has 8 warps; warp w = 4 wn + wm.  Score tiles (64 x 64): warp
+// rows 16 wm .. +15, columns 32 wn .. +31 (4 MMA n-tiles of 8).  Output
+// tiles (64 x HDP): rows 16 wm .. +15, columns wn HDP/2 .. +HDP/2.  Lane
+// (gq, tq) = (lane / 4, lane % 4) holds the m16n8k8 fragments: A rows gq
+// and gq + 8, B column gq, C rows gq and gq + 8 at columns 2 tq and
+// 2 tq + 1.  The hardware's k index tq (tq + 4) is fed column 2 tq
+// (2 tq + 1) of each 8-wide k step, in A and in B alike: a relabelling of k
+// that leaves the sum unchanged and lets one 8-byte load fetch both.
+//
+// Staged tiles are [rows][HDP] (score tiles [64][64]) with no padding; the
+// 4-float granule c / 4 of row r sits at granule (c / 4) ^ swz(r) / 4.  That
+// keeps the 8-byte fragment loads (rows gq, columns 2 tq), the column-wise
+// B loads (rows 2 tq + e, column gq), the 8-byte score stores and the
+// 16-byte cp.async writes free of bank conflicts.
+
+__device__ __forceinline__ int swz(int r) {
+  return ((((r & 3) << 1) ^ (((r >> 2) & 1) * 3))) << 2;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of ``bytes`` (0 or the full size) with the rest zero-filled
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// x = hi + lo + r: hi = cvt.rna.tf32.f32(x), x rounded to TF32 (11
+// significant bits, to nearest, ties away); lo = cvt.rna.tf32.f32(x - hi)
+// (x - hi is exact in fp32); |r| <= 2^-23 |x|.  Both roundings are done on
+// the integer pipe: adding half a TF32 ulp (0x1000) to the bit pattern and
+// dropping the 13 low bits is cvt.rna for finite x.  The mask is needed on
+// hi, whose value forms the residual; lo keeps its low bits, which the
+// tensor core does not read (CUTLASS's round_half_ulp_truncate relies on
+// the same).  Four instructions, where cvt.rna.tf32.f32 compiles to a
+// finiteness test, a predicated add and a mask for each of the two.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An fp32 operand fragment as its TF32 parts.
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+// d += a b in 3xTF32: a_lo b_hi + a_hi b_lo, then a_hi b_hi (a_lo b_lo,
+// about 2^-22 of the product, is dropped).
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(d, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(d, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
+}
+
+// A fragment at rows r0 + gq, r0 + gq + 8 (r0 % 8 == 0) of a [rows][LD]
+// tile; ``row`` points at row r0 + gq, ``col`` = (8 kk + 2 tq) ^ swz(gq).
+template <int LD>
+__device__ __forceinline__ void frag_a(FragA& f, const float* row, int col) {
+  const float2 u = *reinterpret_cast<const float2*>(row + col);
+  const float2 w = *reinterpret_cast<const float2*>(row + 8 * LD + col);
+  split(u.x, f.hi[0], f.lo[0]);
+  split(w.x, f.hi[1], f.lo[1]);
+  split(u.y, f.hi[2], f.lo[2]);
+  split(w.y, f.hi[3], f.lo[3]);
+}
+
+// B fragment of a product A B^T: row n0 + gq of the [n][k] tile
+__device__ __forceinline__ void frag_bt(FragB& f, const float* row, int col) {
+  const float2 u = *reinterpret_cast<const float2*>(row + col);
+  split(u.x, f.hi[0], f.lo[0]);
+  split(u.y, f.hi[1], f.lo[1]);
+}
+
+// B fragment of a product A B: rows 8 kk + 2 tq and 8 kk + 2 tq + 1 of the
+// [k][n] tile at column n = n0 + gq; ``r0``, ``r1`` point at those rows and
+// x0, x1 are their swizzles.
+__device__ __forceinline__ void frag_b(FragB& f, const float* r0,
+                                       const float* r1, int n, int x0, int x1) {
+  split(r0[n ^ x0], f.hi[0], f.lo[0]);
+  split(r1[n ^ x1], f.hi[1], f.lo[1]);
+}
+
+// Rows t0 .. t0+63 of one head's (S, hd) slice (row stride ``ss``) into the
+// swizzled dst[64][HDP] by cp.async, zero outside S and hd.  ``vec``: the
+// slice's base and row stride are 16-byte aligned and hd % 4 == 0.
+template <int HDP>
+__device__ __forceinline__ void stage_tile(float* dst,
+                                           const float* __restrict__ src,
+                                           int64_t ss, int t0, int S, int hd,
+                                           bool vec) {
+  if (vec) {
+    constexpr int kG = HDP / 4;
+#pragma unroll
+    for (int i = 0; i < kTile * kG / kThreads; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / kG, c = (idx % kG) * 4, t = t0 + r;
+      const bool ok = t < S && c < hd;
+      cp_async16(dst + r * HDP + (c ^ swz(r)),
+                 ok ? src + static_cast<int64_t>(t) * ss + c : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+#pragma unroll 4
+    for (int idx = threadIdx.x; idx < kTile * HDP; idx += kThreads) {
+      const int r = idx / HDP, c = idx % HDP, t = t0 + r;
+      const bool ok = t < S && c < hd;
+      cp_async4(dst + r * HDP + (c ^ swz(r)),
+                ok ? src + static_cast<int64_t>(t) * ss + c : src, ok ? 4 : 0);
+    }
+  }
+}
+
+// lse (as read) and D of rows q0 .. q0+63 of head bh, zero outside S
+__device__ __forceinline__ void stage_rows(float* sL, float* sD,
+                                           const float* __restrict__ lse,
+                                           const float* __restrict__ delta,
+                                           int64_t bh, int q0, int S) {
+  if (threadIdx.x < kTile) {
+    const int qi = q0 + threadIdx.x;
     const bool ok = qi < S;
-    sL[i] = ok ? lse[bh * S + qi] * kLog2e : 0.f;
-    sD[i] = ok ? delta[bh * S + qi] : 0.f;
+    cp_async4(sL + threadIdx.x, ok ? lse + bh * S + qi : lse, ok ? 4 : 0);
+    cp_async4(sD + threadIdx.x, ok ? delta + bh * S + qi : delta, ok ? 4 : 0);
+  }
+}
+
+// The two score products of one warp, fused in one k loop for eight
+// independent accumulator chains: s1 += A1 B1^T and s2 += A2 B2^T over the
+// first ``ks`` k steps, A rows ``ra`` .. +15 and B rows ``rb`` .. +31 of
+// [64][HDP] tiles with k along the row.
+template <int HDP>
+__device__ __forceinline__ void scores(float (&s1)[4][4], float (&s2)[4][4],
+                                       const float* A1, const float* B1,
+                                       const float* A2, const float* B2,
+                                       int ra, int rb, int ks) {
+  const int gq = (threadIdx.x & 31) >> 2, tq = threadIdx.x & 3;
+  const int x = swz(gq);
+  const float* a1 = A1 + (ra + gq) * HDP;
+  const float* a2 = A2 + (ra + gq) * HDP;
+  const float* b1 = B1 + (rb + gq) * HDP;
+  const float* b2 = B2 + (rb + gq) * HDP;
+#pragma unroll 2
+  for (int kk = 0; kk < ks; ++kk) {
+    const int col = (8 * kk + 2 * tq) ^ x;
+    FragA f1, f2;
+    frag_a<HDP>(f1, a1, col);
+    frag_a<HDP>(f2, a2, col);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      FragB g1, g2;
+      frag_bt(g1, b1 + 8 * j * HDP, col);
+      frag_bt(g2, b2 + 8 * j * HDP, col);
+      mma3(s1[j], f1, g1);
+      mma3(s2[j], f2, g2);
+    }
+  }
+}
+
+// acc[2][NT] += A B over k = 0 .. 63: A rows ``ra`` .. +31 (two m-tiles)
+// of a [64][64] score tile (k along the row), B a [64][LDB] tile (k down
+// the column), columns ``cb`` .. (NT n-tiles of 8; those at or past ``hd``
+// are skipped).
+template <int NT, int LDB>
+__device__ __forceinline__ void prod_ab(float (&acc)[2][NT][4], const float* A,
+                                        int ra, const float* B, int cb,
+                                        int hd) {
+  const int gq = (threadIdx.x & 31) >> 2, tq = threadIdx.x & 3;
+  const int x = swz(gq), x0 = swz(2 * tq), x1 = swz(2 * tq + 1);
+  const float* a = A + (ra + gq) * kTile;
+#pragma unroll 4
+  for (int kk = 0; kk < kTile / 8; ++kk) {
+    const int col = (8 * kk + 2 * tq) ^ x;
+    const float* b0 = B + (8 * kk + 2 * tq) * LDB;
+    FragA f[2];
+    frag_a<kTile>(f[0], a, col);
+    frag_a<kTile>(f[1], a + 16 * kTile, col);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int c = cb + 8 * j;
+      if (c >= hd) continue;
+      FragB fb;
+      frag_b(fb, b0, b0 + LDB, c + gq, x0, x1);
+      mma3(acc[0][j], f[0], fb);
+      mma3(acc[1][j], f[1], fb);
+    }
   }
 }
 
 template <int HDP>
 constexpr int dq_smem() {
-  return (4 * kTile * (HDP + 4) + kTile * kLdP + 2 * kTile) * 4;
+  return (6 * kTile * HDP + kTile * kTile + 2 * kTile) * 4;
 }
 
-// dQ of one 64-query tile of head (b, h): walks the key tiles of its window.
+// dQ of one 64-query tile of head (b, h): walks the key tiles of its
+// window, K and V double-buffered by cp.async.  Warp w computes S = Q K^T
+// and dP = dO V^T on rows 16 (w % 4) .. +15, columns 32 (w / 4) .. +31,
+// then dS = P o (dP - D) into a shared tile; then dQ += dS K (rows 32 (w %
+// 2) .. +31, columns HDP/4 (w / 2) ..), and dQ = scale dQ at the end.
 template <int HDP>
 __global__ void __launch_bounds__(kThreads, 1)
 wattn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     float* __restrict__ dq, Geom g, Strides sq, Strides sk,
-                    Strides sv) {
-  constexpr int LD = HDP + 4, CG = HDP / 64;
+                    Strides sv, bool vec) {
   extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;
-  float* sdO = sQ + kTile * LD;
-  float* sK = sdO + kTile * LD;
-  float* sV = sK + kTile * LD;
-  float* sdS = sV + kTile * LD;        // [64][kLdP]
-  float* sL = sdS + kTile * kLdP;
-  float* sD = sL + kTile;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float* sQ = smem;                          // [64][HDP]
+  float* sdO = sQ + kTile * HDP;             // [64][HDP]
+  float* sK = sdO + kTile * HDP;             // [2][64][HDP]
+  float* sV = sK + 2 * kTile * HDP;          // [2][64][HDP]
+  float* sdS = sV + 2 * kTile * HDP;         // [64][64]
+  float* sL = sdS + kTile * kTile;           // [64]
+  float* sD = sL + kTile;                    // [64]
+  const int warp = threadIdx.x >> 5, wm = warp & 3, wn = warp >> 2;
+  const int gq = (threadIdx.x & 31) >> 2, tq = threadIdx.x & 3;
   const int q0 = blockIdx.x * kTile, bh = blockIdx.y;
   const int b = bh / g.H, h = bh % g.H, kvh = h / (g.H / g.KV);
   const Strides so = {static_cast<int64_t>(g.S) * g.H * g.hd,
                       static_cast<int64_t>(g.H) * g.hd, g.hd};
   const float* kb = k + b * sk.b + kvh * sk.h;
   const float* vb = v + b * sv.b + kvh * sv.h;
-  load_tile<HDP>(sQ, q + b * sq.b + h * sq.h, sq.s, q0, g.S, g.hd);
-  load_tile<HDP>(sdO, dout + b * so.b + h * so.h, so.s, q0, g.S, g.hd);
-  load_rows(sL, sD, lse, delta, bh, q0, g.S);
-
-  const float c2 = g.scale * kLog2e;
-  float acc[4][4 * CG] = {};
   const int k_lo = max(0, q0 - g.window + 1) / kTile * kTile;
   const int k_hi = min(g.S, q0 + kTile);
-  for (int k0 = k_lo; k0 < k_hi; k0 += kTile) {
-    __syncthreads();                   // the last tile's dS K is done
-    load_tile<HDP>(sK, kb, sk.s, k0, g.S, g.hd);
-    load_tile<HDP>(sV, vb, sv.s, k0, g.S, g.hd);
-    __syncthreads();
+  stage_tile<HDP>(sQ, q + b * sq.b + h * sq.h, sq.s, q0, g.S, g.hd, vec);
+  stage_tile<HDP>(sdO, dout + b * so.b + h * so.h, so.s, q0, g.S, g.hd, vec);
+  stage_rows(sL, sD, lse, delta, bh, q0, g.S);
+  stage_tile<HDP>(sK, kb, sk.s, k_lo, g.S, g.hd, vec);
+  stage_tile<HDP>(sV, vb, sv.s, k_lo, g.S, g.hd, vec);
+  cp_async_commit();
+
+  const float c2 = g.scale * kLog2e;
+  const int ks = (g.hd + 7) / 8;
+  float acc[2][HDP / 32][4] = {};
+  for (int it = 0, k0 = k_lo; k0 < k_hi; ++it, k0 += kTile) {
+    cp_async_wait_all();
+    __syncthreads();           // tile it landed; tile it-1's dS K is done
+    if (k0 + kTile < k_hi) {
+      const int nx = ((it + 1) & 1) * kTile * HDP;
+      stage_tile<HDP>(sK + nx, kb, sk.s, k0 + kTile, g.S, g.hd, vec);
+      stage_tile<HDP>(sV + nx, vb, sv.s, k0 + kTile, g.S, g.hd, vec);
+      cp_async_commit();
+    }
+    const float* cK = sK + (it & 1) * kTile * HDP;
+    const float* cV = sV + (it & 1) * kTile * HDP;
     float sc[4][4] = {}, dp[4][4] = {};
-    tile_abt<HDP>(sc, sQ, sK, ty, tx);
-    tile_abt<HDP>(dp, sdO, sV, ty, tx);
+    scores<HDP>(sc, dp, sQ, cK, sdO, cV, 16 * wm, 32 * wn, ks);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = 4 * ty + r;
+    for (int hr = 0; hr < 2; ++hr) {
+      const int i = 16 * wm + gq + 8 * hr;
+      const float l2 = sL[i] * kLog2e, di = sD[i];
+      float* row = sdS + i * kTile;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = in_window(q0 + i, k0 + tx + 16 * c, g)
-                            ? exp2f(fmaf(sc[r][c], c2, -sL[i])) : 0.f;
-        sdS[i * kLdP + tx + 16 * c] = p * (dp[r][c] - sD[i]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int j = 0; j < kTile; j += 4) {
-      float4 s4[4];
+      for (int j = 0; j < 4; ++j) {
+        const int c = 32 * wn + 8 * j + 2 * tq;
+        float ds[2];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) s4[r] = ld4(sdS + (4 * ty + r) * kLdP + j);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int cg = 0; cg < CG; ++cg) {
-          const float4 k4 = ld4(sK + (j + jj) * LD + 4 * tx + 64 * cg);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float s = comp(s4[r], jj);
-            acc[r][4 * cg + 0] = fmaf(s, k4.x, acc[r][4 * cg + 0]);
-            acc[r][4 * cg + 1] = fmaf(s, k4.y, acc[r][4 * cg + 1]);
-            acc[r][4 * cg + 2] = fmaf(s, k4.z, acc[r][4 * cg + 2]);
-            acc[r][4 * cg + 3] = fmaf(s, k4.w, acc[r][4 * cg + 3]);
-          }
+        for (int e = 0; e < 2; ++e) {
+          const float p = in_window(q0 + i, k0 + c + e, g)
+                              ? exp2f(fmaf(sc[j][2 * hr + e], c2, -l2)) : 0.f;
+          ds[e] = p * (dp[j][2 * hr + e] - di);
         }
+        *reinterpret_cast<float2*>(row + (c ^ swz(i))) =
+            make_float2(ds[0], ds[1]);
       }
     }
+    __syncthreads();           // dS written
+    prod_ab<HDP / 32, HDP>(acc, sdS, 32 * (warp & 1), cK,
+                              (warp >> 1) * (HDP / 4), g.hd);
   }
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qi = q0 + 4 * ty + r;
-    if (qi >= g.S) continue;
-    float* row = dq + ((static_cast<int64_t>(b) * g.S + qi) * g.H + h) * g.hd;
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int cg = 0; cg < CG; ++cg)
+    for (int hr = 0; hr < 2; ++hr) {
+      const int qi = q0 + 32 * (warp & 1) + 16 * mt + gq + 8 * hr;
+      if (qi >= g.S) continue;
+      float* row = dq + ((static_cast<int64_t>(b) * g.S + qi) * g.H + h) * g.hd;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = 4 * tx + 64 * cg + e;
-        if (d < g.hd) row[d] = acc[r][4 * cg + e] * g.scale;
-      }
-  }
+      for (int j = 0; j < HDP / 32; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = (warp >> 1) * (HDP / 4) + 8 * j + 2 * tq + e;
+          if (d < g.hd) row[d] = acc[mt][j][2 * hr + e] * g.scale;
+        }
+    }
 }
 
 template <int HDP>
 constexpr int dkv_smem() {
-  return (4 * kTile * (HDP + 4) + 2 * kTile * kLdP + 2 * kTile) * 4;
+  return (6 * kTile * HDP + 2 * kTile * kTile + 4 * kTile) * 4;
 }
 
 // dK and dV of one 64-key tile of kv head (b, kvh): walks its G query
-// heads in order and, for each, the query tiles that can see the keys.
+// heads in order and, for each, the query tiles that can see the keys; Q,
+// dO and the rows' lse and D double-buffered by cp.async.  Warp w computes
+// S^T = K Q^T and dP^T = V dO^T on keys 16 (w % 4) .. +15, queries 32 (w /
+// 4) .. +31, then P^T and dS^T = P^T o (dP^T - D) into shared tiles; then
+// warps 0-3 dV += P^T dO and warps 4-7 dK += dS^T Q, each on keys 32 (w %
+// 2) .. +31 and head dims HDP/2 ((w / 2) % 2) ..; dK = scale dK at the end.
 template <int HDP>
 __global__ void __launch_bounds__(kThreads, 1)
 wattn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      float* __restrict__ dk, float* __restrict__ dv, Geom g,
-                     Strides sq, Strides sk, Strides sv) {
-  constexpr int LD = HDP + 4, CG = HDP / 64;
+                     Strides sq, Strides sk, Strides sv, bool vec) {
   extern __shared__ __align__(16) float smem[];
-  float* sK = smem;
-  float* sV = sK + kTile * LD;
-  float* sQ = sV + kTile * LD;
-  float* sdO = sQ + kTile * LD;
-  float* sP = sdO + kTile * LD;        // [64][kLdP]
-  float* sdS = sP + kTile * kLdP;      // [64][kLdP]
-  float* sL = sdS + kTile * kLdP;
-  float* sD = sL + kTile;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float* sK = smem;                          // [64][HDP]
+  float* sV = sK + kTile * HDP;              // [64][HDP]
+  float* sQ = sV + kTile * HDP;              // [2][64][HDP]
+  float* sdO = sQ + 2 * kTile * HDP;         // [2][64][HDP]
+  float* sP = sdO + 2 * kTile * HDP;         // [64 keys][64 queries]
+  float* sdS = sP + kTile * kTile;           // [64 keys][64 queries]
+  float* sL = sdS + kTile * kTile;           // [2][64]
+  float* sD = sL + 2 * kTile;                // [2][64]
+  const int warp = threadIdx.x >> 5, wm = warp & 3, wn = warp >> 2;
+  const int u = warp & 3;                    // output quarter
+  const bool dk_warp = warp >= 4;
+  const int gq = (threadIdx.x & 31) >> 2, tq = threadIdx.x & 3;
   const int k0 = blockIdx.x * kTile, bkv = blockIdx.y;
   const int b = bkv / g.KV, kvh = bkv % g.KV, G = g.H / g.KV;
   const Strides so = {static_cast<int64_t>(g.S) * g.H * g.hd,
                       static_cast<int64_t>(g.H) * g.hd, g.hd};
-  load_tile<HDP>(sK, k + b * sk.b + kvh * sk.h, sk.s, k0, g.S, g.hd);
-  load_tile<HDP>(sV, v + b * sv.b + kvh * sv.h, sv.s, k0, g.S, g.hd);
+  const int q_hi = min(g.S, k0 + kTile + g.window - 1);
+  const int nq = (q_hi - k0 + kTile - 1) / kTile;   // query tiles per head
+  const int n_it = G * nq;
+  // step it: query head kvh G + it / nq, query tile k0 + 64 (it % nq)
+  auto stage = [&](int it, int buf) {
+    const int h = kvh * G + it / nq, q0 = k0 + (it % nq) * kTile;
+    const int64_t bh = static_cast<int64_t>(b) * g.H + h;
+    stage_tile<HDP>(sQ + buf * kTile * HDP, q + b * sq.b + h * sq.h, sq.s, q0,
+                    g.S, g.hd, vec);
+    stage_tile<HDP>(sdO + buf * kTile * HDP, dout + b * so.b + h * so.h, so.s,
+                    q0, g.S, g.hd, vec);
+    stage_rows(sL + buf * kTile, sD + buf * kTile, lse, delta, bh, q0, g.S);
+  };
+  stage_tile<HDP>(sK, k + b * sk.b + kvh * sk.h, sk.s, k0, g.S, g.hd, vec);
+  stage_tile<HDP>(sV, v + b * sv.b + kvh * sv.h, sv.s, k0, g.S, g.hd, vec);
+  stage(0, 0);
+  cp_async_commit();
 
   const float c2 = g.scale * kLog2e;
-  float ak[4][4 * CG] = {}, av[4][4 * CG] = {};
-  const int q_hi = min(g.S, k0 + kTile + g.window - 1);
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = kvh * G + gi;
-    const int64_t bh = static_cast<int64_t>(b) * g.H + h;
-    const float* qb = q + b * sq.b + h * sq.h;
-    const float* ob = dout + b * so.b + h * so.h;
-    for (int q0 = k0; q0 < q_hi; q0 += kTile) {
-      __syncthreads();                 // the last tile's products are done
-      load_tile<HDP>(sQ, qb, sq.s, q0, g.S, g.hd);
-      load_tile<HDP>(sdO, ob, so.s, q0, g.S, g.hd);
-      load_rows(sL, sD, lse, delta, bh, q0, g.S);
-      __syncthreads();
-      // score rows: queries 4 ty + r; columns: keys tx + 16 c
-      float sc[4][4] = {}, dp[4][4] = {};
-      tile_abt<HDP>(sc, sQ, sK, ty, tx);
-      tile_abt<HDP>(dp, sdO, sV, ty, tx);
+  const int ks = (g.hd + 7) / 8;
+  float acc[2][HDP / 16][4] = {};            // dV (warps 0-3), dK (4-7)
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait_all();
+    __syncthreads();           // step it landed; step it-1's products are done
+    if (it + 1 < n_it) {
+      stage(it + 1, (it + 1) & 1);
+      cp_async_commit();
+    }
+    const int buf = it & 1, q0 = k0 + (it % nq) * kTile;
+    const float* cQ = sQ + buf * kTile * HDP;
+    const float* cdO = sdO + buf * kTile * HDP;
+    const float* cL = sL + buf * kTile;
+    const float* cD = sD + buf * kTile;
+    // rows: keys 16 wm + gq (+8); columns: queries 32 wn + 8 j + 2 tq (+1)
+    float sc[4][4] = {}, dp[4][4] = {};
+    scores<HDP>(sc, dp, sK, cQ, sV, cdO, 16 * wm, 32 * wn, ks);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = 4 * ty + r;
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = 16 * wm + gq + 8 * hr;
+      const int off = r * kTile;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float p = in_window(q0 + i, k0 + tx + 16 * c, g)
-                              ? exp2f(fmaf(sc[r][c], c2, -sL[i])) : 0.f;
-          sP[i * kLdP + tx + 16 * c] = p;
-          sdS[i * kLdP + tx + 16 * c] = p * (dp[r][c] - sD[i]);
+      for (int j = 0; j < 4; ++j) {
+        const int c = 32 * wn + 8 * j + 2 * tq;
+        float p[2], ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          p[e] = in_window(q0 + c + e, k0 + r, g)
+                     ? exp2f(fmaf(sc[j][2 * hr + e], c2, -cL[c + e] * kLog2e))
+                     : 0.f;
+          ds[e] = p[e] * (dp[j][2 * hr + e] - cD[c + e]);
         }
-      }
-      __syncthreads();
-      // accumulator rows: keys 4 ty + r; columns: head dims 4 tx + 64 cg
-#pragma unroll 2
-      for (int i = 0; i < kTile; ++i) {
-        const float4 p4 = ld4(sP + i * kLdP + 4 * ty);
-        const float4 s4 = ld4(sdS + i * kLdP + 4 * ty);
-#pragma unroll
-        for (int cg = 0; cg < CG; ++cg) {
-          const float4 o4 = ld4(sdO + i * LD + 4 * tx + 64 * cg);
-          const float4 q4 = ld4(sQ + i * LD + 4 * tx + 64 * cg);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float p = comp(p4, r), s = comp(s4, r);
-            av[r][4 * cg + 0] = fmaf(p, o4.x, av[r][4 * cg + 0]);
-            av[r][4 * cg + 1] = fmaf(p, o4.y, av[r][4 * cg + 1]);
-            av[r][4 * cg + 2] = fmaf(p, o4.z, av[r][4 * cg + 2]);
-            av[r][4 * cg + 3] = fmaf(p, o4.w, av[r][4 * cg + 3]);
-            ak[r][4 * cg + 0] = fmaf(s, q4.x, ak[r][4 * cg + 0]);
-            ak[r][4 * cg + 1] = fmaf(s, q4.y, ak[r][4 * cg + 1]);
-            ak[r][4 * cg + 2] = fmaf(s, q4.z, ak[r][4 * cg + 2]);
-            ak[r][4 * cg + 3] = fmaf(s, q4.w, ak[r][4 * cg + 3]);
-          }
-        }
+        const int at = off + (c ^ swz(r));
+        *reinterpret_cast<float2*>(sP + at) = make_float2(p[0], p[1]);
+        *reinterpret_cast<float2*>(sdS + at) = make_float2(ds[0], ds[1]);
       }
     }
+    __syncthreads();           // P^T and dS^T written
+    prod_ab<HDP / 16, HDP>(acc, dk_warp ? sdS : sP, 32 * (u & 1),
+                              dk_warp ? cQ : cdO, (u >> 1) * (HDP / 2), g.hd);
   }
+  float* out = dk_warp ? dk : dv;
+  const float mul = dk_warp ? g.scale : 1.f;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int kj = k0 + 4 * ty + r;
-    if (kj >= g.S) continue;
-    const int64_t off = ((static_cast<int64_t>(b) * g.S + kj) * g.KV + kvh) * g.hd;
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int cg = 0; cg < CG; ++cg)
+    for (int hr = 0; hr < 2; ++hr) {
+      const int kj = k0 + 32 * (u & 1) + 16 * mt + gq + 8 * hr;
+      if (kj >= g.S) continue;
+      float* row = out + ((static_cast<int64_t>(b) * g.S + kj) * g.KV + kvh) * g.hd;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = 4 * tx + 64 * cg + e;
-        if (d < g.hd) {
-          dk[off + d] = ak[r][4 * cg + e] * g.scale;
-          dv[off + d] = av[r][4 * cg + e];
+      for (int j = 0; j < HDP / 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = (u >> 1) * (HDP / 2) + 8 * j + 2 * tq + e;
+          if (d < g.hd) row[d] = acc[mt][j][2 * hr + e] * mul;
         }
-      }
-  }
+    }
 }
 
 template <typename Kern>
@@ -504,15 +747,22 @@ int bwd(const float* q, const float* k, const float* v, const float* dout,
   cudaError_t err = allow_smem(wattn_bwd_dq_kernel<HDP>, s_dq);
   if (err == cudaSuccess) err = allow_smem(wattn_bwd_dkv_kernel<HDP>, s_dkv);
   if (err != cudaSuccess) return static_cast<int>(err);
+  // 16-byte cp.async when every staged row starts on a 16-byte boundary
+  bool vec = g.hd % 4 == 0;
+  for (const float* p : {q, k, v, dout})
+    vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  for (const Strides& s : {sq, sk, sv})
+    vec = vec && s.b % 4 == 0 && s.s % 4 == 0 && s.h % 4 == 0;
   const unsigned tiles = (g.S + kTile - 1) / kTile;
   wattn_bwd_dq_kernel<HDP><<<dim3(tiles, static_cast<unsigned>(B * g.H)),
                              kThreads, s_dq, st>>>(q, k, v, dout, lse, delta,
-                                                   dq, g, sq, sk, sv);
+                                                   dq, g, sq, sk, sv, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   wattn_bwd_dkv_kernel<HDP><<<dim3(tiles, static_cast<unsigned>(B * g.KV)),
                               kThreads, s_dkv, st>>>(q, k, v, dout, lse, delta,
-                                                     dk, dv, g, sq, sk, sv);
+                                                     dk, dv, g, sq, sk, sv,
+                                                     vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,9 +13,11 @@ import pytest
 import torch
 
 from repro.core import coding as jc
+from repro.core import unlearning as ju
 from repro.kernels.calibrate.ref import calibrate_update_ref as j_cal_ref
 from repro.kernels.coded_matmul.ref import coded_matmul_ref as j_cm_ref
 from repro_torch.core import coding as tc
+from repro_torch.core import unlearning as tu
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.calibrate.ops import calibrate_update
 from repro_torch.kernels.calibrate.ref import calibrate_update_ref
@@ -123,6 +125,52 @@ def test_encode_decode_matches_reference(use_kernel, s, c, p, ids):
     np.testing.assert_allclose(_np(got), _np(ref), **TOL)
     tol = 1e-3 if ids is None else 2e-3
     np.testing.assert_allclose(_np(got), w, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("s,c,p", [(20, 40, 257), (8, 520, 64)])
+def test_coding_matches_reference_past_the_register_tile(use_kernel, s, c, p):
+    """S = 20 > 16 and C*S = 4160 > 4096: the shapes the CUDA coding
+    kernels once refused.  At S = 20 the all-clients round-trip operator
+    has entries near 7e4, and the reference's two forms (precomposed
+    (S, S) operator, fused kernel) differ by 0.06 there; the port computes
+    the kernel's dec @ (enc @ w), so that case is held to the kernel form."""
+    sch_j, sch_t = jc.CodingScheme(s, c), tc.CodingScheme(s, c)
+    w = _w((s, p), s + c)
+    ref = jc.encode(sch_j, jnp.asarray(w), use_kernel=use_kernel)
+    got = tc.encode(sch_t, torch.from_numpy(w))
+    np.testing.assert_allclose(_np(got), _np(ref), **TOL)
+    slices = np.asarray(ref)
+    subset = list(range(0, c, c // s))[:s]
+    for ids in (list(range(c)), subset):
+        ref = jc.decode_erasure(sch_j, jnp.asarray(slices[ids]), ids,
+                                use_kernel=use_kernel)
+        got = tc.decode_erasure(sch_t, torch.from_numpy(slices[ids]), ids)
+        np.testing.assert_allclose(_np(got), _np(ref), **TOL)
+    for ids, form in ((subset, use_kernel), (None, True)):
+        ref = jc.encode_decode(sch_j, jnp.asarray(w), ids, use_kernel=form)
+        got = tc.encode_decode(sch_t, torch.from_numpy(w), ids)
+        np.testing.assert_allclose(_np(got), _np(ref), **TOL)
+    np.testing.assert_allclose(_np(tc.encode_decode(sch_t, torch.from_numpy(w),
+                                                    subset)), w,
+                               rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_calibrate_stacked_matches_reference_past_1024_clients(use_kernel):
+    """M = 2048 retained clients: past the CUDA kernel's old M <= 1024."""
+    m = 2048
+    w = jax.tree.map(lambda a: a[0], _stacked_tree(1, 1))
+    deltas = _stacked_tree(m, 2)
+    norms = np.random.default_rng(3).uniform(0.5, 2.0, m).astype(np.float32)
+    ref = ju.calibrate_stacked(jax.tree.map(jnp.asarray, w),
+                               jax.tree.map(jnp.asarray, deltas),
+                               jnp.asarray(norms), use_kernel=use_kernel)
+    got = tu.calibrate_stacked(_to_torch(w), _to_torch(deltas),
+                               torch.from_numpy(norms))
+    for a, b in zip(jax.tree.leaves(ref), jax.tree.leaves(
+            jax.tree.map(lambda t: t.numpy(), got))):
+        np.testing.assert_allclose(b, np.asarray(a), rtol=1e-4, atol=1e-4)
 
 
 def test_encode_decode_plain_version():

@@ -107,6 +107,35 @@ def test_run_scenario_matches_reference(engine):
             [u["impacted_shards"] for u in js["unlearn"]]
 
 
+def test_run_scenario_matches_reference_at_20_shards():
+    """S = 20 shards of 2 clients (C = 40 coded slices): past the register
+    tile of the CUDA coding kernels (S <= 16); one round, one local epoch."""
+    kw = dict(num_clients=40, clients_per_round=40, num_shards=20,
+              local_epochs=1, global_rounds=1, samples_per_client=10,
+              image_size=8, local_batch=10, engine="fused")
+
+    def first_of_shard0(plan):
+        return [plan.shard_clients[0][0]]
+
+    jcfg = JScenario(schedule=JSchedule([JRequest(first_of_shard0)]), **kw)
+    tcfg = ScenarioConfig(schedule=RequestSchedule(
+        [UnlearnRequest(first_of_shard0)]), **kw)
+    jrep = j_run_scenario(jcfg)
+    trep = run_scenario(tcfg, device="cpu",
+                        init_fn=_jax_init(jfamily("cnn").build(jcfg)))
+    assert trep.store_stats.to_dict() == jrep.store_stats.to_dict()
+    assert trep.total_cost_units == jrep.total_cost_units
+    jd, td = jrep.to_dict(), trep.to_dict()
+    assert len(td["stages"][0]["clients"]) == 40
+    for js, ts in zip(jd["stages"], td["stages"]):
+        assert ts["clients"] == js["clients"]
+        assert ts["store_stats"] == js["store_stats"]
+        assert [u["impacted_shards"] for u in ts["unlearn"]] == \
+            [u["impacted_shards"] for u in js["unlearn"]]
+        assert [u["cost_units"] for u in ts["unlearn"]] == \
+            [u["cost_units"] for u in js["unlearn"]]
+
+
 def test_use_kernel_store_option_builds():
     """``store_options={"use_kernel": True}`` is accepted and ignored: the
     tensor's device picks the kernel or its plain version."""
