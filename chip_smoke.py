@@ -16,17 +16,25 @@ Phases (any failed check raises, and the script exits non-zero):
    width) and at ragged small ones; the coding kernels also past their
    register tile and shared tables (cases ``s20*``: S = 20 shards of 2
    clients, calibrate at M = 2048, encode_decode at (S 20, C 40) and
-   (S 50, C 100)).  Time kernel, plain version and one library call where
-   one exists (device time from the CUPTI trace of torch.profiler, checked
-   against CUDA events: a trace that records nothing, less than 0.9 of a
-   call of a millisecond or more, or less than the kernel's bound is not
-   used) beside the kernel's bound at the H100 SXM data-sheet peaks:
+   (S 50, C 100)), and at the shapes that pick each route of the redesigned
+   calibrate (M' = 4 and M = 2048 at every P % 4, M = 63 unsplit and 64
+   split) and encode_decode ((S 100, C 200): two passes of output rows;
+   (S 130, C 140): w staged in chunks); both kernels' two launches must
+   give the same bits.  Time kernel, plain version and one library call
+   where one exists (device time from the CUPTI trace of torch.profiler,
+   checked against CUDA events: a trace that records nothing, a kernel
+   time under its bound, or a plain or library time under the bytes bound
+   lost records, and the trace is taken again, up to 3 times, before the
+   call's event time is used; a reading under 0.9 of a call of a
+   millisecond or more is short, and the event time is used; each event
+   time is printed beside its reading) beside the kernel's bound at the
+   H100 SXM data-sheet peaks:
    3.35 TB/s, 67 TFLOP/s fp32 on the CUDA cores, 495 / 3 TFLOP/s for
    fp32-accurate matrix products on the tensor cores (3xTF32; attention's
    products), and for ``exp`` 16 per clock per SM on 132 SMs at 1.98 GHz.
    Tolerances: coded_matmul / rounds / calibrate / encode_decode fp32
    |k - r| <= 1e-5 + 1e-5|r|, bf16 within one bf16 ulp (calibrate at
-   M = 2048 with eq. 3's coefficient scale, 1/M); encode_decode's round
+   M >= 63 with eq. 3's coefficient scale, 1/M); encode_decode's round
    trip returns w within 1e-3 (all clients) and 2e-3 (S of them), as
    tests/test_round_engine.py holds the reference's; ssm_scan |k - r| <=
    2e-4 + 2e-4|r| (tests/test_kernels.py's tolerance for this kernel);
@@ -61,10 +69,14 @@ Phases (any failed check raises, and the script exits non-zero):
    from 30 to 5, 100 sequences of 64 tokens per client), (c) the same with
    the rwkv6 family (``model="rwkv6"``), (d) the same with the task's
    default family, the paper's NanoGPT (no ``model=``), G cut from 30 to
-   10, whose global attention layers run the plain blockwise path and no
+   5, whose global attention layers run the plain blockwise path and no
    kernel of their own.  The mamba and rwkv6 paths' G went from 10 to 5
-   when the NanoGPT path arrived, to keep the script near half its time
-   limit.  Each: one stage on the fused engine with the coded store, one SE
+   when the NanoGPT path arrived, and NanoGPT's from 10 to 5 when the
+   coding kernels' route checks arrived, to keep the script near half its
+   time limit.  On the NanoGPT path a diagnostic runs first: each op of one SGD
+   step on the stage engine's stack of S*M models and on its first M (the
+   fused engine's), their rows compared bit for bit.
+   Each: one stage on the fused engine with the coded store, one SE
    request, one batched SE request over two shards, one stage on the stage
    engine; every kernel of the path must have launched.  Then
    the checks: decoded round-0 locals average to the stored round-1
@@ -119,6 +131,7 @@ EXP_PER_S = 16 * 132 * 1.98e9
 
 
 T_START = time.perf_counter()
+TRACE_TRIES = 3       # CUPTI traces taken before falling back to events
 
 
 def log(tag: str, **kw) -> None:
@@ -195,49 +208,55 @@ def trace_device(fn):
 
 def device_ms(fn, iters: int):
     """Device time per call of ``fn``: the CUPTI durations of every kernel,
-    copy and fill it launches over ``iters`` calls, divided by ``iters``.
-    Returns ``(ms, "cupti")``, or the CUDA-event median and ``"events"``
-    when the profiler records no device activity."""
+    copy and fill it launches over ``iters`` calls, divided by ``iters``;
+    None when the profiler records no device activity."""
     fn()
 
     def many():
         for _ in range(iters):
             fn()
     by_name = trace_device(many)
-    if by_name is None:
-        return time_ms(fn, iters), "events"
-    return sum(by_name.values()) / iters, "cupti"
+    return None if by_name is None else sum(by_name.values()) / iters
 
 
-def timed(fn, iters: int) -> dict:
+def timed(fn, iters: int, floor_ms: float = 0.0) -> dict:
     """Device time per call: CUPTI, cross-checked against CUDA events.  A
-    call of a millisecond or more keeps the device busy between its two
-    events, so there the event time is device time, and a CUPTI sum under
-    0.9 of it means the trace lost records: the event time is used."""
-    ms, timer = device_ms(fn, iters)
+    trace that records nothing, or reads under ``floor_ms`` (the least time
+    the work can take), lost records: it is taken again, up to
+    ``TRACE_TRIES`` times, before the event time (an upper bound: it holds
+    the launch's host time too) is used.  A call of a millisecond or more
+    keeps the device busy between its two events, so there a CUPTI sum
+    under 0.9 of the event time is short, and the event time is used."""
     ev = time_ms(fn, iters)
+    for _ in range(TRACE_TRIES):
+        ms = device_ms(fn, iters)
+        if ms is not None and ms >= floor_ms:
+            break
+    else:
+        return {"ms": ev, "timer": "events (no trace at or over the bound)",
+                "event_ms": ev}
     if ev >= 1.0 and ms < 0.9 * ev:
-        ms, timer = ev, "events (trace short)"
-    return {"ms": ms, "timer": timer, "event_ms": ev}
+        return {"ms": ev, "timer": "events (trace short)", "event_ms": ev}
+    return {"ms": ms, "timer": "cupti", "event_ms": ev}
 
 
 def bound(nbytes: int, flops: int, exps: int = 0,
           flops_per_s: float = FP32_FLOPS_PER_S):
     """The least time for the work: bytes over the memory rate, or the
     operations over their peak rates (FLOPs at ``flops_per_s``: fp32 on the
-    CUDA cores, or 3xTF32 for matrix products; exps), the larger."""
+    CUDA cores, or 3xTF32 for matrix products; exps), the larger.  Returns
+    (ms, "bytes" or "operations", the bytes bound alone in ms)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(flops / flops_per_s, exps / EXP_PER_S) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, t_bytes
 
 
-def share(row: dict, b_ms: float, b_by: str) -> dict:
-    """Add the bound and the roofline share to a timed row.  A traced time
-    below the bound is impossible: the CUPTI trace lost records of that
-    call, so the call's CUDA-event time (an upper bound) is used."""
-    if row["ms"] < b_ms:
-        row.update(ms=row["event_ms"], timer="events (trace below bound)")
-    row.update(bound_ms=b_ms, bound_by=b_by, roofline_share=b_ms / row["ms"])
+def share(row: dict, bnd) -> dict:
+    """Add the bound ``bnd`` (as ``bound`` returns it) and the roofline
+    share to a timed row."""
+    row.update(bound_ms=bnd[0], bound_by=bnd[1],
+               roofline_share=bnd[0] / row["ms"])
     return row
 
 
@@ -270,14 +289,20 @@ def compare(got, ref, name: str, rtol: float = 1e-5,
     return {"max_abs_err": max_abs, "max_rel_err": max_rel, "tol": tol}
 
 
-def times(kernel, plain, library, iters: int) -> dict:
+def times(kernel, plain, library, iters: int, bnd) -> dict:
     """Device times of a kernel, its plain version and one library call
-    (None where there is none), each cross-checked by ``timed``, plus the
-    kernel's per-call event time."""
-    k = timed(kernel, iters)
-    return {"ms": k["ms"], "timer": k["timer"], "event_ms": k["event_ms"],
-            "plain_ms": timed(plain, iters)["ms"],
-            "library_ms": timed(library, iters)["ms"] if library else None}
+    (None where there is none), each by ``timed`` with each one's event
+    time and timer beside it.  The kernel is held to its bound ``bnd`` (as
+    ``bound`` returns it); the plain version and the library call read the
+    same inputs and write the same output, so each is held to the bytes
+    bound."""
+    k = timed(kernel, iters, bnd[0])
+    row = {"ms": k["ms"], "timer": k["timer"], "event_ms": k["event_ms"]}
+    for name, fn in (("plain", plain), ("library", library)):
+        t = timed(fn, iters, bnd[2]) if fn else {}
+        row.update({f"{name}_ms": t.get("ms"), f"{name}_timer": t.get("timer"),
+                    f"{name}_event_ms": t.get("event_ms")})
+    return row
 
 
 # The coding kernels' shapes on each main path: parameters per client and
@@ -286,7 +311,7 @@ def times(kernel, plain, library, iters: int) -> dict:
 PATHS = {"cnn": {"p_client": 206_922, "rounds": 10},
          "mamba": {"p_client": 61_984, "rounds": 5},
          "rwkv6": {"p_client": 62_304, "rounds": 5},
-         "nanogpt": {"p_client": 32_912, "rounds": 10}}
+         "nanogpt": {"p_client": 32_912, "rounds": 5}}
 CODING = ("coded_matmul", "coded_matmul_rounds", "calibrate")
 CLIENTS_PER_SHARD = 5
 
@@ -297,7 +322,8 @@ def check_kernels(torch, K, path: str, model_cfg, ragged: bool):
     Returns {kernel: row} of the path's own shapes."""
     from repro_torch.core import coding, unlearning
     from repro_torch.core.tree import tree_map
-    from repro_torch.kernels.calibrate.ops import calibrate_update
+    from repro_torch.kernels.calibrate.ops import (calibrate_splits,
+                                                   calibrate_update)
     from repro_torch.kernels.calibrate.ref import calibrate_update_ref
     from repro_torch.kernels.coded_matmul.ops import (coded_encode_decode,
                                                       coded_matmul,
@@ -309,6 +335,7 @@ def check_kernels(torch, K, path: str, model_cfg, ragged: bool):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     p_client, g_rounds = PATHS[path]["p_client"], PATHS[path]["rounds"]
     p_shard = CLIENTS_PER_SHARD * p_client
     heads = {}
@@ -337,14 +364,14 @@ def check_kernels(torch, K, path: str, model_cfg, ragged: bool):
                       coded_matmul_ref(coeff, w, dt),
                       f"coded_matmul/{path}/{label}")
         ob = 2 if dt == torch.bfloat16 else 4
-        b_ms, b_by = bound(4 * (c * s + s * p) + ob * c * p, 2 * c * s * p)
+        bnd = bound(4 * (c * s + s * p) + ob * c * p, 2 * c * s * p)
         row = times(lambda: coded_matmul(coeff, w, out_dtype=dt),
                     lambda: coded_matmul_ref(coeff, w, dt),
                     (lambda: torch.matmul(coeff, w))
-                    if dt == torch.float32 else None, iters)
+                    if dt == torch.float32 else None, iters, bnd)
         row.update(kernel="coded_matmul", path=path, case=label,
                    shape=[c, s, p], out_dtype=str(dt), **err)
-        share(row, b_ms, b_by)
+        share(row, bnd)
         log("kernel", **row)
         if label == "encode":
             heads["coded_matmul"] = row
@@ -370,40 +397,52 @@ def check_kernels(torch, K, path: str, model_cfg, ragged: bool):
         err = compare(coded_matmul_rounds(coeff, w),
                       coded_matmul_rounds_ref(coeff, w),
                       f"coded_matmul_rounds/{path}/{label}")
-        b_ms, b_by = bound(4 * (c * s + g * s * p + g * c * p),
-                           2 * g * c * s * p)
+        bnd = bound(4 * (c * s + g * s * p + g * c * p), 2 * g * c * s * p)
         row = times(lambda: coded_matmul_rounds(coeff, w),
                     lambda: coded_matmul_rounds_ref(coeff, w),
-                    lambda: torch.matmul(coeff, w), iters)
+                    lambda: torch.matmul(coeff, w), iters, bnd)
         row.update(kernel="coded_matmul_rounds", path=path, case=label,
                    shape=[c, s, g, p], float4_branch=p % 4 == 0, **err)
-        share(row, b_ms, b_by)
+        share(row, bnd)
         log("kernel", **row)
         if label == "stage_encode":
             heads["coded_matmul_rounds"] = row
         del coeff, w
 
     # calibrate: M' = 4 retained clients of the path's model; ragged shapes;
-    # M = 2048 (past one 1024-coefficient chunk) with eq. 3's coefficient
-    # scale, ||w_m|| / (M ||w'_m||) drawn as U[0.5, 1.5) / M
+    # M' = 4 at P % 4 = 1, 3 (the CNN's P % 4 = 2); M at the split
+    # threshold and one past it, and M = 2048 at the path's P and at
+    # P % 4 = 0, 1, 3, these with eq. 3's coefficient scale,
+    # ||w_m|| / (M ||w'_m||) drawn as U[0.5, 1.5) / M
     cal_cases = [("se_round", 4, p_client, 500)]
     if ragged:
         cal_cases += [("m1_ragged", 1, 7, 200), ("m9", 9, 4097, 200),
-                      ("s20_m2048", 2048, p_client, 20)]
+                      ("se_round_p1", 4, p_client - 1, 500),
+                      ("se_round_p3", 4, p_client + 1, 500),
+                      ("m63", 63, p_client, 100), ("m64", 64, p_client, 100),
+                      ("s20_m2048", 2048, p_client, 20),
+                      ("m2048_p0", 2048, p_client - 2, 20),
+                      ("m2048_p1", 2048, p_client - 1, 20),
+                      ("m2048_p3", 2048, p_client + 1, 20)]
     for label, m, p, iters in cal_cases:
         w, d, cf = randn(p), randn(m, p), randn(m)
-        if m > 1024:
+        if m >= 63:
             cf = (torch.rand(m, generator=gen, device=dev) + 0.5) / m
-        err = compare(calibrate_update(w, d, cf),
-                      calibrate_update_ref(w, d, cf),
+        got = calibrate_update(w, d, cf)
+        err = compare(got, calibrate_update_ref(w, d, cf),
                       f"calibrate/{path}/{label}")
-        b_ms, b_by = bound(4 * (p + m * p + m + p), 2 * m * p)
+        if not torch.equal(got, calibrate_update(w, d, cf)):
+            raise AssertionError(f"calibrate/{path}/{label}: two launches "
+                                 f"differ")
+        del got
+        bnd = bound(4 * (p + m * p + m + p), 2 * m * p)
         row = times(lambda: calibrate_update(w, d, cf),
                     lambda: calibrate_update_ref(w, d, cf),
-                    lambda: torch.addmv(w, d.t(), cf), iters)
+                    lambda: torch.addmv(w, d.t(), cf), iters, bnd)
         row.update(kernel="calibrate", path=path, case=label, shape=[m, p],
-                   **err)
-        share(row, b_ms, b_by)
+                   p_mod_4=p % 4, splits=calibrate_splits(m, p, sms),
+                   bit_identical=True, **err)
+        share(row, bnd)
         log("kernel", **row)
         if label == "se_round":
             heads["calibrate"] = row
@@ -419,6 +458,7 @@ def check_kernels(torch, K, path: str, model_cfg, ragged: bool):
                                                          norms), iters))
             del model, deltas
         del w, d, cf
+        torch.cuda.empty_cache()
 
     # encode_decode: the round trip of one (S, P) shard matrix at the path's
     # client size, from all C clients and from S of them (the
@@ -426,14 +466,20 @@ def check_kernels(torch, K, path: str, model_cfg, ragged: bool):
     # the register tile (S > 16) and the shared tables (C*S > 4096): (S 20,
     # C 40) from an S-subset (the scheme's quorum operator at S = 20 has
     # entries near 7e4, so fp32 rounding alone moves its round trip by 0.06)
-    # and (S 50, C 100) with random operators scaled as an encode/decode
-    # pair is (entries ~ S^-1/2 and C^-1/2, so dec @ enc is of unit size)
-    ed_cases = [("all_clients", 4, 20, None), ("s_subset", 4, 20, [1, 6, 12, 19])]
+    # and, with random operators scaled as an encode/decode pair is
+    # (entries ~ S^-1/2 and C^-1/2, so dec @ enc is of unit size), (S 50,
+    # C 100), (S 100, C 200) (out rows past one register pass of 64) and
+    # (S 130, C 140) at a ragged P of 4,099 (w past the kernel's staged rows)
+    ed_cases = [("all_clients", 4, 20, None, p_client, 200),
+                ("s_subset", 4, 20, [1, 6, 12, 19], p_client, 200)]
     if ragged:
-        ed_cases += [("s20_c40", 20, 40, list(range(0, 40, 2))),
-                     ("s50_c100", 50, 100, "random")]
-    for label, s, c, ids in ed_cases:
-        w = randn(s, p_client)
+        ed_cases += [("s20_c40", 20, 40, list(range(0, 40, 2)), p_client,
+                      50),
+                     ("s50_c100", 50, 100, "random", p_client, 50),
+                     ("s100_c200", 100, 200, "random", p_client, 20),
+                     ("s130_c140", 130, 140, "random", 4099, 20)]
+    for label, s, c, ids, p, iters in ed_cases:
+        w = randn(s, p)
         if ids == "random":
             enc, dec = randn(c, s) * s ** -0.5, randn(s, c) * c ** -0.5
             got = coded_encode_decode(enc, dec, w)
@@ -442,10 +488,9 @@ def check_kernels(torch, K, path: str, model_cfg, ragged: bool):
             enc, dec = (torch.tensor(m, dtype=torch.float32, device=dev)
                         for m in coding.encode_decode_operators(sch, ids))
             got = coding.encode_decode(sch, w, ids)
-            if not torch.equal(got, coded_encode_decode(enc, dec, w)):
-                raise AssertionError(f"encode_decode/{path}/{label}: the "
-                                     f"coding entry point and the wrapper "
-                                     f"differ")
+        if not torch.equal(got, coded_encode_decode(enc, dec, w)):
+            raise AssertionError(f"encode_decode/{path}/{label}: two "
+                                 f"launches differ")
         err = compare(got, coded_encode_decode_ref(enc, dec, w),
                       f"encode_decode/{path}/{label}")
         if ids != "random":
@@ -453,15 +498,14 @@ def check_kernels(torch, K, path: str, model_cfg, ragged: bool):
             err["round_trip_max_abs_err"] = compare(
                 got, w, f"encode_decode/{path}/{label}/round_trip", tol,
                 tol)["max_abs_err"]
-        b_ms, b_by = bound(4 * (2 * c * s + 2 * s * p_client),
-                           4 * c * s * p_client)
+        bnd = bound(4 * (2 * c * s + 2 * s * p), 4 * c * s * p)
         row = times(lambda: coded_encode_decode(enc, dec, w),
                     lambda: coded_encode_decode_ref(enc, dec, w),
-                    lambda: torch.linalg.multi_dot([dec, enc, w]),
-                    200 if s == 4 else 50)
+                    lambda: torch.linalg.multi_dot([dec, enc, w]), iters,
+                    bnd)
         row.update(kernel="encode_decode", path=path, case=label,
-                   shape=[c, s, p_client], **err)
-        share(row, b_ms, b_by)
+                   shape=[c, s, p], bit_identical=True, **err)
+        share(row, bnd)
         log("kernel", **row)
         if label == "all_clients":
             heads["encode_decode"] = row
@@ -526,14 +570,13 @@ def check_ssm(torch, K):
             yr, hr = ssm_scan_ref(*args)
             err = compare(yk, yr, f"ssm_scan/{label}/y", 2e-4, 2e-4)
             compare(hk, hr, f"ssm_scan/{label}/h_last", 2e-4, 2e-4)
+            bnd = bound(*ssm_work(bsz, s, d, n, g, backward=False))
             row = times(lambda: ops.ssm_scan(*args),
-                        lambda: ssm_scan_ref(*args), None, iters)
+                        lambda: ssm_scan_ref(*args), None, iters, bnd)
         del yk, hk, yr, hr
-        nb, fl, ex = ssm_work(bsz, s, d, n, g, backward=False)
-        b_ms, b_by = bound(nb, fl, ex)
         row.update(kernel="ssm_scan", case=label, shape=[bsz, s, d, n, g],
                    **err)
-        share(row, b_ms, b_by)
+        share(row, bnd)
         log("kernel", **row)
         if label == "fused_stage":
             heads["ssm_scan"] = row
@@ -561,17 +604,16 @@ def check_ssm(torch, K):
             errs[nm] = compare(k_.reshape(r_.shape), r_,
                                f"ssm_scan_bwd/{label}/{nm}", 1e-3, atol)
         del got, want
-        row = times(kernel_bwd, plain_bwd, None, iters)
+        bnd = bound(*ssm_work(bsz, s, d, n, g, backward=True))
+        row = times(kernel_bwd, plain_bwd, None, iters, bnd)
         del yr, hr, leaves
-        nb, fl, ex = ssm_work(bsz, s, d, n, g, backward=True)
-        b_ms, b_by = bound(nb, fl, ex)
         worst = max(errs.values(), key=lambda e: e["max_abs_err"])
         row.update(kernel="ssm_scan_bwd", case=label,
                    shape=[bsz, s, d, n, g],
                    max_abs_err=worst["max_abs_err"],
                    per_grad={k: [v["max_abs_err"], v["tol"]]
                              for k, v in errs.items()})
-        share(row, b_ms, b_by)
+        share(row, bnd)
         log("kernel", **row)
         if label == "fused_stage":
             heads["ssm_scan_bwd"] = row
@@ -643,11 +685,11 @@ def check_wkv(torch, K):
             err = compare(yk, yr, f"wkv/{label}/y", 5e-4, 5e-4)
             compare(hk, hr, f"wkv/{label}/h_last", 5e-4, 5e-4)
             del yk, hk, yr, hr
+            bnd = bound(*wkv_work(bsz, s, h, n, g, backward=False))
             row = times(lambda: ops.wkv(*args), lambda: wkv_ref(*args), None,
-                        iters)
-        b_ms, b_by = bound(*wkv_work(bsz, s, h, n, g, backward=False))
+                        iters, bnd)
         row.update(kernel="wkv", case=label, shape=[bsz, s, h, n, g], **err)
-        share(row, b_ms, b_by)
+        share(row, bnd)
         log("kernel", **row)
         if label == "fused_stage":
             heads["wkv"] = row
@@ -658,11 +700,12 @@ def check_wkv(torch, K):
 
         def kernel_bwd():
             return ops._bwd(*args[:5], ckpt, gy, ghl, gg)
-        b_ms, b_by = bound(*wkv_work(bsz, s, h, n, g, backward=True))
+        bnd = bound(*wkv_work(bsz, s, h, n, g, backward=True))
         if not with_bwd:        # the kernel alone, timed
-            row = share(dict(timed(kernel_bwd, iters), kernel="wkv_bwd",
-                             case=label, shape=[bsz, s, h, n, g],
-                             ckpt_bytes=ckpt.numel() * 4), b_ms, b_by)
+            row = share(dict(timed(kernel_bwd, iters, bnd[0]),
+                             kernel="wkv_bwd", case=label,
+                             shape=[bsz, s, h, n, g],
+                             ckpt_bytes=ckpt.numel() * 4), bnd)
             log("kernel", **row)
             del args, ckpt, gy, ghl
             torch.cuda.empty_cache()
@@ -685,14 +728,14 @@ def check_wkv(torch, K):
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"wkv_bwd/{label}: two runs differ")
         del got, want, again
-        row = times(kernel_bwd, plain_bwd, None, iters)
+        row = times(kernel_bwd, plain_bwd, None, iters, bnd)
         del yr, hr, leaves
         worst = max(errs.values(), key=lambda e: e["max_abs_err"])
         row.update(kernel="wkv_bwd", case=label, shape=[bsz, s, h, n, g],
                    max_abs_err=worst["max_abs_err"],
                    per_grad={k: [v["max_abs_err"], v["tol"]]
                              for k, v in errs.items()})
-        share(row, b_ms, b_by)
+        share(row, bnd)
         log("kernel", **row)
         if label == "fused_stage":
             heads["wkv_bwd"] = row
@@ -762,15 +805,15 @@ def check_window(torch, K):
             # check: it may run at another precision)
             lib_err = float((library().transpose(1, 2) - want).abs().max())
             del want
+            bnd = bound(*window_work(b, s, h, kv, hd, window, False),
+                        flops_per_s=TF32X3_FLOPS_PER_S)
             row = times(lambda: ops._fwd(q, k, v, window),
                         lambda: window_attention_ref(q, k, v, window),
-                        library, iters)
-        b_ms, b_by = bound(*window_work(b, s, h, kv, hd, window, False),
-                           flops_per_s=TF32X3_FLOPS_PER_S)
+                        library, iters, bnd)
         row.update(kernel="window_attention", case=label,
                    shape=[b, s, h, kv, hd, window],
                    library_max_abs_err=lib_err, **err)
-        share(row, b_ms, b_by)
+        share(row, bnd)
         log("kernel", **row)
         heads[label] = {"window_attention": row}
         # backward: the kernels from the forward's O and log-sum-exp against
@@ -795,27 +838,30 @@ def check_window(torch, K):
             errs[nm] = compare(k_, r_, f"window_attention_bwd/{label}/{nm}",
                                0.0, 1e-4 * float(r_.abs().max()))
         del got
-        row = timed(kernel_bwd, iters)
-        row["plain_ms"] = timed(plain_bwd, iters)["ms"]
+        bnd = bound(*window_work(b, s, h, kv, hd, window, True),
+                    flops_per_s=TF32X3_FLOPS_PER_S)
+        row = timed(kernel_bwd, iters, bnd[0])
+        pl = timed(plain_bwd, iters, bnd[2])
+        row.update(plain_ms=pl["ms"], plain_timer=pl["timer"],
+                   plain_event_ms=pl["event_ms"])
         del out, leaves
         torch.cuda.empty_cache()
         ll = [t.detach().clone().requires_grad_(True) for t in (lq, lk, lv)]
         lout = F.scaled_dot_product_attention(*ll, attn_mask=mask)
         ldo = do.transpose(1, 2)
         lib = timed(lambda: torch.autograd.grad(lout, ll, ldo,
-                                                retain_graph=True), iters)
+                                                retain_graph=True), iters,
+                    bnd[2])
         row.update(library_ms=lib["ms"], library_timer=lib["timer"],
                    library_event_ms=lib["event_ms"])
         del ll, lout
-        b_ms, b_by = bound(*window_work(b, s, h, kv, hd, window, True),
-                           flops_per_s=TF32X3_FLOPS_PER_S)
         worst = max(errs.values(), key=lambda e: e["max_abs_err"])
         row.update(kernel="window_attention_bwd", case=label,
                    shape=[b, s, h, kv, hd, window],
                    max_abs_err=worst["max_abs_err"], bit_identical=True,
                    per_grad={nm: [e["max_abs_err"], e["tol"]]
                              for nm, e in errs.items()})
-        share(row, b_ms, b_by)
+        share(row, bnd)
         log("kernel", **row)
         heads[label]["window_attention_bwd"] = row
         del q, k, v, lq, lk, lv, o, lse, do, mask
@@ -1240,6 +1286,102 @@ LM_KERNELS = {"mamba": ("ssm_scan", "ssm_scan_bwd"),
               "nanogpt": ()}
 
 
+def check_engine_gemms(torch, sim, seq: int) -> dict:
+    """ROADMAP queue 3, item 2: the fused engine trains a shard's M models
+    as one stack (attention's batch M*bs = 50 on the NanoGPT path), the
+    stage engine all S*M (200).  Each op of one SGD step runs on the stage
+    engine's stack and on its first M models, and the M models' rows are
+    compared bit for bit: the first op listed whose rows differ is where
+    the engines part.  Inputs: random activations at the path's shapes;
+    for the step, the model's initial weights and 20 clients' tokens."""
+    from repro_torch.core.tree import leaves_with_paths, tree_leaves, tree_map
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers, transformer
+    from repro_torch.models.layers import matmul
+
+    cfg, bs = sim.cfg, sim.local_batch
+    m = sim.fl.clients_per_shard
+    km = sim.fl.num_shards * m
+    d, hh, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    h = randn(km, bs, seq, d)
+    p = {"wq": randn(km, d, hh, hd) * d ** -0.5,
+         "wk": randn(km, d, kv, hd) * d ** -0.5,
+         "wv": randn(km, d, kv, hd) * d ** -0.5,
+         "wo": randn(km, hh, hd, d) * (hh * hd) ** -0.5}
+    q, k, v = (randn(km * bs, seq, n, hd) for n in (hh, kv, kv))
+    probs = torch.softmax(randn(km * bs, kv, hh // kv, seq, seq), -1)
+    clients = sorted(sim.client_data)[:km]
+    xs, ys = sim._stack_client_data(clients)
+    w0 = tree_map(lambda t: t.unsqueeze(0).expand(km, *t.shape).contiguous(),
+                  sim.init_model(0))
+
+    def loss(n):
+        batch = sim.task_spec.make_batch(xs[:n, :bs], ys[:n, :bs])
+        return sim._loss(sliced(w0, n), batch)
+
+    def grads(n):
+        return tree_leaves(sim._grads(sliced(w0, n), xs[:n, :bs],
+                                      ys[:n, :bs]))
+    ffn = {"wi_gate": randn(km, d, cfg.d_ff) * d ** -0.5,
+           "wi_up": randn(km, d, cfg.d_ff) * d ** -0.5,
+           "wo": randn(km, cfg.d_ff, d) * cfg.d_ff ** -0.5}
+    scale = {"scale": 1.0 + 0.1 * randn(km, d)}
+
+    def sliced(tree, n):
+        return tree_map(lambda t: t[:n], tree)
+    ops = {
+        "embedding (F.embedding)": lambda n: layers.apply_embed(
+            sliced(w0["embed"], n), xs[:n, :bs], cfg),
+        "norm (apply_norm)": lambda n: layers.apply_norm(
+            sliced(scale, n), h[:n], cfg),
+        "q projection (bmm)": lambda n: matmul(
+            h[:n], p["wq"][:n].reshape(n, d, hh * hd)),
+        "scores q.k (einsum)": lambda n: torch.einsum(
+            "bqkgd,bskd->bkgqs",
+            q[:n * bs].reshape(n * bs, seq, kv, hh // kv, hd), k[:n * bs]),
+        "probs @ v (einsum)": lambda n: torch.einsum(
+            "bkgqs,bskd->bkgqd", probs[:n * bs], v[:n * bs]),
+        "blockwise_attention": lambda n: attn.blockwise_attention(
+            q[:n * bs], k[:n * bs], v[:n * bs], causal=True,
+            block_q=cfg.attn_block_q or seq),
+        "attention block (projections, RoPE, attention, wo)": lambda n:
+            transformer._attention({a: b[:n] for a, b in p.items()}, h[:n],
+                                   cfg, "global"),
+        "gated MLP (apply_mlp: three bmm)": lambda n: layers.apply_mlp(
+            sliced(ffn, n), h[:n], cfg),
+        "unembedding (apply_unembed)": lambda n: layers.apply_unembed(
+            sliced(w0["embed"], n), h[:n], cfg),
+        "logits (forward_train)": lambda n: transformer.forward_train(
+            sliced(w0, n), cfg, sim.task_spec.make_batch(
+                xs[:n, :bs], ys[:n, :bs]))[0],
+        "the models' losses (forward)": loss,
+    }
+    names = ["/".join(path) for path, _ in leaves_with_paths(w0)]
+    out = {}
+    with torch.no_grad():
+        for name, fn in ops.items():
+            small, big = fn(m), fn(km)
+            rows = big[:small.shape[0]]
+            out[name] = {"bit_equal": torch.equal(small, rows),
+                         "max_abs_diff": float((small - rows).abs().max())}
+        # the backward, leaf by leaf, and the same batch twice
+        small, again, big = grads(m), grads(m), grads(km)
+        for nm, a, b, c in zip(names, small, again, big):
+            out[f"gradient {nm}"] = {
+                "bit_equal": torch.equal(a, c[:m]),
+                "max_abs_diff": float((a - c[:m]).abs().max()),
+                "repeat_bit_equal": torch.equal(a, b)}
+    first = next((n for n, r in out.items() if not r["bit_equal"]), None)
+    log("diagnostic", path="nanogpt", what="the stack's rows at batch "
+        f"{m * bs} vs inside batch {km * bs}", ops=out,
+        first_op_that_differs=first)
+    return out
+
+
 def lm_path(torch, K, family: str):
     """Phase 5b-5d: the generation task with ``family`` in the paper's
     federation, built by the port's own entry point, with G cut from 30 to
@@ -1256,6 +1398,7 @@ def lm_path(torch, K, family: str):
     if family == "nanogpt":
         log("config", path=family, attention="global layers only: the "
             "plain blockwise path, no window kernel (as the reference's)")
+        check_engine_gemms(torch, sim, cfg.seq_len)
     log("config", path=family, model=dataclasses.asdict(sim.cfg),
         params=sum(v.numel() for v in tree_leaves(sim.init_model(0))),
         lr=sim.opt.lr, local_batch=sim.local_batch,
@@ -1613,7 +1756,7 @@ def main() -> int:
                "window_attention_bwd": (cu + "window_attn.cu", window_tpu,
                                         "gemma3")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "library_ms", "plain_event_ms", "library_event_ms")
     rows = []
     for name, (source, replaces, path) in sources.items():
         by_path = {p: {"launches": launches[p][name],

@@ -2,10 +2,31 @@
 in ``csrc/calibrate.cu``, CPU tensors run the plain version in ``ref.py``."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch import kernels as K
 from repro_torch.kernels.calibrate.ref import calibrate_update_ref
+
+TILE_P = 2048          # columns of P per block (kTileP in csrc/calibrate.cu)
+MIN_SPLIT_ROWS = 32    # rows of M a split range takes at least
+MAX_SPLITS = 8         # the portable cluster size (kMaxSplits there)
+
+
+def calibrate_splits(m: int, p: int, sms: int) -> int:
+    """How many ranges the kernel cuts the sum over M into: none when the
+    column tiles alone give 4 blocks per SM, else as many as the rows allow
+    (``MIN_SPLIT_ROWS`` each), at most ``MAX_SPLITS``.  So M < 64 is never
+    split (the main path's M' = 4 keeps the sum m = 0 .. M-1)."""
+    if -(-p // TILE_P) >= 4 * sms:
+        return 1
+    return max(1, min(MAX_SPLITS, m // MIN_SPLIT_ROWS))
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def calibrate_update(w: torch.Tensor, deltas: torch.Tensor,
@@ -27,10 +48,10 @@ def calibrate_update(w: torch.Tensor, deltas: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     out = torch.empty_like(w)
-    vec = p % 4 == 0 and K.aligned16(w, deltas, out)
+    splits = calibrate_splits(m, p, _sms(w.device.index))
     err = K.load_library().repro_calibrate(
         w.data_ptr(), deltas.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
-        m, p, int(vec), K.stream_of(w))
+        m, p, splits, K.stream_of(w))
     K.check_launch(err, "calibrate")
     K.LAUNCHES["calibrate"] += 1
     return out

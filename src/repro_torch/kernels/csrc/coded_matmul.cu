@@ -40,19 +40,26 @@
 //
 // Any code dimension.  The register tiles above hold S <= 16 (kMaxS) and
 // encode_decode's shared tables C*S <= 4096 (kMaxCS); larger shapes take
-// two more kernels, with the same sums in the same order:
+// two more kernels:
 //   * coded_matmul_deep_kernel (S > 16): a 2-column register tile walked
 //     over S in chunks of 16 rows; each thread keeps all kBlockC = 32 output
 //     rows as accumulators (two blocks of 8 warps per SM), loads a chunk's
 //     16 rows before its FMAs, and reads the chunk's coefficients as float4
-//     broadcasts from shared memory;
-//   * encode_decode_deep_kernel (S > 16 or C*S > 4096): one column per
-//     thread; clients pass in chunks of kChunkC whose coded values stay in
-//     registers (the (C, P) intermediate never reaches device memory), and
-//     the S output rows take each chunk's terms in ascending c, carried
-//     between chunks in the output itself; the chunk's enc and dec columns
-//     pass through a shared table kChunkS rows of s at a time, so no size
-//     is bounded.
+//     broadcasts from shared memory, summing over s in ascending order;
+//   * encode_decode_tiled_kernel (S > 16 or C*S > 4096): w read once and
+//     out written once, the arithmetic on register tiles.  A block of 4
+//     warps owns 128 columns and all S rows: it stages its columns of w in
+//     shared memory once (in chunks of 128 rows past S = 128), and for each
+//     chunk of 64 clients forms the coded tile enc[chunk] @ w (8 clients x 8
+//     columns a thread, in registers), passes it through shared memory 32
+//     clients at a time, and adds dec[:, chunk] @ coded into out's
+//     accumulators (RT rows x 8 columns a thread, RT = S / 8 up to 8),
+//     which stay in registers across all chunks; past 64 rows of out
+//     the clients are walked again for each pass of 64 rows.  The tables
+//     are copied per chunk, coalesced, and out's rows leave through shared
+//     memory, coalesced.  The sums run over s and over c in ascending
+//     order, fp32 FMAs from 0, as in encode_decode_kernel: the two kernels
+//     give the same bits.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,8 +74,6 @@ constexpr int kMaxS = 16;                   // largest S of the register tile
 constexpr int kMaxCS = 4096;                // largest C*S of the shared tables
 constexpr int kDeepCols = 2;                // columns per thread, S > 16
 constexpr int kDeepTileP = kThreads * kDeepCols;
-constexpr int kChunkS = 64;                 // rows of s per table chunk
-constexpr int kChunkC = 32;                 // clients per register chunk
 
 __device__ __forceinline__ void store1(float* o, float v) { *o = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* o, float v) {
@@ -342,70 +347,269 @@ encode_decode_kernel(const float* __restrict__ enc, const float* __restrict__ de
   }
 }
 
-// S > 16 or C*S > 4096: one column per thread, tile + threadIdx.x.  For
-// each chunk of up to kChunkC clients, the coded values enc[c] . w of this
-// column are formed in registers (sum over s ascending), then each output
-// row adds dec[s, c] * coded[c] in ascending c onto its sum so far, which
-// lives in ``out`` between chunks (fp32 stores and loads are exact).  The
-// chunk's enc and dec columns pass through shared memory kChunkS rows of s
-// at a time, as [s][c], read as float4 broadcasts.
-__global__ void __launch_bounds__(kThreads)
-encode_decode_deep_kernel(const float* __restrict__ enc,
-                          const float* __restrict__ dec,
-                          const float* __restrict__ w, float* __restrict__ out,
-                          int C, int S, int64_t P) {
-  __shared__ __align__(16) float tab[kChunkS][kChunkC];
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const bool live = p < P;
-  for (int c0 = 0; c0 < C; c0 += kChunkC) {
-    const int nc = C - c0 < kChunkC ? C - c0 : kChunkC;
-    float coded[kChunkC];
+// The round trip as two register-tiled products per block of kEdTileP
+// columns, kEdThreads threads.  Thread roles: q = lane % 4 picks 8 of the
+// warp's 32 columns; g = lane / 4 is a client group in the encode (clients
+// 8 t + g of a chunk, t < 8) and a row group in the decode (rows 8 r + g of
+// a pass, r < RT).  A thread's tiles are 8 clients x 8 columns and RT rows
+// x 8 columns: a shared-memory load costs 4 bytes a lane whether or not the
+// lanes share the address, so each loaded value feeds as many FMAs as the
+// registers allow, 8 here.  Every copy from device
+// memory is coalesced: w's rows, the tables in their own row-major layouts
+// (rows padded to an odd stride, so the 8 groups' reads fall in 8 banks),
+// and out's rows, written through the warp's scratch.  Shared memory
+// (floats): each warp's rows of w, [sb][32]; the enc chunk [kEdCB][sb | 1];
+// the dec chunk [8 RT][kEdCB + 1]; each warp's scratch, 32 clients of the
+// coded tile [32][32] (16-byte chunks XOR-swizzled by row) or 32 rows of
+// out [32][33].
+constexpr int kEdThreads = 128;
+constexpr int kEdWarps = kEdThreads / 32;
+constexpr int kEdWarpCols = 32;                    // columns of P per warp
+constexpr int kEdTileP = kEdWarps * kEdWarpCols;   // columns of P per block
+constexpr int kEdCB = 64;                          // clients per chunk
+constexpr int kEdSO = 64;                          // output rows per pass
+constexpr int kEdSB = 128;                         // rows of w staged at once
+constexpr int kEdScratch = 32 * 33;                // floats of a warp's scratch
+
+__host__ __device__ constexpr int ed_smem_floats(int sb, int rt) {
+  return sb * kEdWarps * kEdWarpCols +
+         (kEdCB * (sb | 1) + 8 * rt * (kEdCB + 1) + 3) / 4 * 4 +
+         kEdWarps * kEdScratch;
+}
+
+__device__ __forceinline__ void ed_cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+// 4 bytes, or zeros when ``valid`` is false (nothing is read then)
+__device__ __forceinline__ void ed_cp_async4(float* dst, const float* src,
+                                             bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void ed_cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+}
+
+__device__ __forceinline__ void ld8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// cod[t][j] += enc[8t+g][s] * w[s][8q+j] over the chunk's ns rows, s
+// ascending (CT = client groups in use; enc chunk rows of stride es)
+template <int CT>
+__device__ __forceinline__ void ed_encode(const float* ws, const float* encp,
+                                          int es, int ns, int q, int g,
+                                          float (&cod)[8][8]) {
+  const float* e = encp + g * es;
+#pragma unroll 2
+  for (int s = 0; s < ns; ++s) {
+    float xv[8];
+    ld8(ws + s * 32 + 8 * q, xv);
 #pragma unroll
-    for (int i = 0; i < kChunkC; ++i) coded[i] = 0.f;
-    for (int s0 = 0; s0 < S; s0 += kChunkS) {
-      const int ns = S - s0 < kChunkS ? S - s0 : kChunkS;
-      __syncthreads();                // the last table is read
-      for (int t = threadIdx.x; t < kChunkS * kChunkC; t += kThreads) {
-        const int s = t / kChunkC, i = t % kChunkC;
-        tab[s][i] = s < ns && i < nc
-                        ? enc[static_cast<int64_t>(c0 + i) * S + s0 + s] : 0.f;
-      }
-      __syncthreads();
-      for (int s = 0; s < ns && live; ++s) {
-        const float x = w[(s0 + s) * P + p];
+    for (int t = 0; t < CT; ++t) {
+      const float et = e[8 * t * es + s];
 #pragma unroll
-        for (int i4 = 0; i4 < kChunkC; i4 += 4) {
-          const float4 e = *reinterpret_cast<const float4*>(&tab[s][i4]);
-          coded[i4 + 0] = fmaf(e.x, x, coded[i4 + 0]);
-          coded[i4 + 1] = fmaf(e.y, x, coded[i4 + 1]);
-          coded[i4 + 2] = fmaf(e.z, x, coded[i4 + 2]);
-          coded[i4 + 3] = fmaf(e.w, x, coded[i4 + 3]);
-        }
-      }
+      for (int j = 0; j < 8; ++j) cod[t][j] = fmaf(et, xv[j], cod[t][j]);
     }
-    for (int s0 = 0; s0 < S; s0 += kChunkS) {
-      const int ns = S - s0 < kChunkS ? S - s0 : kChunkS;
-      __syncthreads();
-      for (int t = threadIdx.x; t < kChunkS * kChunkC; t += kThreads) {
-        const int s = t / kChunkC, i = t % kChunkC;
-        tab[s][i] = s < ns && i < nc
-                        ? dec[static_cast<int64_t>(s0 + s) * C + c0 + i] : 0.f;
-      }
-      __syncthreads();
-      for (int s = 0; s < ns && live; ++s) {
-        float* o = out + (s0 + s) * P + p;
-        float acc = c0 == 0 ? 0.f : *o;
+  }
+}
+
+// The coded tile holds 32 clients x 32 columns: client i's 16-byte chunk k
+// (columns 4k .. 4k+3) at chunk k ^ (i % 8) of row i, so the 8 client
+// groups' stores fall in 8 different banks.
+__device__ __forceinline__ float* coded_at(float* coded, int i, int k) {
+  return coded + i * 32 + 4 * (k ^ (i % 8));
+}
+
+// acc[r][j] += dec[8r+g][cc] * coded[cc][8q+j] over clients c0 .. c1 of the
+// chunk, cc ascending; the coded tile holds clients c0 .. c0+32
+template <int RT>
+__device__ __forceinline__ void ed_decode(float* coded, const float* decp,
+                                          int c0, int c1, int q, int g,
+                                          float (&acc)[RT][8]) {
+  const float* d = decp + g * (kEdCB + 1);
+#pragma unroll 2
+  for (int cc = c0; cc < c1; ++cc) {
+    const float4 a = *reinterpret_cast<const float4*>(
+        coded_at(coded, cc - c0, 2 * q));
+    const float4 b = *reinterpret_cast<const float4*>(
+        coded_at(coded, cc - c0, 2 * q + 1));
+    const float cv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 #pragma unroll
-        for (int i4 = 0; i4 < kChunkC; i4 += 4) {
-          const float4 d = *reinterpret_cast<const float4*>(&tab[s][i4]);
-          acc = fmaf(d.x, coded[i4 + 0], acc);
-          acc = fmaf(d.y, coded[i4 + 1], acc);
-          acc = fmaf(d.z, coded[i4 + 2], acc);
-          acc = fmaf(d.w, coded[i4 + 3], acc);
-        }
-        *o = acc;
-      }
+    for (int r = 0; r < RT; ++r) {
+      const float dr = d[8 * r * (kEdCB + 1) + cc];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(dr, cv[j], acc[r][j]);
     }
+  }
+}
+
+// The work runs as steps (pass of output rows, chunk of clients, chunk of
+// s), in that loop order; each step copies its tables (cp.async), and, past
+// kEdSB rows of w, its chunk of w (else w is copied once, with step 0's
+// tables).  RT = row groups per pass: the template keeps the accumulators
+// as few as S allows.
+template <int RT>
+__global__ void __launch_bounds__(kEdThreads)
+encode_decode_tiled_kernel(const float* __restrict__ enc,
+                           const float* __restrict__ dec,
+                           const float* __restrict__ w, float* __restrict__ out,
+                           int C, int S, int64_t P, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q = lane % 4, g = lane / 4;
+  const int sb = S < kEdSB ? S : kEdSB, es = sb | 1;
+  const bool resident = S <= kEdSB;                  // all of w staged once
+  float* ws = smem + warp * sb * kEdWarpCols;
+  float* encp = smem + kEdWarps * sb * kEdWarpCols;
+  float* decp = encp + kEdCB * es;
+  float* scratch = smem + ed_smem_floats(sb, RT) - kEdWarps * kEdScratch +
+                   warp * kEdScratch;
+  const int64_t wcol = static_cast<int64_t>(blockIdx.x) * kEdTileP +
+                       warp * kEdWarpCols;           // the warp's first column
+  const int nsc = (S + kEdSB - 1) / kEdSB;           // chunks of s
+  const int nch = (C + kEdCB - 1) / kEdCB;           // chunks of clients
+  const int steps = (S + kEdSO - 1) / kEdSO * nch * nsc;
+
+  // rows s0 .. s0+ns of the warp's 32 columns of w into ws (0 past P)
+  auto copy_w = [&](int s0, int ns) {
+    if (vec) {    // P % 4 == 0: a float4 is all in range or all out
+      for (int i = lane; i < ns * 8; i += 32) {
+        const int s = i / 8, j = 4 * (i % 8);
+        float* dst = ws + s * 32 + j;
+        if (wcol + j < P)
+          ed_cp_async16(dst, w + static_cast<int64_t>(s0 + s) * P + wcol + j);
+        else
+          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    } else {
+      for (int s = 0; s < ns; ++s)
+        ed_cp_async4(ws + s * 32 + lane,
+                     w + static_cast<int64_t>(s0 + s) * P + wcol + lane,
+                     wcol + lane < P);
+    }
+  };
+
+  if (resident) copy_w(0, S);
+  float acc[RT][8], cod[8][8];
+  for (int step = 0; step < steps; ++step) {
+    const int sc = step % nsc, ch = step / nsc % nch;
+    const int so0 = step / nsc / nch * kEdSO, c0 = ch * kEdCB, s0 = sc * kEdSB;
+    const int nc = C - c0 < kEdCB ? C - c0 : kEdCB;
+    const int ns = S - s0 < kEdSB ? S - s0 : kEdSB;
+    const int ct = (nc + 7) / 8;
+    if (ch == 0 && sc == 0)
+#pragma unroll
+      for (int r = 0; r < RT; ++r)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
+    if (sc == 0)
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) cod[t][j] = 0.f;
+    __syncthreads();               // the last step is done with the tables
+    if (!resident) copy_w(s0, ns);
+    // enc rows c0 + cc, columns s0 .. s0+ns, and, on the chunk's last
+    // s-chunk (where the decode runs), dec rows so0 .. so0+8 RT, columns
+    // c0 .. c0+kEdCB; zeros past C and S
+    for (int cc = warp; cc < 8 * ct; cc += kEdWarps)
+      for (int s = lane; s < ns; s += 32)
+        ed_cp_async4(encp + cc * es + s,
+                     enc + static_cast<int64_t>(c0 + cc) * S + s0 + s,
+                     cc < nc);
+    if (sc == nsc - 1)
+      for (int rr = warp; rr < 8 * RT; rr += kEdWarps)
+        for (int cc = lane; cc < kEdCB; cc += 32)
+          ed_cp_async4(decp + rr * (kEdCB + 1) + cc,
+                       dec + static_cast<int64_t>(so0 + rr) * C + c0 + cc,
+                       so0 + rr < S && cc < nc);
+    ed_cp_async_wait_all();
+    __syncthreads();
+    switch (ct) {
+      case 1: ed_encode<1>(ws, encp, es, ns, q, g, cod); break;
+      case 2: ed_encode<2>(ws, encp, es, ns, q, g, cod); break;
+      case 3: ed_encode<3>(ws, encp, es, ns, q, g, cod); break;
+      case 4: ed_encode<4>(ws, encp, es, ns, q, g, cod); break;
+      case 5: ed_encode<5>(ws, encp, es, ns, q, g, cod); break;
+      case 6: ed_encode<6>(ws, encp, es, ns, q, g, cod); break;
+      case 7: ed_encode<7>(ws, encp, es, ns, q, g, cod); break;
+      default: ed_encode<8>(ws, encp, es, ns, q, g, cod); break;
+    }
+    if (sc < nsc - 1) continue;
+    // the chunk's coded values pass through the scratch 32 clients at a
+    // time: clients 8t + g of t = 4h .. 4h+3
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (32 * h >= nc) break;
+#pragma unroll
+      for (int t = 4 * h; t < 4 * h + 4; ++t)
+        if (t < ct) {
+          const int i = 8 * (t - 4 * h) + g;
+          *reinterpret_cast<float4*>(coded_at(scratch, i, 2 * q)) =
+              make_float4(cod[t][0], cod[t][1], cod[t][2], cod[t][3]);
+          *reinterpret_cast<float4*>(coded_at(scratch, i, 2 * q + 1)) =
+              make_float4(cod[t][4], cod[t][5], cod[t][6], cod[t][7]);
+        }
+      __syncwarp();
+      ed_decode<RT>(scratch, decp, 32 * h, nc < 32 * h + 32 ? nc : 32 * h + 32,
+                    q, g, acc);
+      __syncwarp();                // the coded tile is read
+    }
+    if (ch < nch - 1) continue;
+    // the pass's rows, 32 at a time through the scratch: row 8r + g at
+    // [8 (r % 4) + g][8q + j] (stride 33: no bank conflicts), then each
+    // row written by the warp along its 32 columns
+#pragma unroll
+    for (int half = 0; half < (RT + 3) / 4; ++half) {
+#pragma unroll
+      for (int r = 4 * half; r < RT && r < 4 * half + 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          scratch[(8 * (r % 4) + g) * 33 + 8 * q + j] = acc[r][j];
+      __syncwarp();
+      const int rows = S - so0 - 32 * half < 32 ? S - so0 - 32 * half : 32;
+      if (wcol + lane < P)
+        for (int i = 0; i < rows; ++i)
+          out[static_cast<int64_t>(so0 + 32 * half + i) * P + wcol + lane] =
+              scratch[i * 33 + lane];
+      __syncwarp();
+    }
+  }
+}
+
+template <int RT>
+void launch_ed_tiled(const float* enc, const float* dec, const float* w,
+                     float* out, int C, int S, int64_t P, bool vec,
+                     cudaStream_t st) {
+  const int sb = S < kEdSB ? S : kEdSB;
+  const int smem = static_cast<int>(sizeof(float)) * ed_smem_floats(sb, RT);
+  if (smem > 48 * 1024)            // past 48 KB only when asked for
+    cudaFuncSetAttribute(encode_decode_tiled_kernel<RT>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const dim3 grid(static_cast<unsigned>((P + kEdTileP - 1) / kEdTileP));
+  encode_decode_tiled_kernel<RT><<<grid, kEdThreads, smem, st>>>(
+      enc, dec, w, out, C, S, P, vec);
+}
+
+void launch_ed_tiled_rt(const float* enc, const float* dec, const float* w,
+                        float* out, int C, int S, int64_t P, bool vec,
+                        cudaStream_t st) {
+  switch ((S < kEdSO ? S + 7 : kEdSO + 7) / 8) {
+    case 1: launch_ed_tiled<1>(enc, dec, w, out, C, S, P, vec, st); break;
+    case 2: launch_ed_tiled<2>(enc, dec, w, out, C, S, P, vec, st); break;
+    case 3: launch_ed_tiled<3>(enc, dec, w, out, C, S, P, vec, st); break;
+    case 4: launch_ed_tiled<4>(enc, dec, w, out, C, S, P, vec, st); break;
+    case 5: launch_ed_tiled<5>(enc, dec, w, out, C, S, P, vec, st); break;
+    case 6: launch_ed_tiled<6>(enc, dec, w, out, C, S, P, vec, st); break;
+    case 7: launch_ed_tiled<7>(enc, dec, w, out, C, S, P, vec, st); break;
+    default: launch_ed_tiled<8>(enc, dec, w, out, C, S, P, vec, st); break;
   }
 }
 
@@ -448,15 +652,13 @@ extern "C" int repro_encode_decode(const float* enc, const float* dec,
                                    const float* w, float* out, int64_t C,
                                    int64_t S, int64_t P, int vec, void* stream) {
   if (C < 1 || S < 1 || C > 0x7fffffffLL || S > 0x7fffffffLL || P < 1 ||
-      (P + kThreads - 1) / kThreads > 0x7fffffffLL)
+      (P + kEdTileP - 1) / kEdTileP > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int c = static_cast<int>(C), s = static_cast<int>(S);
-  if (S > kMaxS || C * S > kMaxCS) {
-    const dim3 grid(static_cast<unsigned>((P + kThreads - 1) / kThreads));
-    encode_decode_deep_kernel<<<grid, kThreads, 0, st>>>(enc, dec, w, out, c,
-                                                         s, P);
-  } else if (S <= 4)
+  if (S > kMaxS || C * S > kMaxCS)
+    launch_ed_tiled_rt(enc, dec, w, out, c, s, P, vec != 0, st);
+  else if (S <= 4)
     launch_ed<4>(enc, dec, w, out, c, s, P, vec, st);
   else if (S <= 8)
     launch_ed<8>(enc, dec, w, out, c, s, P, vec, st);

@@ -14,12 +14,15 @@ import torch
 
 from repro.core import coding as jc
 from repro.core import unlearning as ju
+from repro.kernels.calibrate.ops import calibrate_update as j_cal_kernel
 from repro.kernels.calibrate.ref import calibrate_update_ref as j_cal_ref
+from repro.kernels.coded_matmul.ops import coded_encode_decode as j_ed_kernel
 from repro.kernels.coded_matmul.ref import coded_matmul_ref as j_cm_ref
 from repro_torch.core import coding as tc
 from repro_torch.core import unlearning as tu
 from repro_torch.kernels import LAUNCHES
-from repro_torch.kernels.calibrate.ops import calibrate_update
+from repro_torch.kernels.calibrate.ops import (calibrate_splits,
+                                               calibrate_update)
 from repro_torch.kernels.calibrate.ref import calibrate_update_ref
 from repro_torch.kernels.coded_matmul.ops import (coded_encode_decode,
                                                   coded_matmul,
@@ -171,6 +174,52 @@ def test_calibrate_stacked_matches_reference_past_1024_clients(use_kernel):
     for a, b in zip(jax.tree.leaves(ref), jax.tree.leaves(
             jax.tree.map(lambda t: t.numpy(), got))):
         np.testing.assert_allclose(b, np.asarray(a), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("m,p", [(4, 1001), (4, 1002), (4, 1003),
+                                 (63, 1025), (64, 1026), (65, 2051)])
+def test_calibrate_routes_match_reference(m, p):
+    """The shapes that pick each route of the CUDA kernel: ragged P % 4 of
+    1, 2 and 3 (row tiles staged from unaligned rows) and M on both sides
+    of the split threshold (63 unsplit; 64 and 65 summed in two ranges of a
+    cluster).  The port's plain version against the reference's Pallas
+    kernel (interpret mode) and its oracle."""
+    w, d, cf = _w((p,), m), _w((m, p), m + 1), _w((m,), m + 2)
+    assert calibrate_splits(m, p, 132) == (1 if m < 64 else 2)
+    got = calibrate_update(*map(torch.from_numpy, (w, d, cf)))
+    for ref in (j_cal_kernel(*map(jnp.asarray, (w, d, cf))),
+                j_cal_ref(*map(jnp.asarray, (w, d, cf)))):
+        np.testing.assert_allclose(_np(got), _np(ref), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("sms,m,p,want", [
+    (132, 4, 206_922, 1),          # the main path's M' = 4: never split
+    (132, 63, 206_922, 1),         # the threshold: ranges of >= 32 rows
+    (132, 64, 206_922, 2),
+    (132, 2048, 206_922, 8),       # 102 tiles: the cluster's limit
+    (132, 100, 1000, 3),           # M // 32
+    (132, 2048, 1_079_296, 8),     # 527 tiles of 2048 columns
+    (132, 2048, 1_079_297, 1),     # 528 tiles = 4 x 132: no split
+    (114, 2048, 1_079_296, 1)])
+def test_calibrate_split_choice(sms, m, p, want):
+    assert calibrate_splits(m, p, sms) == want
+
+
+@pytest.mark.parametrize("s,c,p", [(4, 20, 130), (20, 40, 257),
+                                   (65, 33, 131), (130, 140, 67)])
+def test_encode_decode_routes_match_reference(s, c, p):
+    """The CUDA kernels' routes: the register tile (S 4, C 20); the tiled
+    kernel with one pass of output rows and one chunk of clients (S 20,
+    C 40), two passes (S 65), and w staged in chunks of 128 rows with three
+    chunks of 64 clients (S 130, C 140).  Random operators scaled as an
+    encode/decode pair; the port's plain dec @ (enc @ w) against the
+    reference's fused Pallas kernel (interpret mode)."""
+    enc = _w((c, s), 1) * s ** -0.5
+    dec = _w((s, c), 2) * c ** -0.5
+    w = _w((s, p), 3)
+    got = coded_encode_decode(*map(torch.from_numpy, (enc, dec, w)))
+    ref = j_ed_kernel(*map(jnp.asarray, (enc, dec, w)))
+    np.testing.assert_allclose(_np(got), _np(ref), **TOL)
 
 
 def test_encode_decode_plain_version():
