@@ -561,6 +561,9 @@ def check_ssm(torch, K):
              ("ragged_n8_g3", 3, 37, 70, 8, 3, 20),
              ("ragged_n16_g2", 4, 19, 33, 16, 2, 20),
              ("ragged_n5", 2, 9, 300, 5, 1, 20),
+             # D past the backward's 64-channel blocks, S past its tiles
+             ("ragged_d200_n8", 2, 100, 200, 8, 2, 20),
+             ("ragged_d130_n16", 3, 75, 130, 16, 1, 20),
              ("full_width_s2048", 2, 2048, 16384, 16, 1, 3)]
     for label, bsz, s, d, n, g, iters in cases:
         args = ssm_inputs(torch, gen, bsz, s, d, n, g)
@@ -603,7 +606,10 @@ def check_ssm(torch, K):
             atol = 1e-4 * float(r_.abs().max())
             errs[nm] = compare(k_.reshape(r_.shape), r_,
                                f"ssm_scan_bwd/{label}/{nm}", 1e-3, atol)
-        del got, want
+        again = kernel_bwd()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"ssm_scan_bwd/{label}: two runs differ")
+        del got, want, again
         bnd = bound(*ssm_work(bsz, s, d, n, g, backward=True))
         row = times(kernel_bwd, plain_bwd, None, iters, bnd)
         del yr, hr, leaves

@@ -47,11 +47,14 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kNpl = 4;          // states per lane
 constexpr int kMaxN = 16;
 constexpr int kTile = 2048;      // channel-steps staged per tile
 constexpr int kCkpt = 8;         // steps between forward checkpoints
+constexpr int kBwdCpb = 64;      // channels per backward block
+constexpr int kBwdT = 16;        // steps per backward tile
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int L>
 struct Geo {
@@ -62,6 +65,22 @@ struct Geo {
 };
 
 int lanes_for(int64_t n) { return n <= 4 ? 1 : (n <= 8 ? 2 : 4); }
+
+// abar = exp(dt a) as exp2(dt (a log2 e)), and one step of one state,
+// h <- abar h + (dt x) b.  The forward and the backward's recompute share
+// both, so the backward rebuilds the forward's h bit for bit.
+__device__ __forceinline__ float abar(float dtv, float al) {
+  return exp2f(dtv * al);
+}
+
+__device__ __forceinline__ float advance(float h, float ab, float dtx,
+                                         float bj) {
+  return fmaf(ab, h, dtx * bj);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 
 template <int L>
 __device__ __forceinline__ float lane_sum(float v) {
@@ -125,12 +144,12 @@ ssm_fwd_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
   const int64_t chan = (static_cast<int64_t>(bi) * D + d) * n;
   const float* ag = a + static_cast<int64_t>(bi / per_group) * D * n;
   const int nck = (S + kCkpt - 1) / kCkpt;
-  float av[kNpl], h[kNpl];
+  float al[kNpl], h[kNpl];
 #pragma unroll
   for (int j = 0; j < kNpl; ++j) {
     const int st = lane * kNpl + j;
     const bool ok = d < D && st < n;
-    av[j] = ok ? ag[static_cast<int64_t>(d) * n + st] : 0.f;
+    al[j] = ok ? ag[static_cast<int64_t>(d) * n + st] * kLog2e : 0.f;
     h[j] = ok ? h0[chan + st] : 0.f;
   }
   for (int t0 = 0; t0 < S; t0 += T) {
@@ -149,13 +168,12 @@ ssm_fwd_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
         for (int j = 0; j < kNpl; ++j)
           if (lane * kNpl + j < n) dst[lane * kNpl + j] = h[j];
       }
-      const float dtv = s_dt[tt][ch], xv = s_x[tt][ch];
+      const float dtv = s_dt[tt][ch], dtx = dtv * s_x[tt][ch];
       float yp = 0.f;
 #pragma unroll
       for (int j = 0; j < kNpl; ++j) {
         const int st = lane * kNpl + j;
-        const float ab = expf(dtv * av[j]);
-        h[j] = ab * h[j] + dtv * s_b[tt][st] * xv;
+        h[j] = advance(h[j], abar(dtv, al[j]), dtx, s_b[tt][st]);
         yp += s_c[tt][st] * h[j];
       }
       yp = lane_sum<L>(yp);
@@ -171,131 +189,236 @@ ssm_fwd_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
   }
 }
 
+// The backward's geometry: a block covers kBwdCpb channels (64 L threads,
+// so no lane idles where D = 64) and walks tiles of kBwdT steps.
 template <int L>
-__global__ void __launch_bounds__(kThreads, 2)
+struct BwdGeo {
+  static constexpr int kThreads = kBwdCpb * L;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kSt = kNpl * L;            // states a channel holds
+  static constexpr int kSubs = kBwdT / kCkpt;     // sub-chunks per tile
+  // one tile buffer: dt, x, gy (T x CPB); b, c (T x kSt); the sub-chunks'
+  // checkpoints (kSubs x CPB x kSt)
+  static constexpr int kBuf = 3 * kBwdT * kBwdCpb + 2 * kBwdT * kSt +
+                              kSubs * kBwdCpb * kSt;
+  static constexpr int kRed = kWarps * kBwdT * 2 * kSt;  // warps' d b / d c
+  static constexpr int kSmemBytes = 4 * (2 * kBuf + kRed);
+  static_assert(kBwdT % kCkpt == 0, "a tile holds whole sub-chunks");
+};
+
+// 4 bytes into shared memory, or zeros when ``ok`` is false (nothing is
+// read then).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// One halving level of a reduce-scatter over lanes ``off`` apart: of the
+// CNT values v[0..CNT), a lane keeps the upper half if ``upper`` and the
+// lower half otherwise, summed with its partner's copy, in v[0..CNT/2).
+template <int CNT>
+__device__ __forceinline__ void rs_level(float (&v)[2 * kNpl], int off,
+                                         bool upper) {
+  constexpr int HALF = CNT / 2;
+#pragma unroll
+  for (int q = 0; q < HALF; ++q) {
+    const float send = upper ? v[q + 0] : v[q + HALF];
+    const float keep = upper ? v[q + HALF] : v[q + 0];
+    v[q] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+  }
+}
+
+// Sum the 8 values v (a lane's d b and d c partials of its 4 states) over
+// the warp's channels, lane bits log2(L) .. 4: a reduce-scatter over bits
+// 4, 3, 2 (4 + 2 + 1 shuffles), then a full sum over the channel bits
+// below 2.  Afterwards v[0] holds the sum of element
+// 4 bit4 + 2 bit3 + bit2 of the lane, which is returned.
+template <int L>
+__device__ __forceinline__ int reduce_channels(float (&v)[2 * kNpl], int wl) {
+  rs_level<8>(v, 16, wl & 16);
+  rs_level<4>(v, 8, wl & 8);
+  rs_level<2>(v, 4, wl & 4);
+#pragma unroll
+  for (int o = 2; o >= L; o >>= 1) v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+  return (wl >> 2) & 7;
+}
+
+template <int L>
+__global__ void __launch_bounds__(BwdGeo<L>::kThreads, 2)
 ssm_bwd_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
                const float* __restrict__ cm, const float* __restrict__ x,
                const float* __restrict__ a, const float* __restrict__ ckpt,
                const float* __restrict__ gy, const float* __restrict__ ghl,
                float* __restrict__ ddt, float* __restrict__ dx,
                float* __restrict__ dh0, float* __restrict__ da_seq,
-               float* __restrict__ part_b, float* __restrict__ part_c,
+               float* __restrict__ out_b, float* __restrict__ out_c,
                int S, int D, int n, int per_group) {
-  constexpr int CPB = Geo<L>::kCpb, T = Geo<L>::kSteps;
-  // s_dt / s_x are overwritten in place with d dt / d x as the walk passes
-  __shared__ float s_dt[T][CPB], s_x[T][CPB], s_gy[T][CPB];
-  __shared__ float s_b[T][kMaxN], s_c[T][kMaxN];
-  __shared__ float s_rb[kWarps][kCkpt][kMaxN], s_rc[kWarps][kCkpt][kMaxN];
+  using Geo = BwdGeo<L>;
+  constexpr int CPB = kBwdCpb, T = kBwdT, ST = Geo::kSt;
+  constexpr int NT = Geo::kThreads, SUBS = Geo::kSubs;
+  extern __shared__ __align__(16) float smem[];
+  float* s_red = smem + 2 * Geo::kBuf;
   const int lane = threadIdx.x % L, ch = threadIdx.x / L;
-  const int warp = threadIdx.x / 32;
-  const bool warp_head = (threadIdx.x & 31) < L;   // first channel of a warp
+  const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int bi = blockIdx.y, d0 = blockIdx.x * CPB, d = d0 + ch;
-  const int nblk = gridDim.x;
   const int64_t seq = static_cast<int64_t>(bi) * S * D;
   const int64_t seq_n = static_cast<int64_t>(bi) * S * n;
   const int64_t chan = (static_cast<int64_t>(bi) * D + d) * n;
-  const int64_t part = (static_cast<int64_t>(bi) * nblk + blockIdx.x) * S * n;
+  // d b / d c of this block's channels: (B, nblk, S, n); with one block in
+  // D that is the result itself
+  const int64_t part =
+      (static_cast<int64_t>(bi) * gridDim.x + blockIdx.x) * S * n;
   const float* ag = a + static_cast<int64_t>(bi / per_group) * D * n;
   const int nck = (S + kCkpt - 1) / kCkpt;
-  float av[kNpl], carry[kNpl], dav[kNpl];
+
+  // Issue the copies of tile ``tile`` into ``buf`` (zeros outside S, D, n).
+  auto issue = [&](int tile, float* buf) {
+    const int t0 = tile * T;
+    float* s_dt = buf;
+    float* s_x = s_dt + T * CPB;
+    float* s_gy = s_x + T * CPB;
+    float* s_b = s_gy + T * CPB;
+    float* s_c = s_b + T * ST;
+    float* s_h = s_c + T * ST;
+    for (int i = threadIdx.x; i < T * CPB; i += NT) {
+      const int t = t0 + i / CPB, dd = d0 + i % CPB;
+      const bool ok = t < S && dd < D;
+      const int64_t off = ok ? seq + static_cast<int64_t>(t) * D + dd : 0;
+      cp_async4(s_dt + i, dt + off, ok);
+      cp_async4(s_x + i, x + off, ok);
+      cp_async4(s_gy + i, gy + off, ok);
+    }
+    for (int i = threadIdx.x; i < T * ST; i += NT) {
+      const int t = t0 + i / ST, j = i % ST;
+      const bool ok = t < S && j < n;
+      const int64_t off = ok ? seq_n + static_cast<int64_t>(t) * n + j : 0;
+      cp_async4(s_b + i, bm + off, ok);
+      cp_async4(s_c + i, cm + off, ok);
+    }
+    for (int i = threadIdx.x; i < SUBS * CPB * ST; i += NT) {
+      const int ck = t0 / kCkpt + i / (CPB * ST), r = i % (CPB * ST);
+      const int dd = d0 + r / ST, j = r % ST;
+      const bool ok = ck < nck && dd < D && j < n;
+      const int64_t off =
+          ok ? ((static_cast<int64_t>(bi) * nck + ck) * D + dd) * n + j : 0;
+      cp_async4(s_h + i, ckpt + off, ok);
+    }
+    cp_async_commit();
+  };
+
+  float al[kNpl], carry[kNpl], dav[kNpl];
 #pragma unroll
   for (int j = 0; j < kNpl; ++j) {
     const int st = lane * kNpl + j;
     const bool ok = d < D && st < n;
-    av[j] = ok ? ag[static_cast<int64_t>(d) * n + st] : 0.f;
+    al[j] = ok ? ag[static_cast<int64_t>(d) * n + st] * kLog2e : 0.f;
     carry[j] = ok ? ghl[chan + st] : 0.f;
     dav[j] = 0.f;
   }
   const int ntile = (S + T - 1) / T;
-  for (int tile = ntile - 1; tile >= 0; --tile) {
+  issue(ntile - 1, smem);
+  for (int tile = ntile - 1, p = 0; tile >= 0; --tile, p ^= 1) {
+    float* s_dt = smem + p * Geo::kBuf;
+    float* s_x = s_dt + T * CPB;
+    float* s_gy = s_x + T * CPB;
+    const float* s_b = s_gy + T * CPB;
+    const float* s_c = s_b + T * ST;
+    const float* s_h = s_c + T * ST;
+    cp_async_wait_all();
+    __syncthreads();         // this tile landed; the last tile's reads done
+    if (tile > 0) issue(tile - 1, smem + (p ^ 1) * Geo::kBuf);
     const int t0 = tile * T;
-    stage_rows<T, CPB>(s_dt, dt + seq, t0, d0, S, D);
-    stage_rows<T, CPB>(s_x, x + seq, t0, d0, S, D);
-    stage_rows<T, CPB>(s_gy, gy + seq, t0, d0, S, D);
-    stage_states<T>(s_b, bm + seq_n, t0, S, n);
-    stage_states<T>(s_c, cm + seq_n, t0, S, n);
-    __syncthreads();
     const int nsub = (min(T, S - t0) + kCkpt - 1) / kCkpt;
     for (int sc = nsub - 1; sc >= 0; --sc) {
       const int u0 = sc * kCkpt;
-      const int tk = t0 + u0;                     // multiple of kCkpt, < S
-      // recompute the sub-chunk: hist[u] = h before step u, hist[kCkpt] after
-      float hist[kCkpt + 1][kNpl];
-      const float* src = ckpt + ((static_cast<int64_t>(bi) * nck + tk / kCkpt)
-                                 * D + d) * n;
-#pragma unroll
-      for (int j = 0; j < kNpl; ++j) {
-        const int st = lane * kNpl + j;
-        hist[0][j] = (d < D && st < n) ? src[st] : 0.f;
+      // recompute the sub-chunk from its checkpoint: hist[u] = h before
+      // step u, hist[kCkpt] after; ab[u] = abar of step u, kept for the
+      // walk back (one exp per state-step)
+      float hist[kCkpt + 1][kNpl], ab[kCkpt][kNpl];
+      {
+        const float4 h4 = ld4(&s_h[(sc * CPB + ch) * ST + lane * kNpl]);
+        hist[0][0] = h4.x; hist[0][1] = h4.y;
+        hist[0][2] = h4.z; hist[0][3] = h4.w;
       }
 #pragma unroll
       for (int u = 0; u < kCkpt; ++u) {
-        const float dtv = s_dt[u0 + u][ch], xv = s_x[u0 + u][ch];
+        const int tt = u0 + u;
+        const float dtv = s_dt[tt * CPB + ch];
+        const float dtx = dtv * s_x[tt * CPB + ch];
+        const float4 b4 = ld4(&s_b[tt * ST + lane * kNpl]);
+        const float bb[kNpl] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
         for (int j = 0; j < kNpl; ++j) {
-          const float ab = expf(dtv * av[j]);
-          hist[u + 1][j] = ab * hist[u][j]
-                           + dtv * s_b[u0 + u][lane * kNpl + j] * xv;
+          ab[u][j] = abar(dtv, al[j]);
+          hist[u + 1][j] = advance(hist[u][j], ab[u][j], dtx, bb[j]);
         }
       }
       // walk back (steps past S are zero-padded and leave G unchanged)
 #pragma unroll
       for (int u = kCkpt - 1; u >= 0; --u) {
         const int tt = u0 + u;
-        const float dtv = s_dt[tt][ch], xv = s_x[tt][ch], gyv = s_gy[tt][ch];
-        float gdt = 0.f, gx = 0.f, pb[kNpl], pc[kNpl];
+        const float dtv = s_dt[tt * CPB + ch], xv = s_x[tt * CPB + ch];
+        const float gyv = s_gy[tt * CPB + ch];
+        const float4 b4 = ld4(&s_b[tt * ST + lane * kNpl]);
+        const float4 c4 = ld4(&s_c[tt * ST + lane * kNpl]);
+        const float bb[kNpl] = {b4.x, b4.y, b4.z, b4.w};
+        const float cc[kNpl] = {c4.x, c4.y, c4.z, c4.w};
+        const float dtx = dtv * xv;
+        float sgb = 0.f, sea = 0.f, v[2 * kNpl];
 #pragma unroll
         for (int j = 0; j < kNpl; ++j) {
-          const int st = lane * kNpl + j;
-          const float bj = s_b[tt][st], cj = s_c[tt][st];
-          const float ab = expf(dtv * av[j]);
-          const float g = carry[j] + cj * gyv;          // dL/dh_t
-          const float gab = g * hist[u][j];             // dL/dabar_t
-          gdt += gab * ab * av[j] + g * bj * xv;
-          gx += g * dtv * bj;
-          dav[j] += gab * ab * dtv;
-          pb[j] = g * dtv * xv;
-          pc[j] = gyv * hist[u + 1][j];
-          carry[j] = ab * g;
+          const float g = fmaf(cc[j], gyv, carry[j]);   // dL/dh_t
+          carry[j] = ab[u][j] * g;                      // dL/dh_{t-1} part
+          const float e = carry[j] * hist[u][j];        // G abar h_{t-1}
+          sgb = fmaf(g, bb[j], sgb);
+          sea = fmaf(e, al[j], sea);                    // sum e a / ln 2
+          dav[j] = fmaf(e, dtv, dav[j]);
+          v[j] = g * dtx;                               // d b partial
+          v[kNpl + j] = gyv * hist[u + 1][j];           // d c partial
         }
-        gdt = lane_sum<L>(gdt);
-        gx = lane_sum<L>(gx);
+        const float gdt = lane_sum<L>(fmaf(xv, sgb, sea * kLn2));
+        const float gx = dtv * lane_sum<L>(sgb);
         if (lane == 0) {
-          s_dt[tt][ch] = gdt;
-          s_x[tt][ch] = gx;
+          s_dt[tt * CPB + ch] = gdt;
+          s_x[tt * CPB + ch] = gx;
         }
-#pragma unroll
-        for (int j = 0; j < kNpl; ++j) {
-          float vb = pb[j], vc = pc[j];
-#pragma unroll
-          for (int o = L; o < 32; o <<= 1) {
-            vb += __shfl_xor_sync(0xffffffffu, vb, o);
-            vc += __shfl_xor_sync(0xffffffffu, vc, o);
-          }
-          if (warp_head) {
-            s_rb[warp][u][lane * kNpl + j] = vb;
-            s_rc[warp][u][lane * kNpl + j] = vc;
-          }
-        }
+        const int which = reduce_channels<L>(v, wl);
+        if ((wl & 3 & ~(L - 1)) == 0)
+          s_red[((warp * T + tt) * 2 + (which >> 2)) * ST + lane * kNpl +
+                (which & 3)] = v[0];
       }
-      __syncthreads();
-      // this block's partial of d b and d c: the warps summed in order
-      for (int i = threadIdx.x; i < 2 * kCkpt * kMaxN; i += kThreads) {
-        const int which = i / (kCkpt * kMaxN), r = i % (kCkpt * kMaxN);
-        const int u = r / kMaxN, st = r % kMaxN, t = tk + u;
-        if (t < S && st < n) {
-          float s = 0.f;
-          for (int w = 0; w < kWarps; ++w)
-            s += which ? s_rc[w][u][st] : s_rb[w][u][st];
-          (which ? part_c : part_b)[part + static_cast<int64_t>(t) * n + st]
-              = s;
-        }
-      }
-      __syncthreads();
     }
-    store_rows<T, CPB>(ddt + seq, s_dt, t0, d0, S, D);
-    store_rows<T, CPB>(dx + seq, s_x, t0, d0, S, D);
     __syncthreads();
+    // this block's d b and d c for the tile: the warps summed in order
+    for (int i = threadIdx.x; i < T * 2 * ST; i += NT) {
+      const int tt = i / (2 * ST), wh = (i / ST) & 1, j = i % ST;
+      const int t = t0 + tt;
+      if (t < S && j < n) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < Geo::kWarps; ++w)
+          s += s_red[((w * T + tt) * 2 + wh) * ST + j];
+        (wh ? out_c : out_b)[part + static_cast<int64_t>(t) * n + j] = s;
+      }
+    }
+    for (int i = threadIdx.x; i < T * CPB; i += NT) {
+      const int t = t0 + i / CPB, dd = d0 + i % CPB;
+      if (t < S && dd < D) {
+        const int64_t off = seq + static_cast<int64_t>(t) * D + dd;
+        ddt[off] = s_dt[i];
+        dx[off] = s_x[i];
+      }
+    }
   }
   if (d < D) {
 #pragma unroll
@@ -309,9 +432,10 @@ ssm_bwd_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
   }
 }
 
-// d b / d c: per-block partials (B, nblk, S, n) summed over blocks in block
-// order; d a: per-sequence (B, D, n) summed over each group's sequences in
-// order.  One thread per output element.
+// With more than one block in D, d b / d c: per-block partials (B, nblk,
+// S, n) summed over blocks in block order.  d a: per-sequence (B, D, n)
+// summed over each group's sequences in order.  One thread per output
+// element.
 __global__ void __launch_bounds__(kThreads)
 ssm_bwd_reduce_kernel(const float* __restrict__ part_b,
                       const float* __restrict__ part_c,
@@ -320,7 +444,7 @@ ssm_bwd_reduce_kernel(const float* __restrict__ part_b,
                       float* __restrict__ da, int64_t B, int64_t S,
                       int64_t D, int64_t n, int64_t G, int nblk) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t sn = S * n, m = B * sn;
+  const int64_t sn = S * n, m = nblk > 1 ? B * sn : 0;
   if (i < 2 * m) {
     const bool is_c = i >= m;
     const int64_t r = is_c ? i - m : i;
@@ -348,13 +472,7 @@ int64_t blocks_d(int64_t D) {
   return (D + Geo<L>::kCpb - 1) / Geo<L>::kCpb;
 }
 
-int64_t nblk_for(int64_t D, int64_t n) {
-  switch (lanes_for(n)) {
-    case 1: return blocks_d<1>(D);
-    case 2: return blocks_d<2>(D);
-    default: return blocks_d<4>(D);
-  }
-}
+int64_t bwd_blocks_d(int64_t D) { return (D + kBwdCpb - 1) / kBwdCpb; }
 
 template <int L>
 void launch_fwd(const float* dt, const float* b, const float* c,
@@ -369,18 +487,28 @@ void launch_fwd(const float* dt, const float* b, const float* c,
 }
 
 template <int L>
-void launch_bwd(const float* dt, const float* b, const float* c,
-                const float* x, const float* a, const float* ckpt,
-                const float* gy, const float* ghl, float* ddt, float* dx,
-                float* dh0, float* da_seq, float* part_b, float* part_c,
-                int64_t B, int64_t S, int64_t D, int64_t n, int64_t G,
-                cudaStream_t st) {
-  const dim3 grid(static_cast<unsigned>(blocks_d<L>(D)),
+int launch_bwd(const float* dt, const float* b, const float* c,
+               const float* x, const float* a, const float* ckpt,
+               const float* gy, const float* ghl, float* ddt, float* dx,
+               float* dh0, float* da_seq, float* out_b, float* out_c,
+               int64_t B, int64_t S, int64_t D, int64_t n, int64_t G,
+               cudaStream_t st) {
+  using Geo = BwdGeo<L>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        ssm_bwd_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Geo::kSmemBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  const dim3 grid(static_cast<unsigned>(bwd_blocks_d(D)),
                   static_cast<unsigned>(B));
-  ssm_bwd_kernel<L><<<grid, kThreads, 0, st>>>(
-      dt, b, c, x, a, ckpt, gy, ghl, ddt, dx, dh0, da_seq, part_b, part_c,
+  ssm_bwd_kernel<L><<<grid, Geo::kThreads, Geo::kSmemBytes, st>>>(
+      dt, b, c, x, a, ckpt, gy, ghl, ddt, dx, dh0, da_seq, out_b, out_c,
       static_cast<int>(S), static_cast<int>(D), static_cast<int>(n),
       static_cast<int>(B / G));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -389,11 +517,13 @@ void launch_bwd(const float* dt, const float* b, const float* c,
 // (B, ceil(S / steps), D, n) floats).
 extern "C" int repro_ssm_scan_ckpt_steps() { return kCkpt; }
 
-// Floats of scratch the backward needs: the per-block partials of d b and
-// d c, 2 * B * nblk * S * n, and the per-sequence d a, B * D * n.
+// Floats of scratch the backward needs: with more than one block in D the
+// per-block partials of d b and d c, 2 * B * nblk * S * n; and the
+// per-sequence d a, B * D * n.
 extern "C" int64_t repro_ssm_scan_bwd_workspace(int64_t B, int64_t S,
                                                 int64_t D, int64_t n) {
-  return 2 * B * nblk_for(D, n) * S * n + B * D * n;
+  const int64_t nblk = bwd_blocks_d(D);
+  return (nblk > 1 ? 2 * B * nblk * S * n : 0) + B * D * n;
 }
 
 // Forward.  ckpt may be null (no backward will follow).  Returns
@@ -417,9 +547,10 @@ extern "C" int repro_ssm_scan_fwd(const float* dt, const float* b,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Backward: the walk kernel, then the reduce kernel, on one stream.
-// ``work`` holds repro_ssm_scan_bwd_workspace(B, S, D, n) floats.  Returns
-// cudaGetLastError() after the launches.
+// Backward: the walk kernel, then the reduce kernel, on one stream.  With
+// one block in D the walk writes d b and d c itself and the reduce kernel
+// only sums d a.  ``work`` holds repro_ssm_scan_bwd_workspace(B, S, D, n)
+// floats.  Returns cudaGetLastError() after the launches.
 extern "C" int repro_ssm_scan_bwd(const float* dt, const float* b,
                                   const float* c, const float* x,
                                   const float* a, const float* ckpt,
@@ -430,19 +561,23 @@ extern "C" int repro_ssm_scan_bwd(const float* dt, const float* b,
                                   int64_t G, void* stream) {
   if (bad_shape(B, S, D, n, G)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t nblk = nblk_for(D, n);
-  float* part_b = work;
-  float* part_c = part_b + B * nblk * S * n;
-  float* da_seq = part_c + B * nblk * S * n;
+  const int64_t nblk = bwd_blocks_d(D);
+  float* part_b = nblk > 1 ? work : db;
+  float* part_c = nblk > 1 ? part_b + B * nblk * S * n : dc;
+  float* da_seq = nblk > 1 ? part_c + B * nblk * S * n : work;
+  int err;
   switch (lanes_for(n)) {
-    case 1: launch_bwd<1>(dt, b, c, x, a, ckpt, gy, ghl, ddt, dx, dh0,
-                          da_seq, part_b, part_c, B, S, D, n, G, st); break;
-    case 2: launch_bwd<2>(dt, b, c, x, a, ckpt, gy, ghl, ddt, dx, dh0,
-                          da_seq, part_b, part_c, B, S, D, n, G, st); break;
-    default: launch_bwd<4>(dt, b, c, x, a, ckpt, gy, ghl, ddt, dx, dh0,
-                           da_seq, part_b, part_c, B, S, D, n, G, st);
+    case 1: err = launch_bwd<1>(dt, b, c, x, a, ckpt, gy, ghl, ddt, dx, dh0,
+                                da_seq, part_b, part_c, B, S, D, n, G, st);
+            break;
+    case 2: err = launch_bwd<2>(dt, b, c, x, a, ckpt, gy, ghl, ddt, dx, dh0,
+                                da_seq, part_b, part_c, B, S, D, n, G, st);
+            break;
+    default: err = launch_bwd<4>(dt, b, c, x, a, ckpt, gy, ghl, ddt, dx, dh0,
+                                 da_seq, part_b, part_c, B, S, D, n, G, st);
   }
-  const int64_t total = 2 * B * S * n + G * D * n;
+  if (err != 0) return err;
+  const int64_t total = (nblk > 1 ? 2 * B * S * n : 0) + G * D * n;
   const int64_t blocks = (total + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   ssm_bwd_reduce_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
