@@ -634,15 +634,21 @@ WKV_BWD_FLOPS = 12    # 6 FMAs: the dr, dk, dlw and dv terms and the G
 #                       update (2)
 
 
-def wkv_inputs(torch, gen, bsz, s, h, n, g):
+def wkv_inputs(torch, gen, bsz, s, h, n, g, decay="model"):
     """The recurrence's inputs at one shape, as the model gives them:
-    unit-normal r and v, k scaled by N^-0.5, lw = -exp(clip(z, -10, 3)),
+    unit-normal r and v, k scaled by N^-0.5, lw = -exp(clip(z, -10, 3))
+    (``decay="model"``; "near1": lw = -exp(z - 6.5), decays within 1e-2 of
+    1; "clip": lw = -exp(3) everywhere, w = 1.9e-9, the model's clip),
     u = U[0, 0.5) per group, h0 small."""
     dev = gen.device
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
-    lw = -torch.exp(torch.clamp(randn(bsz, s, h, n) - 0.5, -10.0, 3.0))
+    z = randn(bsz, s, h, n)
+    lw = {"model": lambda: -torch.exp(torch.clamp(z - 0.5, -10.0, 3.0)),
+          "near1": lambda: -torch.exp(z - 6.5),
+          "clip": lambda: torch.full_like(z, -float(torch.exp(
+              torch.tensor(3.0))))}[decay]()
     u = torch.rand(g, h, n, generator=gen, device=dev) * 0.5
     return [randn(bsz, s, h, n), randn(bsz, s, h, n) * n ** -0.5,
             randn(bsz, s, h, n), lw, u if g > 1 else u[0].contiguous(),
@@ -674,17 +680,19 @@ def check_wkv(torch, K):
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     heads = {}
-    # label, B, S, H, N, G, iters, compare the backward
-    cases = [("fused_stage", 50, 64, 2, 16, 5, 20, True),   # 5 clients x 10
-             ("stage_engine", 200, 64, 2, 16, 20, 10, True),
-             ("ragged_n5_g3", 3, 37, 3, 5, 3, 3, True),
-             ("ragged_n33", 2, 70, 1, 33, 1, 3, True),
-             ("ragged_n64_g2", 2, 130, 2, 64, 2, 3, True),
-             ("ragged_n48_g4", 4, 200, 3, 48, 4, 3, True),
-             ("full_width", 8, 4096, 40, 64, 1, 3, False),
-             ("full_width_s1024", 8, 1024, 40, 64, 1, 3, True)]
-    for label, bsz, s, h, n, g, iters, with_bwd in cases:
-        args = wkv_inputs(torch, gen, bsz, s, h, n, g)
+    # label, B, S, H, N, G, iters, compare the backward, decays
+    cases = [("fused_stage", 50, 64, 2, 16, 5, 20, True, "model"),
+             ("stage_engine", 200, 64, 2, 16, 20, 10, True, "model"),
+             ("ragged_n5_g3", 3, 37, 3, 5, 3, 3, True, "model"),
+             ("ragged_n33", 2, 70, 1, 33, 1, 3, True, "model"),
+             ("ragged_n64_g2", 2, 130, 2, 64, 2, 3, True, "model"),
+             ("ragged_n48_g4", 4, 200, 3, 48, 4, 3, True, "model"),
+             ("full_width", 8, 4096, 40, 64, 1, 3, False, "model"),
+             ("full_width_s1024", 8, 1024, 40, 64, 1, 3, True, "model"),
+             ("near1_s1024", 2, 1024, 40, 64, 1, 3, True, "near1"),
+             ("clip_s1024", 2, 1024, 40, 64, 1, 3, True, "clip")]
+    for label, bsz, s, h, n, g, iters, with_bwd, decay in cases:
+        args = wkv_inputs(torch, gen, bsz, s, h, n, g, decay)
         with torch.no_grad():
             yk, hk = ops.wkv(*args)
             yr, hr = wkv_ref(*args)
@@ -1706,8 +1714,17 @@ def main() -> int:
         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
     K.load_library()
-    log("build", build_s=K.BUILD_INFO["build_s"],
-        ptxas=ptxas_summary(K.BUILD_INFO["log"]))
+    ptxas = ptxas_summary(K.BUILD_INFO["log"])
+    log("build", build_s=K.BUILD_INFO["build_s"], ptxas=ptxas)
+    # the backward kernels redesigned last: registers and spills
+    redesigned = [r for r in ptxas if any(
+        k in r[0] for k in ("ssm_bwd_kernel", "wkv_bwd_a_kernel",
+                            "wkv_bwd_b_kernel"))]
+    log("ptxas_redesigned", kernels=redesigned)
+    spilled = [r[0] for r in redesigned
+               if not r[2].startswith("0 bytes stack frame")]
+    if spilled:
+        raise AssertionError(f"redesigned kernels spill: {spilled}")
 
     from repro_torch.configs import get_config
     from repro_torch.fl.families import get_model_family

@@ -202,7 +202,8 @@ struct BwdGeo {
   static constexpr int kBuf = 3 * kBwdT * kBwdCpb + 2 * kBwdT * kSt +
                               kSubs * kBwdCpb * kSt;
   static constexpr int kRed = kWarps * kBwdT * 2 * kSt;  // warps' d b / d c
-  static constexpr int kSmemBytes = 4 * (2 * kBuf + kRed);
+  static constexpr int kAbar = kCkpt * kThreads * kNpl;  // a sub-chunk's abar
+  static constexpr int kSmemBytes = 4 * (2 * kBuf + kRed + kAbar);
   static_assert(kBwdT % kCkpt == 0, "a tile holds whole sub-chunks");
 };
 
@@ -268,6 +269,9 @@ ssm_bwd_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
   constexpr int NT = Geo::kThreads, SUBS = Geo::kSubs;
   extern __shared__ __align__(16) float smem[];
   float* s_red = smem + 2 * Geo::kBuf;
+  // abar of the sub-chunk's steps, [u][thread][state]: kept in shared
+  // memory, where 32 registers would spill
+  float* s_ab = s_red + Geo::kRed + threadIdx.x * kNpl;
   const int lane = threadIdx.x % L, ch = threadIdx.x / L;
   const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int bi = blockIdx.y, d0 = blockIdx.x * CPB, d = d0 + ch;
@@ -342,9 +346,9 @@ ssm_bwd_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
     for (int sc = nsub - 1; sc >= 0; --sc) {
       const int u0 = sc * kCkpt;
       // recompute the sub-chunk from its checkpoint: hist[u] = h before
-      // step u, hist[kCkpt] after; ab[u] = abar of step u, kept for the
-      // walk back (one exp per state-step)
-      float hist[kCkpt + 1][kNpl], ab[kCkpt][kNpl];
+      // step u, hist[kCkpt] after; abar of step u kept in s_ab for the walk
+      // back (one exp per state-step)
+      float hist[kCkpt + 1][kNpl];
       {
         const float4 h4 = ld4(&s_h[(sc * CPB + ch) * ST + lane * kNpl]);
         hist[0][0] = h4.x; hist[0][1] = h4.y;
@@ -357,11 +361,14 @@ ssm_bwd_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
         const float dtx = dtv * s_x[tt * CPB + ch];
         const float4 b4 = ld4(&s_b[tt * ST + lane * kNpl]);
         const float bb[kNpl] = {b4.x, b4.y, b4.z, b4.w};
+        float ab[kNpl];
 #pragma unroll
         for (int j = 0; j < kNpl; ++j) {
-          ab[u][j] = abar(dtv, al[j]);
-          hist[u + 1][j] = advance(hist[u][j], ab[u][j], dtx, bb[j]);
+          ab[j] = abar(dtv, al[j]);
+          hist[u + 1][j] = advance(hist[u][j], ab[j], dtx, bb[j]);
         }
+        *reinterpret_cast<float4*>(s_ab + u * NT * kNpl) =
+            make_float4(ab[0], ab[1], ab[2], ab[3]);
       }
       // walk back (steps past S are zero-padded and leave G unchanged)
 #pragma unroll
@@ -373,12 +380,14 @@ ssm_bwd_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
         const float4 c4 = ld4(&s_c[tt * ST + lane * kNpl]);
         const float bb[kNpl] = {b4.x, b4.y, b4.z, b4.w};
         const float cc[kNpl] = {c4.x, c4.y, c4.z, c4.w};
+        const float4 a4 = ld4(s_ab + u * NT * kNpl);
+        const float ab[kNpl] = {a4.x, a4.y, a4.z, a4.w};
         const float dtx = dtv * xv;
         float sgb = 0.f, sea = 0.f, v[2 * kNpl];
 #pragma unroll
         for (int j = 0; j < kNpl; ++j) {
           const float g = fmaf(cc[j], gyv, carry[j]);   // dL/dh_t
-          carry[j] = ab[u][j] * g;                      // dL/dh_{t-1} part
+          carry[j] = ab[j] * g;                         // dL/dh_{t-1} part
           const float e = carry[j] * hist[u][j];        // G abar h_{t-1}
           sgb = fmaf(g, bb[j], sgb);
           sea = fmaf(e, al[j], sea);                    // sum e a / ln 2

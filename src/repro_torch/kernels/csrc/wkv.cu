@@ -54,16 +54,14 @@
 // Every offset into a (B, S, H, N)-sized array is 64-bit.  Ragged S and N
 // are masked in the kernels; nothing is padded.
 #include <cstdint>
+#include <initializer_list>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxN = 64;
 constexpr int kCkpt = 64;        // steps between the forward's checkpoints
-constexpr int kSub = 8;          // steps per backward sub-chunk
 constexpr unsigned kFull = 0xffffffffu;
-
-static_assert(kCkpt % kSub == 0, "a chunk holds whole sub-chunks");
 
 // A thread's p-th element (p < NP/4) of group g: 16 (p/4) + 4 g + p%4.
 __device__ __forceinline__ int elem(int g, int p) {
@@ -190,11 +188,22 @@ wkv_fwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
   }
 }
 
+// The backward's layout of an (NP x NP) state or cotangent over the block's
+// 4 NP threads: a warp holds 8 rows; lane = g CG + c, where c < CG = NP/4
+// is the column group (columns 4c .. 4c+3, one float4 of a step's gy or v)
+// and g < 32/CG the row group (rows 8 warp + RPT g + m, m < RPT = NP/16).
+// A thread's 4 RPT elements share one float4 of every column vector, so a
+// step reads 16 bytes a lane of each.
+template <int NP>
+struct RowGeo {
+  static constexpr int CG = NP / 4, RPT = NP / 16, GROUPS = 32 / CG;
+};
+
 // One halving level of a reduce-scatter over lanes ``off`` apart: of the
 // CNT values v[0..CNT), a lane keeps the upper half if ``upper`` and the
 // lower half otherwise, summed with its partner's copy, in v[0..CNT/2).
-template <int PER, int CNT>
-__device__ __forceinline__ void rs_level(float (&v)[PER], int off, bool upper) {
+template <int CNT, int K>
+__device__ __forceinline__ void halve(float (&v)[K], int off, bool upper) {
   constexpr int HALF = CNT / 2;
 #pragma unroll
   for (int q = 0; q < HALF; ++q) {
@@ -204,191 +213,493 @@ __device__ __forceinline__ void rs_level(float (&v)[PER], int off, bool upper) {
   }
 }
 
-// Sum v over the warp's 8 rows (lane bits 2..4).  Afterwards v[0..KEEP)
-// (KEEP = max(PER/8, 1)) hold the sums of elements base .. base+KEEP-1;
-// returns base.  With PER = 4 the last level is a full sum, so the two
-// lanes 4 apart hold the same value.
-template <int PER>
-__device__ __forceinline__ int reduce_rows(float (&v)[PER], int lane) {
-  int base = 0;
-  bool up = lane & 16;
-  rs_level<PER, PER>(v, 16, up);
-  base += up ? PER / 2 : 0;
-  up = lane & 8;
-  rs_level<PER, PER / 2>(v, 8, up);
-  base += up ? PER / 4 : 0;
-  if constexpr (PER >= 8) {
-    up = lane & 4;
-    rs_level<PER, PER / 4>(v, 4, up);
-    base += up ? PER / 8 : 0;
+// Sum v[0..CNT) over the lanes that differ in bits OFF, OFF/2, .. LOW:
+// halving levels from the top while more than one value is left, then full
+// sums.  Returns the index of the first value the lane keeps (in v[0..)).
+template <int CNT, int OFF, int LOW, int K>
+__device__ __forceinline__ int rs_sum(float (&v)[K], int lane) {
+  if constexpr (OFF < LOW || OFF == 0) {
+    return 0;
+  } else if constexpr (CNT > 1) {
+    const bool up = lane & OFF;
+    halve<CNT, K>(v, OFF, up);
+    return (up ? CNT / 2 : 0) + rs_sum<CNT / 2, OFF / 2, LOW, K>(v, lane);
   } else {
-    v[0] += __shfl_xor_sync(kFull, v[0], 4);
+    v[0] += __shfl_xor_sync(kFull, v[0], OFF);
+    return rs_sum<1, OFF / 2, LOW, K>(v, lane);
   }
-  return base;
 }
 
-// The backward's shared memory, in floats: r, k, w, v, gy for a chunk;
-// gy . v and sum_i r u k per step; per-warp partials of dv for a
-// sub-chunk; u.
-template <int NP>
-constexpr int bwd_smem_floats() {
-  return 5 * kCkpt * NP + 2 * kCkpt + (NP / 8) * kSub * NP + NP;
+// RPT consecutive floats of shared memory (RPT = 1, 2, 4), as one load.
+template <int RPT>
+__device__ __forceinline__ void ld_rows(const float* p, float (&x)[RPT]) {
+  if constexpr (RPT == 4) {
+    const float4 a = ld4(p);
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  } else if constexpr (RPT == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    x[0] = a.x; x[1] = a.y;
+  } else {
+    x[0] = p[0];
+  }
 }
 
-// 2 blocks per SM, as the shared memory allows at N = 64.
+// x[m] for a lane-dependent m, without indexing registers.
+template <int RPT>
+__device__ __forceinline__ float pick(const float (&x)[RPT], int m) {
+  float r = x[0];
+#pragma unroll
+  for (int q = 1; q < RPT; ++q) r = m == q ? x[q] : r;
+  return r;
+}
+
+// 4 bytes into shared memory, or zeros when ``ok`` is false (nothing is
+// read then).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+// Issue the copies of steps t0 .. t0+R-1 of one head's (S, N) rows (stride
+// ``stride`` between steps) into sh[R][NP], zeros outside [0, S) and N: 16
+// bytes a copy where ``vec`` (N % 4 == 0 and 16-byte aligned arrays), else
+// 4.
+template <int R, int NP>
+__device__ __forceinline__ void issue_rows(float* sh,
+                                           const float* __restrict__ src,
+                                           int64_t stride, int t0, int S,
+                                           int N, bool vec) {
+  if (vec) {
+    for (int x = threadIdx.x; x < R * NP / 4; x += 4 * NP) {
+      const int t = t0 + x / (NP / 4), i = 4 * (x % (NP / 4));
+      const bool ok = t >= 0 && t < S && i < N;
+      cp_async16(sh + 4 * x,
+                 ok ? src + static_cast<int64_t>(t) * stride + i : src, ok);
+    }
+  } else {
+    for (int x = threadIdx.x; x < R * NP; x += 4 * NP) {
+      const int t = t0 + x / NP, i = x % NP;
+      const bool ok = t >= 0 && t < S && i < N;
+      cp_async4(sh + x, ok ? src + static_cast<int64_t>(t) * stride + i : src,
+                ok);
+    }
+  }
+}
+
+// Sweep A's walk over one chunk for the thread's rows of S (sv, the state
+// before step c0): from step tt's k, w (= exp(lw)), v, gy and gy of step
+// tt + 1 (rows of NP floats from the chunk's first step),
+//   dr'_t = S_{t-1} gy_t,  a_t = S_{t-1} gy_{t+1}  (at t = S-1 the direct
+//   dlw_{S-1} = w_{S-1} rowsum(ghl * S_{S-2}) in place of a_t),
+// then S_t.  store(is_a, i, t, value) keeps the lane's row sum of row i.
+// The steps before S-1 run in unrolled groups of 8 whose steps past the
+// chunk (zero k, w = 1) leave S alone and store nothing; no branch inside,
+// so the steps overlap.
+template <int NP, typename Store>
+__device__ __forceinline__ void a_walk(
+    float (&sv)[RowGeo<NP>::RPT][4], const float* s_k, const float* s_w,
+    const float* s_v, const float* s_gy, int c0, int len, int S, int N,
+    const float* __restrict__ ghl_h, Store store) {
+  using Geo = RowGeo<NP>;
+  constexpr int CG = Geo::CG, RPT = Geo::RPT, K2 = 2 * RPT;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = lane % CG, row0 = 8 * warp + RPT * (lane / CG);
+  auto step = [&](int tt, bool live, bool last) {
+    const float4 g4 = ld4(&s_gy[tt * NP + 4 * c]);
+    const float4 n4 = ld4(&s_gy[(tt + 1) * NP + 4 * c]);
+    const float4 v4 = ld4(&s_v[tt * NP + 4 * c]);
+    const float gg[4] = {g4.x, g4.y, g4.z, g4.w};
+    const float nn[4] = {last ? 0.f : n4.x, last ? 0.f : n4.y,
+                         last ? 0.f : n4.z, last ? 0.f : n4.w};
+    const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
+    float kr[RPT], wr[RPT], acc[K2];
+    ld_rows<RPT>(&s_k[tt * NP + row0], kr);
+    ld_rows<RPT>(&s_w[tt * NP + row0], wr);
+#pragma unroll
+    for (int m = 0; m < RPT; ++m) {
+      kr[m] = live ? kr[m] : 0.f;
+      wr[m] = live ? wr[m] : 1.f;
+    }
+#pragma unroll
+    for (int q = 0; q < K2; ++q) acc[q] = 0.f;
+    if (last) {
+#pragma unroll
+      for (int m = 0; m < RPT; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = row0 + m, j = 4 * c + e;
+          if (i < N && j < N)
+            acc[RPT + m] = fmaf(ghl_h[i * N + j], sv[m][e], acc[RPT + m]);
+        }
+    }
+#pragma unroll
+    for (int m = 0; m < RPT; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& x = sv[m][e];
+        acc[m] = fmaf(gg[e], x, acc[m]);
+        acc[RPT + m] = fmaf(nn[e], x, acc[RPT + m]);
+        x = fmaf(wr[m], x, kr[m] * vv[e]);
+      }
+    const int idx = rs_sum<K2, CG / 2, 1, K2>(acc, lane);
+    const int m = idx % RPT, i = row0 + m;
+    const float val = last && idx >= RPT ? pick<RPT>(wr, m) * acc[0] : acc[0];
+    if ((lane & 1) == 0 && live && i < N) store(idx >= RPT, i, c0 + tt, val);
+  };
+  const int nmain = c0 + len == S ? len - 1 : len;
+  for (int t8 = 0; t8 < nmain; t8 += 8) {
+#pragma unroll
+    for (int uu = 0; uu < 8; ++uu) step(t8 + uu, t8 + uu < nmain, false);
+  }
+  if (nmain < len) step(len - 1, true, true);
+}
+
+// The thread's rows of an (N x N) state at ``src`` into registers, zero
+// outside N.
 template <int NP>
-__global__ void __launch_bounds__(4 * NP, 2)
-wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ lw,
-               const float* __restrict__ u, const float* __restrict__ ckpt,
-               const float* __restrict__ gy, const float* __restrict__ ghl,
-               float* __restrict__ dr, float* __restrict__ dk,
-               float* __restrict__ dv, float* __restrict__ dlw,
-               float* __restrict__ dh0, float* __restrict__ du_seq, int S,
-               int H, int N, int per_group) {
-  constexpr int PER = NP / 4, NW = NP / 8;
-  constexpr int KEEP = PER >= 8 ? PER / 8 : 1;
+__device__ __forceinline__ void load_rows(float (&x)[RowGeo<NP>::RPT][4],
+                                          const float* __restrict__ src,
+                                          int N) {
+  using Geo = RowGeo<NP>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = lane % Geo::CG, row0 = 8 * warp + Geo::RPT * (lane / Geo::CG);
+#pragma unroll
+  for (int m = 0; m < Geo::RPT; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = row0 + m, j = 4 * c + e;
+      x[m][e] = (i < N && j < N) ? src[i * N + j] : 0.f;
+    }
+}
+
+// Sweep A's shared memory, in floats: k, w, v for a chunk; gy for the
+// chunk and one step past it.
+template <int NP>
+__host__ __device__ constexpr int bwd_a_smem_floats() {
+  return (4 * kCkpt + 1) * NP;
+}
+
+// Sweep A: one block per (sequence, head, 64-step chunk), all chunks at
+// once.  From the chunk's checkpoint S_{c0-1}, walk t up with S_{t-1} in
+// the row layout and write
+//   dr'_t = S_{t-1} gy_t  into dr,   a_t = S_{t-1} gy_{t+1}  into dlw,
+// and at t = S-1, in place of a_t, the direct dlw_{S-1} = w_{S-1}
+// rowsum(ghl * S_{S-2}).  Sweep B reads both back and overwrites them.
+// Steps past S (zero k, v, gy and w = 1) leave S as it is, so the walk runs
+// whole groups of 8 steps, unrolled, with the stores masked.
+template <int NP>
+__global__ void __launch_bounds__(4 * NP, 3)
+wkv_bwd_a_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                 const float* __restrict__ lw, const float* __restrict__ ckpt,
+                 const float* __restrict__ gy, const float* __restrict__ ghl,
+                 float* __restrict__ drp, float* __restrict__ anext, int S,
+                 int H, int N, bool vec) {
+  constexpr int T = kCkpt;
   extern __shared__ __align__(16) float smem[];
-  float(*s_r)[NP] = reinterpret_cast<float(*)[NP]>(smem);
-  float(*s_k)[NP] = s_r + kCkpt;
-  float(*s_w)[NP] = s_k + kCkpt;
-  float(*s_v)[NP] = s_w + kCkpt;
-  float(*s_gy)[NP] = s_v + kCkpt;
-  float* s_gyv = smem + 5 * kCkpt * NP;
-  float* s_ruk = s_gyv + kCkpt;
-  float(*s_dvp)[kSub][NP] =
-      reinterpret_cast<float(*)[kSub][NP]>(s_ruk + kCkpt);
-  float* s_u = smem + 5 * kCkpt * NP + 2 * kCkpt + NW * kSub * NP;
+  float* s_k = smem;
+  float* s_w = s_k + T * NP;                         // lw, then exp(lw)
+  float* s_v = s_w + T * NP;
+  float* s_gy = s_v + T * NP;                        // T + 1 rows
+  const int nck = (S + kCkpt - 1) / kCkpt;
+  const int bh = blockIdx.x / nck, ck = blockIdx.x % nck;
+  const int b = bh / H, h = bh % H;
+  const int c0 = ck * T, len = min(T, S - c0);
+  const int64_t stride = static_cast<int64_t>(H) * N;
+  const int64_t seq = static_cast<int64_t>(b) * S * stride + h * N;
+  const int64_t st = static_cast<int64_t>(bh) * N * N;
+  issue_rows<T, NP>(s_k, k + seq, stride, c0, S, N, vec);
+  issue_rows<T, NP>(s_w, lw + seq, stride, c0, S, N, vec);
+  issue_rows<T, NP>(s_v, v + seq, stride, c0, S, N, vec);
+  issue_rows<T + 1, NP>(s_gy, gy + seq, stride, c0, S, N, vec);
+  cp_async_commit();
+  float sv[RowGeo<NP>::RPT][4];
+  load_rows<NP>(sv, ckpt + (static_cast<int64_t>(bh) * nck + ck) * N * N, N);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int x = threadIdx.x; x < T * NP; x += 4 * NP) s_w[x] = expf(s_w[x]);
+  __syncthreads();
+  a_walk<NP>(sv, s_k, s_w, s_v, s_gy, c0, len, S, N, ghl + st,
+             [&](bool is_a, int i, int t, float val) {
+               (is_a ? anext : drp)[seq + static_cast<int64_t>(t) * stride +
+                                    i] = val;
+             });
+}
+
+// Sweep B's steps per tile (1024 / NP: a tile buffer holds the same bytes
+// at every NP) and between dv sums (two sums a tile).
+template <int NP>
+__host__ __device__ constexpr int bwd_b_tile() {
+  return 1024 / NP;
+}
+
+template <int NP>
+__host__ __device__ constexpr int bwd_b_sub() {
+  return 512 / NP;
+}
+
+// Sweep B's tile buffer, in floats: r for the tile's steps and one past
+// them; k, w, a (then e), dr', gy for the steps; v for the steps and the
+// one before; gy . v and sum_i r u k per step.
+template <int NP>
+__host__ __device__ constexpr int bwd_b_buf_floats() {
+  return (7 * bwd_b_tile<NP>() + 2) * NP + 2 * bwd_b_tile<NP>();
+}
+
+// Sweep B's shared memory: two tile buffers (one when the sequence is one
+// tile), the per-warp partials of dv for two sub-chunks, u, and the du
+// partials of the 4 NP threads.
+template <int NP>
+__host__ __device__ constexpr int bwd_b_smem_floats(int buffers) {
+  return buffers * bwd_b_buf_floats<NP>() +
+         2 * (NP / 8) * bwd_b_sub<NP>() * NP + 5 * NP;
+}
+
+// Sweep B: one block per (sequence, head), t down, G_t in registers in the
+// row layout, from tiles of 1024 / NP steps copied by cp.async (the next tile
+// in flight while this one is walked).  A tile first gets, for all its
+// steps at once, gy . v, sum_i r u k, w = exp(lw), e_t = w_t r_{t+1} a_t,
+//   dr_t = dr'_t + u k_t (gy_t . v_t)  (written out)  and du's terms.
+// Then per step
+//   dk_t = G_t v_t + u r_t (gy_t . v_t),  dv_t = G_t^T k_t + (sum r u k) gy_t
+//   dlw_t = dlw_{t+1} + e_t - k_t (w_{t+1} G_{t+1} v_t)
+//   G_{t-1} = diag(w_t) G_t + r_t^T gy_t.
+// dk's and the dlw term's sums over columns are reduce-scattered over the
+// row group's lanes, so each row's dk and dlw live in one fixed lane; dv's
+// sum over rows is summed in-thread, reduce-scattered over the warp's row
+// groups, and summed over the warps in order every half tile.  Steps past
+// S leave G and dlw as they are; their stores are masked.
+// FUSED (S no longer than one tile and one checkpoint chunk, as on the
+// federated paths): the block runs sweep A's walk over its tile itself,
+// from h0 (the first checkpoint), into the tile's dr' and a rows, and no
+// sweep A kernel runs.
+template <int NP, bool FUSED>
+__global__ void __launch_bounds__(4 * NP, 2)
+wkv_bwd_b_kernel(const float* __restrict__ r, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ lw,
+                 const float* __restrict__ u, const float* __restrict__ ckpt,
+                 const float* __restrict__ gy,
+                 const float* __restrict__ ghl, float* __restrict__ dr,
+                 float* __restrict__ dk, float* __restrict__ dv,
+                 float* __restrict__ dlw, float* __restrict__ dh0,
+                 float* __restrict__ du_seq, int S, int H, int N,
+                 int per_group, bool vec) {
+  using Geo = RowGeo<NP>;
+  constexpr int CG = Geo::CG, RPT = Geo::RPT, K2 = 2 * RPT;
+  constexpr int NW = NP / 8, T = bwd_b_tile<NP>(), KS = bwd_b_sub<NP>();
+  constexpr int BUF = bwd_b_buf_floats<NP>();
+  constexpr int PARTS = 4 * NP / T, COLS = NP / PARTS;  // gy . v pass
+  // dv: after the sum over row groups a lane keeps KEEPC columns; with 8
+  // row groups (NP = 16) the last level is a full sum over lane bit CG
+  constexpr int KEEPC = Geo::GROUPS >= 4 ? 1 : 4 / Geo::GROUPS;
+  constexpr int FULL = Geo::GROUPS > 4 ? CG : 0;
+  static_assert(PARTS * T == 4 * NP && COLS % 4 == 0, "gy . v pass");
+  extern __shared__ __align__(16) float smem[];
+  float* s_dvp = smem + (FUSED ? 1 : 2) * BUF;       // [2][NW][KS][NP]
+  float* s_u = s_dvp + 2 * NW * KS * NP;
+  float* s_du = s_u + NP;                            // [4][NP]
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c = lane & 3, i = warp * 8 + (lane >> 2);
+  const int c = lane % CG, row0 = 8 * warp + RPT * (lane / CG);
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int64_t stride = static_cast<int64_t>(H) * N;
   const int64_t seq = static_cast<int64_t>(b) * S * stride + h * N;
   const int64_t st = static_cast<int64_t>(bh) * N * N;
   const float* ug = u + (static_cast<int64_t>(b / per_group) * H + h) * N;
-  const int nck = (S + kCkpt - 1) / kCkpt;
   for (int x = threadIdx.x; x < NP; x += 4 * NP) s_u[x] = x < N ? ug[x] : 0.f;
-  float gs[PER];
-#pragma unroll
-  for (int p = 0; p < PER; ++p) {
-    const int jj = elem(c, p);
-    gs[p] = (i < N && jj < N) ? ghl[st + i * N + jj] : 0.f;
-  }
-  float du_acc = 0.f;
-  __syncthreads();
-  const float ui = s_u[i];
 
-  // one recompute step of a thread's part of S with step tt's k, w, v
-  auto advance = [&](float (&sv)[PER], int tt) {
-    const float ki = s_k[tt][i], wi = s_w[tt][i];
-#pragma unroll
-    for (int q = 0; q < PER / 4; ++q) {
-      const float4 v4 = ld4(&s_v[tt][16 * q + 4 * c]);
-      const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        sv[4 * q + e] = fmaf(wi, sv[4 * q + e], ki * vv[e]);
+  // Issue the copies of tile ``tile`` into ``buf``.
+  auto issue = [&](int tile, float* buf) {
+    const int t0 = tile * T;
+    issue_rows<T + 1, NP>(buf, r + seq, stride, t0, S, N, vec);
+    float* p = buf + (T + 1) * NP;
+    issue_rows<T, NP>(p, k + seq, stride, t0, S, N, vec);
+    issue_rows<T, NP>(p + T * NP, lw + seq, stride, t0, S, N, vec);
+    if constexpr (!FUSED) {
+      issue_rows<T, NP>(p + 2 * T * NP, dlw + seq, stride, t0, S, N, vec);
+      issue_rows<T, NP>(p + 3 * T * NP, dr + seq, stride, t0, S, N, vec);
     }
+    issue_rows<T, NP>(p + 4 * T * NP, gy + seq, stride, t0, S, N, vec);
+    issue_rows<T + 1, NP>(p + 5 * T * NP, v + seq, stride, t0 - 1, S, N,
+                          vec);
+    cp_async_commit();
   };
 
-  for (int ck = nck - 1; ck >= 0; --ck) {
-    const int c0 = ck * kCkpt, len = min(kCkpt, S - c0);
-    __syncthreads();                       // the last chunk's reads are done
-    stage<kCkpt, NP>(s_r, r + seq, stride, c0, S, N, false);
-    stage<kCkpt, NP>(s_k, k + seq, stride, c0, S, N, false);
-    stage<kCkpt, NP>(s_v, v + seq, stride, c0, S, N, false);
-    stage<kCkpt, NP>(s_gy, gy + seq, stride, c0, S, N, false);
-    stage<kCkpt, NP>(s_w, lw + seq, stride, c0, S, N, true);
-    __syncthreads();
-    for (int tt = threadIdx.x; tt < kCkpt; tt += 4 * NP) {
-      float a = 0.f, bsum = 0.f;
-      for (int x = 0; x < N; ++x) {
-        a = fmaf(s_gy[tt][x], s_v[tt][x], a);
-        bsum = fmaf(s_r[tt][x] * s_u[x], s_k[tt][x], bsum);
+  float gs[RPT][4];
+#pragma unroll
+  for (int m = 0; m < RPT; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = row0 + m, j = 4 * c + e;
+      gs[m][e] = (i < N && j < N) ? ghl[st + i * N + j] : 0.f;
+    }
+  float du_part = 0.f, dl = 0.f, wgv = 0.f;
+  const int ntile = (S + T - 1) / T;
+  issue(ntile - 1, smem);
+  int par = 0;
+  for (int tile = ntile - 1, pb = 0; tile >= 0; --tile, pb ^= 1) {
+    float* buf = smem + pb * BUF;
+    float* __restrict__ s_r = buf;                 // T + 1 rows from t0
+    float* __restrict__ s_k = buf + (T + 1) * NP;
+    float* __restrict__ s_w = s_k + T * NP;        // lw, then w
+    float* __restrict__ s_a = s_w + T * NP;        // a, then e
+    float* __restrict__ s_drp = s_a + T * NP;
+    float* __restrict__ s_gy = s_drp + T * NP;
+    float* __restrict__ s_v = s_gy + T * NP;       // s_v[tt + 1] is step tt
+    float* __restrict__ s_gyv = s_v + (T + 1) * NP;
+    float* __restrict__ s_ruk = s_gyv + T;
+    cp_async_wait_all();
+    __syncthreads();        // this tile landed; the last tile's reads done
+    if (tile > 0) issue(tile - 1, smem + (pb ^ 1) * BUF);
+    const int t0 = tile * T, len = min(T, S - t0);
+    for (int x = threadIdx.x; x < T * NP; x += 4 * NP) s_w[x] = expf(s_w[x]);
+    {                       // gy . v and sum r u k: PARTS threads a step
+      const int tt = threadIdx.x / PARTS, q = threadIdx.x % PARTS;
+      float a = 0.f, bs = 0.f;
+#pragma unroll
+      for (int j = q * COLS; j < (q + 1) * COLS; j += 4) {
+        const float4 g4 = ld4(&s_gy[tt * NP + j]);
+        const float4 v4 = ld4(&s_v[(tt + 1) * NP + j]);
+        const float4 r4 = ld4(&s_r[tt * NP + j]);
+        const float4 k4 = ld4(&s_k[tt * NP + j]);
+        const float4 u4 = ld4(&s_u[j]);
+        a = fmaf(g4.x, v4.x, a);
+        a = fmaf(g4.y, v4.y, a);
+        a = fmaf(g4.z, v4.z, a);
+        a = fmaf(g4.w, v4.w, a);
+        bs = fmaf(r4.x * u4.x, k4.x, bs);
+        bs = fmaf(r4.y * u4.y, k4.y, bs);
+        bs = fmaf(r4.z * u4.z, k4.z, bs);
+        bs = fmaf(r4.w * u4.w, k4.w, bs);
       }
-      s_gyv[tt] = a;
-      s_ruk[tt] = bsum;
-    }
-    float sck[PER];
-    const float* src = ckpt + (static_cast<int64_t>(bh) * nck + ck) * N * N;
 #pragma unroll
-    for (int p = 0; p < PER; ++p) {
-      const int jj = elem(c, p);
-      sck[p] = (i < N && jj < N) ? src[i * N + jj] : 0.f;
+      for (int o = 1; o < PARTS; o <<= 1) {
+        a += __shfl_xor_sync(kFull, a, o);
+        bs += __shfl_xor_sync(kFull, bs, o);
+      }
+      if (q == 0) {
+        s_gyv[tt] = a;
+        s_ruk[tt] = bs;
+      }
     }
     __syncthreads();
-    const int nsub = (len + kSub - 1) / kSub;
-    for (int sc = nsub - 1; sc >= 0; --sc) {
-      float sst[PER];                      // S before step c0 + sc * kSub
+    if constexpr (FUSED) {  // sweep A over the tile, into s_drp and s_a
+      for (int x = len * NP + threadIdx.x; x < T * NP; x += 4 * NP)
+        s_a[x] = s_drp[x] = 0.f;           // steps past S
+      float sv[RPT][4];
+      load_rows<NP>(sv, ckpt + static_cast<int64_t>(bh) * N * N, N);
+      a_walk<NP>(sv, s_k, s_w, s_v + NP, s_gy, 0, len, S, N, ghl + st,
+                 [&](bool is_a, int i, int t, float val) {
+                   (is_a ? s_a : s_drp)[t * NP + i] = val;
+                 });
+      __syncthreads();
+    }
+    // per element of the tile: e, dr and du's terms; thread x keeps row
+    // x % NP in every tile, so its du terms add up in a fixed order
+    for (int x = threadIdx.x; x < T * NP; x += 4 * NP) {
+      const int tt = x / NP, i = x % NP, t = t0 + tt;
+      const float w = s_w[x];
+      if (t != S - 1) s_a[x] = w * s_r[x + NP] * s_a[x];
+      if (t < S && i < N) {
+        const float ki = s_k[x], gyv = s_gyv[tt];
+        dr[seq + static_cast<int64_t>(t) * stride + i] =
+            fmaf(s_u[i] * ki, gyv, s_drp[x]);
+        du_part = fmaf(s_r[x] * ki, gyv, du_part);
+      }
+    }
+    __syncthreads();
+    for (int sc = T / KS - 1; sc >= 0; --sc) {
+      if (sc * KS >= len) continue;        // uniform over the block
+      float* __restrict__ dvp = s_dvp + par * NW * KS * NP;
+#pragma unroll 8
+      for (int uu = KS - 1; uu >= 0; --uu) {
+        const int tt = sc * KS + uu, t = t0 + tt;
+        const float4 g4 = ld4(&s_gy[tt * NP + 4 * c]);
+        const float4 v4 = ld4(&s_v[(tt + 1) * NP + 4 * c]);
+        const float4 o4 = ld4(&s_v[tt * NP + 4 * c]);
+        const float gg[4] = {g4.x, g4.y, g4.z, g4.w};
+        const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
+        const float oo[4] = {o4.x, o4.y, o4.z, o4.w};
+        float rr[RPT], kr[RPT], wr[RPT], acc[K2], cs[4];
+        ld_rows<RPT>(&s_r[tt * NP + row0], rr);
+        ld_rows<RPT>(&s_k[tt * NP + row0], kr);
+        ld_rows<RPT>(&s_w[tt * NP + row0], wr);
 #pragma unroll
-      for (int p = 0; p < PER; ++p) sst[p] = sck[p];
-      for (int tt = 0; tt < sc * kSub; ++tt) advance(sst, tt);
-      for (int uu = kSub - 1; uu >= 0; --uu) {
-        const int tt = sc * kSub + uu;
-        if (tt >= len) continue;           // uniform over the block
-        float sp[PER];                     // S_{t-1}
+        for (int q = 0; q < K2; ++q) acc[q] = 0.f;
 #pragma unroll
-        for (int p = 0; p < PER; ++p) sp[p] = sst[p];
-        for (int x = sc * kSub; x < tt; ++x) advance(sp, x);
-        const float ri = s_r[tt][i], ki = s_k[tt][i], wi = s_w[tt][i];
-        const float gyv = s_gyv[tt];
-        float p1 = 0.f, p2 = 0.f, p3 = 0.f;
+        for (int e = 0; e < 4; ++e) cs[e] = 0.f;
 #pragma unroll
-        for (int q = 0; q < PER / 4; ++q) {
-          const float4 g4 = ld4(&s_gy[tt][16 * q + 4 * c]);
-          const float4 v4 = ld4(&s_v[tt][16 * q + 4 * c]);
-          const float gg[4] = {g4.x, g4.y, g4.z, g4.w};
-          const float vv[4] = {v4.x, v4.y, v4.z, v4.w};
+        for (int m = 0; m < RPT; ++m)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int p = 4 * q + e;
-            p1 = fmaf(gg[e], sp[p], p1);
-            p2 = fmaf(gs[p], vv[e], p2);
-            p3 = fmaf(gs[p], sp[p], p3);
-            sp[p] = gs[p] * ki;            // this column's dv term
-            gs[p] = fmaf(wi, gs[p], ri * gg[e]);
+            float& g = gs[m][e];
+            acc[m] = fmaf(g, vv[e], acc[m]);             // G_t v_t
+            acc[RPT + m] = fmaf(g, oo[e], acc[RPT + m]); // G_t v_{t-1}
+            cs[e] = fmaf(g, kr[m], cs[e]);               // dv's term
+            g = fmaf(wr[m], g, rr[m] * gg[e]);
           }
-        }
+        // the lane's row sum: G_t v_t of row i (idx < RPT: its dk) or
+        // G_t v_{t-1} (its dlw); dl and wgv mean something in the latter
+        const int idx = rs_sum<K2, CG / 2, 1, K2>(acc, lane);
+        const int m = idx % RPT, i = row0 + m;
+        const bool q1 = idx >= RPT;
+        const float ea = s_a[tt * NP + i];
+        const float dln = t == S - 1 ? ea : ea + dl - pick<RPT>(kr, m) * wgv;
+        dl = q1 ? dln : 0.f;
+        wgv = pick<RPT>(wr, m) * acc[0];           // w_t G_t v_{t-1}
+        const float dkv = fmaf(s_u[i] * pick<RPT>(rr, m), s_gyv[tt], acc[0]);
+        if ((lane & 1) == 0 && t < S && i < N)
+          (q1 ? dlw : dk)[seq + static_cast<int64_t>(t) * stride + i] =
+              q1 ? dl : dkv;
+        const int cidx = rs_sum<4, 16, CG, 4>(cs, lane);
+        if ((lane & FULL) == 0) {
 #pragma unroll
-        for (int o = 1; o < 4; o <<= 1) {
-          p1 += __shfl_xor_sync(kFull, p1, o);
-          p2 += __shfl_xor_sync(kFull, p2, o);
-          p3 += __shfl_xor_sync(kFull, p3, o);
-        }
-        if (i < N) {
-          const int64_t off = seq + static_cast<int64_t>(c0 + tt) * stride + i;
-          if (c == 0) dr[off] = fmaf(ui * ki, gyv, p1);
-          else if (c == 1) dk[off] = fmaf(ui * ri, gyv, p2);
-          else if (c == 2) dlw[off] = wi * p3;
-        }
-        du_acc = fmaf(ri * ki, gyv, du_acc);
-        const int base = reduce_rows<PER>(sp, lane);
-        if (PER >= 8 || (lane & 4) == 0) {
-#pragma unroll
-          for (int q = 0; q < KEEP; ++q)
-            s_dvp[warp][uu][elem(c, base + q)] = sp[q];
+          for (int q = 0; q < KEEPC; ++q)
+            dvp[(warp * KS + uu) * NP + 4 * c + cidx + q] = cs[q];
         }
       }
       __syncthreads();
-      for (int idx = threadIdx.x; idx < kSub * NP; idx += 4 * NP) {
-        const int uu = idx / NP, jj = idx % NP, tt = sc * kSub + uu;
+      for (int idx = threadIdx.x; idx < KS * NP; idx += 4 * NP) {
+        const int uu = idx / NP, jj = idx % NP, tt = sc * KS + uu;
         if (tt < len && jj < N) {
-          float a = s_ruk[tt] * s_gy[tt][jj];
-          for (int w = 0; w < NW; ++w) a += s_dvp[w][uu][jj];
-          dv[seq + static_cast<int64_t>(c0 + tt) * stride + jj] = a;
+          float a = s_ruk[tt] * s_gy[tt * NP + jj];
+          for (int w = 0; w < NW; ++w) a += dvp[(w * KS + uu) * NP + jj];
+          dv[seq + static_cast<int64_t>(t0 + tt) * stride + jj] = a;
         }
       }
-      __syncthreads();
+      par ^= 1;
     }
   }
-  if (i < N) {
 #pragma unroll
-    for (int p = 0; p < PER; ++p) {
-      const int jj = elem(c, p);
-      if (jj < N) dh0[st + i * N + jj] = gs[p];
+  for (int m = 0; m < RPT; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = row0 + m, j = 4 * c + e;
+      if (i < N && j < N) dh0[st + i * N + j] = gs[m][e];
     }
-    if (c == 0) du_seq[static_cast<int64_t>(bh) * N + i] = du_acc;
+  s_du[threadIdx.x] = du_part;
+  __syncthreads();
+  if (threadIdx.x < N) {
+    float a = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) a += s_du[q * NP + threadIdx.x];
+    du_seq[static_cast<int64_t>(bh) * N + threadIdx.x] = a;
   }
 }
 
@@ -409,7 +720,8 @@ wkv_bwd_du_kernel(const float* __restrict__ du_seq, float* __restrict__ du,
 
 bool bad_shape(int64_t B, int64_t S, int64_t H, int64_t N, int64_t G) {
   return B < 1 || S < 1 || H < 1 || N < 1 || N > kMaxN || G < 1 ||
-         B % G != 0 || B * H > 0x7fffffffLL || S > 0x7fffffffLL - 2048;
+         B % G != 0 || S > 0x7fffffffLL - 2048 ||
+         B * H * ((S + kCkpt - 1) / kCkpt) > 0x7fffffffLL;
 }
 
 int padded(int64_t N) { return N <= 16 ? 16 : (N <= 32 ? 32 : 64); }
@@ -425,25 +737,54 @@ int launch_fwd(const float* r, const float* k, const float* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Allow ``kernel`` ``bytes`` of dynamic shared memory, once.
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t bytes, bool& done) {
+  if (done) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  done = true;
+  return 0;
+}
+
 template <int NP>
 int launch_bwd(const float* r, const float* k, const float* v,
                const float* lw, const float* u, const float* ckpt,
                const float* gy, const float* ghl, float* dr, float* dk,
                float* dv, float* dlw, float* dh0, float* du_seq, int64_t B,
                int64_t S, int64_t H, int64_t N, int64_t G, cudaStream_t st) {
-  const size_t bytes = sizeof(float) * bwd_smem_floats<NP>();
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        wkv_bwd_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    attr_set = true;
+  const size_t a_bytes = sizeof(float) * bwd_a_smem_floats<NP>();
+  const size_t b_bytes = sizeof(float) * bwd_b_smem_floats<NP>(2);
+  const size_t f_bytes = sizeof(float) * bwd_b_smem_floats<NP>(1);
+  static bool a_set = false, b_set = false, f_set = false;
+  int err = allow_smem(wkv_bwd_a_kernel<NP>, a_bytes, a_set);
+  if (err == 0)
+    err = allow_smem(wkv_bwd_b_kernel<NP, false>, b_bytes, b_set);
+  if (err == 0) err = allow_smem(wkv_bwd_b_kernel<NP, true>, f_bytes, f_set);
+  if (err != 0) return err;
+  const int64_t nck = (S + kCkpt - 1) / kCkpt;
+  bool vec = N % 4 == 0;
+  for (const float* p : {r, k, v, lw, gy, static_cast<const float*>(dr),
+                         static_cast<const float*>(dlw)})
+    vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  const bool fused = S <= kCkpt && S <= bwd_b_tile<NP>();
+  if (!fused) {
+    wkv_bwd_a_kernel<NP><<<static_cast<unsigned>(B * H * nck), 4 * NP,
+                           a_bytes, st>>>(
+        k, v, lw, ckpt, gy, ghl, dr, dlw, static_cast<int>(S),
+        static_cast<int>(H), static_cast<int>(N), vec);
+    err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
   }
-  wkv_bwd_kernel<NP><<<static_cast<unsigned>(B * H), 4 * NP, bytes, st>>>(
+  auto* kernel_b =
+      fused ? wkv_bwd_b_kernel<NP, true> : wkv_bwd_b_kernel<NP, false>;
+  kernel_b<<<static_cast<unsigned>(B * H), 4 * NP, fused ? f_bytes : b_bytes,
+             st>>>(
       r, k, v, lw, u, ckpt, gy, ghl, dr, dk, dv, dlw, dh0, du_seq,
       static_cast<int>(S), static_cast<int>(H), static_cast<int>(N),
-      static_cast<int>(B / G));
+      static_cast<int>(B / G), vec);
   return static_cast<int>(cudaGetLastError());
 }
 
