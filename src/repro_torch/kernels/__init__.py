@@ -4,11 +4,13 @@ coded_matmul        — Lagrange encode / erasure decode: (C,S) @ (S,P).
 coded_matmul_rounds — the all-rounds encode: (C,S) @ (G,S,P) -> (G,C,P).
 calibrate           — eq. (3) accumulate: w + coeffs @ deltas.
 ssm_scan            — the selective-SSM (mamba) scan, forward.
-ssm_scan_bwd        — its backward (a reverse-time scan + a fixed-order
-                      reduce over blocks).
+ssm_scan_bwd        — its backward (a reverse-time scan from the forward's
+                      checkpoints + a fixed-order reduce over blocks and
+                      sequences).
 wkv                 — the RWKV-6 WKV recurrence, forward.
-wkv_bwd             — its backward (a reverse-time walk from the forward's
-                      checkpoints + a fixed-order reduce of du).
+wkv_bwd             — its backward (a chunk-parallel forward sweep from the
+                      checkpoints, one reverse walk with no recompute, and
+                      a fixed-order reduce of du).
 encode_decode       — the slice-verification round trip dec @ (enc @ w)
                       with the coded intermediate kept on chip.
 window_attention    — causal sliding-window flash attention, forward.

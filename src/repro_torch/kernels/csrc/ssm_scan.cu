@@ -13,7 +13,9 @@
 // (B=2, S=4096, D=16384, n=16) that is 1.61 GB (0.48 ms at 3.35 TB/s) and
 // 2.15e9 exps (0.5 ms at 16 per clock per SM on 132 SMs): bytes and the
 // special-function unit bound it about equally.  The recurrence itself is
-// sequential in t, so the parallelism is over (B, D) channels only.
+// sequential in t, so the parallelism is over (B, D) channels only.  abar
+// = exp(dt a) is taken as exp2(dt (a log2 e)), one MUFU.EX2 and a multiply
+// (accurate expf is a longer sequence around it; no -use_fast_math).
 //
 // Forward design.
 //   * A channel's n states are split over L lanes (L = 1, 2, 4 for n <= 4,
@@ -28,17 +30,36 @@
 //     (B, ceil(S/8), D, n) checkpoint buffer for the backward.
 // Backward design.  Time runs in reverse with the cotangent of h in
 // registers: G_t = c_t gy_t + abar_{t+1} G_{t+1}, seeded with the h_last
-// cotangent.  Each 8-step sub-chunk is first recomputed forward from its
-// checkpoint into registers (h_{t-1} for every step), then walked back:
+// cotangent.  It needs h_{t-1} at every step, so each 8-step sub-chunk is
+// recomputed forward from its checkpoint (one state update per step, the
+// floor for this kernel), then walked back:
 //   d dt_t = sum_n G (a abar h_{t-1} + b x),  d x_t = sum_n G dt b   (lanes)
 //   d b_t[n] = sum_d G dt x,  d c_t[n] = sum_d gy h_t               (over D)
 //   d a[d,n] = sum_t G dt abar h_{t-1},  d h0 = abar_0 G_0.
-// The sums over D cross thread blocks: each block reduces its channels
-// (shuffles within a warp, then the 8 warps in order) into a per-block
-// partial, and a second kernel sums the partials over blocks in block
-// order; d a is summed over t in registers and over the sequences of a
-// group by the same second kernel.  No atomics, so the result is the same
-// on every run.
+// What held the first version back was everything else per state-step:
+// two accurate expfs, 28 shuffles a lane-step, 128-channel blocks half
+// idle where D = 64, two barriers and a block pass every sub-chunk, and
+// staging whose global loads ran one round trip at a time.  Now:
+//   * One exp per state-step: the recompute keeps its 8 steps' abar in
+//     shared memory ([step][thread][state], conflict-free float4s; in
+//     registers they spilled at 256 threads) and the walk back reads it.
+//     The forward uses the same abar() and advance(), so the recompute
+//     rebuilds its h bit for bit.
+//   * d b and d c: a lane's 8 partials (4 states each) are reduce-scattered
+//     over the warp's channels, 4 + 2 + 1 shuffles plus a full sum over
+//     any channel bits left (L < 4), so with the two lane sums a lane-step
+//     costs 11 shuffles at L = 4, not 28; each lane then stores one value.
+//   * A block covers 64 channels (64 L threads), so no thread idles where
+//     D = 64 and twice the blocks run; with one block in D the walk writes
+//     d b and d c itself, and the second kernel only sums d a.
+//   * Tiles of 16 steps (dt, x, gy, b, c and the tile's checkpoints) are
+//     copied by cp.async into one of two buffers while the other is
+//     walked; the warps' d b / d c partials are summed once a tile.
+// The sums over D cross thread blocks: with more than one block in D each
+// block writes its partial (warps summed in order) and the second kernel
+// sums the partials over blocks in block order; d a is summed over t in
+// registers and over the sequences of a group by the same second kernel.
+// No atomics, so the result is the same on every run.
 // Every offset into a (B,S,D)-sized array is 64-bit.  Ragged S, D and n are
 // masked in the kernels; nothing is padded.
 #include <cstdint>

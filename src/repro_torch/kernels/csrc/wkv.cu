@@ -15,10 +15,10 @@
 // r, k, v, lw and writes y: 20 N bytes, and does 2 FMAs per state element
 // (N^2 of them).  At rwkv6-3b's shape (B=8, S=4096, H=40, N=64) that is
 // 1.68 GB (0.50 ms at 3.35 TB/s) against 2.1e10 FLOP (0.32 ms at 67 TFLOP/s
-// fp32): bytes bound it, operations close behind.  The backward does about
-// 6 FMAs per state element per step and moves about twice the bytes.  The
-// recurrence is sequential in t, so the parallelism is over (B, H) heads
-// and, inside a head, over the state.
+// fp32): bytes bound it, operations close behind.  The backward needs
+// about 6 FMAs per state element per step and moves about twice the bytes.
+// The recurrence is sequential in t, so the parallelism is over (B, H)
+// heads and, inside a head, over the state.
 //
 // Forward design (wkv_fwd_kernel).  Column j of S depends only on v[j] and
 // the row vectors r, k, w, u, so one block of 4 NP threads runs one head
@@ -31,26 +31,61 @@
 // training mode S is written every kCkpt = 64 steps to a (B, H, ceil(S/64),
 // N, N) buffer: at N = 64 that is as large as one input tensor.
 //
-// Backward design (wkv_bwd_kernel).  With G_t the cotangent of S_t (G seeded
-// from the h_last cotangent), walking t down:
+// Backward.  With G_t the cotangent of S_t (G seeded from the h_last
+// cotangent), walking t down:
 //   dr_t[i]  = sum_j gy_t[j] S_{t-1}[i,j] + u[i] k_t[i] (gy_t . v_t)
 //   dk_t[i]  = sum_j G_t[i,j] v_t[j]     + u[i] r_t[i] (gy_t . v_t)
 //   dv_t[j]  = sum_i G_t[i,j] k_t[i]     + (sum_i r_t u k_t) gy_t[j]
 //   dlw_t[i] = w_t[i] sum_j G_t[i,j] S_{t-1}[i,j]
 //   du[i]   += r_t[i] k_t[i] (gy_t . v_t)
 //   G_{t-1}  = diag(w_t) G_t + r_t^T gy_t,    dh0 = G_{-1}.
-// Three of the four sums run over j, so the backward transposes the
-// forward's layout: thread (i, c) holds columns j = 16q + 4c + e of row i,
-// a warp holds 8 rows, and the sums over j are in-thread plus two shuffles
-// over the 4 column groups c.  The one sum over i (dv) is reduce-scattered
-// over the warp's 8 rows with shuffles, written per warp to shared memory
-// and summed over the warps in order every kSub = 8 steps.  S_{t-1} is
-// never rebuilt by dividing by w (w reaches 2e-9): each 64-step chunk's
-// inputs are staged, its checkpoint loaded, and each 8-step sub-chunk walked
-// back with S_{t-1} recomputed forward from the sub-chunk's start (itself
-// recomputed from the checkpoint), about 7 state updates per step.
-// du is summed over t in registers and over a group's sequences, in order,
-// by wkv_bwd_du_kernel.  No atomics: every run gives the same result.
+// S_{t-1} runs forward and G backward, and S_{t-1} is never rebuilt by
+// dividing by w (w reaches 2e-9).  The kernel this replaces recomputed
+// S_{t-1} from the checkpoints inside the one sequential block per head:
+// about 7 state updates per step on top of the walk, 12 FMAs per state
+// element per step, none of it parallel (0.07 of the bound at rwkv6-3b).
+// Here S_{t-1} enters the reverse walk only through two per-row sums that
+// a chunk-parallel forward sweep writes out:
+//   dr'_t = S_{t-1} gy_t          (dr_t without its u term)
+//   a_t   = S_{t-1} gy_{t+1}.
+// dlw needs the rest.  With P_t = rowsum(G_t * S_t), expanding S_t gives
+// P_t = dlw_t + k_t (G_t v_t) and expanding G_{t-1} gives P_{t-1} = dlw_t +
+// r_t dr'_t, an exact identity, but in fp32 dlw_t = P_t - k_t (G_t v_t)
+// loses all its digits when w_t is small (at the clip, dlw ~ 1e-9 against
+// P ~ 1).  Expanding both one step further, the term w_t w_{t+1} rowsum(
+// G_{t+1} * S_{t-1}) is common to dlw_t and dlw_{t+1}, so
+//   dlw_t = dlw_{t+1} + w_t r_{t+1} a_t - k_t (w_{t+1} G_{t+1} v_t),
+// whose terms all carry a decay: the running sum keeps its relative
+// precision at every w (tests/test_torch_rwkv6.py holds the algorithm to
+// jax.vjp with decays near 1, the model's and the clip's; chip_smoke.py
+// the kernel to autograd).  It starts from the direct dlw_{S-1} = w_{S-1}
+// rowsum(ghl * S_{S-2}).
+//   Sweep A (wkv_bwd_a_kernel): one block per (sequence, head, 64-step
+// chunk), 20,480 blocks at rwkv6-3b; from the chunk's checkpoint it walks
+// S forward and writes dr' into dr and a into dlw.  2 FMAs per state
+// element per step plus 1 for a.
+//   Sweep B (wkv_bwd_b_kernel): one block per head, t down, G in registers.
+// A tile of 1024/NP steps is copied by cp.async (the next one in flight);
+// a pass over the tile's elements forms w = exp(lw), e_t = w_t r_{t+1} a_t,
+// dr_t = dr'_t + u k_t (gy_t . v_t) (written in place) and du's terms;
+// then per step G_t v_t, G_t v_{t-1}, G_t^T k_t and the G update: 5 flops
+// per state element, no checkpoint read, no state recomputed.
+//   Layout (both sweeps): the sums over j dominate, so a warp holds 8 rows
+// and lane = g CG + c splits them into row groups g and column groups c
+// (columns 4c .. 4c+3, CG = NP/4); a thread's NP/16 rows share one float4
+// of every column vector a step, so a step costs a lane 16 bytes of each
+// staged vector (one shared-memory wavefront a quarter-warp).  Row sums
+// are reduce-scattered over the CG lanes, leaving each row's dk and dlw in
+// one fixed lane; dv's sum over rows is taken in-thread, reduce-scattered
+// over the warp's row groups and summed over the warps in order twice a
+// tile.  Steps are unrolled in groups of 8 with no branch inside, so
+// their shared-memory and shuffle latencies overlap.
+//   A sequence of at most one tile and one chunk (S = 64 with N <= 16, as
+// on the federated paths) runs sweep A's walk inside sweep B's block, from
+// h0, into the tile's shared rows: one launch instead of two.
+// du is summed over t per thread in a fixed order and over a group's
+// sequences, in order, by wkv_bwd_du_kernel.  No atomics: every run gives
+// the same result.
 // Every offset into a (B, S, H, N)-sized array is 64-bit.  Ragged S and N
 // are masked in the kernels; nothing is padded.
 #include <cstdint>
