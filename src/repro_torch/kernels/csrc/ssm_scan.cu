@@ -23,9 +23,9 @@
 //     lanes.  At full width that is 32,768 channels * 4 lanes = 4,096 warps,
 //     31 per SM, where one thread per channel would give 8.
 //   * A block of 256 threads covers 256/L consecutive channels of one
-//     sequence.  dt and x for a tile of steps (2,048 channel-steps) are
-//     staged into shared memory with coalesced loads, b and c for the same
-//     steps beside them; y is staged and stored coalesced.
+//     sequence.  dt and x for a tile of steps (2,048 channel-steps), b and
+//     c beside them, are copied by cp.async into one of two buffers while
+//     the other is walked; y is staged and stored coalesced.
 //   * In training mode h is written every kCkpt = 8 steps to a
 //     (B, ceil(S/8), D, n) checkpoint buffer for the backward.
 // Backward design.  Time runs in reverse with the cotangent of h in
@@ -70,7 +70,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kNpl = 4;          // states per lane
 constexpr int kMaxN = 16;
-constexpr int kTile = 2048;      // channel-steps staged per tile
+constexpr int kTile = 2048;      // channel-steps a forward tile holds
 constexpr int kCkpt = 8;         // steps between forward checkpoints
 constexpr int kBwdCpb = 64;      // channels per backward block
 constexpr int kBwdT = 16;        // steps per backward tile
@@ -110,44 +110,25 @@ __device__ __forceinline__ float lane_sum(float v) {
   return v;
 }
 
-// Stage rows t0 .. t0+T-1 of a (S, D) slab (one sequence) into sh[T][CPB],
-// zero outside S and D.
-template <int T, int CPB>
-__device__ __forceinline__ void stage_rows(float (*sh)[CPB],
-                                           const float* __restrict__ src,
-                                           int t0, int d0, int S, int D) {
-  for (int i = threadIdx.x; i < T * CPB; i += kThreads) {
-    const int tt = i / CPB, cc = i % CPB;
-    const int t = t0 + tt, d = d0 + cc;
-    sh[tt][cc] = (t < S && d < D) ? src[static_cast<int64_t>(t) * D + d]
-                                  : 0.f;
-  }
+// 4 bytes into shared memory, or zeros when ``ok`` is false (nothing is
+// read then).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
 }
 
-// Rows t0 .. t0+T-1 of a (S, n) slab into sh[T][kMaxN], zero-padded.
-template <int T>
-__device__ __forceinline__ void stage_states(float (*sh)[kMaxN],
-                                             const float* __restrict__ src,
-                                             int t0, int S, int n) {
-  for (int i = threadIdx.x; i < T * kMaxN; i += kThreads) {
-    const int tt = i / kMaxN, j = i % kMaxN;
-    const int t = t0 + tt;
-    sh[tt][j] = (t < S && j < n) ? src[static_cast<int64_t>(t) * n + j]
-                                 : 0.f;
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
-template <int T, int CPB>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst,
-                                           const float (*sh)[CPB], int t0,
-                                           int d0, int S, int D) {
-  for (int i = threadIdx.x; i < T * CPB; i += kThreads) {
-    const int tt = i / CPB, cc = i % CPB;
-    const int t = t0 + tt, d = d0 + cc;
-    if (t < S && d < D) dst[static_cast<int64_t>(t) * D + d] = sh[tt][cc];
-  }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// The forward: tiles of T steps (dt, x, b, c) copied by cp.async into one
+// of two buffers while the other is walked, y staged and stored coalesced.
 template <int L>
 __global__ void __launch_bounds__(kThreads)
 ssm_fwd_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
@@ -155,9 +136,10 @@ ssm_fwd_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
                const float* __restrict__ a, const float* __restrict__ h0,
                float* __restrict__ y, float* __restrict__ h_last,
                float* __restrict__ ckpt, int S, int D, int n, int per_group) {
-  constexpr int CPB = Geo<L>::kCpb, T = Geo<L>::kSteps;
-  __shared__ float s_dt[T][CPB], s_x[T][CPB], s_y[T][CPB];
-  __shared__ float s_b[T][kMaxN], s_c[T][kMaxN];
+  constexpr int CPB = Geo<L>::kCpb, T = Geo<L>::kSteps, ST = kNpl * L;
+  constexpr int BUF = 2 * T * CPB + 2 * T * ST;   // dt, x; b, c
+  __shared__ __align__(16) float smem[2 * BUF + T * CPB];
+  float* s_y = smem + 2 * BUF;
   const int lane = threadIdx.x % L, ch = threadIdx.x / L;
   const int bi = blockIdx.y, d0 = blockIdx.x * CPB, d = d0 + ch;
   const int64_t seq = static_cast<int64_t>(bi) * S * D;
@@ -165,6 +147,27 @@ ssm_fwd_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
   const int64_t chan = (static_cast<int64_t>(bi) * D + d) * n;
   const float* ag = a + static_cast<int64_t>(bi / per_group) * D * n;
   const int nck = (S + kCkpt - 1) / kCkpt;
+
+  // Issue the copies of tile ``tile`` into ``buf`` (zeros outside S, D, n).
+  auto issue = [&](int tile, float* buf) {
+    const int t0 = tile * T;
+    for (int i = threadIdx.x; i < T * CPB; i += kThreads) {
+      const int t = t0 + i / CPB, dd = d0 + i % CPB;
+      const bool ok = t < S && dd < D;
+      const int64_t off = ok ? seq + static_cast<int64_t>(t) * D + dd : 0;
+      cp_async4(buf + i, dt + off, ok);
+      cp_async4(buf + T * CPB + i, x + off, ok);
+    }
+    for (int i = threadIdx.x; i < T * ST; i += kThreads) {
+      const int t = t0 + i / ST, j = i % ST;
+      const bool ok = t < S && j < n;
+      const int64_t off = ok ? seq_n + static_cast<int64_t>(t) * n + j : 0;
+      cp_async4(buf + 2 * T * CPB + i, bm + off, ok);
+      cp_async4(buf + 2 * T * CPB + T * ST + i, cm + off, ok);
+    }
+    cp_async_commit();
+  };
+
   float al[kNpl], h[kNpl];
 #pragma unroll
   for (int j = 0; j < kNpl; ++j) {
@@ -173,13 +176,17 @@ ssm_fwd_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
     al[j] = ok ? ag[static_cast<int64_t>(d) * n + st] * kLog2e : 0.f;
     h[j] = ok ? h0[chan + st] : 0.f;
   }
-  for (int t0 = 0; t0 < S; t0 += T) {
-    stage_rows<T, CPB>(s_dt, dt + seq, t0, d0, S, D);
-    stage_rows<T, CPB>(s_x, x + seq, t0, d0, S, D);
-    stage_states<T>(s_b, bm + seq_n, t0, S, n);
-    stage_states<T>(s_c, cm + seq_n, t0, S, n);
-    __syncthreads();
-    const int steps = min(T, S - t0);
+  const int ntile = (S + T - 1) / T;
+  issue(0, smem);
+  for (int tile = 0, p = 0; tile < ntile; ++tile, p ^= 1) {
+    const float* s_dt = smem + p * BUF;
+    const float* s_x = s_dt + T * CPB;
+    const float* s_b = s_x + T * CPB;
+    const float* s_c = s_b + T * ST;
+    cp_async_wait_all();
+    __syncthreads();        // this tile landed; the last tile's y stored
+    if (tile + 1 < ntile) issue(tile + 1, smem + (p ^ 1) * BUF);
+    const int t0 = tile * T, steps = min(T, S - t0);
     for (int tt = 0; tt < steps; ++tt) {
       const int t = t0 + tt;
       if (ckpt != nullptr && t % kCkpt == 0 && d < D) {
@@ -189,19 +196,26 @@ ssm_fwd_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
         for (int j = 0; j < kNpl; ++j)
           if (lane * kNpl + j < n) dst[lane * kNpl + j] = h[j];
       }
-      const float dtv = s_dt[tt][ch], dtx = dtv * s_x[tt][ch];
+      const float dtv = s_dt[tt * CPB + ch];
+      const float dtx = dtv * s_x[tt * CPB + ch];
+      const float4 b4 = ld4(&s_b[tt * ST + lane * kNpl]);
+      const float4 c4 = ld4(&s_c[tt * ST + lane * kNpl]);
+      const float bb[kNpl] = {b4.x, b4.y, b4.z, b4.w};
+      const float cc[kNpl] = {c4.x, c4.y, c4.z, c4.w};
       float yp = 0.f;
 #pragma unroll
       for (int j = 0; j < kNpl; ++j) {
-        const int st = lane * kNpl + j;
-        h[j] = advance(h[j], abar(dtv, al[j]), dtx, s_b[tt][st]);
-        yp += s_c[tt][st] * h[j];
+        h[j] = advance(h[j], abar(dtv, al[j]), dtx, bb[j]);
+        yp += cc[j] * h[j];
       }
       yp = lane_sum<L>(yp);
-      if (lane == 0) s_y[tt][ch] = yp;
+      if (lane == 0) s_y[tt * CPB + ch] = yp;
     }
     __syncthreads();
-    store_rows<T, CPB>(y + seq, s_y, t0, d0, S, D);
+    for (int i = threadIdx.x; i < T * CPB; i += kThreads) {
+      const int t = t0 + i / CPB, dd = d0 + i % CPB;
+      if (t < S && dd < D) y[seq + static_cast<int64_t>(t) * D + dd] = s_y[i];
+    }
   }
   if (d < D) {
 #pragma unroll
@@ -227,23 +241,6 @@ struct BwdGeo {
   static constexpr int kSmemBytes = 4 * (2 * kBuf + kRed + kAbar);
   static_assert(kBwdT % kCkpt == 0, "a tile holds whole sub-chunks");
 };
-
-// 4 bytes into shared memory, or zeros when ``ok`` is false (nothing is
-// read then).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // One halving level of a reduce-scatter over lanes ``off`` apart: of the
 // CNT values v[0..CNT), a lane keeps the upper half if ``upper`` and the
