@@ -649,10 +649,9 @@ def wkv_inputs(torch, gen, bsz, s, h, n, g, decay="model"):
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
     z = randn(bsz, s, h, n)
-    lw = {"model": lambda: -torch.exp(torch.clamp(z - 0.5, -10.0, 3.0)),
-          "near1": lambda: -torch.exp(z - 6.5),
-          "clip": lambda: torch.full_like(z, -float(torch.exp(
-              torch.tensor(3.0))))}[decay]()
+    lw = -torch.exp({"model": torch.clamp(z - 0.5, -10.0, 3.0),
+                     "near1": z - 6.5,
+                     "clip": torch.full_like(z, 3.0)}[decay])
     u = torch.rand(g, h, n, generator=gen, device=dev) * 0.5
     return [randn(bsz, s, h, n), randn(bsz, s, h, n) * n ** -0.5,
             randn(bsz, s, h, n), lw, u if g > 1 else u[0].contiguous(),
