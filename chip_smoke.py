@@ -565,6 +565,7 @@ def check_ssm(torch, K):
              ("ragged_n8_g3", 3, 37, 70, 8, 3, 20),
              ("ragged_n16_g2", 4, 19, 33, 16, 2, 20),
              ("ragged_n5", 2, 9, 300, 5, 1, 20),
+             ("ragged_n4", 2, 50, 100, 4, 1, 20),         # one lane a channel
              # D past the backward's 64-channel blocks, S past its tiles
              ("ragged_d200_n8", 2, 100, 200, 8, 2, 20),
              ("ragged_d130_n16", 3, 75, 130, 16, 1, 20),
@@ -690,6 +691,9 @@ def check_wkv(torch, K):
              ("ragged_n33", 2, 70, 1, 33, 1, 3, True, "model"),
              ("ragged_n64_g2", 2, 130, 2, 64, 2, 3, True, "model"),
              ("ragged_n48_g4", 4, 200, 3, 48, 4, 3, True, "model"),
+             # head sizes padded to 32: the two sweeps, and one block
+             ("ragged_n27", 2, 90, 2, 27, 1, 3, True, "model"),
+             ("ragged_n20_g3", 3, 30, 1, 20, 3, 3, True, "model"),
              ("full_width", 8, 4096, 40, 64, 1, 3, False, "model"),
              ("full_width_s1024", 8, 1024, 40, 64, 1, 3, True, "model"),
              ("near1_s1024", 2, 1024, 40, 64, 1, 3, True, "near1"),
