@@ -40,10 +40,12 @@ Phases (any failed check raises, and the script exits non-zero):
    2e-4 + 2e-4|r| (tests/test_kernels.py's tolerance for this kernel);
    ssm_scan_bwd |k - r| <= 1e-3|r| + 1e-4 max|r| (fp32 sums over up to
    16,384 channels and 2,048 steps in another order than autograd's), also
-   where D is not a multiple of its 64-channel blocks (n = 8 and 16); wkv
-   |k - r| <= 5e-4 + 5e-4|r| (tests/test_kernels.py's tolerance for this
-   kernel); wkv_bwd as ssm_scan_bwd, also at (2, 1024, 40, 64) with decays
-   near 1 (lw = -exp(z - 6.5)) and at the clip (w = 1.9e-9 everywhere);
+   where D is not a multiple of its 64-channel blocks (n = 8 and 16) and at
+   n = 4 (one lane a channel); wkv |k - r| <= 5e-4 + 5e-4|r|
+   (tests/test_kernels.py's tolerance for this kernel); wkv_bwd as
+   ssm_scan_bwd, also at head sizes padded to 32 (N = 27, two sweeps; N =
+   20, one block) and at (2, 1024, 40, 64) with decays near 1 (lw =
+   -exp(z - 6.5)) and at the clip (w = 1.9e-9 everywhere);
    both backwards' two launches bit-identical, and the script fails if
    ptxas reports spills in either; window_attention |k - r| <= 1e-5 +
    1e-4|r|; window_attention_bwd each gradient within 1e-4 of its largest
