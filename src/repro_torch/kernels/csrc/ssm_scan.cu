@@ -36,10 +36,7 @@
 //   d dt_t = sum_n G (a abar h_{t-1} + b x),  d x_t = sum_n G dt b   (lanes)
 //   d b_t[n] = sum_d G dt x,  d c_t[n] = sum_d gy h_t               (over D)
 //   d a[d,n] = sum_t G dt abar h_{t-1},  d h0 = abar_0 G_0.
-// What held the first version back was everything else per state-step:
-// two accurate expfs, 28 shuffles a lane-step, 128-channel blocks half
-// idle where D = 64, two barriers and a block pass every sub-chunk, and
-// staging whose global loads ran one round trip at a time.  Now:
+// Beyond that floor the cost is per state-step work and latency, so:
 //   * One exp per state-step: the recompute keeps its 8 steps' abar in
 //     shared memory ([step][thread][state], conflict-free float4s; in
 //     registers they spilled at 256 threads) and the walk back reads it.
@@ -48,7 +45,8 @@
 //   * d b and d c: a lane's 8 partials (4 states each) are reduce-scattered
 //     over the warp's channels, 4 + 2 + 1 shuffles plus a full sum over
 //     any channel bits left (L < 4), so with the two lane sums a lane-step
-//     costs 11 shuffles at L = 4, not 28; each lane then stores one value.
+//     costs 11 shuffles at L = 4 (an all-reduce would take 28); each lane
+//     then stores one value.
 //   * A block covers 64 channels (64 L threads), so no thread idles where
 //     D = 64 and twice the blocks run; with one block in D the walk writes
 //     d b and d c itself, and the second kernel only sums d a.

@@ -39,13 +39,11 @@
 //   dlw_t[i] = w_t[i] sum_j G_t[i,j] S_{t-1}[i,j]
 //   du[i]   += r_t[i] k_t[i] (gy_t . v_t)
 //   G_{t-1}  = diag(w_t) G_t + r_t^T gy_t,    dh0 = G_{-1}.
-// S_{t-1} runs forward and G backward, and S_{t-1} is never rebuilt by
-// dividing by w (w reaches 2e-9).  The kernel this replaces recomputed
-// S_{t-1} from the checkpoints inside the one sequential block per head:
-// about 7 state updates per step on top of the walk, 12 FMAs per state
-// element per step, none of it parallel (0.07 of the bound at rwkv6-3b).
-// Here S_{t-1} enters the reverse walk only through two per-row sums that
-// a chunk-parallel forward sweep writes out:
+// S_{t-1} runs forward and G backward, and S_{t-1} cannot be rebuilt by
+// dividing by w (w reaches 2e-9).  Recomputing it from the checkpoints
+// inside the one sequential block per head costs about 7 state updates a
+// step, none of it parallel.  So S_{t-1} enters the reverse walk only
+// through two per-row sums that a chunk-parallel forward sweep writes out:
 //   dr'_t = S_{t-1} gy_t          (dr_t without its u term)
 //   a_t   = S_{t-1} gy_{t+1}.
 // dlw needs the rest.  With P_t = rowsum(G_t * S_t), expanding S_t gives
