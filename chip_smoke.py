@@ -22,12 +22,14 @@ Phases (any failed check raises, and the script exits non-zero):
    (S 130, C 140): w staged in chunks); both kernels' two launches must
    give the same bits.  Time kernel, plain version and one library call
    where one exists (device time from the CUPTI trace of torch.profiler,
-   checked against CUDA events: a trace that records nothing, a kernel
-   time under its bound, or a plain or library time under the bytes bound
-   lost records, and the trace is taken again, up to 3 times, before the
-   call's event time is used; a reading under 0.9 of a call of a
-   millisecond or more is short, and the event time is used; each event
-   time is printed beside its reading) beside the kernel's bound at the
+   checked against CUDA events: a trace that records nothing, gives a
+   kernel time under its bound or under 0.9 of the kernel's
+   back-to-back event time (where that is 0.2 ms or more), or a
+   plain or library time under the bytes bound lost records, and the trace
+   is taken again, up to 3 times, before an event time is used; a plain or
+   library call of a millisecond or more is timed by events, back to back,
+   and not traced; each event time is printed beside its reading)
+   beside the kernel's bound at the
    H100 SXM data-sheet peaks:
    3.35 TB/s, 67 TFLOP/s fp32 on the CUDA cores, 495 / 3 TFLOP/s for
    fp32-accurate matrix products on the tensor cores (3xTF32; attention's
@@ -37,17 +39,26 @@ Phases (any failed check raises, and the script exits non-zero):
    M >= 63 with eq. 3's coefficient scale, 1/M); encode_decode's round
    trip returns w within 1e-3 (all clients) and 2e-3 (S of them), as
    tests/test_round_engine.py holds the reference's; ssm_scan |k - r| <=
-   2e-4 + 2e-4|r| (tests/test_kernels.py's tolerance for this kernel);
+   2e-4 + 2e-4|r| (tests/test_kernels.py's tolerance for this kernel),
+   also with tiny dt (softplus(-9): abar within 1e-3 of 1) and large dt
+   (dt a down to -60: abar underflows inside a sub-chunk's product) at the
+   path's shape (the time split) and at (2, 1024, 4096, 16);
    ssm_scan_bwd |k - r| <= 1e-3|r| + 1e-4 max|r| (fp32 sums over up to
    16,384 channels and 2,048 steps in another order than autograd's), also
    where D is not a multiple of its 64-channel blocks (n = 8 and 16) and at
-   n = 4 (one lane a channel); wkv |k - r| <= 5e-4 + 5e-4|r|
-   (tests/test_kernels.py's tolerance for this kernel); wkv_bwd as
+   n = 4 (one lane a channel), always from the forward's checkpoints; wkv
+   |k - r| <= 5e-4 + 5e-4|r| (tests/test_kernels.py's tolerance for this
+   kernel), also on every 64-step chunk of the full-width call as a
+   sequence of its own (``chunk_walk_proxy``); wkv_bwd as
    ssm_scan_bwd, also at head sizes padded to 32 (N = 27, two sweeps; N =
    20, one block) and at (2, 1024, 40, 64) with decays near 1 (lw =
-   -exp(z - 6.5)) and at the clip (w = 1.9e-9 everywhere);
-   both backwards' two launches bit-identical, and the script fails if
-   ptxas reports spills in either; window_attention |k - r| <= 1e-5 +
+   -exp(z - 6.5)) and at the clip (w = 1.9e-9 everywhere).  Both forwards
+   are also timed at the path's shape as the paths launch them, in training
+   mode with checkpoints (case ``fused_stage_train``); every forward case
+   launches twice more with checkpoints, and y, h_last and the checkpoints
+   must repeat bit for bit; both backwards' two launches bit-identical;
+   the script fails if ptxas reports spills in any of the four recurrence
+   kernels; window_attention |k - r| <= 1e-5 +
    1e-4|r|; window_attention_bwd each gradient within 1e-4 of its largest
    entry (softmax sums over up to 1,024 keys and the G query heads of a kv
    head in another order), two launches bit-identical.
@@ -155,13 +166,13 @@ def nvidia_smi() -> str:
 
 
 def ptxas_summary(build_log: str) -> list:
-    """[kernel (mangled, cut to 72 characters), registers and shared
+    """[kernel (mangled, cut to 100 characters), registers and shared
     memory, spills] for each entry function in nvcc's ``-Xptxas -v``
     output."""
     rows, name, spill = [], None, ""
     for ln in build_log.splitlines():
         if "Compiling entry function" in ln:
-            name = ln.split("'")[1][:72]
+            name = ln.split("'")[1][:100]
         elif "spill" in ln:
             spill = ln.strip()
         elif "registers" in ln and name:
@@ -225,25 +236,57 @@ def device_ms(fn, iters: int):
     return None if by_name is None else sum(by_name.values()) / iters
 
 
-def timed(fn, iters: int, floor_ms: float = 0.0) -> dict:
+def batch_ms(fn, iters: int) -> float:
+    """Per-call time of ``iters`` back-to-back calls between two CUDA
+    events.  Where a call keeps the card busy longer than its host takes to
+    launch it, the launches queue up and this is the device time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+BATCH_CHECK_MS = 0.2  # a kernel call this long back to back is device-bound
+
+
+def timed(fn, iters: int, floor_ms: float = 0.0,
+          batch: bool = False) -> dict:
     """Device time per call: CUPTI, cross-checked against CUDA events.  A
-    trace that records nothing, or reads under ``floor_ms`` (the least time
-    the work can take), lost records: it is taken again, up to
-    ``TRACE_TRIES`` times, before the event time (an upper bound: it holds
-    the launch's host time too) is used.  A call of a millisecond or more
-    keeps the device busy between its two events, so there a CUPTI sum
-    under 0.9 of the event time is short, and the event time is used."""
+    trace that records nothing, reads under ``floor_ms`` (the least time
+    the work can take) or, with ``batch`` (a kernel whose launch costs the
+    host less than the card's work), under 0.9 of the back-to-back time of
+    ``batch_ms`` where that is ``BATCH_CHECK_MS`` or more, lost records:
+    it is taken again, up to ``TRACE_TRIES`` times, before an event time
+    (an upper bound: it holds host time too) is used, the back-to-back one
+    where it applies.  A plain or library call (no ``batch``) of a
+    millisecond or more is timed back to back and not traced: either the
+    card is busy throughout, or the host is and the call's time is its
+    elapsed time (a trace of a plain loop's thousands of launches is what
+    CUPTI loses records of)."""
     ev = time_ms(fn, iters)
+    if not batch and ev >= 1.0:
+        return {"ms": min(batch_ms(fn, iters), ev),
+                "timer": "events back to back", "event_ms": ev}
+    evb = batch_ms(fn, iters) if batch and ev >= BATCH_CHECK_MS else None
+    if evb is not None and evb < BATCH_CHECK_MS:
+        evb = None
     for _ in range(TRACE_TRIES):
         ms = device_ms(fn, iters)
-        if ms is not None and ms >= floor_ms:
-            break
-    else:
-        return {"ms": ev, "timer": "events (no trace at or over the bound)",
-                "event_ms": ev}
-    if ev >= 1.0 and ms < 0.9 * ev:
-        return {"ms": ev, "timer": "events (trace short)", "event_ms": ev}
-    return {"ms": ms, "timer": "cupti", "event_ms": ev}
+        if ms is not None and ms >= floor_ms and (evb is None or
+                                                   ms >= 0.9 * evb):
+            return {"ms": ms, "timer": "cupti", "event_ms": ev}
+    if evb is not None:
+        return {"ms": min(evb, ev), "timer": "events back to back "
+                "(no full trace)", "event_ms": ev}
+    return {"ms": ev, "timer": "events (no trace at or over the bound)",
+            "event_ms": ev}
 
 
 def bound(nbytes: int, flops: int, exps: int = 0,
@@ -302,7 +345,7 @@ def times(kernel, plain, library, iters: int, bnd) -> dict:
     ``bound`` returns it); the plain version and the library call read the
     same inputs and write the same output, so each is held to the bytes
     bound."""
-    k = timed(kernel, iters, bnd[0])
+    k = timed(kernel, iters, bnd[0], batch=True)
     row = {"ms": k["ms"], "timer": k["timer"], "event_ms": k["event_ms"]}
     for name, fn in (("plain", plain), ("library", library)):
         t = timed(fn, iters, bnd[2]) if fn else {}
@@ -525,69 +568,117 @@ SSM_FWD_FLOPS = 6     # per (sequence, step, channel, state): dt*a, the
 SSM_BWD_FLOPS = 20    # the h recompute (4) and the gradient formulas (16)
 
 
-def ssm_inputs(torch, gen, bsz, s, d, n, g):
+def ssm_inputs(torch, gen, bsz, s, d, n, g, regime="model"):
     """The scan's inputs at one shape, as the model gives them: softplus-
-    sized dt, unit-normal b, c, x, a = -exp(U[0, 1.5)) per group."""
+    sized dt, unit-normal b, c, x, a = -exp(U[0, 1.5)) per group.
+    ``regime="tiny"``: dt = softplus(-9 + 0.1 z), abar within 1e-3 of 1;
+    "large": dt = U[0, 60 / e^1.5), dt a down to -60, abar underflowing
+    inside a sub-chunk's product."""
     dev = gen.device
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
-    dt = torch.nn.functional.softplus(randn(bsz, s, d) * 0.5 - 2.0)
+    z = randn(bsz, s, d)
+    dt = {"model": lambda: torch.nn.functional.softplus(z * 0.5 - 2.0),
+          "tiny": lambda: torch.nn.functional.softplus(z * 0.1 - 9.0),
+          "large": lambda: torch.rand_like(z) * (60.0 / 4.4816890703380645),
+          }[regime]()
     a = -torch.exp(torch.rand(g, d, n, generator=gen, device=dev) * 1.5)
     return [dt, randn(bsz, s, n), randn(bsz, s, n), randn(bsz, s, d),
             a if g > 1 else a[0].contiguous(), randn(bsz, d, n) * 0.1]
 
 
-def ssm_work(bsz, s, d, n, g, backward: bool):
+def ssm_work(bsz, s, d, n, g, backward: bool, train: bool = False):
     """(bytes, flops, exps) the scan's forward or backward function needs:
-    each input read once and each output written once; one exp per
-    (sequence, step, channel, state)."""
+    each input read once and each output written once (in training mode
+    the forward also writes h every 8 steps); one exp per (sequence, step,
+    channel, state)."""
     seq, st = bsz * s * d, bsz * s * n
     small = g * d * n + 2 * bsz * d * n          # a; h0 and h_last / dh0
     if backward:          # in: dt, x, gy, b, c, a, h0, g_hlast
         nbytes = 4 * (5 * seq + 4 * st + 2 * g * d * n + 3 * bsz * d * n)
-    else:                 # in: dt, x, b, c, a, h0; out: y, h_last
-        nbytes = 4 * (3 * seq + 2 * st + small)
+    else:                 # in: dt, x, b, c, a, h0; out: y, h_last (, ckpt)
+        nbytes = 4 * (3 * seq + 2 * st + small
+                      + (bsz * -(-s // 8) * d * n if train else 0))
     work = bsz * s * d * n
     return nbytes, work * (SSM_BWD_FLOPS if backward else SSM_FWD_FLOPS), work
 
 
+def check_forward(torch, ops, ref, args, name: str, label: str, tol: float,
+                  iters: int, shape: list, work, train_row: bool) -> dict:
+    """A recurrence forward against its plain loop (no checkpoints, as a
+    ``torch.no_grad`` caller launches it), timed; then two launches in
+    training mode, with checkpoints, which must give the same bits as each
+    other and as the first launch (y, h_last and the checkpoints).  With
+    ``train_row`` the training-mode launch, the one the paths make, is timed
+    too and logged as case ``<label>_train``.  ``work(train)`` gives the
+    call's (bytes, flops, exps).  Returns the no-grad row."""
+    fwd = getattr(ops, name)                  # ops.ssm_scan or ops.wkv
+    with torch.no_grad():
+        yk, hk = fwd(*args)
+        yr, hr = ref(*args)
+        err = compare(yk, yr, f"{name}/{label}/y", tol, tol)
+        compare(hk, hr, f"{name}/{label}/h_last", tol, tol)
+        del yr, hr
+        gg = ops._check(*args)
+        y1, h1, c1 = ops._fwd(*args, gg, keep=True)
+        y2, h2, c2 = ops._fwd(*args, gg, keep=True)
+        same = all(torch.equal(a_, b_) for a_, b_ in
+                   ((y1, y2), (h1, h2), (c1, c2), (y1, yk), (h1, hk)))
+        if not same:
+            raise AssertionError(f"{name}/{label}: two launches differ")
+        del yk, hk, y1, h1, c1, y2, h2, c2
+        bnd = bound(*work(False))
+        row = times(lambda: fwd(*args), lambda: ref(*args), None, iters, bnd)
+        row.update(kernel=name, case=label, shape=shape, **err)
+        share(row, bnd)
+        log("kernel", **row)
+        if train_row:
+            tb = bound(*work(True))
+            t = share(dict(timed(lambda: ops._fwd(*args, gg, keep=True),
+                                 iters, tb[0], batch=True),
+                           kernel=name, case=label + "_train", shape=shape,
+                           checkpoints=True), tb)
+            log("kernel", **t)
+            row.update(train_ms=t["ms"], train_bound_ms=t["bound_ms"])
+    return row
+
+
 def check_ssm(torch, K):
     """Phase 3b: the scan's forward and backward kernels against the plain
-    loop and autograd through it, at the mamba main path's shapes, at
-    ragged small ones, and at jamba's full width with S = 2048 (where the
-    plain loop's autograd graph fits in memory)."""
+    loop and autograd through it, at the mamba main path's shapes (and the
+    path's training-mode forward, with checkpoints), at ragged small ones,
+    with tiny and large dt at the path's shape and at (2, 1024, 4096, 16),
+    and at jamba's full width with S = 2048 (where the plain loop's
+    autograd graph fits in memory)."""
     from repro_torch.kernels.ssm_scan import ops
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     heads = {}
-    cases = [("fused_stage", 50, 64, 64, 8, 5, 50),     # 5 clients x 10
-             ("stage_engine", 200, 64, 64, 8, 20, 20),  # 20 clients x 10
-             ("ragged_n8_g3", 3, 37, 70, 8, 3, 20),
-             ("ragged_n16_g2", 4, 19, 33, 16, 2, 20),
-             ("ragged_n5", 2, 9, 300, 5, 1, 20),
-             ("ragged_n4", 2, 50, 100, 4, 1, 20),         # one lane a channel
+    cases = [("fused_stage", 50, 64, 64, 8, 5, 50, "model"),  # 5 clients x 10
+             ("stage_engine", 200, 64, 64, 8, 20, 20, "model"),  # 20 x 10
+             ("ragged_n8_g3", 3, 37, 70, 8, 3, 20, "model"),
+             ("ragged_n16_g2", 4, 19, 33, 16, 2, 20, "model"),
+             ("ragged_n5", 2, 9, 300, 5, 1, 20, "model"),
+             ("ragged_n4", 2, 50, 100, 4, 1, 20, "model"),  # 1 lane a channel
              # D past the backward's 64-channel blocks, S past its tiles
-             ("ragged_d200_n8", 2, 100, 200, 8, 2, 20),
-             ("ragged_d130_n16", 3, 75, 130, 16, 1, 20),
-             ("full_width_s2048", 2, 2048, 16384, 16, 1, 3)]
-    for label, bsz, s, d, n, g, iters in cases:
-        args = ssm_inputs(torch, gen, bsz, s, d, n, g)
-        # forward, no checkpoints
-        with torch.no_grad():
-            yk, hk = ops.ssm_scan(*args)
-            yr, hr = ssm_scan_ref(*args)
-            err = compare(yk, yr, f"ssm_scan/{label}/y", 2e-4, 2e-4)
-            compare(hk, hr, f"ssm_scan/{label}/h_last", 2e-4, 2e-4)
-            bnd = bound(*ssm_work(bsz, s, d, n, g, backward=False))
-            row = times(lambda: ops.ssm_scan(*args),
-                        lambda: ssm_scan_ref(*args), None, iters, bnd)
-        del yk, hk, yr, hr
-        row.update(kernel="ssm_scan", case=label, shape=[bsz, s, d, n, g],
-                   **err)
-        share(row, bnd)
-        log("kernel", **row)
+             ("ragged_d200_n8", 2, 100, 200, 8, 2, 20, "model"),
+             ("ragged_d130_n16", 3, 75, 130, 16, 1, 20, "model"),
+             # abar within 1e-3 of 1, and underflowing inside a sub-chunk:
+             # at the path's shape (the time split) and at S = 1024
+             ("tiny_dt_stage", 50, 64, 64, 8, 5, 20, "tiny"),
+             ("large_dt_stage", 50, 64, 64, 8, 5, 20, "large"),
+             ("tiny_dt_s1024", 2, 1024, 4096, 16, 1, 3, "tiny"),
+             ("large_dt_s1024", 2, 1024, 4096, 16, 1, 3, "large"),
+             ("full_width_s2048", 2, 2048, 16384, 16, 1, 3, "model")]
+    for label, bsz, s, d, n, g, iters, regime in cases:
+        args = ssm_inputs(torch, gen, bsz, s, d, n, g, regime)
+        row = check_forward(
+            torch, ops, ssm_scan_ref, args, "ssm_scan", label, 2e-4, iters,
+            [bsz, s, d, n, g],
+            lambda train: ssm_work(bsz, s, d, n, g, False, train),
+            train_row=label == "fused_stage")
         if label == "fused_stage":
             heads["ssm_scan"] = row
         # backward: the kernel from the forward's checkpoints against
@@ -661,61 +752,66 @@ def wkv_inputs(torch, gen, bsz, s, h, n, g, decay="model"):
             randn(bsz, h, n, n) * 0.1]
 
 
-def wkv_work(bsz, s, h, n, g, backward: bool):
+def wkv_work(bsz, s, h, n, g, backward: bool, train: bool = False):
     """(bytes, flops, exps) the recurrence's forward or backward function
-    needs: each input read once and each output written once; one exp per
-    lw element."""
+    needs: each input read once and each output written once (in training
+    mode the forward also writes S every 64 steps); one exp per lw
+    element."""
     seq, state = bsz * s * h * n, bsz * h * n * n
     if backward:    # in: r, k, v, lw, gy, u, h0, g_hlast; out: dr, dk, dv,
         #             dlw, du, dh0
         nbytes = 4 * (9 * seq + 2 * g * h * n + 3 * state)
-    else:           # in: r, k, v, lw, u, h0; out: y, h_last
-        nbytes = 4 * (5 * seq + g * h * n + 2 * state)
+    else:           # in: r, k, v, lw, u, h0; out: y, h_last (, ckpt)
+        nbytes = 4 * (5 * seq + g * h * n + 2 * state
+                      + (state * -(-s // 64) if train else 0))
     work = bsz * s * h * n * n
     return nbytes, work * (WKV_BWD_FLOPS if backward else WKV_FWD_FLOPS), seq
 
 
 def check_wkv(torch, K):
     """Phase 3c: the WKV forward and backward kernels against the plain loop
-    and autograd through it, at the rwkv6 main path's shapes, at ragged
-    small ones, and at rwkv6-3b's full width (8, 4096, 40, 64): the forward
-    there at S = 4096, the backward compared at S = 1024 (where the plain
-    loop's autograd graph fits in memory) and timed alone at S = 4096."""
+    and autograd through it, at the rwkv6 main path's shapes (and the
+    path's training-mode forward, with checkpoints), at ragged small ones,
+    and at rwkv6-3b's full width (8, 4096, 40, 64): the forward there at
+    S = 4096, the backward compared at S = 1024 (where the plain loop's
+    autograd graph fits in memory) and timed alone at S = 4096.  Case
+    ``chunk_walk_proxy`` runs the forward on every 64-step chunk of the
+    full-width call as a sequence of its own, (512, 64, 40, 64): the walk a
+    chunk-parallel forward would add to its chunk-state pass and combine."""
     from repro_torch.kernels.wkv import ops
     from repro_torch.kernels.wkv.ref import wkv_ref
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     heads = {}
-    # label, B, S, H, N, G, iters, compare the backward, decays
-    cases = [("fused_stage", 50, 64, 2, 16, 5, 20, True, "model"),
-             ("stage_engine", 200, 64, 2, 16, 20, 10, True, "model"),
-             ("ragged_n5_g3", 3, 37, 3, 5, 3, 3, True, "model"),
-             ("ragged_n33", 2, 70, 1, 33, 1, 3, True, "model"),
-             ("ragged_n64_g2", 2, 130, 2, 64, 2, 3, True, "model"),
-             ("ragged_n48_g4", 4, 200, 3, 48, 4, 3, True, "model"),
+    # label, B, S, H, N, G, iters, backward (compared / timed alone / none),
+    # decays
+    cases = [("fused_stage", 50, 64, 2, 16, 5, 20, "compare", "model"),
+             ("stage_engine", 200, 64, 2, 16, 20, 10, "compare", "model"),
+             ("ragged_n5_g3", 3, 37, 3, 5, 3, 3, "compare", "model"),
+             ("ragged_n33", 2, 70, 1, 33, 1, 3, "compare", "model"),
+             ("ragged_n64_g2", 2, 130, 2, 64, 2, 3, "compare", "model"),
+             ("ragged_n48_g4", 4, 200, 3, 48, 4, 3, "compare", "model"),
              # head sizes padded to 32: the two sweeps, and one block
-             ("ragged_n27", 2, 90, 2, 27, 1, 3, True, "model"),
-             ("ragged_n20_g3", 3, 30, 1, 20, 3, 3, True, "model"),
-             ("full_width", 8, 4096, 40, 64, 1, 3, False, "model"),
-             ("full_width_s1024", 8, 1024, 40, 64, 1, 3, True, "model"),
-             ("near1_s1024", 2, 1024, 40, 64, 1, 3, True, "near1"),
-             ("clip_s1024", 2, 1024, 40, 64, 1, 3, True, "clip")]
-    for label, bsz, s, h, n, g, iters, with_bwd, decay in cases:
+             ("ragged_n27", 2, 90, 2, 27, 1, 3, "compare", "model"),
+             ("ragged_n20_g3", 3, 30, 1, 20, 3, 3, "compare", "model"),
+             ("full_width", 8, 4096, 40, 64, 1, 3, "alone", "model"),
+             ("full_width_s1024", 8, 1024, 40, 64, 1, 3, "compare", "model"),
+             ("near1_s1024", 2, 1024, 40, 64, 1, 3, "compare", "near1"),
+             ("clip_s1024", 2, 1024, 40, 64, 1, 3, "compare", "clip"),
+             ("chunk_walk_proxy", 512, 64, 40, 64, 1, 3, "none", "model")]
+    for label, bsz, s, h, n, g, iters, bwd_mode, decay in cases:
         args = wkv_inputs(torch, gen, bsz, s, h, n, g, decay)
-        with torch.no_grad():
-            yk, hk = ops.wkv(*args)
-            yr, hr = wkv_ref(*args)
-            err = compare(yk, yr, f"wkv/{label}/y", 5e-4, 5e-4)
-            compare(hk, hr, f"wkv/{label}/h_last", 5e-4, 5e-4)
-            del yk, hk, yr, hr
-            bnd = bound(*wkv_work(bsz, s, h, n, g, backward=False))
-            row = times(lambda: ops.wkv(*args), lambda: wkv_ref(*args), None,
-                        iters, bnd)
-        row.update(kernel="wkv", case=label, shape=[bsz, s, h, n, g], **err)
-        share(row, bnd)
-        log("kernel", **row)
+        row = check_forward(
+            torch, ops, wkv_ref, args, "wkv", label, 5e-4, iters,
+            [bsz, s, h, n, g],
+            lambda train: wkv_work(bsz, s, h, n, g, False, train),
+            train_row=label == "fused_stage")
         if label == "fused_stage":
             heads["wkv"] = row
+        if bwd_mode == "none":
+            del args
+            torch.cuda.empty_cache()
+            continue
         gg = ops._check(*args)
         _, _, ckpt = ops._fwd(*args, gg, keep=True)
         gy = torch.randn(bsz, s, h, n, generator=gen, device="cuda")
@@ -724,8 +820,8 @@ def check_wkv(torch, K):
         def kernel_bwd():
             return ops._bwd(*args[:5], ckpt, gy, ghl, gg)
         bnd = bound(*wkv_work(bsz, s, h, n, g, backward=True))
-        if not with_bwd:        # the kernel alone, timed
-            row = share(dict(timed(kernel_bwd, iters, bnd[0]),
+        if bwd_mode == "alone":        # the kernel alone, timed
+            row = share(dict(timed(kernel_bwd, iters, bnd[0], batch=True),
                              kernel="wkv_bwd", case=label,
                              shape=[bsz, s, h, n, g],
                              ckpt_bytes=ckpt.numel() * 4), bnd)
@@ -863,7 +959,7 @@ def check_window(torch, K):
         del got
         bnd = bound(*window_work(b, s, h, kv, hd, window, True),
                     flops_per_s=TF32X3_FLOPS_PER_S)
-        row = timed(kernel_bwd, iters, bnd[0])
+        row = timed(kernel_bwd, iters, bnd[0], batch=True)
         pl = timed(plain_bwd, iters, bnd[2])
         row.update(plain_ms=pl["ms"], plain_timer=pl["timer"],
                    plain_event_ms=pl["event_ms"])
@@ -1501,12 +1597,13 @@ def full_width(torch, K):
     n, di = cfg.ssm_state_dim, d_inner(cfg)
     args = ssm_inputs(torch, gen, bsz, s, di, n, 1)
     with torch.no_grad():
-        fwd = timed(lambda: ops.ssm_scan(*args), 5)
+        fwd = timed(lambda: ops.ssm_scan(*args), 5, batch=True)
     g = ops._check(*args)
     _, _, ckpt = ops._fwd(*args, g, keep=True)
     gy = torch.randn(bsz, s, di, generator=gen, device="cuda")
     ghl = torch.randn(bsz, di, n, generator=gen, device="cuda")
-    bwd = timed(lambda: ops._bwd(*args[:5], ckpt, gy, ghl, g), 5)
+    bwd = timed(lambda: ops._bwd(*args[:5], ckpt, gy, ghl, g), 5,
+                batch=True)
     fb = bound(*ssm_work(bsz, s, di, n, 1, backward=False))
     bb = bound(*ssm_work(bsz, s, di, n, 1, backward=True))
     log("full", model="jamba-1.5-large-398b mamba mixer",
@@ -1586,12 +1683,13 @@ def full_width_rwkv(torch, K):
     gen = torch.Generator(device="cuda").manual_seed(5)
     args = wkv_inputs(torch, gen, bsz, s, hh, n, 1)
     with torch.no_grad():
-        fwd = timed(lambda: ops.wkv(*args), 5)
+        fwd = timed(lambda: ops.wkv(*args), 5, batch=True)
     g = ops._check(*args)
     _, _, ckpt = ops._fwd(*args, g, keep=True)
     gy = torch.randn(bsz, s, hh, n, generator=gen, device="cuda")
     ghl = torch.randn(bsz, hh, n, n, generator=gen, device="cuda")
-    bwd = timed(lambda: ops._bwd(*args[:5], ckpt, gy, ghl, g), 5)
+    bwd = timed(lambda: ops._bwd(*args[:5], ckpt, gy, ghl, g), 5,
+                batch=True)
     fb = bound(*wkv_work(bsz, s, hh, n, 1, backward=False))
     bb = bound(*wkv_work(bsz, s, hh, n, 1, backward=True))
     log("full", model="rwkv6-3b rwkv layer", d_model=cfg.d_model, heads=hh,
@@ -1675,10 +1773,11 @@ def full_width_gemma(torch, K):
     q, k, v = (torch.randn(bsz, s, n, hd, generator=gen, device="cuda")
                for n in (h, kv, kv))
     with torch.no_grad():
-        fwd = timed(lambda: ops._fwd(q, k, v, window), 5)
+        fwd = timed(lambda: ops._fwd(q, k, v, window), 5, batch=True)
     o, lse = ops._fwd(q, k, v, window)
     do = torch.randn(bsz, s, h, hd, generator=gen, device="cuda")
-    bwd = timed(lambda: ops._bwd(q, k, v, o, lse, do, window), 5)
+    bwd = timed(lambda: ops._bwd(q, k, v, o, lse, do, window), 5,
+                batch=True)
     fb = bound(*window_work(bsz, s, h, kv, hd, window, False),
                flops_per_s=TF32X3_FLOPS_PER_S)
     bb = bound(*window_work(bsz, s, h, kv, hd, window, True),
@@ -1725,10 +1824,12 @@ def main() -> int:
     K.load_library()
     ptxas = ptxas_summary(K.BUILD_INFO["log"])
     log("build", build_s=K.BUILD_INFO["build_s"], ptxas=ptxas)
-    # the backward kernels redesigned last: registers and spills
+    # the recurrence kernels redesigned last (the backwards, then the
+    # forwards): registers and spills
     redesigned = [r for r in ptxas if any(
         k in r[0] for k in ("ssm_bwd_kernel", "wkv_bwd_a_kernel",
-                            "wkv_bwd_b_kernel"))]
+                            "wkv_bwd_b_kernel", "ssm_fwd_kernel",
+                            "wkv_fwd_kernel"))]
     log("ptxas_redesigned", kernels=redesigned)
     spilled = [r[0] for r in redesigned
                if not r[2].startswith("0 bytes stack frame")]
@@ -1789,6 +1890,7 @@ def main() -> int:
                                         "gemma3")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "plain_event_ms", "library_event_ms")
+    train_keys = ("train_ms", "train_bound_ms")      # the recurrence forwards
     rows = []
     for name, (source, replaces, path) in sources.items():
         by_path = {p: {"launches": launches[p][name],
@@ -1800,6 +1902,7 @@ def main() -> int:
                      "replaces": replaces, "path": path,
                      "launches": launches[path][name] if path else 0,
                      **{k: head[k] for k in keys},
+                     **{k: head[k] for k in train_keys if k in head},
                      "by_path": by_path,
                      **({} if path else {"note": "runs on no path in either "
                                                  "package (slice "

@@ -12,22 +12,43 @@
 // and writes y (12 bytes) and evaluates n exps.  At the full-width shape
 // (B=2, S=4096, D=16384, n=16) that is 1.61 GB (0.48 ms at 3.35 TB/s) and
 // 2.15e9 exps (0.5 ms at 16 per clock per SM on 132 SMs): bytes and the
-// special-function unit bound it about equally.  The recurrence itself is
-// sequential in t, so the parallelism is over (B, D) channels only.  abar
-// = exp(dt a) is taken as exp2(dt (a log2 e)), one MUFU.EX2 and a multiply
-// (accurate expf is a longer sequence around it; no -use_fast_math).
+// special-function unit bound it about equally.  abar = exp(dt a) is taken
+// as exp2(dt (a log2 e)): MUFU.EX2 with, without -use_fast_math, a range
+// test and two multiplies around it, so a state-step issues about 8
+// instructions beside its exp and the issue rate is as near a limit as
+// the exp unit.  At the federated paths' (50, 64, 64, 8) the work is tiny
+// and every latency of the recurrence's 64 dependent steps shows.
 //
-// Forward design.
-//   * A channel's n states are split over L lanes (L = 1, 2, 4 for n <= 4,
-//     8, 16), 4 states per lane in registers; y is a shuffle sum over the L
-//     lanes.  At full width that is 32,768 channels * 4 lanes = 4,096 warps,
-//     31 per SM, where one thread per channel would give 8.
-//   * A block of 256 threads covers 256/L consecutive channels of one
-//     sequence.  dt and x for a tile of steps (2,048 channel-steps), b and
-//     c beside them, are copied by cp.async into one of two buffers while
-//     the other is walked; y is staged and stored coalesced.
-//   * In training mode h is written every kCkpt = 8 steps to a
-//     (B, ceil(S/8), D, n) checkpoint buffer for the backward.
+// Forward design.  Time is cut into sub-chunks of kCkpt = 8 steps, the
+// backward's checkpoint interval.  Every sub-chunk is walked from its start
+// h with abar() and advance(), which the backward's recompute shares, so
+// the backward rebuilds from the checkpoints the very h that gave y.  The
+// start is the checkpoint, written in training mode to a (B, ceil(S/8), D,
+// n) buffer.  A lane holds 4 or 8 states of a channel; its 8 partial
+// sums c.h of a sub-chunk are reduce-scattered over the channel's lanes
+// and each lane stores 8/L of y straight from registers.  Tiles of dt, x,
+// b, c are copied by cp.async (16 bytes where rows are aligned, 4 bytes
+// with zero fill at ragged edges; steps past S are dt = 0, abar = 1) into
+// one of two buffers while the other is walked.  Two routes (fwd_subs):
+//   * The time split (SUBS = 2, 4, 8 sub-chunks of a tile at once).  A
+//     thread owns (channel, lane, sub-chunk): it forms its sub-chunk's
+//     abar (kept in registers) and composite, the product of the abar and
+//     the h from zero; the composites go through shared memory, each
+//     thread folds those before its own onto the tile's carry in order,
+//     which gives its start, and walks.  The last sub-chunk's start,
+//     folded once more, is the next tile's carry.  It costs 3 more FP32
+//     operations a state-step and a barrier a tile, so it is taken only for
+//     sequences of at most 256 steps whose (B, D) channels leave the card
+//     short of warps.  The mamba path's (50, 64, 64, 8) takes 8: 16
+//     channels a block, no thread idle, each warp taking one 8-step
+//     sub-chunk of the 64 (its composite, then its walk).
+//   * The walk alone (SUBS = 1): a thread walks a tile's sub-chunks in
+//     turn, forming each step's abar as it goes.  Past n = 8 a lane holds 8
+//     states (two lanes a channel), which halves the lanes' loads of b and
+//     c and y's shuffles, where the 128-channel blocks that gives still
+//     number at least the SMs (seq_lanes).  Jamba's (2, S, 16384, 16) takes
+//     it: its channels fill the card without the split, whose extra
+//     operations cost more there than the latency they hide.
 // Backward design.  Time runs in reverse with the cotangent of h in
 // registers: G_t = c_t gy_t + abar_{t+1} G_{t+1}, seeded with the h_last
 // cotangent.  It needs h_{t-1} at every step, so each 8-step sub-chunk is
@@ -65,23 +86,15 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;       // the reduce kernel's block
+constexpr int kFwdThreads = 256;    // the forward's block
 constexpr int kNpl = 4;          // states per lane
 constexpr int kMaxN = 16;
-constexpr int kTile = 2048;      // channel-steps a forward tile holds
 constexpr int kCkpt = 8;         // steps between forward checkpoints
 constexpr int kBwdCpb = 64;      // channels per backward block
 constexpr int kBwdT = 16;        // steps per backward tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-template <int L>
-struct Geo {
-  static constexpr int kCpb = kThreads / L;    // channels per block
-  static constexpr int kSteps = kTile / kCpb;  // steps per tile
-  static_assert(L * kNpl <= kMaxN, "lanes times states per lane > 16");
-  static_assert(kSteps % kCkpt == 0, "tile must hold whole sub-chunks");
-};
 
 int lanes_for(int64_t n) { return n <= 4 ? 1 : (n <= 8 ? 2 : 4); }
 
@@ -125,100 +138,320 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// The forward: tiles of T steps (dt, x, b, c) copied by cp.async into one
-// of two buffers while the other is walked, y staged and stored coalesced.
+// One halving level of a reduce-scatter over lanes ``off`` apart: of the
+// CNT values v[0..CNT), a lane keeps the upper half if ``upper`` and the
+// lower half otherwise, summed with its partner's copy, in v[0..CNT/2).
+template <int CNT>
+__device__ __forceinline__ void rs_level(float (&v)[2 * kNpl], int off,
+                                         bool upper) {
+  constexpr int HALF = CNT / 2;
+#pragma unroll
+  for (int q = 0; q < HALF; ++q) {
+    const float send = upper ? v[q + 0] : v[q + HALF];
+    const float keep = upper ? v[q + HALF] : v[q + 0];
+    v[q] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+  }
+}
+
+// The forward's geometry: a block of kFwdThreads covers CPB channels x L
+// lanes x SUBS sub-chunks (a lane's 4 states, one sub-chunk of kCkpt
+// steps).  A tile holds T steps: SUBS sub-chunks walked at once (SUBS > 1,
+// the time split) or SEQ sub-chunks walked in turn (SUBS = 1, 2,048
+// channel-steps a tile).
+template <int L, int SUBS, int NPL>
+struct FwdGeo {
+  static constexpr int kCpb = kFwdThreads / (L * SUBS);   // channels
+  static constexpr int kT =                                // steps a tile
+      SUBS > 1 ? kCkpt * SUBS : (4096 / kCpb < 32 ? 4096 / kCpb : 32);
+  static constexpr int kSeq = kT / (kCkpt * SUBS);
+  static constexpr int kSt = NPL * L;                      // states held
+  static constexpr int kBuf = 2 * kT * kCpb + 2 * kT * kSt;  // dt, x; b, c
+  // every thread's composite (P, hl: 2 float4s) and the carry into the
+  // next tile (two parities); only with the time split
+  static constexpr int kComp =
+      SUBS > 1 ? kFwdThreads * 2 * kNpl + 2 * kCpb * kSt : 0;
+  static constexpr int kSmemBytes = 4 * (2 * kBuf + kComp);
+  static_assert(kCpb % 4 == 0 && kSeq >= 1, "16-byte rows, whole sub-chunks");
+  static_assert(kCpb * L % 32 == 0, "a warp walks one sub-chunk");
+  static_assert(SUBS == 1 || NPL == kNpl, "the split keeps 4 states a lane");
+};
+
+// 16 bytes into shared memory, or zeros when ``ok`` is false.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+// A sub-chunk's 8 steps from tile row r0: dtx = dt x and abar of each step
+// and state (one exp each), and the sub-chunk's composite: the product of
+// its abar (pr) and its h from zero (hl).
 template <int L>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void sub_prep(
+    const float* s_dt, const float* s_x, const float* s_b, int cpb, int ch,
+    int lane, int r0, const float (&al)[kNpl], float (&ab)[kCkpt][kNpl],
+    float (&dtx)[kCkpt], float (&pr)[kNpl], float (&hl)[kNpl]) {
+#pragma unroll
+  for (int u = 0; u < kCkpt; ++u) {
+    const int row = r0 + u;
+    const float dtv = s_dt[row * cpb + ch];
+    dtx[u] = dtv * s_x[row * cpb + ch];
+#pragma unroll
+    for (int j = 0; j < kNpl; ++j) ab[u][j] = abar(dtv, al[j]);
+    const float4 b4 = ld4(&s_b[row * kNpl * L + lane * kNpl]);
+    const float bb[kNpl] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+    for (int j = 0; j < kNpl; ++j) {
+      hl[j] = advance(u == 0 ? 0.f : hl[j], ab[u][j], dtx[u], bb[j]);
+      pr[j] = u == 0 ? ab[u][j] : pr[j] * ab[u][j];
+    }
+  }
+}
+
+// Walk a sub-chunk's 8 steps from h with abar() and advance() as the
+// backward's recompute does, then store y: the lane's 8 partial sums are
+// reduce-scattered over the channel's L lanes, so lane l stores steps
+// (8/L) l .. (8/L) l + 8/L - 1.
+template <int L>
+__device__ __forceinline__ void sub_walk(
+    const float* s_b, const float* s_c, int lane, int r0,
+    const float (&ab)[kCkpt][kNpl], const float (&dtx)[kCkpt],
+    float (&h)[kNpl], float* __restrict__ yd, int64_t D, int tleft,
+    bool live) {
+  constexpr int ST = kNpl * L, KEEP = kCkpt / L;
+  static_assert(kCkpt == 2 * kNpl, "rs_level works on 8 values");
+  float yv[kCkpt];
+#pragma unroll
+  for (int u = 0; u < kCkpt; ++u) {
+    const int row = r0 + u;
+    const float4 b4 = ld4(&s_b[row * ST + lane * kNpl]);
+    const float4 c4 = ld4(&s_c[row * ST + lane * kNpl]);
+    const float bb[kNpl] = {b4.x, b4.y, b4.z, b4.w};
+    const float cc[kNpl] = {c4.x, c4.y, c4.z, c4.w};
+    float yp = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNpl; ++j) {
+      h[j] = advance(h[j], ab[u][j], dtx[u], bb[j]);
+      yp = fmaf(cc[j], h[j], yp);
+    }
+    yv[u] = yp;
+  }
+  if constexpr (L >= 2) rs_level<8>(yv, L / 2, lane & (L / 2));
+  if constexpr (L >= 4) rs_level<4>(yv, 1, lane & 1);
+#pragma unroll
+  for (int q = 0; q < KEEP; ++q) {
+    const int u = KEEP * lane + q;
+    if (live && u < tleft) yd[u * D] = yv[q];
+  }
+}
+
+// The walk without the split: a sub-chunk's 8 steps from h, abar formed
+// step by step (one exp per state-step) and applied with advance() as the
+// backward's recompute does; y reduce-scattered and stored as in
+// sub_walk.  A lane holds NPL states.
+template <int L, int NPL>
+__device__ __forceinline__ void seq_walk(
+    const float* s_dt, const float* s_x, const float* s_b, const float* s_c,
+    int cpb, int ch, int lane, int r0, const float (&al)[NPL],
+    float (&h)[NPL], float* __restrict__ yd, int64_t D, int tleft,
+    bool live) {
+  constexpr int ST = NPL * L, KEEP = kCkpt / L;
+  float yv[kCkpt];
+#pragma unroll
+  for (int u = 0; u < kCkpt; ++u) {
+    const int row = r0 + u;
+    const float dtv = s_dt[row * cpb + ch];
+    const float dtx = dtv * s_x[row * cpb + ch];
+    float yp = 0.f;
+#pragma unroll
+    for (int q = 0; q < NPL; q += 4) {
+      const float4 b4 = ld4(&s_b[row * ST + lane * NPL + q]);
+      const float4 c4 = ld4(&s_c[row * ST + lane * NPL + q]);
+      const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
+      const float cc[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        h[q + e] = advance(h[q + e], abar(dtv, al[q + e]), dtx, bb[e]);
+        yp = fmaf(cc[e], h[q + e], yp);
+      }
+    }
+    yv[u] = yp;
+  }
+  if constexpr (L >= 2) rs_level<8>(yv, L / 2, lane & (L / 2));
+  if constexpr (L >= 4) rs_level<4>(yv, 1, lane & 1);
+#pragma unroll
+  for (int q = 0; q < KEEP; ++q) {
+    const int u = KEEP * lane + q;
+    if (live && u < tleft) yd[u * D] = yv[q];
+  }
+}
+
+// The forward.  SUBS > 1 (the time split): the SUBS warps of a tile take
+// one sub-chunk each; each forms its abar (kept in registers) and its
+// composite, the composites are exchanged through shared memory, each warp
+// folds those before its own onto the tile's carry (its start, written as
+// the sub-chunk's checkpoint) and walks its 8 steps from there.  SUBS = 1:
+// each thread walks the tile's sub-chunks in turn from h.  Tiles of dt, x,
+// b, c are copied by cp.async (16 bytes where rows allow) into one of two
+// buffers while the other is walked; y is stored from registers.
+template <int L, int SUBS, int NPL>
+__global__ void __launch_bounds__(kFwdThreads, 2)
 ssm_fwd_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
                const float* __restrict__ cm, const float* __restrict__ x,
                const float* __restrict__ a, const float* __restrict__ h0,
                float* __restrict__ y, float* __restrict__ h_last,
-               float* __restrict__ ckpt, int S, int D, int n, int per_group) {
-  constexpr int CPB = Geo<L>::kCpb, T = Geo<L>::kSteps, ST = kNpl * L;
-  constexpr int BUF = 2 * T * CPB + 2 * T * ST;   // dt, x; b, c
-  __shared__ __align__(16) float smem[2 * BUF + T * CPB];
-  float* s_y = smem + 2 * BUF;
-  const int lane = threadIdx.x % L, ch = threadIdx.x / L;
+               float* __restrict__ ckpt, int S, int D, int n, int per_group,
+               bool vec_d, bool vec_n) {
+  using Geo = FwdGeo<L, SUBS, NPL>;
+  constexpr int CPB = Geo::kCpb, T = Geo::kT, ST = Geo::kSt, CL = CPB * L;
+  extern __shared__ __align__(16) float smem[];
+  float* s_comp = smem + 2 * Geo::kBuf;              // [SUBS][CL][8]
+  float* s_carry = s_comp + kFwdThreads * 2 * kNpl;  // [2][CL][4]
+  const int lane = threadIdx.x % L, cl = threadIdx.x % CL;
+  const int ch = cl / L, sc = threadIdx.x / CL;
   const int bi = blockIdx.y, d0 = blockIdx.x * CPB, d = d0 + ch;
   const int64_t seq = static_cast<int64_t>(bi) * S * D;
   const int64_t seq_n = static_cast<int64_t>(bi) * S * n;
   const int64_t chan = (static_cast<int64_t>(bi) * D + d) * n;
   const float* ag = a + static_cast<int64_t>(bi / per_group) * D * n;
   const int nck = (S + kCkpt - 1) / kCkpt;
+  const bool live = d < D;
 
   // Issue the copies of tile ``tile`` into ``buf`` (zeros outside S, D, n).
   auto issue = [&](int tile, float* buf) {
     const int t0 = tile * T;
-    for (int i = threadIdx.x; i < T * CPB; i += kThreads) {
-      const int t = t0 + i / CPB, dd = d0 + i % CPB;
-      const bool ok = t < S && dd < D;
-      const int64_t off = ok ? seq + static_cast<int64_t>(t) * D + dd : 0;
-      cp_async4(buf + i, dt + off, ok);
-      cp_async4(buf + T * CPB + i, x + off, ok);
+    float* s_dt = buf;
+    float* s_x = s_dt + T * CPB;
+    float* s_b = s_x + T * CPB;
+    float* s_c = s_b + T * ST;
+    if (vec_d) {
+      for (int i = threadIdx.x; i < T * CPB / 4; i += kFwdThreads) {
+        const int t = t0 + i / (CPB / 4), dd = d0 + 4 * (i % (CPB / 4));
+        const bool ok = t < S && dd < D;
+        const int64_t off = ok ? seq + static_cast<int64_t>(t) * D + dd : 0;
+        cp_async16(s_dt + 4 * i, dt + off, ok);
+        cp_async16(s_x + 4 * i, x + off, ok);
+      }
+    } else {
+      for (int i = threadIdx.x; i < T * CPB; i += kFwdThreads) {
+        const int t = t0 + i / CPB, dd = d0 + i % CPB;
+        const bool ok = t < S && dd < D;
+        const int64_t off = ok ? seq + static_cast<int64_t>(t) * D + dd : 0;
+        cp_async4(s_dt + i, dt + off, ok);
+        cp_async4(s_x + i, x + off, ok);
+      }
     }
-    for (int i = threadIdx.x; i < T * ST; i += kThreads) {
-      const int t = t0 + i / ST, j = i % ST;
-      const bool ok = t < S && j < n;
-      const int64_t off = ok ? seq_n + static_cast<int64_t>(t) * n + j : 0;
-      cp_async4(buf + 2 * T * CPB + i, bm + off, ok);
-      cp_async4(buf + 2 * T * CPB + T * ST + i, cm + off, ok);
+    if (vec_n) {
+      for (int i = threadIdx.x; i < T * ST / 4; i += kFwdThreads) {
+        const int t = t0 + i / (ST / 4), j = 4 * (i % (ST / 4));
+        const bool ok = t < S && j < n;
+        const int64_t off = ok ? seq_n + static_cast<int64_t>(t) * n + j : 0;
+        cp_async16(s_b + 4 * i, bm + off, ok);
+        cp_async16(s_c + 4 * i, cm + off, ok);
+      }
+    } else {
+      for (int i = threadIdx.x; i < T * ST; i += kFwdThreads) {
+        const int t = t0 + i / ST, j = i % ST;
+        const bool ok = t < S && j < n;
+        const int64_t off = ok ? seq_n + static_cast<int64_t>(t) * n + j : 0;
+        cp_async4(s_b + i, bm + off, ok);
+        cp_async4(s_c + i, cm + off, ok);
+      }
     }
     cp_async_commit();
   };
-
-  float al[kNpl], h[kNpl];
+  // h of this channel's lane at the start of sub-chunk ``sub``
+  auto store_ckpt = [&](int sub, const float (&hv)[NPL]) {
+    float* dst = ckpt + ((static_cast<int64_t>(bi) * nck + sub) * D + d) * n +
+                 lane * NPL;
+    if (!live) return;
 #pragma unroll
-  for (int j = 0; j < kNpl; ++j) {
-    const int st = lane * kNpl + j;
-    const bool ok = d < D && st < n;
+    for (int q = 0; q < NPL; q += 4) {
+      if (vec_n && lane * NPL + q < n) {
+        *reinterpret_cast<float4*>(dst + q) =
+            make_float4(hv[q], hv[q + 1], hv[q + 2], hv[q + 3]);
+      } else {
+#pragma unroll
+        for (int j = q; j < q + 4; ++j)
+          if (lane * NPL + j < n) dst[j] = hv[j];
+      }
+    }
+  };
+
+  // h: the tile's carry (SUBS > 1) or the walk's state (SUBS = 1)
+  float al[NPL], h[NPL];
+#pragma unroll
+  for (int j = 0; j < NPL; ++j) {
+    const int st = lane * NPL + j;
+    const bool ok = live && st < n;
     al[j] = ok ? ag[static_cast<int64_t>(d) * n + st] * kLog2e : 0.f;
     h[j] = ok ? h0[chan + st] : 0.f;
   }
   const int ntile = (S + T - 1) / T;
   issue(0, smem);
   for (int tile = 0, p = 0; tile < ntile; ++tile, p ^= 1) {
-    const float* s_dt = smem + p * BUF;
+    const float* s_dt = smem + p * Geo::kBuf;
     const float* s_x = s_dt + T * CPB;
     const float* s_b = s_x + T * CPB;
     const float* s_c = s_b + T * ST;
     cp_async_wait_all();
-    __syncthreads();        // this tile landed; the last tile's y stored
-    if (tile + 1 < ntile) issue(tile + 1, smem + (p ^ 1) * BUF);
-    const int t0 = tile * T, steps = min(T, S - t0);
-    for (int tt = 0; tt < steps; ++tt) {
-      const int t = t0 + tt;
-      if (ckpt != nullptr && t % kCkpt == 0 && d < D) {
-        float* dst = ckpt + ((static_cast<int64_t>(bi) * nck + t / kCkpt) * D
-                             + d) * n;
-#pragma unroll
-        for (int j = 0; j < kNpl; ++j)
-          if (lane * kNpl + j < n) dst[lane * kNpl + j] = h[j];
+    __syncthreads();    // this tile landed; the last tile's reads are done
+    if (tile + 1 < ntile) issue(tile + 1, smem + (p ^ 1) * Geo::kBuf);
+    const int t0 = tile * T;
+    if constexpr (SUBS == 1) {
+#pragma unroll 1
+      for (int q = 0; q < Geo::kSeq; ++q) {
+        const int r0 = q * kCkpt, t = t0 + r0;
+        if (t >= S) break;                       // uniform over the block
+        if (ckpt != nullptr) store_ckpt(t / kCkpt, h);
+        seq_walk<L, NPL>(s_dt, s_x, s_b, s_c, CPB, ch, lane, r0, al, h,
+                         y + seq + static_cast<int64_t>(t) * D + d, D, S - t,
+                         live);
       }
-      const float dtv = s_dt[tt * CPB + ch];
-      const float dtx = dtv * s_x[tt * CPB + ch];
-      const float4 b4 = ld4(&s_b[tt * ST + lane * kNpl]);
-      const float4 c4 = ld4(&s_c[tt * ST + lane * kNpl]);
-      const float bb[kNpl] = {b4.x, b4.y, b4.z, b4.w};
-      const float cc[kNpl] = {c4.x, c4.y, c4.z, c4.w};
-      float yp = 0.f;
-#pragma unroll
-      for (int j = 0; j < kNpl; ++j) {
-        h[j] = advance(h[j], abar(dtv, al[j]), dtx, bb[j]);
-        yp += cc[j] * h[j];
+    } else {
+      const int r0 = sc * kCkpt, t = t0 + r0, sub = t / kCkpt;
+      float ab[kCkpt][kNpl], dtx[kCkpt], pr[kNpl], hl[kNpl];
+      sub_prep<L>(s_dt, s_x, s_b, CPB, ch, lane, r0, al, ab, dtx, pr, hl);
+      float* mine = s_comp + (sc * CL + cl) * 2 * kNpl;
+      *reinterpret_cast<float4*>(mine) = make_float4(pr[0], pr[1], pr[2], pr[3]);
+      *reinterpret_cast<float4*>(mine + kNpl) =
+          make_float4(hl[0], hl[1], hl[2], hl[3]);
+      __syncthreads();  // the tile's composites are in
+      if (tile > 0) {
+        const float4 c4 = ld4(s_carry + (p * CL + cl) * kNpl);
+        h[0] = c4.x; h[1] = c4.y; h[2] = c4.z; h[3] = c4.w;
       }
-      yp = lane_sum<L>(yp);
-      if (lane == 0) s_y[tt * CPB + ch] = yp;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < T * CPB; i += kThreads) {
-      const int t = t0 + i / CPB, dd = d0 + i % CPB;
-      if (t < S && dd < D) y[seq + static_cast<int64_t>(t) * D + dd] = s_y[i];
+      // the start of this sub-chunk: the earlier composites folded in order
+#pragma unroll
+      for (int s = 0; s < SUBS - 1; ++s) {
+        if (s < sc) {                            // uniform over the warp
+          const float4 p4 = ld4(s_comp + (s * CL + cl) * 2 * kNpl);
+          const float4 l4 = ld4(s_comp + (s * CL + cl) * 2 * kNpl + kNpl);
+          h[0] = fmaf(p4.x, h[0], l4.x); h[1] = fmaf(p4.y, h[1], l4.y);
+          h[2] = fmaf(p4.z, h[2], l4.z); h[3] = fmaf(p4.w, h[3], l4.w);
+        }
+      }
+      if (sc == SUBS - 1 && tile + 1 < ntile) {
+        *reinterpret_cast<float4*>(s_carry + ((p ^ 1) * CL + cl) * kNpl) =
+            make_float4(fmaf(pr[0], h[0], hl[0]), fmaf(pr[1], h[1], hl[1]),
+                        fmaf(pr[2], h[2], hl[2]), fmaf(pr[3], h[3], hl[3]));
+      }
+      if (ckpt != nullptr && sub < nck) store_ckpt(sub, h);
+      sub_walk<L>(s_b, s_c, lane, r0, ab, dtx, h,
+                  y + seq + static_cast<int64_t>(t) * D + d, D, S - t, live);
+      // the walk of the sub-chunk that holds step S-1 gives h_last
+      if (sub == nck - 1 && live) {
+#pragma unroll
+        for (int j = 0; j < NPL; ++j)
+          if (lane * NPL + j < n) h_last[chan + lane * NPL + j] = h[j];
+      }
     }
   }
-  if (d < D) {
+  if (SUBS == 1 && live) {
 #pragma unroll
-    for (int j = 0; j < kNpl; ++j)
-      if (lane * kNpl + j < n) h_last[chan + lane * kNpl + j] = h[j];
+    for (int j = 0; j < NPL; ++j)
+      if (lane * NPL + j < n) h_last[chan + lane * NPL + j] = h[j];
   }
 }
 
@@ -239,21 +472,6 @@ struct BwdGeo {
   static constexpr int kSmemBytes = 4 * (2 * kBuf + kRed + kAbar);
   static_assert(kBwdT % kCkpt == 0, "a tile holds whole sub-chunks");
 };
-
-// One halving level of a reduce-scatter over lanes ``off`` apart: of the
-// CNT values v[0..CNT), a lane keeps the upper half if ``upper`` and the
-// lower half otherwise, summed with its partner's copy, in v[0..CNT/2).
-template <int CNT>
-__device__ __forceinline__ void rs_level(float (&v)[2 * kNpl], int off,
-                                         bool upper) {
-  constexpr int HALF = CNT / 2;
-#pragma unroll
-  for (int q = 0; q < HALF; ++q) {
-    const float send = upper ? v[q + 0] : v[q + HALF];
-    const float keep = upper ? v[q + HALF] : v[q + 0];
-    v[q] = keep + __shfl_xor_sync(0xffffffffu, send, off);
-  }
-}
 
 // Sum the 8 values v (a lane's d b and d c partials of its 4 states) over
 // the warp's channels, lane bits log2(L) .. 4: a reduce-scatter over bits
@@ -488,27 +706,107 @@ ssm_bwd_reduce_kernel(const float* __restrict__ part_b,
 
 bool bad_shape(int64_t B, int64_t S, int64_t D, int64_t n, int64_t G) {
   return B < 1 || S < 1 || D < 1 || n < 1 || n > kMaxN || G < 1 ||
-         B % G != 0 || B > 65535 || S > 0x7fffffffLL - kTile ||
+         B % G != 0 || B > 65535 || S > 0x7fffffffLL - 2048 ||
          D > 0x7fffffffLL - kThreads;
-}
-
-template <int L>
-int64_t blocks_d(int64_t D) {
-  return (D + Geo<L>::kCpb - 1) / Geo<L>::kCpb;
 }
 
 int64_t bwd_blocks_d(int64_t D) { return (D + kBwdCpb - 1) / kBwdCpb; }
 
+// The card's SMs, read once.
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || sms < 1)
+      sms = 132;
+  }
+  return sms;
+}
+
+// Sub-chunks a forward block walks at once: the smallest SUBS that leaves
+// no thread idle (CPB <= D); for sequences of at most kSplitMaxS steps,
+// whose walk is too short to hide its latencies, SUBS doubles further while
+// the launch gives an SM fewer than 8 warps.  At most 8, and no more than
+// the sequence has.  The mamba path's (50, 64, 64, 8) takes 8 (16 channels
+// a block), the stage engine's (200, 64, 64, 8) 2, jamba's (2, S, 16384,
+// 16) 1.
+constexpr int kSplitMaxS = 256;
+
+// Lanes a channel takes without the split.  Past n = 8 a lane holds 8
+// states (two lanes a channel, 128 channels a block), which halves the
+// lanes' loads of b and c and their sums of y, where those blocks still
+// number at least the SMs (jamba's width); else 4 states, 64 channels a
+// block.
+int seq_lanes(int L, int64_t B, int64_t D) {
+  return L == 4 && D >= 128 && B * ((D + 127) / 128) >= sm_count() ? 2 : L;
+}
+
 template <int L>
-void launch_fwd(const float* dt, const float* b, const float* c,
-                const float* x, const float* a, const float* h0, float* y,
-                float* h_last, float* ckpt, int64_t B, int64_t S, int64_t D,
-                int64_t n, int64_t G, cudaStream_t st) {
-  const dim3 grid(static_cast<unsigned>(blocks_d<L>(D)),
+int fwd_subs(int64_t B, int64_t S, int64_t D) {
+  const int64_t want = static_cast<int64_t>(sm_count()) * 8;
+  int subs = 1;
+  while (subs < 8 && subs * kCkpt < S) {
+    const int64_t cpb =
+        kFwdThreads / ((subs == 1 ? seq_lanes(L, B, D) : L) * subs);
+    const int64_t warps = B * ((D + cpb - 1) / cpb) * (kFwdThreads / 32);
+    if (cpb <= D && (S > kSplitMaxS || warps >= want)) break;
+    subs *= 2;
+  }
+  return subs;
+}
+
+template <int L, int SUBS, int NPL>
+int launch_fwd_subs(const float* dt, const float* b, const float* c,
+                    const float* x, const float* a, const float* h0, float* y,
+                    float* h_last, float* ckpt, int64_t B, int64_t S,
+                    int64_t D, int64_t n, int64_t G, cudaStream_t st) {
+  using Geo = FwdGeo<L, SUBS, NPL>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        ssm_fwd_kernel<L, SUBS, NPL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Geo::kSmemBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  auto al16 = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  };
+  const bool vec_d = D % 4 == 0 && al16(dt) && al16(x);
+  const bool vec_n = n % 4 == 0 && al16(b) && al16(c) &&
+                     (ckpt == nullptr || al16(ckpt));
+  const dim3 grid(static_cast<unsigned>((D + Geo::kCpb - 1) / Geo::kCpb),
                   static_cast<unsigned>(B));
-  ssm_fwd_kernel<L><<<grid, kThreads, 0, st>>>(
+  ssm_fwd_kernel<L, SUBS, NPL><<<grid, kFwdThreads, Geo::kSmemBytes, st>>>(
       dt, b, c, x, a, h0, y, h_last, ckpt, static_cast<int>(S),
-      static_cast<int>(D), static_cast<int>(n), static_cast<int>(B / G));
+      static_cast<int>(D), static_cast<int>(n), static_cast<int>(B / G),
+      vec_d, vec_n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int L>
+int launch_fwd(const float* dt, const float* b, const float* c,
+               const float* x, const float* a, const float* h0, float* y,
+               float* h_last, float* ckpt, int64_t B, int64_t S, int64_t D,
+               int64_t n, int64_t G, cudaStream_t st) {
+  switch (fwd_subs<L>(B, S, D)) {
+    case 1:
+      if (L == 4 && seq_lanes(L, B, D) == 2)
+        return launch_fwd_subs<2, 1, 2 * kNpl>(dt, b, c, x, a, h0, y, h_last,
+                                               ckpt, B, S, D, n, G, st);
+      return launch_fwd_subs<L, 1, kNpl>(dt, b, c, x, a, h0, y, h_last, ckpt,
+                                         B, S, D, n, G, st);
+    case 2: return launch_fwd_subs<L, 2, kNpl>(dt, b, c, x, a, h0, y, h_last,
+                                               ckpt, B, S, D, n, G, st);
+    case 4: return launch_fwd_subs<L, 4, kNpl>(dt, b, c, x, a, h0, y, h_last,
+                                               ckpt, B, S, D, n, G, st);
+    default: return launch_fwd_subs<L, 8, kNpl>(dt, b, c, x, a, h0, y,
+                                                h_last, ckpt, B, S, D, n, G,
+                                                st);
+  }
 }
 
 template <int L>
@@ -562,14 +860,13 @@ extern "C" int repro_ssm_scan_fwd(const float* dt, const float* b,
   if (bad_shape(B, S, D, n, G)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (lanes_for(n)) {
-    case 1: launch_fwd<1>(dt, b, c, x, a, h0, y, h_last, ckpt, B, S, D, n, G,
-                          st); break;
-    case 2: launch_fwd<2>(dt, b, c, x, a, h0, y, h_last, ckpt, B, S, D, n, G,
-                          st); break;
-    default: launch_fwd<4>(dt, b, c, x, a, h0, y, h_last, ckpt, B, S, D, n,
-                           G, st);
+    case 1: return launch_fwd<1>(dt, b, c, x, a, h0, y, h_last, ckpt, B, S, D,
+                                 n, G, st);
+    case 2: return launch_fwd<2>(dt, b, c, x, a, h0, y, h_last, ckpt, B, S, D,
+                                 n, G, st);
+    default: return launch_fwd<4>(dt, b, c, x, a, h0, y, h_last, ckpt, B, S,
+                                  D, n, G, st);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Backward: the walk kernel, then the reduce kernel, on one stream.  With

@@ -18,19 +18,42 @@
 // fp32): bytes bound it, operations close behind.  The backward needs
 // about 6 FMAs per state element per step and moves about twice the bytes.
 // The recurrence is sequential in t, so the parallelism is over (B, H)
-// heads and, inside a head, over the state.
+// heads and, inside a head, over the state.  In practice a step issues at
+// least 3 FP32 instructions a state element (k v, the y FMA, the S FMA),
+// and every element needs its row's r, k, w and its column's v from shared
+// memory: 3 floats an element where a thread holds one column, 1 where it
+// holds a 4 x 4 tile, which keeps those loads under the FP32 work.
 //
-// Forward design (wkv_fwd_kernel).  Column j of S depends only on v[j] and
-// the row vectors r, k, w, u, so one block of 4 NP threads runs one head
-// (NP = N rounded up to 16, 32 or 64): thread (j, g) holds rows
-// i = 16q + 4g + e (q < NP/16, e < 4) of column j in registers, and y[j] is
-// a shuffle sum over the 4 threads g of the column.  r, k, w = exp(lw) and
-// v for a tile of 2048/NP steps are staged in shared memory with coalesced
-// loads (a thread's rows come as float4 reads, conflict-free), together
-// with sum_i r u k per step, and y is stored from a shared tile.  In
-// training mode S is written every kCkpt = 64 steps to a (B, H, ceil(S/64),
-// N, N) buffer: at N = 64 that is as large as one input tensor.
-//
+// Forward design (wkv_fwd_kernel).
+//   * A thread holds a 4 x 4 tile of S (rows 4 rg .. + 3, columns 4 c ..
+//     + 3; 4 x 1 at NP = 16, N rounded up to NP = 16, 32, 64), so a step
+//     reads one float4 each of r, k, w and v for 16 elements.  y's sum over
+//     the NP/4 row groups, which lie in the low lane bits, is a reduce-
+//     scatter inside the warp every NP/16 steps (every 4 at NP = 16), each
+//     lane storing one y.
+//   * The u term is folded into the row sum a 4-row group at a time: y_j =
+//     sum_g (sum_{i in g} r_i S_ij + v_j sum_{i in g} r_i u_i k_i), the
+//     Pallas kernel's r (S + u k v) in that order; a group's sum of r u k
+//     is formed once a step in the staging pass by the thread that copied
+//     that group's r, k and lw, so the walk issues 3 instructions an element
+//     and there is no pass or barrier of its own.
+//   * Tiles of T = 1024 / NP steps (the federated paths' S = 64 at NP = 16
+//     is one tile) of r, k, lw and the block's columns of v are copied by
+//     cp.async in chunks of 4 floats (16 bytes where rows are aligned),
+//     double-buffered in dynamic shared memory; a thread turns the lw chunks
+//     it copied into w = exp(lw) once they land; one barrier a tile.
+//   * Steps run in unrolled groups of 8 with no branch inside; the
+//     checkpoint (every kCkpt = 64 steps, a (B, H, ceil(S/64), N, N)
+//     buffer) is written between groups.
+//   * Route: heads of NP = 64 (256 threads) are split into 2 or 4 blocks by
+//     columns (each restaging the row vectors) where that fills SMs or
+//     evens their load: rwkv6-3b's 320 heads run as 640 blocks of 128
+//     threads, at most 5 halves an SM instead of 3 whole heads (fwd_cg).
+//   * Chunk parallelism was tried and is not kept: at rwkv6-3b's full width
+//     the walk over every 64-step chunk as a sequence of its own, which a
+//     chunk-parallel forward would run after its chunk-state pass and
+//     combine, already takes longer than this whole forward (chip_smoke.py,
+//     case chunk_walk_proxy).
 // Backward.  With G_t the cotangent of S_t (G seeded from the h_last
 // cotangent), walking t down:
 //   dr_t[i]  = sum_j gy_t[j] S_{t-1}[i,j] + u[i] k_t[i] (gy_t . v_t)
@@ -103,122 +126,6 @@ __device__ __forceinline__ int elem(int g, int p) {
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-// Stage steps t0 .. t0+T-1 of one head's (S, N) rows (stride ``stride``
-// between steps) into sh[T][NP] with the block's 4 NP threads: zero outside
-// S and N; with ``expo`` the values are exp(src).  A thread issues its
-// T/4 loads 8 at a time before storing them, so their latencies overlap
-// without holding every load in registers.
-template <int T, int NP>
-__device__ __forceinline__ void stage(float (*sh)[NP], const float* __restrict__ src,
-                                      int64_t stride, int t0, int S, int N,
-                                      bool expo) {
-  constexpr int kIters = T / 4, kBatch = 8;
-  static_assert(kIters % kBatch == 0, "whole batches of loads");
-  const float pad = expo ? __int_as_float(0xff800000) : 0.f;   // exp(-inf) = 0
-#pragma unroll 1
-  for (int b0 = 0; b0 < kIters; b0 += kBatch) {
-    float buf[kBatch];
-#pragma unroll
-    for (int it = 0; it < kBatch; ++it) {
-      const int idx = threadIdx.x + (b0 + it) * 4 * NP;
-      const int tt = idx / NP, i = idx % NP, t = t0 + tt;
-      buf[it] = (t < S && i < N) ? src[static_cast<int64_t>(t) * stride + i]
-                                 : pad;
-    }
-#pragma unroll
-    for (int it = 0; it < kBatch; ++it) {
-      const int idx = threadIdx.x + (b0 + it) * 4 * NP;
-      sh[idx / NP][idx % NP] = expo ? expf(buf[it]) : buf[it];
-    }
-  }
-}
-
-// 3 blocks per SM: rwkv6-3b's 320 heads fit the 132 SMs in one wave.
-template <int NP>
-__global__ void __launch_bounds__(4 * NP, 3)
-wkv_fwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ lw,
-               const float* __restrict__ u, const float* __restrict__ h0,
-               float* __restrict__ y, float* __restrict__ h_last,
-               float* __restrict__ ckpt, int S, int H, int N,
-               int per_group) {
-  constexpr int T = 2048 / NP, PER = NP / 4;
-  __shared__ __align__(16) float s_r[T][NP], s_k[T][NP], s_w[T][NP],
-      s_v[T][NP], s_y[T][NP];
-  __shared__ float s_ruk[T], s_u[NP];
-  const int g = threadIdx.x & 3, j = threadIdx.x >> 2;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int64_t stride = static_cast<int64_t>(H) * N;
-  const int64_t seq = static_cast<int64_t>(b) * S * stride + h * N;
-  const int64_t st = static_cast<int64_t>(bh) * N * N;
-  const float* ug = u + (static_cast<int64_t>(b / per_group) * H + h) * N;
-  const int nck = (S + kCkpt - 1) / kCkpt;
-  for (int i = threadIdx.x; i < NP; i += 4 * NP) s_u[i] = i < N ? ug[i] : 0.f;
-  float s[PER];
-#pragma unroll
-  for (int p = 0; p < PER; ++p) {
-    const int i = elem(g, p);
-    s[p] = (i < N && j < N) ? h0[st + i * N + j] : 0.f;
-  }
-  for (int t0 = 0; t0 < S; t0 += T) {
-    stage<T, NP>(s_r, r + seq, stride, t0, S, N, false);
-    stage<T, NP>(s_k, k + seq, stride, t0, S, N, false);
-    stage<T, NP>(s_v, v + seq, stride, t0, S, N, false);
-    stage<T, NP>(s_w, lw + seq, stride, t0, S, N, true);
-    __syncthreads();
-    for (int tt = threadIdx.x; tt < T; tt += 4 * NP) {
-      float a = 0.f;
-      for (int i = 0; i < N; ++i) a = fmaf(s_r[tt][i] * s_u[i], s_k[tt][i], a);
-      s_ruk[tt] = a;
-    }
-    __syncthreads();
-    const int steps = min(T, S - t0);
-    for (int tt = 0; tt < steps; ++tt) {
-      const int t = t0 + tt;
-      if (ckpt != nullptr && t % kCkpt == 0 && j < N) {
-        float* dst = ckpt + (static_cast<int64_t>(bh) * nck + t / kCkpt) * N * N;
-#pragma unroll
-        for (int p = 0; p < PER; ++p) {
-          const int i = elem(g, p);
-          if (i < N) dst[i * N + j] = s[p];
-        }
-      }
-      const float vj = s_v[tt][j];
-      float yp = 0.f;
-#pragma unroll
-      for (int q = 0; q < PER / 4; ++q) {
-        const float4 r4 = ld4(&s_r[tt][16 * q + 4 * g]);
-        const float4 k4 = ld4(&s_k[tt][16 * q + 4 * g]);
-        const float4 w4 = ld4(&s_w[tt][16 * q + 4 * g]);
-        const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
-        const float kk[4] = {k4.x, k4.y, k4.z, k4.w};
-        const float ww[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float& sv = s[4 * q + e];
-          yp = fmaf(rr[e], sv, yp);
-          sv = fmaf(ww[e], sv, kk[e] * vj);
-        }
-      }
-      yp += __shfl_xor_sync(kFull, yp, 1);
-      yp += __shfl_xor_sync(kFull, yp, 2);
-      if (g == 0) s_y[tt][j] = fmaf(vj, s_ruk[tt], yp);
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < T * NP; idx += 4 * NP) {
-      const int tt = idx / NP, i = idx % NP, t = t0 + tt;
-      if (t < S && i < N) y[seq + static_cast<int64_t>(t) * stride + i] = s_y[tt][i];
-    }
-  }
-  if (j < N) {
-#pragma unroll
-    for (int p = 0; p < PER; ++p) {
-      const int i = elem(g, p);
-      if (i < N) h_last[st + i * N + j] = s[p];
-    }
-  }
 }
 
 // The backward's layout of an (NP x NP) state or cotangent over the block's
@@ -334,6 +241,208 @@ __device__ __forceinline__ void issue_rows(float* sh,
                 ok);
     }
   }
+}
+
+// The forward's geometry.  A thread holds a 4-row x CPT-column tile of S
+// (CPT = 4 from NP = 32 on, 1 at NP = 16); RG = NP / 4 row groups lie in
+// the low lane bits, so y's sum over rows is a reduce-scatter inside the
+// warp.  A block runs NPC = NP / CG of a head's columns (column j of S
+// depends only on v[j] and the row vectors) and walks tiles of T = 1024 /
+// NP steps (64 at NP = 16: the federated paths' S = 64 is one tile).
+// The forward's geometry.  A thread holds a 4-row x CPT-column tile of S
+// (CPT = 4 from NP = 32 on, 1 at NP = 16); the RG = NP / 4 row groups lie
+// in the low lane bits, so y's sum over rows is a reduce-scatter inside the
+// warp.  A block runs NPC = NP / CG of a head's columns (column j of S
+// depends only on v[j] and the row vectors) and walks tiles of T = 1024 /
+// NP steps (64 at NP = 16: the federated paths' S = 64 is one tile).
+template <int NP, int CG>
+struct FwdGeo {
+  static constexpr int kRg = NP / 4, kCpt = NP >= 32 ? 4 : 1;
+  static constexpr int kNpc = NP / CG, kThreads = kRg * (kNpc / kCpt);
+  static constexpr int kRss = kRg / kCpt;   // steps a sum over rows covers
+  static constexpr int kT = 1024 / NP;
+  // 4-float chunks of a tile's r, k, lw rows and v columns a thread copies
+  static constexpr int kRowChunks = kT * NP / 4 / kThreads;
+  static constexpr int kColChunks = kT * kNpc / 4 / kThreads;
+  // r, k, lw (then w), v; sum_i r_i u_i k_i of each row group and step
+  static constexpr int kBuf = 3 * kT * NP + kT * kNpc + kT * kRg;
+  static constexpr int kSmemBytes = 4 * (2 * kBuf + NP);    // and u
+  static_assert(kThreads % 32 == 0 && 8 % kRss == 0 && kNpc % kCpt == 0 &&
+                    kCkpt % kT == 0 && kT % 8 == 0,
+                "whole warps, whole tiles a checkpoint, whole step groups");
+  static_assert(kRowChunks * kThreads * 4 == kT * NP &&
+                    kColChunks * kThreads * 4 == kT * kNpc,
+                "every thread copies the same number of chunks");
+};
+
+// The forward.  Thread (rg, c) holds rows 4 rg .. 4 rg + 3 and columns
+// c0 + CPT c .. + CPT - 1 of S in registers, so a step reads one float4 of
+// r, k and w and CPT floats of v from shared memory for 4 CPT state
+// elements.  Tiles of r, k, lw and the block's columns of v are copied by
+// cp.async in chunks of 4 floats of a row (one 16-byte copy where rows
+// allow, else four of 4 bytes) into one of two buffers while the other is
+// walked.  Once its copies land, a thread turns the lw chunks it copied
+// into w = exp(lw) and sums r_i u_i k_i over the same chunks' 4 rows (its
+// r and k chunks are the same rows); one barrier a tile follows.  The u
+// term thus enters the row sum per 4-row group,
+//   y_j = sum_g (sum_{i in g} r_i S_ij + v_j sum_{i in g} r_i u_i k_i),
+// the Pallas kernel's y = r (S + u k v) summed in that order.  Steps run in
+// unrolled groups of 8 with no branch inside (steps past S: zero k, v and
+// w = 1 leave S alone); every RSS steps the RSS x CPT = RG partial sums of
+// y are reduce-scattered over the RG row groups, each lane storing one.
+// The checkpoint is written between groups, every kCkpt steps.
+template <int NP, int CG>
+__global__ void __launch_bounds__(FwdGeo<NP, CG>::kThreads,
+                                  640 / FwdGeo<NP, CG>::kThreads)
+wkv_fwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ lw,
+               const float* __restrict__ u, const float* __restrict__ h0,
+               float* __restrict__ y, float* __restrict__ h_last,
+               float* __restrict__ ckpt, int S, int H, int N, int per_group,
+               bool vec) {
+  using Geo = FwdGeo<NP, CG>;
+  constexpr int NPC = Geo::kNpc, NT = Geo::kThreads, RG = Geo::kRg;
+  constexpr int CPT = Geo::kCpt, RSS = Geo::kRss, T = Geo::kT;
+  constexpr int RC = Geo::kRowChunks, CC = Geo::kColChunks;
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31, rg = threadIdx.x % RG;
+  const int cc = threadIdx.x / RG;
+  const int bh = blockIdx.x / CG, c0 = (blockIdx.x % CG) * NPC;
+  const int j0 = c0 + CPT * cc, i0 = 4 * rg;  // the thread's first column, row
+  const int b = bh / H, h = bh % H;
+  const int64_t stride = static_cast<int64_t>(H) * N;
+  const int64_t seq = static_cast<int64_t>(b) * S * stride + h * N;
+  const int64_t st = static_cast<int64_t>(bh) * N * N;
+  const float* ug = u + (static_cast<int64_t>(b / per_group) * H + h) * N;
+  const int nck = (S + kCkpt - 1) / kCkpt;
+
+  // Copy chunk x (step x / (W/4), floats 4 (x % (W/4)) .. + 3 of a row of
+  // W) of steps t0 .. t0+T-1 of ``src`` into sh; zeros past S and ``cols``.
+  auto copy = [&](float* sh, const float* __restrict__ src, int W, int x,
+                  int t0, int cols) {
+    const int t = t0 + x / (W / 4), i = 4 * (x % (W / 4));
+    const float* p = src + static_cast<int64_t>(t) * stride + i;
+    if (vec) {
+      const bool ok = t < S && i < cols;
+      cp_async16(sh + 4 * x, ok ? p : src, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = t < S && i + e < cols;
+        cp_async4(sh + 4 * x + e, ok ? p + e : src, ok);
+      }
+    }
+  };
+  // Issue the copies of tile ``tile`` into ``buf``.
+  auto issue = [&](int tile, float* buf) {
+    const int t0 = tile * T;
+#pragma unroll
+    for (int q = 0; q < RC; ++q) {
+      const int x = threadIdx.x + q * NT;
+      copy(buf, r + seq, NP, x, t0, N);
+      copy(buf + T * NP, k + seq, NP, x, t0, N);
+      copy(buf + 2 * T * NP, lw + seq, NP, x, t0, N);
+    }
+#pragma unroll
+    for (int q = 0; q < CC; ++q)
+      copy(buf + 3 * T * NP, v + seq + c0, NPC, threadIdx.x + q * NT, t0,
+           N - c0);
+    cp_async_commit();
+  };
+
+  float* s_u = smem + 2 * Geo::kBuf;
+  for (int i = threadIdx.x; i < NP; i += NT) s_u[i] = i < N ? ug[i] : 0.f;
+  __syncthreads();
+  float s[4][CPT];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+#pragma unroll
+    for (int e = 0; e < CPT; ++e)
+      s[m][e] = (i0 + m < N && j0 + e < N) ? h0[st + (i0 + m) * N + j0 + e]
+                                           : 0.f;
+  }
+  const int ntile = (S + T - 1) / T;
+  issue(0, smem);
+  for (int tile = 0, pb = 0; tile < ntile; ++tile, pb ^= 1) {
+    float* buf = smem + pb * Geo::kBuf;
+    const float* s_r = buf;
+    const float* s_k = buf + T * NP;
+    float* s_w = buf + 2 * T * NP;                 // lw, then w
+    const float* s_v = buf + 3 * T * NP;
+    float* s_ruk = buf + 3 * T * NP + T * NPC;     // [T][RG]
+    cp_async_wait_all();
+    // the chunks this thread copied: w = exp(lw) (zeros, past S and N,
+    // give w = 1) and the chunk's sum of r u k
+#pragma unroll
+    for (int q = 0; q < RC; ++q) {
+      const int x = threadIdx.x + q * NT;
+      const float4 l4 = ld4(s_w + 4 * x);
+      *reinterpret_cast<float4*>(s_w + 4 * x) =
+          make_float4(expf(l4.x), expf(l4.y), expf(l4.z), expf(l4.w));
+      const float4 r4 = ld4(s_r + 4 * x), k4 = ld4(s_k + 4 * x);
+      const float4 u4 = ld4(s_u + 4 * (x % (NP / 4)));
+      s_ruk[x] = fmaf(r4.w * u4.w, k4.w,
+                      fmaf(r4.z * u4.z, k4.z,
+                           fmaf(r4.y * u4.y, k4.y, r4.x * u4.x * k4.x)));
+    }
+    __syncthreads();        // the tile is in; the last tile's reads are done
+    if (tile + 1 < ntile) issue(tile + 1, smem + (pb ^ 1) * Geo::kBuf);
+    const int t0 = tile * T;
+#pragma unroll 1
+    for (int r0 = 0; r0 < T; r0 += 8) {
+      const int t = t0 + r0;
+      if (t >= S) break;                          // uniform over the block
+      if (ckpt != nullptr && t % kCkpt == 0) {
+        float* dst = ckpt + (static_cast<int64_t>(bh) * nck + t / kCkpt) * N * N;
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+#pragma unroll
+          for (int e = 0; e < CPT; ++e)
+            if (i0 + m < N && j0 + e < N) dst[(i0 + m) * N + j0 + e] = s[m][e];
+      }
+#pragma unroll
+      for (int q0 = 0; q0 < 8; q0 += RSS) {
+        float yv[RG];     // RSS steps x CPT columns of y, partial over rows
+#pragma unroll
+        for (int q = 0; q < RSS; ++q) {
+          const int tt = r0 + q0 + q;
+          const float4 r4 = ld4(&s_r[tt * NP + i0]);
+          const float4 k4 = ld4(&s_k[tt * NP + i0]);
+          const float4 w4 = ld4(&s_w[tt * NP + i0]);
+          const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
+          const float kk[4] = {k4.x, k4.y, k4.z, k4.w};
+          const float ww[4] = {w4.x, w4.y, w4.z, w4.w};
+          float vv[CPT];
+          ld_rows<CPT>(&s_v[tt * NPC + CPT * cc], vv);
+          const float ruk = s_ruk[tt * RG + rg];
+#pragma unroll
+          for (int e = 0; e < CPT; ++e) yv[q * CPT + e] = 0.f;
+#pragma unroll
+          for (int m = 0; m < 4; ++m)
+#pragma unroll
+            for (int e = 0; e < CPT; ++e) {
+              const float x = s[m][e];
+              yv[q * CPT + e] = fmaf(rr[m], x, yv[q * CPT + e]);
+              s[m][e] = fmaf(ww[m], x, kk[m] * vv[e]);
+            }
+#pragma unroll
+          for (int e = 0; e < CPT; ++e)
+            yv[q * CPT + e] = fmaf(vv[e], ruk, yv[q * CPT + e]);
+        }
+        // the sum over the RG row groups: lane rg keeps (step, column)
+        // pair rg of the RSS x CPT
+        const int f = rs_sum<RG, RG / 2, 1, RG>(yv, lane);
+        const int tq = t + q0 + f / CPT, jq = j0 + f % CPT;
+        if (tq < S && jq < N)
+          y[seq + static_cast<int64_t>(tq) * stride + jq] = yv[0];
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int e = 0; e < CPT; ++e)
+      if (i0 + m < N && j0 + e < N) h_last[st + (i0 + m) * N + j0 + e] = s[m][e];
 }
 
 // Sweep A's walk over one chunk for the thread's rows of S (sv, the state
@@ -759,17 +868,6 @@ bool bad_shape(int64_t B, int64_t S, int64_t H, int64_t N, int64_t G) {
 
 int padded(int64_t N) { return N <= 16 ? 16 : (N <= 32 ? 32 : 64); }
 
-template <int NP>
-int launch_fwd(const float* r, const float* k, const float* v,
-               const float* lw, const float* u, const float* h0, float* y,
-               float* h_last, float* ckpt, int64_t B, int64_t S, int64_t H,
-               int64_t N, int64_t G, cudaStream_t st) {
-  wkv_fwd_kernel<NP><<<static_cast<unsigned>(B * H), 4 * NP, 0, st>>>(
-      r, k, v, lw, u, h0, y, h_last, ckpt, static_cast<int>(S),
-      static_cast<int>(H), static_cast<int>(N), static_cast<int>(B / G));
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Allow ``kernel`` ``bytes`` of dynamic shared memory, once.
 template <typename Kernel>
 int allow_smem(Kernel kernel, size_t bytes, bool& done) {
@@ -780,6 +878,73 @@ int allow_smem(Kernel kernel, size_t bytes, bool& done) {
   if (e != cudaSuccess) return static_cast<int>(e);
   done = true;
   return 0;
+}
+
+// The card's SMs, read once.
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || sms < 1)
+      sms = 132;
+  }
+  return sms;
+}
+
+// Column groups a head's forward is split into (NP = 64 only; smaller
+// heads run one block of 64 threads).  Each group stages the row vectors
+// and runs the exp and r u k pass again, so splitting pays only where it
+// fills SMs that would idle or evens out their load: 4 groups while the
+// quarters of every head fit one an SM, 2 when there are more heads than
+// SMs (rwkv6-3b's 320 heads: 640 blocks, at most 5 halves an SM instead of
+// 3 whole heads), else 1.
+template <int NP>
+int fwd_cg(int64_t BH) {
+  const int64_t sms = sm_count();
+  if (NP < 64) return 1;
+  if (4 * BH <= sms) return 4;
+  return BH > sms ? 2 : 1;
+}
+
+template <int NP, int CG>
+int launch_fwd_cg(const float* r, const float* k, const float* v,
+                  const float* lw, const float* u, const float* h0, float* y,
+                  float* h_last, float* ckpt, int64_t B, int64_t S, int64_t H,
+                  int64_t N, int64_t G, bool vec, cudaStream_t st) {
+  using Geo = FwdGeo<NP, CG>;
+  static bool done = false;
+  const int err = allow_smem(wkv_fwd_kernel<NP, CG>, Geo::kSmemBytes, done);
+  if (err != 0) return err;
+  wkv_fwd_kernel<NP, CG><<<static_cast<unsigned>(B * H * CG), Geo::kThreads,
+                           Geo::kSmemBytes, st>>>(
+      r, k, v, lw, u, h0, y, h_last, ckpt, static_cast<int>(S),
+      static_cast<int>(H), static_cast<int>(N), static_cast<int>(B / G), vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NP>
+int launch_fwd(const float* r, const float* k, const float* v,
+               const float* lw, const float* u, const float* h0, float* y,
+               float* h_last, float* ckpt, int64_t B, int64_t S, int64_t H,
+               int64_t N, int64_t G, cudaStream_t st) {
+  bool vec = N % 4 == 0;
+  for (const float* p : {r, k, v, lw})
+    vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  if constexpr (NP < 64) {
+    return launch_fwd_cg<NP, 1>(r, k, v, lw, u, h0, y, h_last, ckpt, B, S, H,
+                                N, G, vec, st);
+  } else {
+    switch (fwd_cg<NP>(B * H)) {
+      case 1: return launch_fwd_cg<NP, 1>(r, k, v, lw, u, h0, y, h_last,
+                                          ckpt, B, S, H, N, G, vec, st);
+      case 2: return launch_fwd_cg<NP, 2>(r, k, v, lw, u, h0, y, h_last,
+                                          ckpt, B, S, H, N, G, vec, st);
+      default: return launch_fwd_cg<NP, 4>(r, k, v, lw, u, h0, y, h_last,
+                                           ckpt, B, S, H, N, G, vec, st);
+    }
+  }
 }
 
 template <int NP>

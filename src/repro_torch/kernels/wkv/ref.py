@@ -2,8 +2,9 @@
 of ``repro.kernels.wkv.ref.wkv_ref`` over all heads at once, with the
 port's grouped ``u``.  Its backward is autograd through the loop.
 
-``wkv_bwd_sweeps_ref`` is the backward kernel's own algorithm as a plain
-loop (used by the tests, not by the model)."""
+``wkv_fwd_rowgroup_ref`` and ``wkv_bwd_sweeps_ref`` are the forward and
+backward kernels' own algorithms as plain loops (used by the tests, not by
+the model)."""
 import torch
 
 from repro_torch.kernels.ssm_scan.ref import expand_groups
@@ -27,6 +28,46 @@ def wkv_ref(r, k, v, lw, u, h0):
                                h + u3 * kv))
         h = torch.exp(lw[:, t].float())[..., None] * h + kv
     return torch.stack(ys, dim=1), h
+
+
+def wkv_fwd_rowgroup_ref(r, k, v, lw, u, h0, rows: int = 4):
+    """The forward kernel's order of y's sum over rows, as a float32 loop.
+    N is padded with zeros to NP = 16, 32 or 64 and the rows are taken in
+    groups of ``rows``; group g gives
+      p_gj = sum_{i in g} r_i S_ij + v_j sum_{i in g} (r_i u_i) k_i
+    (each sum in row order: the u term folded into the row sum a group at
+    a time), and y_j sums the groups by halving (g with g + G/2, then
+    again), as the kernel's reduce-scatter over lanes does.  S_t = diag(w_t)
+    S_{t-1} + k_t^T v_t.
+
+    Returns (y (B,S,H,N), h_last (B,H,N,N))."""
+    r, k, v, lw = (t.float() for t in (r, k, v, lw))
+    bsz, s, hh, n = r.shape
+    npad = 16 if n <= 16 else (32 if n <= 32 else 64)
+    pad = (0, npad - n)
+    r, k, v, lw = (torch.nn.functional.pad(t, pad) for t in (r, k, v, lw))
+    u3 = torch.nn.functional.pad(expand_groups(u.float(), bsz), pad)
+    h = torch.nn.functional.pad(h0.float(), (0, npad - n, 0, npad - n))
+    w = torch.exp(lw)
+    groups = npad // rows
+    ys = []
+    for t in range(s):
+        rt = r[:, t].reshape(bsz, hh, groups, rows)
+        kt = k[:, t].reshape(bsz, hh, groups, rows)
+        ut = u3.reshape(bsz, hh, groups, rows)
+        hg = h.reshape(bsz, hh, groups, rows, npad)
+        p = torch.zeros((bsz, hh, groups, npad), dtype=torch.float32)
+        ruk = torch.zeros((bsz, hh, groups), dtype=torch.float32)
+        for m in range(rows):
+            p = p + rt[..., m, None] * hg[:, :, :, m]
+            ruk = ruk + rt[..., m] * ut[..., m] * kt[..., m]
+        p = p + v[:, t, :, None, :] * ruk[..., None]
+        while p.shape[2] > 1:
+            half = p.shape[2] // 2
+            p = p[:, :, :half] + p[:, :, half:]
+        ys.append(p[:, :, 0, :n])
+        h = w[:, t, :, :, None] * h + k[:, t, :, :, None] * v[:, t, :, None]
+    return torch.stack(ys, dim=1), h[..., :n, :n]
 
 
 def wkv_bwd_sweeps_ref(r, k, v, lw, u, h0, gy, ghl, chunk: int = 64):

@@ -6,7 +6,9 @@ Tolerances: the scan against the reference's oracle and its interpret-mode
 Pallas kernel at 2e-4 on the fixed shapes of tests/test_kernels.py and 5e-4
 on a ragged sweep; gradients against ``jax.vjp(ssm_scan_ref)`` at rtol 1e-4 /
 atol 1e-5 (measured: 1.1e-5 abs at most, on gradients of magnitude up to
-82); ``mamba_block`` at 2e-3 as tests/test_perf_variants.py; the
+82); the forward kernel's sub-chunk algorithm (``ssm_scan_subchunk_ref``)
+against the reference's oracle at 2e-4 with the model's, tiny and large dt;
+``mamba_block`` at 2e-3 as tests/test_perf_variants.py; the
 family's loss at rtol 1e-5 and its gradients at rtol 1e-4 / atol 1e-6
 (measured: 1.5e-6 abs at most)."""
 import dataclasses
@@ -32,6 +34,8 @@ from repro_torch.core.tree import leaves_with_paths, tree_leaves, tree_map
 from repro_torch.fl.families import get_model_family
 from repro_torch.kernels.ssm_scan import ops
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
+from repro_torch.kernels.ssm_scan.ref import (ssm_abar, ssm_advance,
+                                              ssm_scan_subchunk_ref)
 from repro_torch.models import from_numpy_params, init_params, loss_fn
 from repro_torch.models.mamba import mamba_block
 from repro_torch.models.transformer import forward_train
@@ -129,6 +133,51 @@ def test_scan_gradients_match_reference_vjp(bsz, s, d, n):
     for name, g, w in zip(("dt", "b", "c", "x", "a", "h0"), got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-5, err_msg=name)
+
+
+def _regime_dt(regime, bsz, s, d, seed):
+    """dt in three regimes: the model's softplus-sized dt; tiny dt
+    (softplus(-9), abar within 1e-3 of 1); large dt (dt a down to -60 with
+    |a| <= e^1.5, so abar underflows inside a sub-chunk's product)."""
+    rng = np.random.default_rng(seed)
+    if regime == "large":
+        return rng.uniform(0.0, 60.0 / np.exp(1.5), (bsz, s, d)).astype(
+            np.float32)
+    z = rng.standard_normal((bsz, s, d))
+    shift, scale = {"model": (-2.0, 0.5), "tiny": (-9.0, 0.1)}[regime]
+    return np.log1p(np.exp(z * scale + shift)).astype(np.float32)
+
+
+@pytest.mark.parametrize("regime", ["model", "tiny", "large"])
+@pytest.mark.parametrize("bsz,s,d,n,subs", [(2, 37, 70, 8, 8),
+                                            (3, 19, 33, 16, 4),
+                                            (2, 45, 9, 5, 2),
+                                            (1, 70, 5, 3, 1)])
+def test_subchunk_algorithm_matches_reference(bsz, s, d, n, subs, regime):
+    """The forward kernel's algorithm (composites folded over each tile's
+    sub-chunks, every sub-chunk walked from its start) against the
+    reference's oracle at the kernel's tolerance; and walking each sub-chunk
+    from the checkpoints it returns, as the backward's recompute does,
+    rebuilds its y and h_last bit for bit."""
+    args = _inputs(bsz, s, d, n, seed=21)
+    args[0] = _regime_dt(regime, bsz, s, d, seed=22)
+    args[4] = -np.exp(np.random.default_rng(23).uniform(
+        0.0, 1.5, (d, n))).astype(np.float32)
+    t = _torch(args)
+    y, h, ckpt = ssm_scan_subchunk_ref(*t, subs=subs)
+    yr, hr = j_ssm_scan_ref(*[jnp.asarray(a) for a in args])
+    _close(y, yr, 2e-4)
+    _close(h, hr, 2e-4)
+    ab = ssm_abar(t[0], t[4])
+    dtx = t[0] * t[3]
+    y2 = torch.empty_like(y)
+    for sub in range(ckpt.shape[1]):
+        hw = ckpt[:, sub]
+        for step in range(8 * sub, min(s, 8 * sub + 8)):
+            hw = ssm_advance(hw, ab[:, step], dtx[:, step], t[1][:, step])
+            y2[:, step] = torch.einsum("bn,bdn->bd", t[2][:, step], hw)
+    assert torch.equal(y2, y)
+    assert torch.equal(hw, h)
 
 
 def test_wrapper_checks_shapes_and_dtypes():

@@ -7,7 +7,9 @@ interpret-mode Pallas kernel at |d| <= 5e-4 + 5e-4|r| (tests/
 test_kernels.py's tolerance for this kernel); gradients of all six inputs
 against ``jax.vjp`` of the reference's multi-head oracle at rtol 1e-4 /
 atol 1e-5, by autograd through the plain loop and by the backward kernel's
-two-sweep algorithm (``wkv_bwd_sweeps_ref``); ``time_mix``, ``channel_mix`` and one rwkv layer at 2e-4
+two-sweep algorithm (``wkv_bwd_sweeps_ref``); the forward kernel's order
+of y's row sum (``wkv_fwd_rowgroup_ref``) at 5e-4 with three decay
+regimes; ``time_mix``, ``channel_mix`` and one rwkv layer at 2e-4
 against the reference's kernel path (``rwkv_impl="pallas"``) and 1e-3
 against its chunk-parallel ``wkv_scan`` (``"chunked"``), as tests/
 test_kernels.py holds the two reference forms to each other; the family's
@@ -50,7 +52,8 @@ from repro_torch.fl.experiment import (RequestSchedule, ScenarioConfig,
 from repro_torch.fl.families import get_model_family
 from repro_torch.kernels.wkv import ops
 from repro_torch.kernels.wkv.ops import wkv
-from repro_torch.kernels.wkv.ref import wkv_bwd_sweeps_ref
+from repro_torch.kernels.wkv.ref import (wkv_bwd_sweeps_ref,
+                                         wkv_fwd_rowgroup_ref)
 from repro_torch.models import from_numpy_params, init_params, loss_fn
 from repro_torch.models import rwkv6 as rw
 from repro_torch.models.transformer import apply_block_train, forward_train
@@ -179,6 +182,27 @@ def test_wkv_bwd_sweeps_match_reference_vjp(b, s, h, n, chunk, decay):
     for name, g, w in zip(("r", "k", "v", "lw", "u", "h0"), got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("decay", ["model", "near1", "clip"])
+@pytest.mark.parametrize("b,s,h,n", [(2, 24, 2, 16), (3, 17, 1, 9),
+                                     (1, 30, 2, 40)])
+def test_wkv_fwd_rowgroup_order_matches_reference(b, s, h, n, decay):
+    """The forward kernel's order of y's row sum (4-row groups, the u term
+    folded in per group, the groups summed by halving) as a float32 loop,
+    against the reference's multi-head oracle at the kernel's tolerance:
+    the model's decays, decays within 1e-2 of 1, and the clip's w =
+    exp(-exp(3)) = 1.9e-9 everywhere."""
+    args = _inputs(b, s, h, n, seed=16)
+    z = np.random.default_rng(17).standard_normal((b, s, h, n))
+    args[3] = np.asarray({"model": -np.exp(np.clip(z - 0.5, -10.0, 3.0)),
+                          "near1": -np.exp(z - 6.5),
+                          "clip": np.full_like(z, -np.exp(3.0))}[decay],
+                         np.float32)
+    y, hl = wkv_fwd_rowgroup_ref(*_torch(args))
+    yr, hr = j_wkv_ref_mh(*[jnp.asarray(a) for a in args])
+    _close(y, yr, **WKV_TOL)
+    _close(hl, hr, **WKV_TOL)
 
 
 def test_wrapper_checks_shapes_and_dtypes():
