@@ -23,15 +23,47 @@
 // 3xTF32 (below): 495 / 3 = 165 TFLOP/s against 67 TFLOP/s on the CUDA
 // cores, so the bounds are 0.73 ms forward and 1.82 ms backward.
 //
-// Forward (CUDA cores).  A block of 256 threads owns one 64-query tile of
-// one head and walks only the 64-wide key tiles its window reaches, as the
-// TPU grid's span did.  Tiles sit in shared memory with rows padded by 4
-// floats.  Thread (ty, tx) of a 16 x 16 grid computes score rows 4 ty ..
-// 4 ty + 3 at key columns tx + 16 c (c < 4), and output rows at head-dim
-// columns 4 tx + 64 c' (float4 groups); the softmax's row reductions are
-// shuffles over the 16 lanes tx.  Online softmax in base 2 (scores
-// pre-scaled by log2 e), K and then V staged through one buffer; writes O
-// and lse.
+// Forward (tensor cores, 3xTF32), FlashAttention-2 form.  A block of 8
+// warps owns two 64-query tiles that read the same K and V: query heads 2p
+// and 2p + 1 of one kv head at one tile where H / KV is even (gemma3: 32
+// heads over 16), else tiles 2p and 2p + 1 of one head.  Where that grid
+// would leave SMs without a block (short sequences), a block of 4 warps
+// owns one tile.  A block walks the 64-key tiles its windows reach, as the
+// TPU grid's span did; warp w computes rows 16 (w % 4) .. +15 of query
+// tile w / 4 against all 64 keys of a key tile, so a row's max and sum are
+// lane-local plus two shuffles over the 4 lanes tq of its group.
+//  * S = Q K^T in 3xTF32 mma.sync (below) into 8 n-tiles of accumulators,
+//    over ceil(hd / 8) k steps (2 at the local check's hd 16).  Online
+//    softmax in base 2 on the accumulators, exps on the special-function
+//    unit (ex2.approx.ftz), scores scaled by log2(e) / sqrt(hd) in the
+//    exp's FMA.
+//  * P stays in registers.  Under the k relabelling below, the C fragment
+//    (d0, d1, d2, d3) of score n-tile j is exactly the A fragment (d0, d2,
+//    d1, d3) of k step j of P V, so P is split and fed to the MMA where it
+//    is: no shared P tile, no barrier between the softmax and P V.
+//  * K and V have a cp.async buffer each, so loads overlap the MMAs: V_j
+//    lands while S_j computes and K_{j+1} while P_j V_j does, one wait and
+//    one barrier a half step.
+//  * Each landed K and V tile is split into its TF32 parts once, by the
+//    whole block, into a hi and a lo tile: a warp's fragments are then
+//    plain loads, where warps splitting their own fragments split every
+//    element 8 times a tile.  Two query tiles sharing each K and V tile
+//    halve the staging and splitting a query row costs, and give an SM 8
+//    warps where 192 KB of shared memory admit one block.
+//    tools/wattn_fwd_alternatives.py times both choices against their
+//    removal (PERF.md section 6).
+//  * Masks only where a tile straddles the diagonal or the window's lower
+//    edge (2 of the 17 key tiles a query tile walks at gemma3's shape), a
+//    test uniform over a warp's slot; rows with no key yet keep the guard
+//    against exp2(-inf + inf).  A warp whose rows see no key of a tile
+//    skips its MMAs; on an edge tile P V also skips the 8-key steps none
+//    of its rows sees.  The MMA loops have no other branch: a branch per
+//    n-tile serialises each accumulator's three dependent MMAs, so the
+//    n-tiles of O between hd and the route's width (32, 64 or 128) are
+//    computed on the zero-filled columns rather than skipped.
+//  * Shared memory at hd 128: Q 2 x 32 KB, K and V 2 x 2 x 32 KB = 192 KB,
+//    one block per SM (160 KB for one tile); no atomics, so two runs give
+//    the same bits.
 //
 // Backward (tensor cores, 3xTF32), FlashAttention-2 form, P recomputed from
 // q, k and lse: D_i = dO_i.O_i (wattn_bwd_delta_kernel), dS = P o (dO V^T -
@@ -67,7 +99,6 @@ namespace {
 
 constexpr int kTile = 64;          // queries or keys per tile
 constexpr int kThreads = 256;
-constexpr int kLdP = kTile + 4;    // row stride of the score tiles
 constexpr int kMaxHd = 128;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -82,185 +113,8 @@ struct Geom {
   float scale;
 };
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ float comp(float4 a, int e) {
-  return e == 0 ? a.x : e == 1 ? a.y : e == 2 ? a.z : a.w;
-}
-
-// Reductions over the 16 lanes tx that share a row (lanes 0-15, 16-31).
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-
-// Rows t0 .. t0+63 of one head's (S, hd) slice, row stride ``ss``, into
-// dst[64][HDP + 4]; zero outside S and hd.  Loads are issued 8 at a time.
-template <int HDP>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
-                                          int64_t ss, int t0, int S, int hd) {
-  constexpr int LD = HDP + 4, kIters = kTile * HDP / kThreads, kBatch = 8;
-#pragma unroll 1
-  for (int b0 = 0; b0 < kIters; b0 += kBatch) {
-    float buf[kBatch];
-#pragma unroll
-    for (int it = 0; it < kBatch; ++it) {
-      const int idx = threadIdx.x + (b0 + it) * kThreads;
-      const int r = idx / HDP, d = idx % HDP, t = t0 + r;
-      buf[it] = (t < S && d < hd) ? src[static_cast<int64_t>(t) * ss + d] : 0.f;
-    }
-#pragma unroll
-    for (int it = 0; it < kBatch; ++it) {
-      const int idx = threadIdx.x + (b0 + it) * kThreads;
-      dst[(idx / HDP) * LD + idx % HDP] = buf[it];
-    }
-  }
-}
-
-// (64 x 64) products A B^T of two staged tiles: acc[r][c] += A[4 ty + r] .
-// B[tx + 16 c] over HDP columns.
-template <int HDP>
-__device__ __forceinline__ void tile_abt(float (&acc)[4][4], const float* A,
-                                         const float* B, int ty, int tx) {
-  constexpr int LD = HDP + 4;
-#pragma unroll 4
-  for (int d = 0; d < HDP; d += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[r] = ld4(A + (4 * ty + r) * LD + d);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) b[c] = ld4(B + (tx + 16 * c) * LD + d);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = dot4(a[r], b[c], acc[r][c]);
-  }
-}
-
 __device__ __forceinline__ bool in_window(int qi, int kj, const Geom& g) {
   return qi < g.S && kj < g.S && kj <= qi && kj > qi - g.window;
-}
-
-template <int HDP>
-constexpr int fwd_smem() { return (2 * kTile * (HDP + 4) + kTile * kLdP) * 4; }
-
-template <int HDP>
-__global__ void __launch_bounds__(kThreads, 2)
-wattn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, Geom g, Strides sq, Strides sk,
-                 Strides sv) {
-  constexpr int LD = HDP + 4, CG = HDP / 64;
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;                    // [64][LD]
-  float* sKV = sQ + kTile * LD;        // [64][LD]: K, then V
-  float* sP = sKV + kTile * LD;        // [64][kLdP]
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * kTile, bh = blockIdx.y;
-  const int b = bh / g.H, h = bh % g.H, kvh = h / (g.H / g.KV);
-  const float* kb = k + b * sk.b + kvh * sk.h;
-  const float* vb = v + b * sv.b + kvh * sv.h;
-  load_tile<HDP>(sQ, q + b * sq.b + h * sq.h, sq.s, q0, g.S, g.hd);
-
-  const float c2 = g.scale * kLog2e;
-  float m[4], l[4], acc[4][4 * CG];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4 * CG; ++e) acc[r][e] = 0.f;
-  }
-  const int k_lo = max(0, q0 - g.window + 1) / kTile * kTile;
-  const int k_hi = min(g.S, q0 + kTile);
-  for (int k0 = k_lo; k0 < k_hi; k0 += kTile) {
-    __syncthreads();                   // the last tile's P V is done
-    load_tile<HDP>(sKV, kb, sk.s, k0, g.S, g.hd);
-    __syncthreads();
-    float sc[4][4] = {};
-    tile_abt<HDP>(sc, sQ, sKV, ty, tx);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qi = q0 + 4 * ty + r;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        sc[r][c] = in_window(qi, k0 + tx + 16 * c, g) ? sc[r][c] * c2 : -INFINITY;
-        mx = fmaxf(mx, sc[r][c]);
-      }
-      const float mn = fmaxf(m[r], row_max(mx));
-      const bool none = mn == -INFINITY;      // no key of this row yet
-      const float corr = none ? 1.f : exp2f(m[r] - mn);
-      float rs = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = none ? 0.f : exp2f(sc[r][c] - mn);
-        sP[(4 * ty + r) * kLdP + tx + 16 * c] = p;
-        rs += p;
-      }
-      l[r] = fmaf(l[r], corr, row_sum(rs));
-      m[r] = mn;
-#pragma unroll
-      for (int e = 0; e < 4 * CG; ++e) acc[r][e] *= corr;
-    }
-    __syncthreads();                   // K read, P written
-    load_tile<HDP>(sKV, vb, sv.s, k0, g.S, g.hd);
-    __syncthreads();
-#pragma unroll 2
-    for (int j = 0; j < kTile; j += 4) {
-      float4 p4[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) p4[r] = ld4(sP + (4 * ty + r) * kLdP + j);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int cg = 0; cg < CG; ++cg) {
-          const float4 v4 = ld4(sKV + (j + jj) * LD + 4 * tx + 64 * cg);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float p = comp(p4[r], jj);
-            acc[r][4 * cg + 0] = fmaf(p, v4.x, acc[r][4 * cg + 0]);
-            acc[r][4 * cg + 1] = fmaf(p, v4.y, acc[r][4 * cg + 1]);
-            acc[r][4 * cg + 2] = fmaf(p, v4.z, acc[r][4 * cg + 2]);
-            acc[r][4 * cg + 3] = fmaf(p, v4.w, acc[r][4 * cg + 3]);
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qi = q0 + 4 * ty + r;
-    if (qi >= g.S) continue;
-    const float inv = 1.f / l[r];
-    float* orow = o + ((static_cast<int64_t>(b) * g.S + qi) * g.H + h) * g.hd;
-#pragma unroll
-    for (int cg = 0; cg < CG; ++cg)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = 4 * tx + 64 * cg + e;
-        if (d < g.hd) orow[d] = acc[r][4 * cg + e] * inv;
-      }
-    if (tx == 0)
-      lse[static_cast<int64_t>(bh) * g.S + qi] = (m[r] + log2f(l[r])) * kLn2;
-  }
 }
 
 // D[b, h, i] = dO_i . O_i: one warp per (b, i, h) row of the contiguous
@@ -285,22 +139,24 @@ wattn_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ do
   }
 }
 
-// ---- backward on the tensor cores, 3xTF32 --------------------------------
+// ---- forward and backward on the tensor cores, 3xTF32 --------------------
 //
-// Each block has 8 warps; warp w = 4 wn + wm.  Score tiles (64 x 64): warp
-// rows 16 wm .. +15, columns 32 wn .. +31 (4 MMA n-tiles of 8).  Output
-// tiles (64 x HDP): rows 16 wm .. +15, columns wn HDP/2 .. +HDP/2.  Lane
+// Backward: each block has 8 warps; warp w = 4 wn + wm.  Score tiles (64 x
+// 64): warp rows 16 wm .. +15, columns 32 wn .. +31 (4 MMA n-tiles of 8).
+// Output tiles (64 x HDP): rows 16 wm .. +15, columns wn HDP/2 .. +HDP/2.
+// Forward: warp w's rows 16 (w % 4) .. +15, all 64 columns.  Lane
 // (gq, tq) = (lane / 4, lane % 4) holds the m16n8k8 fragments: A rows gq
 // and gq + 8, B column gq, C rows gq and gq + 8 at columns 2 tq and
 // 2 tq + 1.  The hardware's k index tq (tq + 4) is fed column 2 tq
 // (2 tq + 1) of each 8-wide k step, in A and in B alike: a relabelling of k
 // that leaves the sum unchanged and lets one 8-byte load fetch both.
 //
-// Staged tiles are [rows][HDP] (score tiles [64][64]) with no padding; the
-// 4-float granule c / 4 of row r sits at granule (c / 4) ^ swz(r) / 4.  That
-// keeps the 8-byte fragment loads (rows gq, columns 2 tq), the column-wise
-// B loads (rows 2 tq + e, column gq), the 8-byte score stores and the
-// 16-byte cp.async writes free of bank conflicts.
+// Staged tiles are [rows][HDP] (score tiles [64][64]; HDP 32, 64 or 128)
+// with no padding; the 4-float granule c / 4 of row r sits at granule
+// (c / 4) ^ swz(r) / 4.  That keeps the 8-byte fragment loads (rows gq,
+// columns 2 tq), the column-wise B loads (rows 2 tq + e, column gq), the
+// 8-byte score stores and the 16-byte cp.async writes free of bank
+// conflicts.
 
 __device__ __forceinline__ int swz(int r) {
   return ((((r & 3) << 1) ^ (((r >> 2) & 1) * 3))) << 2;
@@ -399,9 +255,10 @@ __device__ __forceinline__ void frag_b(FragB& f, const float* r0,
 }
 
 // Rows t0 .. t0+63 of one head's (S, hd) slice (row stride ``ss``) into the
-// swizzled dst[64][HDP] by cp.async, zero outside S and hd.  ``vec``: the
-// slice's base and row stride are 16-byte aligned and hd % 4 == 0.
-template <int HDP>
+// swizzled dst[64][HDP] by cp.async from a block of NT threads, zero
+// outside S and hd.  ``vec``: the slice's base and row stride are 16-byte
+// aligned and hd % 4 == 0.
+template <int HDP, int NT = kThreads>
 __device__ __forceinline__ void stage_tile(float* dst,
                                            const float* __restrict__ src,
                                            int64_t ss, int t0, int S, int hd,
@@ -409,8 +266,8 @@ __device__ __forceinline__ void stage_tile(float* dst,
   if (vec) {
     constexpr int kG = HDP / 4;
 #pragma unroll
-    for (int i = 0; i < kTile * kG / kThreads; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
+    for (int i = 0; i < kTile * kG / NT; ++i) {
+      const int idx = threadIdx.x + i * NT;
       const int r = idx / kG, c = (idx % kG) * 4, t = t0 + r;
       const bool ok = t < S && c < hd;
       cp_async16(dst + r * HDP + (c ^ swz(r)),
@@ -419,7 +276,7 @@ __device__ __forceinline__ void stage_tile(float* dst,
     }
   } else {
 #pragma unroll 4
-    for (int idx = threadIdx.x; idx < kTile * HDP; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < kTile * HDP; idx += NT) {
       const int r = idx / HDP, c = idx % HDP, t = t0 + r;
       const bool ok = t < S && c < hd;
       cp_async4(dst + r * HDP + (c ^ swz(r)),
@@ -438,6 +295,264 @@ __device__ __forceinline__ void stage_rows(float* sL, float* sD,
     const bool ok = qi < S;
     cp_async4(sL + threadIdx.x, ok ? lse + bh * S + qi : lse, ok ? 4 : 0);
     cp_async4(sD + threadIdx.x, ok ? delta + bh * S + qi : delta, ok ? 4 : 0);
+  }
+}
+
+// The staged tile ``hi`` split into its TF32 parts: hi in place, lo beside
+// it at the same (swizzled) places, by a block of NT threads.
+template <int HDP, int NT>
+__device__ __forceinline__ void split_tile(float* hi, float* lo) {
+#pragma unroll 4
+  for (int i = 4 * threadIdx.x; i < kTile * HDP; i += 4 * NT) {
+    const float4 x = *reinterpret_cast<const float4*>(hi + i);
+    uint4 h, l;
+    split(x.x, h.x, l.x);
+    split(x.y, h.y, l.y);
+    split(x.z, h.z, l.z);
+    split(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + i) = h;
+    *reinterpret_cast<uint4*>(lo + i) = l;
+  }
+}
+
+// frag_bt and frag_b from split tiles: ``hi`` and ``lo`` point at the same
+// row of the two parts.
+__device__ __forceinline__ void frag_bt_split(FragB& f, const float* hi,
+                                              const float* lo, int col) {
+  const uint2 u = *reinterpret_cast<const uint2*>(hi + col);
+  const uint2 w = *reinterpret_cast<const uint2*>(lo + col);
+  f.hi[0] = u.x;
+  f.hi[1] = u.y;
+  f.lo[0] = w.x;
+  f.lo[1] = w.y;
+}
+
+template <int LD>
+__device__ __forceinline__ void frag_b_split(FragB& f, const float* hi,
+                                             const float* lo, int n, int x0,
+                                             int x1) {
+  f.hi[0] = __float_as_uint(hi[n ^ x0]);
+  f.hi[1] = __float_as_uint(hi[LD + (n ^ x1)]);
+  f.lo[0] = __float_as_uint(lo[n ^ x0]);
+  f.lo[1] = __float_as_uint(lo[LD + (n ^ x1)]);
+}
+
+// 2^x on the special-function unit (ex2.approx.ftz: relative error about
+// 2^-22, results under 2^-126 flushed to 0), where exp2f adds range tests
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// stage_tile for the forward's K and V tiles: with ``vec``, one 64-bit
+// pointer a thread and 32-bit row steps, so the loop over key tiles keeps
+// fewer addresses live (stage_tile's hoisted 64-bit ones spilled at HDP
+// 128).
+template <int HDP, int NT>
+__device__ __forceinline__ void stage_kv(float* dst,
+                                         const float* __restrict__ src,
+                                         int64_t ss, int t0, int S, int hd,
+                                         bool vec) {
+  if (!vec) {
+    stage_tile<HDP, NT>(dst, src, ss, t0, S, hd, false);
+    return;
+  }
+  constexpr int kG = HDP / 4, kRows = NT / kG;
+  const int r0 = threadIdx.x / kG, c = (threadIdx.x % kG) * 4;
+  const float* p = src + static_cast<int64_t>(t0 + r0) * ss + c;
+  const int step = static_cast<int>(kRows * ss);   // vec_ok bounds ss
+#pragma unroll
+  for (int i = 0; i < kTile / kRows; ++i) {
+    const int r = r0 + i * kRows;
+    const bool ok = t0 + r < S && c < hd;
+    cp_async16(dst + r * HDP + (c ^ swz(r)), ok ? p + i * step : src,
+               ok ? 16 : 0);
+  }
+}
+
+// O += P V over one key tile: k step j (keys 8 j .. 8 j + 7) takes its A
+// fragment from score n-tile j's C fragment (d0, d1, d2, d3) as (d0, d2,
+// d1, d3).  EDGE (a tile that straddles the diagonal or the window's lower
+// edge): only k steps j_lo .. j_hi - 1, the keys some row of the warp sees.
+template <int HDP, bool EDGE>
+__device__ __forceinline__ void pv_tile(float (&acc)[HDP / 8][4],
+                                        const float (&s)[8][4],
+                                        const float* sV, const float* sVl,
+                                        int j_lo, int j_hi) {
+  const int gq = (threadIdx.x & 31) >> 2, tq = threadIdx.x & 3;
+  const int x0 = swz(2 * tq), x1 = swz(2 * tq + 1);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (EDGE && (j < j_lo || j >= j_hi)) continue;
+    FragA fa;
+    split(s[j][0], fa.hi[0], fa.lo[0]);
+    split(s[j][2], fa.hi[1], fa.lo[1]);
+    split(s[j][1], fa.hi[2], fa.lo[2]);
+    split(s[j][3], fa.hi[3], fa.lo[3]);
+    const int r = (8 * j + 2 * tq) * HDP;
+#pragma unroll
+    for (int nt = 0; nt < HDP / 8; ++nt) {
+      FragB fb;
+      frag_b_split<HDP>(fb, sV + r, sVl + r, 8 * nt + gq, x0, x1);
+      mma3(acc[nt], fa, fb);
+    }
+  }
+}
+
+template <int HDP, int SLOTS>
+constexpr int fwd_smem() { return (4 + SLOTS) * kTile * HDP * 4; }
+
+// O and lse of SLOTS 64-query tiles that share their kv head's K and V
+// tiles: one tile, or two: query heads 2p and 2p + 1 at one tile where H /
+// KV is even (``pair_heads``), else query tiles 2p and 2p + 1 of one head.
+// Walks the key tiles of their windows; warp w computes rows 16 (w % 4) ..
+// +15 of query tile w / 4 against all 64 keys of a key tile.
+template <int HDP, int SLOTS>
+__global__ void __launch_bounds__(128 * SLOTS, 1)
+wattn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, Geom g, Strides sq, Strides sk,
+                 Strides sv, bool vec, bool pair_heads) {
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;                          // [64][HDP]: K hi
+  float* sKl = sK + kTile * HDP;             // [64][HDP]: K lo
+  float* sV = sKl + kTile * HDP;             // [64][HDP]: V hi
+  float* sVl = sV + kTile * HDP;             // [64][HDP]: V lo
+  float* sQ = sVl + kTile * HDP;             // [SLOTS][64][HDP]
+  constexpr int NT = 128 * SLOTS;
+  const int warp = threadIdx.x >> 5, slot = warp >> 2;
+  const int gq = (threadIdx.x & 31) >> 2, tq = threadIdx.x & 3;
+  const int b = pair_heads ? blockIdx.y / (g.H / 2) : blockIdx.y / g.H;
+  const int h_lo = pair_heads ? 2 * (blockIdx.y % (g.H / 2)) : blockIdx.y % g.H;
+  const int q_lo = pair_heads ? blockIdx.x * kTile : SLOTS * blockIdx.x * kTile;
+  // slot s: query head h_lo + s at q_lo, or query tile q_lo + 64 s of h_lo
+  const int h = pair_heads ? h_lo + slot : h_lo;
+  const int q0 = pair_heads ? q_lo : q_lo + slot * kTile;
+  const int q_top = pair_heads ? q_lo : q_lo + (SLOTS - 1) * kTile;
+  const int kvh = h_lo / (g.H / g.KV);
+  const float* kb = k + b * sk.b + kvh * sk.h;
+  const float* vb = v + b * sv.b + kvh * sv.h;
+  const int k_lo = max(0, q_lo - g.window + 1) / kTile * kTile;
+  const int k_hi = min(g.S, q_top + kTile);
+  for (int s = 0; s < SLOTS; ++s)
+    stage_tile<HDP, NT>(
+        sQ + s * kTile * HDP,
+        q + b * sq.b + (pair_heads ? h_lo + s : h_lo) * sq.h, sq.s,
+        pair_heads ? q_lo : q_lo + s * kTile, g.S, g.hd, vec);
+  stage_kv<HDP, NT>(sK, kb, sk.s, k_lo, g.S, g.hd, vec);
+  cp_async_commit();
+
+  const float c2 = g.scale * kLog2e;
+  const int ks = (g.hd + 7) / 8;
+  const int qw = q0 + 16 * (warp & 3);       // the warp's first row
+  const int qa = qw + gq;                    // this lane's rows: qa, qa + 8
+  // the keys some row of the warp sees: kw_lo <= kj <= kw_hi
+  const int kw_lo = qw - g.window + 1, kw_hi = min(qw + 15, g.S - 1);
+  const float* qrow = sQ + (slot * kTile + 16 * (warp & 3) + gq) * HDP;
+  const int xq = swz(gq);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[HDP / 8][4] = {};
+  for (int k0 = k_lo; k0 < k_hi; k0 += kTile) {
+    cp_async_wait_all();
+    __syncthreads();           // K_j landed; every warp's P V of j - 1 done
+    stage_kv<HDP, NT>(sV, vb, sv.s, k0, g.S, g.hd, vec);
+    cp_async_commit();
+    split_tile<HDP, NT>(sK, sKl);
+    __syncthreads();           // K_j split
+    const bool sees = qw < g.S && kw_lo <= k0 + kTile - 1 && kw_hi >= k0;
+    // every (row, key) pair of the slot's tile in the window: no mask
+    const bool full = k0 + kTile - 1 <= q0 && k0 + g.window > q0 + kTile - 1;
+    float s[8][4] = {};
+    if (sees) {
+      const float* kr = sK + gq * HDP;
+      const float* krl = sKl + gq * HDP;
+#pragma unroll 2
+      for (int kk = 0; kk < ks; ++kk) {
+        const int col = (8 * kk + 2 * tq) ^ xq;
+        FragA fa;
+        frag_a<HDP>(fa, qrow, col);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          FragB fb;
+          frag_bt_split(fb, kr + 8 * j * HDP, krl + 8 * j * HDP, col);
+          mma3(s[j], fa, fb);
+        }
+      }
+      // online softmax in base 2: row qa + 8 hr holds s[j][2 hr + e] at key
+      // k0 + 8 j + 2 tq + e; scores scaled by c2 inside the exp's FMA
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (!full &&
+              !in_window(qa + 8 * (e >> 1), k0 + 8 * j + 2 * tq + (e & 1), g))
+            s[j][e] = -INFINITY;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+      float corr[2];
+      bool none[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(kFull, mx[hr], 1));
+        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(kFull, mx[hr], 2));
+        const float mn = fmaxf(m[hr], mx[hr] * c2);
+        none[hr] = mn == -INFINITY;          // no key of this row yet
+        corr[hr] = none[hr] ? 1.f : ex2(m[hr] - mn);
+        m[hr] = mn;
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hr = e >> 1;
+          s[j][e] = none[hr] ? 0.f : ex2(fmaf(s[j][e], c2, -m[hr]));
+          rs[hr] += s[j][e];
+        }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        rs[hr] += __shfl_xor_sync(kFull, rs[hr], 1);
+        rs[hr] += __shfl_xor_sync(kFull, rs[hr], 2);
+        l[hr] = fmaf(l[hr], corr[hr], rs[hr]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < HDP / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] *= corr[e >> 1];
+    }
+    cp_async_wait_all();
+    __syncthreads();           // V_j landed; every warp's Q K_j^T is done
+    if (k0 + kTile < k_hi) {
+      stage_kv<HDP, NT>(sK, kb, sk.s, k0 + kTile, g.S, g.hd, vec);
+      cp_async_commit();
+    }
+    split_tile<HDP, NT>(sV, sVl);
+    __syncthreads();           // V_j split
+    if (sees && full) {
+      pv_tile<HDP, false>(acc, s, sV, sVl, 0, 8);
+    } else if (sees) {
+      pv_tile<HDP, true>(acc, s, sV, sVl, max(0, kw_lo - k0) / 8,
+                         min(8, (kw_hi - k0) / 8 + 1));
+    }
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qi = qa + 8 * hr;
+    if (qi >= g.S) continue;
+    const float inv = 1.f / l[hr];
+    float* orow = o + ((static_cast<int64_t>(b) * g.S + qi) * g.H + h) * g.hd;
+#pragma unroll
+    for (int nt = 0; nt < HDP / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * nt + 2 * tq + e;
+        if (d < g.hd) orow[d] = acc[nt][2 * hr + e] * inv;
+      }
+    if (tq == 0)
+      lse[(static_cast<int64_t>(b) * g.H + h) * g.S + qi] =
+          (m[hr] + log2f(l[hr])) * kLn2;
   }
 }
 
@@ -727,16 +842,50 @@ bool bad_geom(int64_t B, const Geom& g) {
          g.hd < 1 || g.hd > kMaxHd || g.window < 1 || B * g.H > 65535;
 }
 
+// 16-byte cp.async when every staged row starts on a 16-byte boundary
+bool vec_ok(const Geom& g, std::initializer_list<const float*> ptrs,
+            std::initializer_list<Strides> strides) {
+  bool vec = g.hd % 4 == 0;
+  for (const float* p : ptrs)
+    vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  // (64 rows of a slice span under 2^31 elements: stage_kv's row steps)
+  for (const Strides& s : strides)
+    vec = vec && s.b % 4 == 0 && s.s % 4 == 0 && s.h % 4 == 0 &&
+          s.s < (int64_t{1} << 25);
+  return vec;
+}
+
+template <int HDP, int SLOTS>
+int fwd_slots(const float* q, const float* k, const float* v, float* o,
+              float* lse, int64_t B, Geom g, Strides sq, Strides sk,
+              Strides sv, cudaStream_t st) {
+  const int smem = fwd_smem<HDP, SLOTS>();
+  cudaError_t err = allow_smem(wattn_fwd_kernel<HDP, SLOTS>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool pair_heads = SLOTS == 2 && (g.H / g.KV) % 2 == 0;
+  const int tiles = (g.S + kTile - 1) / kTile;
+  const dim3 grid(pair_heads ? tiles : (tiles + SLOTS - 1) / SLOTS,
+                  static_cast<unsigned>(pair_heads ? B * g.H / 2 : B * g.H));
+  wattn_fwd_kernel<HDP, SLOTS><<<grid, 128 * SLOTS, smem, st>>>(
+      q, k, v, o, lse, g, sq, sk, sv, vec_ok(g, {q, k, v}, {sq, sk, sv}),
+      pair_heads);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Two query tiles a block where that still leaves a block for every SM;
+// else one, for twice the blocks in flight (short sequences).
 template <int HDP>
 int fwd(const float* q, const float* k, const float* v, float* o, float* lse,
         int64_t B, Geom g, Strides sq, Strides sk, Strides sv, cudaStream_t st) {
-  const int smem = fwd_smem<HDP>();
-  cudaError_t err = allow_smem(wattn_fwd_kernel<HDP>, smem);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((g.S + kTile - 1) / kTile, static_cast<unsigned>(B * g.H));
-  wattn_fwd_kernel<HDP><<<grid, kThreads, smem, st>>>(q, k, v, o, lse, g, sq,
-                                                      sk, sv);
-  return static_cast<int>(cudaGetLastError());
+  const int64_t tiles = (g.S + kTile - 1) / kTile;
+  return tiles * B * g.H >= 2 * sms
+             ? fwd_slots<HDP, 2>(q, k, v, o, lse, B, g, sq, sk, sv, st)
+             : fwd_slots<HDP, 1>(q, k, v, o, lse, B, g, sq, sk, sv, st);
 }
 
 template <int HDP>
@@ -747,12 +896,7 @@ int bwd(const float* q, const float* k, const float* v, const float* dout,
   cudaError_t err = allow_smem(wattn_bwd_dq_kernel<HDP>, s_dq);
   if (err == cudaSuccess) err = allow_smem(wattn_bwd_dkv_kernel<HDP>, s_dkv);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // 16-byte cp.async when every staged row starts on a 16-byte boundary
-  bool vec = g.hd % 4 == 0;
-  for (const float* p : {q, k, v, dout})
-    vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  for (const Strides& s : {sq, sk, sv})
-    vec = vec && s.b % 4 == 0 && s.s % 4 == 0 && s.h % 4 == 0;
+  const bool vec = vec_ok(g, {q, k, v, dout}, {sq, sk, sv});
   const unsigned tiles = (g.S + kTile - 1) / kTile;
   wattn_bwd_dq_kernel<HDP><<<dim3(tiles, static_cast<unsigned>(B * g.H)),
                              kThreads, s_dq, st>>>(q, k, v, dout, lse, delta,
@@ -785,8 +929,9 @@ extern "C" int repro_window_attn_fwd(
   const Strides sq = {q_sb, q_ss, q_sh}, sk = {k_sb, k_ss, k_sh},
                 sv = {v_sb, v_ss, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return hd <= 64 ? fwd<64>(q, k, v, o, lse, B, g, sq, sk, sv, st)
-                  : fwd<128>(q, k, v, o, lse, B, g, sq, sk, sv, st);
+  return hd <= 32   ? fwd<32>(q, k, v, o, lse, B, g, sq, sk, sv, st)
+         : hd <= 64 ? fwd<64>(q, k, v, o, lse, B, g, sq, sk, sv, st)
+                    : fwd<128>(q, k, v, o, lse, B, g, sq, sk, sv, st);
 }
 
 // Backward.  q, k, v as for the forward; o, dout and dq (B,S,H,hd), dk and

@@ -8,7 +8,8 @@ three attention functions at rtol 1e-5 / atol 1e-6 against
 ``repro.models.attention`` (the same online softmax; fp32 sums in another
 order); ``window_attention`` at rtol 1e-4 / atol 1e-5 against the
 reference's interpret-mode Pallas kernel and its dense oracle (the
-tolerance ``chip_smoke.py`` holds the CUDA forward to); its gradients at
+tolerance ``chip_smoke.py`` holds the CUDA forward to), and so is the
+CUDA forward's arithmetic emulated in torch; its gradients at
 rtol 1e-4 / atol 1e-5 against ``jax.grad`` of the reference's
 ``local_blockwise_attention``.
 """
@@ -165,6 +166,75 @@ def test_window_attention_matches_reference_oracle(b, s, h, kv, hd, window):
     _close(got, _folded_ref(q, k, v, window), **WIN_TOL)
     _close(window_attention_ref(*_t((q, k, v)), window),
            _folded_ref(q, k, v, window), **WIN_TOL)
+
+
+def _tf32_parts(x):
+    """x's 3xTF32 parts as ``split`` in csrc/window_attn.cu forms them on
+    the int32 bit pattern: hi = (x + half a TF32 ulp) with the 13 low bits
+    cleared, lo = x - hi the same way; the tensor core reads 19 bits of each."""
+    mask = torch.tensor(-8192, dtype=torch.int32)          # 0xffffe000
+    hi = ((x.view(torch.int32) + 0x1000) & mask).view(torch.float32)
+    lo = (((x - hi).view(torch.int32) + 0x1000) & mask).view(torch.float32)
+    return hi, lo
+
+
+def _mm3(a, b):
+    """a @ b in 3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi (a_lo b_lo dropped),
+    fp32 sums."""
+    (ah, al), (bh, bl) = _tf32_parts(a), _tf32_parts(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _kernel_arithmetic(q, k, v, window):
+    """The forward kernel's arithmetic on the CPU: scores and P V in 3xTF32,
+    an online softmax in base 2 over 64-key tiles with the kernel's guard
+    for rows that have seen no key yet; returns O (B, S, H, hd) and lse
+    (B, H, S)."""
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    qt = q.transpose(1, 2)                                  # (B, H, S, hd)
+    kt, vt = (x.repeat_interleave(g, 2).transpose(1, 2) for x in (k, v))
+    c2 = hd ** -0.5 * 1.4426950408889634
+    pos = torch.arange(s)
+    m = torch.full((b, h, s, 1), -torch.inf)
+    l = torch.zeros(b, h, s, 1)
+    acc = torch.zeros(b, h, s, hd)
+    for k0 in range(0, s, 64):
+        kj = pos[k0:k0 + 64]
+        ok = (kj[None] <= pos[:, None]) & (kj[None] > pos[:, None] - window)
+        sc = _mm3(qt, kt[:, :, k0:k0 + 64].transpose(2, 3))
+        sc = torch.where(ok, sc, -torch.inf)
+        mn = torch.maximum(m, sc.amax(-1, keepdim=True) * c2)
+        none = mn == -torch.inf
+        corr = torch.where(none, 1.0, torch.exp2(m - mn))
+        p = torch.where(none, 0.0, torch.exp2(sc * c2 - mn))
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + _mm3(p, vt[:, :, k0:k0 + 64])
+        m = mn
+    o = (acc / l).transpose(1, 2)
+    return o, ((m + torch.log2(l)) * 0.6931471805599453)[..., 0]
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,window", [
+    (1, 200, 2, 1, 32, 100),     # window not a multiple of 64
+    (2, 300, 4, 2, 16, 70),      # rows past 133: their first tiles masked
+    (2, 100, 4, 2, 64, 1),       # window 1: one key a row
+    (1, 130, 6, 3, 27, 70),      # hd 27
+])
+def test_window_attention_kernel_arithmetic_matches_reference(b, s, h, kv,
+                                                              hd, window):
+    """The CUDA forward's arithmetic (csrc/window_attn.cu), emulated in
+    torch, against the reference's dense oracle at the kernel's
+    tolerance."""
+    q, k, v = _qkv(b, s, h, kv, hd, seed=window)
+    o, lse = _kernel_arithmetic(*_t((q, k, v)), window)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    _close(o, _folded_ref(q, k, v, window), **WIN_TOL)
+    logits = torch.einsum("bqhd,bshd->bhqs", *_t((q, np.repeat(
+        k, h // kv, axis=2)))) * hd ** -0.5
+    pos = torch.arange(s)
+    ok = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - window)
+    _close(lse, torch.where(ok, logits, -torch.inf).logsumexp(-1), **WIN_TOL)
 
 
 @pytest.mark.parametrize("b,s,h,kv,hd,window,bq", [(2, 40, 4, 2, 8, 12, 16),
