@@ -23,15 +23,14 @@
 // 3xTF32 (below): 495 / 3 = 165 TFLOP/s against 67 TFLOP/s on the CUDA
 // cores, so the bounds are 0.73 ms forward and 1.82 ms backward.
 //
-// Forward (tensor cores, 3xTF32), FlashAttention-2 form.  A block of 8
-// warps owns two 64-query tiles that read the same K and V: query heads 2p
-// and 2p + 1 of one kv head at one tile where H / KV is even (gemma3: 32
-// heads over 16), else tiles 2p and 2p + 1 of one head.  Where that grid
-// would leave SMs without a block (short sequences), a block of 4 warps
-// owns one tile.  A block walks the 64-key tiles its windows reach, as the
-// TPU grid's span did; warp w computes rows 16 (w % 4) .. +15 of query
-// tile w / 4 against all 64 keys of a key tile, so a row's max and sum are
-// lane-local plus two shuffles over the 4 lanes tq of its group.
+// Forward (tensor cores, 3xTF32), FlashAttention-2 form.  A block walks the
+// 64-key tiles one 64-query tile's windows reach, as the TPU grid's span
+// did.  It owns that tile of one query head (4 warps), or of two query heads
+// 2p and 2p + 1 of one kv head (8 warps, gemma3: 32 heads over 16) that
+// share each K and V tile; the second only where H / KV is even and that
+// grid still gives every SM a block.  Warp w computes rows 16 (w % 4) .. +15
+// of head slot w / 4 against all 64 keys of a key tile, so a row's max and
+// sum are lane-local plus two shuffles over the 4 lanes tq of its group.
 //  * S = Q K^T in 3xTF32 mma.sync (below) into 8 n-tiles of accumulators,
 //    over ceil(hd / 8) k steps (2 at the local check's hd 16).  Online
 //    softmax in base 2 on the accumulators, exps on the special-function
@@ -44,26 +43,28 @@
 //  * K and V have a cp.async buffer each, so loads overlap the MMAs: V_j
 //    lands while S_j computes and K_{j+1} while P_j V_j does, one wait and
 //    one barrier a half step.
-//  * Each landed K and V tile is split into its TF32 parts once, by the
-//    whole block, into a hi and a lo tile: a warp's fragments are then
-//    plain loads, where warps splitting their own fragments split every
-//    element 8 times a tile.  Two query tiles sharing each K and V tile
-//    halve the staging and splitting a query row costs, and give an SM 8
-//    warps where 192 KB of shared memory admit one block.
-//    tools/wattn_fwd_alternatives.py times both choices against their
-//    removal (PERF.md section 6).
+//  * Two-head blocks split each landed K and V tile into its TF32 parts
+//    once, by the whole block, into a hi and a lo tile, so a warp's
+//    fragments are plain loads where 8 warps splitting their own would
+//    split every element 8 times; sharing K and V halves the staging and
+//    splitting a query row costs, and gives an SM 8 warps where 192 KB of
+//    shared memory admit one block.  A one-head block splits in its
+//    fragments and needs 96 KB, so two fit an SM: it walks few key tiles
+//    (short sequences), where a split pass would sit on its critical path.
+//    tools/wattn_fwd_alternatives.py times each choice against its removal
+//    (PERF.md section 6).
 //  * Masks only where a tile straddles the diagonal or the window's lower
 //    edge (2 of the 17 key tiles a query tile walks at gemma3's shape), a
-//    test uniform over a warp's slot; rows with no key yet keep the guard
+//    test uniform over the block; rows with no key yet keep the guard
 //    against exp2(-inf + inf).  A warp whose rows see no key of a tile
 //    skips its MMAs; on an edge tile P V also skips the 8-key steps none
 //    of its rows sees.  The MMA loops have no other branch: a branch per
 //    n-tile serialises each accumulator's three dependent MMAs, so the
-//    n-tiles of O between hd and the route's width (32, 64 or 128) are
-//    computed on the zero-filled columns rather than skipped.
-//  * Shared memory at hd 128: Q 2 x 32 KB, K and V 2 x 2 x 32 KB = 192 KB,
-//    one block per SM (160 KB for one tile); no atomics, so two runs give
-//    the same bits.
+//    n-tiles of O between hd and the route's width are computed on the
+//    zero-filled columns rather than skipped.  So the forward has a width
+//    of 32 besides the backward's 64 and 128: at hd 16 (the local check)
+//    or 27 it halves the P V MMAs and the staged columns of 64.
+//  * No atomics, so two runs give the same bits.
 //
 // Backward (tensor cores, 3xTF32), FlashAttention-2 form, P recomputed from
 // q, k and lse: D_i = dO_i.O_i (wattn_bwd_delta_kernel), dS = P o (dO V^T -
@@ -375,7 +376,8 @@ __device__ __forceinline__ void stage_kv(float* dst,
 // fragment from score n-tile j's C fragment (d0, d1, d2, d3) as (d0, d2,
 // d1, d3).  EDGE (a tile that straddles the diagonal or the window's lower
 // edge): only k steps j_lo .. j_hi - 1, the keys some row of the warp sees.
-template <int HDP, bool EDGE>
+// SPLIT: V's TF32 parts are the tiles sV and sVl; else sV is V.
+template <int HDP, bool SPLIT, bool EDGE>
 __device__ __forceinline__ void pv_tile(float (&acc)[HDP / 8][4],
                                         const float (&s)[8][4],
                                         const float* sV, const float* sVl,
@@ -394,52 +396,50 @@ __device__ __forceinline__ void pv_tile(float (&acc)[HDP / 8][4],
 #pragma unroll
     for (int nt = 0; nt < HDP / 8; ++nt) {
       FragB fb;
-      frag_b_split<HDP>(fb, sV + r, sVl + r, 8 * nt + gq, x0, x1);
+      if constexpr (SPLIT)
+        frag_b_split<HDP>(fb, sV + r, sVl + r, 8 * nt + gq, x0, x1);
+      else
+        frag_b(fb, sV + r, sV + r + HDP, 8 * nt + gq, x0, x1);
       mma3(acc[nt], fa, fb);
     }
   }
 }
 
-template <int HDP, int SLOTS>
-constexpr int fwd_smem() { return (4 + SLOTS) * kTile * HDP * 4; }
+template <int HDP, int SLOTS, bool SPLIT>
+constexpr int fwd_smem() { return ((SPLIT ? 4 : 2) + SLOTS) * kTile * HDP * 4; }
 
-// O and lse of SLOTS 64-query tiles that share their kv head's K and V
-// tiles: one tile, or two: query heads 2p and 2p + 1 at one tile where H /
-// KV is even (``pair_heads``), else query tiles 2p and 2p + 1 of one head.
-// Walks the key tiles of their windows; warp w computes rows 16 (w % 4) ..
-// +15 of query tile w / 4 against all 64 keys of a key tile.
-template <int HDP, int SLOTS>
+// O and lse of one 64-query tile of SLOTS query heads of one kv head (heads
+// SLOTS p .. SLOTS p + SLOTS - 1; SLOTS divides H / KV), which share its K
+// and V tiles.  Walks the key tiles of the tile's windows; warp w computes
+// rows 16 (w % 4) .. +15 of head h0 + w / 4 against all 64 keys of a key
+// tile.  SPLIT: each landed K and V tile is split into its TF32 parts once.
+template <int HDP, int SLOTS, bool SPLIT>
 __global__ void __launch_bounds__(128 * SLOTS, 1)
 wattn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, Geom g, Strides sq, Strides sk,
-                 Strides sv, bool vec, bool pair_heads) {
+                 Strides sv, bool vec) {
   extern __shared__ __align__(16) float smem[];
-  float* sK = smem;                          // [64][HDP]: K hi
-  float* sKl = sK + kTile * HDP;             // [64][HDP]: K lo
-  float* sV = sKl + kTile * HDP;             // [64][HDP]: V hi
-  float* sVl = sV + kTile * HDP;             // [64][HDP]: V lo
-  float* sQ = sVl + kTile * HDP;             // [SLOTS][64][HDP]
+  constexpr int kParts = SPLIT ? 2 : 1;
+  float* sK = smem;                          // [64][HDP]: K (SPLIT: K hi)
+  float* sKl = sK + kTile * HDP;             // [64][HDP]: K lo (SPLIT)
+  float* sV = sK + kParts * kTile * HDP;     // [64][HDP]: V (SPLIT: V hi)
+  float* sVl = sV + kTile * HDP;             // [64][HDP]: V lo (SPLIT)
+  float* sQ = sV + kParts * kTile * HDP;     // [SLOTS][64][HDP]
   constexpr int NT = 128 * SLOTS;
   const int warp = threadIdx.x >> 5, slot = warp >> 2;
   const int gq = (threadIdx.x & 31) >> 2, tq = threadIdx.x & 3;
-  const int b = pair_heads ? blockIdx.y / (g.H / 2) : blockIdx.y / g.H;
-  const int h_lo = pair_heads ? 2 * (blockIdx.y % (g.H / 2)) : blockIdx.y % g.H;
-  const int q_lo = pair_heads ? blockIdx.x * kTile : SLOTS * blockIdx.x * kTile;
-  // slot s: query head h_lo + s at q_lo, or query tile q_lo + 64 s of h_lo
-  const int h = pair_heads ? h_lo + slot : h_lo;
-  const int q0 = pair_heads ? q_lo : q_lo + slot * kTile;
-  const int q_top = pair_heads ? q_lo : q_lo + (SLOTS - 1) * kTile;
-  const int kvh = h_lo / (g.H / g.KV);
+  const int b = blockIdx.y / (g.H / SLOTS);
+  const int h0 = SLOTS * (blockIdx.y % (g.H / SLOTS)), h = h0 + slot;
+  const int q0 = blockIdx.x * kTile;
+  const int kvh = h0 / (g.H / g.KV);
   const float* kb = k + b * sk.b + kvh * sk.h;
   const float* vb = v + b * sv.b + kvh * sv.h;
-  const int k_lo = max(0, q_lo - g.window + 1) / kTile * kTile;
-  const int k_hi = min(g.S, q_top + kTile);
+  const int k_lo = max(0, q0 - g.window + 1) / kTile * kTile;
+  const int k_hi = min(g.S, q0 + kTile);
   for (int s = 0; s < SLOTS; ++s)
-    stage_tile<HDP, NT>(
-        sQ + s * kTile * HDP,
-        q + b * sq.b + (pair_heads ? h_lo + s : h_lo) * sq.h, sq.s,
-        pair_heads ? q_lo : q_lo + s * kTile, g.S, g.hd, vec);
+    stage_tile<HDP, NT>(sQ + s * kTile * HDP, q + b * sq.b + (h0 + s) * sq.h,
+                        sq.s, q0, g.S, g.hd, vec);
   stage_kv<HDP, NT>(sK, kb, sk.s, k_lo, g.S, g.hd, vec);
   cp_async_commit();
 
@@ -458,10 +458,12 @@ wattn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();           // K_j landed; every warp's P V of j - 1 done
     stage_kv<HDP, NT>(sV, vb, sv.s, k0, g.S, g.hd, vec);
     cp_async_commit();
-    split_tile<HDP, NT>(sK, sKl);
-    __syncthreads();           // K_j split
+    if constexpr (SPLIT) {
+      split_tile<HDP, NT>(sK, sKl);
+      __syncthreads();         // K_j split
+    }
     const bool sees = qw < g.S && kw_lo <= k0 + kTile - 1 && kw_hi >= k0;
-    // every (row, key) pair of the slot's tile in the window: no mask
+    // every (row, key) pair of the query tile in the window: no mask
     const bool full = k0 + kTile - 1 <= q0 && k0 + g.window > q0 + kTile - 1;
     float s[8][4] = {};
     if (sees) {
@@ -475,7 +477,10 @@ wattn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           FragB fb;
-          frag_bt_split(fb, kr + 8 * j * HDP, krl + 8 * j * HDP, col);
+          if constexpr (SPLIT)
+            frag_bt_split(fb, kr + 8 * j * HDP, krl + 8 * j * HDP, col);
+          else
+            frag_bt(fb, kr + 8 * j * HDP, col);
           mma3(s[j], fa, fb);
         }
       }
@@ -528,13 +533,15 @@ wattn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       stage_kv<HDP, NT>(sK, kb, sk.s, k0 + kTile, g.S, g.hd, vec);
       cp_async_commit();
     }
-    split_tile<HDP, NT>(sV, sVl);
-    __syncthreads();           // V_j split
+    if constexpr (SPLIT) {
+      split_tile<HDP, NT>(sV, sVl);
+      __syncthreads();         // V_j split
+    }
     if (sees && full) {
-      pv_tile<HDP, false>(acc, s, sV, sVl, 0, 8);
+      pv_tile<HDP, SPLIT, false>(acc, s, sV, sVl, 0, 8);
     } else if (sees) {
-      pv_tile<HDP, true>(acc, s, sV, sVl, max(0, kw_lo - k0) / 8,
-                         min(8, (kw_hi - k0) / 8 + 1));
+      pv_tile<HDP, SPLIT, true>(acc, s, sV, sVl, max(0, kw_lo - k0) / 8,
+                                min(8, (kw_hi - k0) / 8 + 1));
     }
   }
 #pragma unroll
@@ -855,25 +862,39 @@ bool vec_ok(const Geom& g, std::initializer_list<const float*> ptrs,
   return vec;
 }
 
-template <int HDP, int SLOTS>
-int fwd_slots(const float* q, const float* k, const float* v, float* o,
-              float* lse, int64_t B, Geom g, Strides sq, Strides sk,
-              Strides sv, cudaStream_t st) {
-  const int smem = fwd_smem<HDP, SLOTS>();
-  cudaError_t err = allow_smem(wattn_fwd_kernel<HDP, SLOTS>, smem);
+template <int HDP, int SLOTS, bool SPLIT>
+int fwd_launch(const float* q, const float* k, const float* v, float* o,
+               float* lse, int64_t B, Geom g, Strides sq, Strides sk,
+               Strides sv, cudaStream_t st) {
+  const int smem = fwd_smem<HDP, SLOTS, SPLIT>();
+  cudaError_t err = allow_smem(wattn_fwd_kernel<HDP, SLOTS, SPLIT>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool pair_heads = SLOTS == 2 && (g.H / g.KV) % 2 == 0;
-  const int tiles = (g.S + kTile - 1) / kTile;
-  const dim3 grid(pair_heads ? tiles : (tiles + SLOTS - 1) / SLOTS,
-                  static_cast<unsigned>(pair_heads ? B * g.H / 2 : B * g.H));
-  wattn_fwd_kernel<HDP, SLOTS><<<grid, 128 * SLOTS, smem, st>>>(
-      q, k, v, o, lse, g, sq, sk, sv, vec_ok(g, {q, k, v}, {sq, sk, sv}),
-      pair_heads);
+  const dim3 grid((g.S + kTile - 1) / kTile,
+                  static_cast<unsigned>(B * g.H / SLOTS));
+  wattn_fwd_kernel<HDP, SLOTS, SPLIT><<<grid, 128 * SLOTS, smem, st>>>(
+      q, k, v, o, lse, g, sq, sk, sv, vec_ok(g, {q, k, v}, {sq, sk, sv}));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Two query tiles a block where that still leaves a block for every SM;
-// else one, for twice the blocks in flight (short sequences).
+// Unset, the shape chooses the block and the head-dim route;
+// tools/wattn_fwd_alternatives.py sets them to time each choice against its
+// removal.  WATTN_FWD_SLOTS 1 or 2: blocks of that many query heads
+// wherever H / KV allows.  WATTN_FWD_SPLIT 0 or 1: every block splits its
+// fragments, or every block splits K and V tiles once.  WATTN_FWD_HDP32 0:
+// hd <= 32 runs at 64.
+#ifndef WATTN_FWD_SLOTS
+#define WATTN_FWD_SLOTS 0
+#endif
+#ifndef WATTN_FWD_SPLIT
+#define WATTN_FWD_SPLIT -1
+#endif
+#ifndef WATTN_FWD_HDP32
+#define WATTN_FWD_HDP32 1
+#endif
+
+// Two query heads a block, splitting each K and V tile once, where H / KV
+// is even and that grid still leaves a block for every SM; else one, for
+// twice the blocks in flight (short sequences, odd H / KV).
 template <int HDP>
 int fwd(const float* q, const float* k, const float* v, float* o, float* lse,
         int64_t B, Geom g, Strides sq, Strides sk, Strides sv, cudaStream_t st) {
@@ -883,9 +904,19 @@ int fwd(const float* q, const float* k, const float* v, float* o, float* lse,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t tiles = (g.S + kTile - 1) / kTile;
-  return tiles * B * g.H >= 2 * sms
-             ? fwd_slots<HDP, 2>(q, k, v, o, lse, B, g, sq, sk, sv, st)
-             : fwd_slots<HDP, 1>(q, k, v, o, lse, B, g, sq, sk, sv, st);
+  const bool two = (g.H / g.KV) % 2 == 0 &&
+                   (WATTN_FWD_SLOTS ? WATTN_FWD_SLOTS == 2
+                                    : tiles * B * g.H >= 2 * sms);
+  if (two) {
+    if constexpr (WATTN_FWD_SPLIT == 0)
+      return fwd_launch<HDP, 2, false>(q, k, v, o, lse, B, g, sq, sk, sv, st);
+    else
+      return fwd_launch<HDP, 2, true>(q, k, v, o, lse, B, g, sq, sk, sv, st);
+  }
+  if constexpr (WATTN_FWD_SPLIT == 1)
+    return fwd_launch<HDP, 1, true>(q, k, v, o, lse, B, g, sq, sk, sv, st);
+  else
+    return fwd_launch<HDP, 1, false>(q, k, v, o, lse, B, g, sq, sk, sv, st);
 }
 
 template <int HDP>
@@ -929,7 +960,8 @@ extern "C" int repro_window_attn_fwd(
   const Strides sq = {q_sb, q_ss, q_sh}, sk = {k_sb, k_ss, k_sh},
                 sv = {v_sb, v_ss, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return hd <= 32   ? fwd<32>(q, k, v, o, lse, B, g, sq, sk, sv, st)
+  return hd <= 32 && WATTN_FWD_HDP32 ? fwd<32>(q, k, v, o, lse, B, g, sq, sk,
+                                                sv, st)
          : hd <= 64 ? fwd<64>(q, k, v, o, lse, B, g, sq, sk, sv, st)
                     : fwd<128>(q, k, v, o, lse, B, g, sq, sk, sv, st);
 }

@@ -185,34 +185,65 @@ def _mm3(a, b):
     return al @ bh + ah @ bl + ah @ bh
 
 
+def _ex2(x):
+    """ex2.approx.ftz's flush: results under 2^-126 are 0."""
+    y = torch.exp2(x)
+    return torch.where(y < 2.0 ** -126, 0.0, y)
+
+
 def _kernel_arithmetic(q, k, v, window):
-    """The forward kernel's arithmetic on the CPU: scores and P V in 3xTF32,
-    an online softmax in base 2 over 64-key tiles with the kernel's guard
-    for rows that have seen no key yet; returns O (B, S, H, hd) and lse
+    """The forward kernel's arithmetic and walk on the CPU: S and P V in
+    3xTF32, an online softmax in base 2 with the guard for rows that have
+    seen no key yet, and the kernel's indexing: a query tile walks key
+    tiles from k_lo, a 16-row warp skips a tile none of its rows sees,
+    masks only where some pair of the query tile is out of the window, and
+    on such a tile runs P V only over the 8-key steps its rows see.  Q, K and
+    V are zero-filled past S, as staged.  Returns O (B, S, H, hd) and lse
     (B, H, S)."""
     b, s, h, hd = q.shape
     g = h // k.shape[2]
-    qt = q.transpose(1, 2)                                  # (B, H, S, hd)
-    kt, vt = (x.repeat_interleave(g, 2).transpose(1, 2) for x in (k, v))
+    sp = -(-s // 64) * 64
+    pad = lambda x: torch.nn.functional.pad(x, (0, 0, 0, 0, 0, sp - s))
+    qt = pad(q).transpose(1, 2)                             # (B, H, Sp, hd)
+    kt, vt = (pad(x).repeat_interleave(g, 2).transpose(1, 2) for x in (k, v))
     c2 = hd ** -0.5 * 1.4426950408889634
-    pos = torch.arange(s)
-    m = torch.full((b, h, s, 1), -torch.inf)
-    l = torch.zeros(b, h, s, 1)
-    acc = torch.zeros(b, h, s, hd)
-    for k0 in range(0, s, 64):
-        kj = pos[k0:k0 + 64]
-        ok = (kj[None] <= pos[:, None]) & (kj[None] > pos[:, None] - window)
-        sc = _mm3(qt, kt[:, :, k0:k0 + 64].transpose(2, 3))
-        sc = torch.where(ok, sc, -torch.inf)
-        mn = torch.maximum(m, sc.amax(-1, keepdim=True) * c2)
-        none = mn == -torch.inf
-        corr = torch.where(none, 1.0, torch.exp2(m - mn))
-        p = torch.where(none, 0.0, torch.exp2(sc * c2 - mn))
-        l = l * corr + p.sum(-1, keepdim=True)
-        acc = acc * corr + _mm3(p, vt[:, :, k0:k0 + 64])
-        m = mn
-    o = (acc / l).transpose(1, 2)
-    return o, ((m + torch.log2(l)) * 0.6931471805599453)[..., 0]
+    pos = torch.arange(sp)
+    o = torch.zeros(b, h, sp, hd)
+    lse = torch.zeros(b, h, sp)
+    for q0 in range(0, sp, 64):
+        k_lo = max(0, q0 - window + 1) // 64 * 64
+        k_hi = min(s, q0 + 64)
+        full = [k0 + 63 <= q0 and k0 + window > q0 + 63
+                for k0 in range(k_lo, k_hi, 64)]
+        for qw in range(q0, q0 + 64, 16):
+            rows = slice(qw, qw + 16)
+            kw_lo, kw_hi = qw - window + 1, min(qw + 15, s - 1)
+            m = torch.full((b, h, 16, 1), -torch.inf)
+            l = torch.zeros(b, h, 16, 1)
+            acc = torch.zeros(b, h, 16, hd)
+            for k0, fl in zip(range(k_lo, k_hi, 64), full):
+                if not (qw < s and kw_lo <= k0 + 63 and kw_hi >= k0):
+                    continue
+                kj, qi = pos[k0:k0 + 64], pos[rows, None]
+                sc = _mm3(qt[:, :, rows], kt[:, :, k0:k0 + 64].transpose(2, 3))
+                if not fl:
+                    ok = (qi < s) & (kj < s) & (kj <= qi) & (kj > qi - window)
+                    sc = torch.where(ok, sc, -torch.inf)
+                mn = torch.maximum(m, sc.amax(-1, keepdim=True) * c2)
+                none = mn == -torch.inf
+                corr = torch.where(none, 1.0, _ex2(m - mn))
+                p = torch.where(none, 0.0, _ex2(sc * c2 - mn))
+                l = l * corr + p.sum(-1, keepdim=True)
+                j_lo, j_hi = ((0, 8) if fl else
+                              (max(0, kw_lo - k0) // 8,
+                               min(8, (kw_hi - k0) // 8 + 1)))
+                steps = slice(8 * j_lo, 8 * j_hi)
+                acc = acc * corr + _mm3(p[..., steps],
+                                        vt[:, :, k0:k0 + 64][:, :, steps])
+                m = mn
+            o[:, :, rows] = acc / l
+            lse[:, :, rows] = ((m + torch.log2(l)) * 0.6931471805599453)[..., 0]
+    return o[:, :, :s].transpose(1, 2), lse[..., :s]
 
 
 @pytest.mark.parametrize("b,s,h,kv,hd,window", [
@@ -220,6 +251,7 @@ def _kernel_arithmetic(q, k, v, window):
     (2, 300, 4, 2, 16, 70),      # rows past 133: their first tiles masked
     (2, 100, 4, 2, 64, 1),       # window 1: one key a row
     (1, 130, 6, 3, 27, 70),      # hd 27
+    (1, 256, 2, 1, 64, 127),     # lower edge at a tile's first key + 1
 ])
 def test_window_attention_kernel_arithmetic_matches_reference(b, s, h, kv,
                                                               hd, window):

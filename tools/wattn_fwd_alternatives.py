@@ -1,24 +1,27 @@
 #!/usr/bin/env python3
-"""Time the window-attention forward against the two design choices its
-notes weigh, each removed, on one GPU:
+"""Time the window-attention forward against each design choice its notes
+weigh, removed or extended, on one GPU:
 ``python3 tools/wattn_fwd_alternatives.py``.
 
-Builds ``src/repro_torch/kernels/csrc/window_attn.cu`` as it stands and
-three copies edited here (each edit is asserted to apply, so a change to
-the kernel that breaks one fails loudly):
+Builds ``src/repro_torch/kernels/csrc/window_attn.cu`` as it stands and with
+the overrides it reads from the compiler's defines (the source is not
+edited):
 
-* ``no_split_tiles`` — K and V stay raw in shared memory and every warp
-  splits its own fragments into TF32 parts;
-* ``one_tile_blocks`` — every block is 4 warps on one 64-query tile,
-  whatever the grid: no two query tiles share K and V (the committed
-  kernel does so only where the grid of two-tile blocks would leave SMs
-  idle);
-* ``neither`` — both removed.
+* ``one_tile_blocks`` (``WATTN_FWD_SLOTS=1``) — every block owns one query
+  head's tile: no two query heads share K and V;
+* ``two_tile_blocks`` (``WATTN_FWD_SLOTS=2``) — two query heads a block
+  wherever H / KV is even, also where that grid leaves SMs idle;
+* ``no_split_tiles`` (``WATTN_FWD_SPLIT=0``) — no block splits K and V
+  tiles once: every warp splits its own fragments;
+* ``split_tiles`` (``WATTN_FWD_SPLIT=1``) — one-head blocks split K and V
+  tiles once too;
+* ``no_hdp32`` (``WATTN_FWD_HDP32=0``) — hd <= 32 runs at the width 64.
 
 Each library's forward is checked against the plain version
 (|k - r| <= 1e-5 + 1e-4|r|) and timed by ``chip_smoke.timed`` (CUPTI,
 checked against CUDA events) at the cases of ``chip_smoke.check_window``;
-prints one JSON line a case, with the card's name and power limit first.
+prints each variant's forward kernels' registers and spills, then one JSON
+line a case, with the card's name and power limit first.
 """
 from __future__ import annotations
 
@@ -31,38 +34,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src/repro_torch/kernels/csrc/window_attn.cu"
 OUT = ROOT / "build" / "wattn_fwd_alternatives"
-
-NO_SPLIT = [
-    ("    split_tile<HDP, NT>(sK, sKl);\n", ""),
-    ("    split_tile<HDP, NT>(sV, sVl);\n", ""),
-    ("frag_bt_split(fb, kr + 8 * j * HDP, krl + 8 * j * HDP, col);",
-     "frag_bt(fb, kr + 8 * j * HDP, col);"),
-    ("frag_b_split<HDP>(fb, sV + r, sVl + r, 8 * nt + gq, x0, x1);",
-     "frag_b(fb, sV + r, sV + r + HDP, 8 * nt + gq, x0, x1);"),
-]
-ONE_TILE = [("  return tiles * B * g.H >= 2 * sms\n", "  return false\n")]
-VARIANTS = {"committed": [], "no_split_tiles": NO_SPLIT,
-            "one_tile_blocks": ONE_TILE, "neither": NO_SPLIT + ONE_TILE}
-
-
-def edited(edits) -> str:
-    s = SRC.read_text()
-    for old, new in edits:
-        if s.count(old) != 1:
-            raise AssertionError(f"edit does not apply once: {old[:60]!r}")
-        s = s.replace(old, new)
-    return s
+VARIANTS = {"committed": [],
+            "one_tile_blocks": ["-DWATTN_FWD_SLOTS=1"],
+            "two_tile_blocks": ["-DWATTN_FWD_SLOTS=2"],
+            "no_split_tiles": ["-DWATTN_FWD_SPLIT=0"],
+            "split_tiles": ["-DWATTN_FWD_SPLIT=1"],
+            "no_hdp32": ["-DWATTN_FWD_HDP32=0"]}
 
 
 def build() -> dict:
+    import chip_smoke as cs
     from repro_torch import kernels as K
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, edits in VARIANTS.items():
-        src = OUT / f"{name}.cu"
-        src.write_text(edited(edits))
+    for name, defines in VARIANTS.items():
         procs[name] = subprocess.Popen(
-            [K._nvcc(), *K.NVCC_FLAGS, "-shared", str(src),
+            [K._nvcc(), *K.NVCC_FLAGS, *defines, "-shared", str(SRC),
              "-o", str(OUT / f"{name}.so")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
@@ -72,6 +59,9 @@ def build() -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
+        print(json.dumps({"variant": name, "ptxas": [
+            r for r in cs.ptxas_summary(log) if "wattn_fwd_kernel" in r[0]]}),
+            flush=True)
         lib = ctypes.CDLL(str(OUT / f"{name}.so"))
         lib.repro_window_attn_fwd.argtypes = ([ptr] * 5 + [i64] * 6 + [f32]
                                               + [i64] * 9 + [ptr])
