@@ -19,7 +19,8 @@ Phases (any failed check raises, and the script exits non-zero):
    (S 50, C 100)), and at the shapes that pick each route of the redesigned
    calibrate (M' = 4 and M = 2048 at every P % 4, M = 63 unsplit and 64
    split) and encode_decode ((S 100, C 200): two passes of output rows;
-   (S 130, C 140): w staged in chunks); both kernels' two launches must
+   (S 130, C 140): w staged in chunks), and calibrate at FE's M' = 19 on
+   the table1 path (``fe_round_m19``); both kernels' two launches must
    give the same bits.  Time kernel, plain version and one library call
    where one exists (device time from the CUPTI trace of torch.profiler,
    checked against CUDA events: a trace that records nothing, gives a
@@ -80,6 +81,16 @@ Phases (any failed check raises, and the script exits non-zero):
    at S = 20, C = 40) has entries near 7e4 and amplifies rounding.  For
    rwkv6, NanoGPT and the local-attention model one SGD step's loss and
    gradients are held at 1e-5 rel and 1e-4|r| + 5e-5 max|r|.
+   table1_small — the port's verification suite (``run_verification``
+   with SE, FE, FR, RR, the oracle and the no-unlearn baseline; two shadow
+   federations, canaries, utility) at tests/test_verify.py's scenario (G
+   6) and at the same cut to G 3, on the card and on the CPU: cost units
+   equal, each candidate's models within rtol 1e-3 / atol 1e-4 or twice
+   the one-ulp spread on the CPU, the attack's decisions differing in at
+   most 2 % of the examples or twice as many as between the one-ulp CPU
+   runs (at G 6 the stage is chaotic in fp32); then two card runs, the
+   second with SE only, compared and printed (with cuDNN's deterministic
+   algorithms too, where they differ).
 5. main    — four federated main paths through the port's entry points,
    each with its launch counts zeroed just before and read just after:
    (a) the paper CNN at full width (conv 16/32, fc 128, 28x28x1) in the
@@ -109,6 +120,15 @@ Phases (any failed check raises, and the script exits non-zero):
    clients the stage did not sample: the task's test stream has a word
    inventory of its own).  Last, one fused shard round is profiled: wall
    time, device-busy time, idle share and the kernels that take the time.
+   (e) table1: the paper's Table 1 through ``run_verification`` in (a)'s
+   federation at the paper CNN's width: FR, FE, RR and SE against the
+   retrain oracle and the no-unlearn baseline, scored by the shadow attack
+   (two shadow federations) and the utility probe; one line per candidate
+   (MIA F1, wall, cost units, retain and test accuracy), the attack's
+   training accuracy and the phase's seconds.  Fails when cost units miss
+   G'·|retained|·epochs, a framework's F1 is not finite (RR's is left out
+   where its models are not finite, and the line says so) or coded_matmul
+   or calibrate did not launch; its counts join ``by_path`` as "table1".
 6. full    — one mamba mixer of jamba-1.5-large-398b at its published width
    (d_model 8192, d_inner 16384, state 16, conv 4, dt_rank 512; 420,331,520
    parameters) through ``mamba_block``, forward and backward on fp32
@@ -367,6 +387,16 @@ PATHS = {"cnn": {"p_client": 206_922, "rounds": 10},
          "nanogpt": {"p_client": 32_912, "rounds": 5}}
 CODING = ("coded_matmul", "coded_matmul_rounds", "calibrate")
 CLIENTS_PER_SHARD = 5
+# the paper's Table 1 (benchmarks/table1_f1_time.py): MIA F1 and retraining
+# time of each framework, in phase 5a's federation (20 clients a stage)
+TABLE1_FRAMEWORKS = ("FR", "FE", "RR", "SE")
+TABLE1_RETAINED = 19
+# tests/test_verify.py's victim scenario (tests/test_torch_verify.py's CFG)
+VERIFY_SMALL = dict(task="classification", num_clients=8,
+                    clients_per_round=8, num_shards=2, samples_per_client=32,
+                    image_size=10, local_epochs=8, global_rounds=6,
+                    test_n=160, seed=3, lr=0.3, noise=0.35, store="coded",
+                    engine="fused")
 
 
 def check_kernels(torch, K, path: str, model_cfg, ragged: bool):
@@ -469,7 +499,10 @@ def check_kernels(torch, K, path: str, model_cfg, ragged: bool):
     # ||w_m|| / (M ||w'_m||) drawn as U[0.5, 1.5) / M
     cal_cases = [("se_round", 4, p_client, 500)]
     if ragged:
-        cal_cases += [("m1_ragged", 1, 7, 200), ("m9", 9, 4097, 200),
+        # FE's round on the table1 path: all 19 retained clients of a
+        # 20-client stage
+        cal_cases += [("fe_round_m19", TABLE1_RETAINED, p_client, 200),
+                      ("m1_ragged", 1, 7, 200), ("m9", 9, 4097, 200),
                       ("se_round_p1", 4, p_client - 1, 500),
                       ("se_round_p3", 4, p_client + 1, 500),
                       ("m63", 63, p_client, 100), ("m64", 64, p_client, 100),
@@ -1415,6 +1448,250 @@ def cnn_path(torch, K):
                      lambda m: m["test"]["acc"] > 0.1)
 
 
+def _models_finite(torch, models) -> bool:
+    from repro_torch.core.tree import tree_leaves
+    return all(bool(torch.isfinite(v).all()) for m in models.values()
+               for v in tree_leaves(m))
+
+
+def table1_path(torch, K):
+    """Phase 5e: the paper's Table 1 through ``run_verification`` on the
+    card: the paper CNN at full width in phase 5a's federation (G cut from
+    30 to ``PATHS["cnn"]["rounds"]``), FR, FE, RR and SE against the retrain
+    oracle and the no-unlearn baseline, scored by the shadow attack (two
+    shadow federations) and the utility probe, on the coded store and the
+    fused engine.  Launch counts are zeroed just before and read just
+    after.  Fails when a candidate's cost units miss the formula, a
+    framework's F1 is not finite, or ``coded_matmul`` or ``calibrate`` did
+    not launch.  RR's models may end non-finite (it divides by a Fisher
+    taken once at the restart, as the reference does): then its F1 is left
+    out of the check and the log says so."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.fl.experiment import ScenarioConfig
+    from repro_torch.fl.families import (FAMILIES, ModelFamily,
+                                         get_model_family,
+                                         register_model_family)
+    from repro_torch.models import init_params
+    from repro_torch.verify import ShadowMIAVerifier, run_verification
+
+    # the registered "cnn" family is the reference's scenario-scale CNN
+    # (channels 8/16, fc 48); Table 1 runs the paper's width
+    if "cnn-paper-width" not in FAMILIES:
+        @register_model_family("cnn-paper-width")
+        class PaperWidthCNN(ModelFamily):
+            task = "classification"
+
+            def build(self, cfg):
+                return get_config("cnn-paper")
+    g = PATHS["cnn"]["rounds"]
+    cfg = ScenarioConfig.paper_full(model="cnn-paper-width", global_rounds=g,
+                                    lr=0.05, local_batch=20, opt_name="sgd")
+    model_cfg = get_model_family(cfg.model).build(cfg)
+    n_params = sum(v.numel() for v in tree_leaves(
+        init_params(model_cfg, 0, "cpu")))
+    m = cfg.clients_per_round // cfg.num_shards
+    retained = cfg.clients_per_round - 1
+    if (n_params, m, retained) != (PATHS["cnn"]["p_client"],
+                                   CLIENTS_PER_SHARD, TABLE1_RETAINED):
+        raise AssertionError(f"table1: P={n_params}, M={m}, retained "
+                             f"{retained}; phase 3 checked the CNN path's")
+    ep, ep_r = cfg.local_epochs, max(int(cfg.local_epochs
+                                         / cfg.retrain_ratio), 1)
+    want = {"none": 0.0, "FR": g * retained * ep, "FE": g * retained * ep_r,
+            "RR": g * retained * ep_r, "SE": g * (m - 1) * ep_r,
+            "oracle": g * (m - 1) * ep}
+    shadow = ShadowMIAVerifier()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rep = run_verification(cfg, frameworks=TABLE1_FRAMEWORKS,
+                           verifiers=(shadow, "utility"), n_shadows=2,
+                           keep_models=True)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    finite = {c.name: _models_finite(torch, rep.models[c.name])
+              for c in rep.candidates}
+    checked = [n for n in finite if finite[n] or n != "RR"]
+    for c in rep.candidates:
+        log("table1", candidate=c.name, mia_f1=c.metrics["mia_f1"],
+            wall_s=c.wall_s, cost_units=c.cost_units,
+            retain_acc=c.metrics["retain_acc"],
+            test_acc=c.metrics["test_acc"],
+            retain_loss=c.metrics["retain_loss"],
+            models_finite=finite[c.name],
+            f1_checked=c.name in checked)
+    log("table1", victims=rep.victims, shadow_train_acc=shadow.attack.train_acc,
+        n_shadows=shadow.attack.n_shadows, total_s=total_s,
+        launches={k: v for k, v in launches.items() if v},
+        f1_checked=checked, pareto_front=rep.pareto_front(),
+        note=(None if finite["RR"] else "RR's models are not finite (as "
+              "the reference's RR can be): its F1 is left out of the "
+              "check"))
+    bad = [c.name for c in rep.candidates if c.cost_units != want[c.name]]
+    if bad:
+        raise AssertionError(f"table1: cost units of {bad} miss the "
+                             f"formula {want}")
+    bad = [n for n in checked
+           if not math.isfinite(rep.candidate(n).metrics["mia_f1"])]
+    if bad or not all(finite[n] for n in checked):
+        raise AssertionError(f"table1: F1 not finite for {bad}, or models "
+                             f"not finite: {finite}")
+    missing = [k for k in ("coded_matmul", "calibrate") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"table1: kernels never launched: {missing}")
+    return launches
+
+
+def _verify_small(torch, cfg, dev, frameworks=TABLE1_FRAMEWORKS,
+                  init_for_seed=None):
+    """The port's suite at a small scenario on ``dev``, with the models and
+    the fitted shadow attack kept."""
+    from repro_torch.verify import ShadowMIAVerifier, run_verification
+    shadow = ShadowMIAVerifier()
+    rep = run_verification(cfg, frameworks=frameworks,
+                           verifiers=(shadow, "canary", "utility"),
+                           n_shadows=2, n_canaries=12, device=dev,
+                           init_for_seed=init_for_seed, keep_models=True)
+    return rep, shadow.attack
+
+
+def _decisions(rep, attack, name):
+    """The attack's decisions under candidate ``name``'s models on the
+    forgotten data and the non-members, as one array."""
+    import numpy as np
+    suite = rep.suite
+    return np.concatenate([
+        attack.member_flags(suite.iface, rep.models[name], *data)
+        for data in (suite.forgotten_data, suite.nonmember_data)])
+
+
+def check_table1_small(torch, K):
+    """Phase 4b: the port's verification suite at tests/test_verify.py's
+    scenario (``VERIFY_SMALL``, G 6) and at the same scenario cut to G 3,
+    with SE, FE, FR and RR, on the card and on the CPU (the kernels' plain
+    versions): cost units equal; each candidate's models within rtol 1e-3 /
+    atol 1e-4 or within twice the spread one-ulp-moved initial weights open
+    on the CPU; the attack's decisions on the forgotten data and the
+    non-members differing in at most 2 % of them, or in at most twice as
+    many as differ between the two CPU runs one ulp apart.  At G 6 the stage
+    is chaotic in fp32 (a 1e-6 change of a round's model grows past 1e-3 in
+    one round, and the one-ulp spread is the card's gap's size), so G 3 is
+    held too, where it is not.  Then two card runs are compared
+    (``check_card_repeat``)."""
+    from repro_torch.core.tree import leaves_with_paths, tree_leaves
+    from repro_torch.fl.experiment import ScenarioConfig
+    from repro_torch.fl.families import get_model_family
+
+    def gap(a, b):
+        """Max |a - b| over the entries finite in both; inf where the two
+        disagree on which entries are finite (RR may diverge)."""
+        out = 0.0
+        for s in b:
+            for x, y in zip(tree_leaves(a[s]), tree_leaves(b[s])):
+                x, y = x.cpu(), y.cpu()
+                fin = torch.isfinite(x)
+                if not torch.equal(fin, torch.isfinite(y)):
+                    return float("inf")
+                if bool(fin.any()):
+                    out = max(out, float((x[fin] - y[fin]).abs().max()))
+        return out
+
+    for label, rounds in (("verify_cfg", 6), ("verify_g3", 3)):
+        cfg = ScenarioConfig(**dict(VERIFY_SMALL, global_rounds=rounds))
+        model_cfg = get_model_family(cfg.model).build(cfg)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        card, card_attack = _verify_small(torch, cfg, "cuda")
+        card_s = time.perf_counter() - t0
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        t0 = time.perf_counter()
+        cpu, cpu_attack = _verify_small(torch, cfg, "cpu")
+        cpu_s = time.perf_counter() - t0
+        moved, moved_attack = _verify_small(
+            torch, cfg, "cpu", init_for_seed=lambda seed: _ulp_perturbed(
+                torch, model_cfg, seed))
+        if not (launches.get("coded_matmul") and launches.get("calibrate")):
+            raise AssertionError(f"table1_small {label}: the coding kernels "
+                                 f"not launched on the card: {launches}")
+        rows, n_diff, n_ulp, n_all = {}, 0, 0, 0
+        for c in cpu.candidates:
+            g = card.candidate(c.name)
+            if g.cost_units != c.cost_units:
+                raise AssertionError(f"table1_small {label} {c.name}: cost "
+                                     f"units {g.cost_units} on the card, "
+                                     f"{c.cost_units} on the CPU")
+            worst = gap(card.models[c.name], cpu.models[c.name])
+            spread = gap(moved.models[c.name], cpu.models[c.name])
+            close = all(torch.allclose(x.cpu(), y, rtol=1e-3, atol=1e-4,
+                                       equal_nan=True)
+                        for s in cpu.models[c.name] for (_, x), y in zip(
+                            leaves_with_paths(card.models[c.name][s]),
+                            tree_leaves(cpu.models[c.name][s])))
+            dc = _decisions(cpu, cpu_attack, c.name)
+            differ = int((_decisions(card, card_attack, c.name) != dc).sum())
+            n_diff += differ
+            n_ulp += int((_decisions(moved, moved_attack, c.name)
+                          != dc).sum())
+            n_all += len(dc)
+            rows[c.name] = {
+                "max_abs_diff_vs_cpu": worst, "cpu_one_ulp_spread": spread,
+                "within": ("rtol 1e-3, atol 1e-4" if close
+                           else "2 x one-ulp spread" if worst <= 2 * spread
+                           else "neither"),
+                "decisions_differing": differ,
+                "mia_f1": [g.metrics["mia_f1"], c.metrics["mia_f1"]],
+                "canary_acc": [g.metrics["canary_acc"],
+                               c.metrics["canary_acc"]],
+                "cost_units": c.cost_units}
+        log("table1_small", scenario=label, global_rounds=rounds,
+            launches=launches, card_s=card_s, cpu_s=cpu_s,
+            shadow_train_acc=[card_attack.train_acc, cpu_attack.train_acc],
+            decisions_differing=n_diff, decisions=n_all,
+            decisions_differing_one_ulp_cpu=n_ulp, candidates=rows)
+        far = [n for n, r in rows.items() if r["within"] == "neither"]
+        if far:
+            raise AssertionError(f"table1_small {label}: models of {far} "
+                                 f"beyond both tolerances: {rows}")
+        if n_diff > max(0.02 * n_all, 2 * n_ulp):
+            raise AssertionError(f"table1_small {label}: {n_diff} of "
+                                 f"{n_all} attack decisions differ (one-ulp "
+                                 f"CPU runs: {n_ulp})")
+        if label == "verify_cfg":
+            check_card_repeat(torch, cfg, card)
+
+
+def check_card_repeat(torch, cfg, card):
+    """Two card runs of the suite give the same metrics: ``card`` (every
+    framework) against a run with SE only, on the candidates both scored.
+    cuDNN picks its convolution algorithms freely, and some of them sum in
+    an order that changes from run to run: where the two runs differ, the
+    distance is printed (ROADMAP queue 3 records it), and the same pair of
+    runs is repeated with ``torch.backends.cudnn.deterministic`` to show
+    whether cuDNN is the cause.  A difference does not fail the phase."""
+    def apart(a, b):
+        a, b = a.metrics_dict(), b.metrics_dict()
+        return {n: {k: abs(a[n][k] - v) for k, v in b[n].items()
+                    if a[n][k] != v} for n in b}
+    gaps = apart(card, _verify_small(torch, cfg, "cuda",
+                                     frameworks=("SE",))[0])
+    same = not any(gaps.values())
+    deterministic = None
+    if not same:
+        torch.backends.cudnn.deterministic = True
+        try:
+            first = _verify_small(torch, cfg, "cuda", frameworks=("SE",))[0]
+            deterministic = not any(apart(first, _verify_small(
+                torch, cfg, "cuda", frameworks=("SE",))[0]).values())
+        finally:
+            torch.backends.cudnn.deterministic = False
+    log("table1_small", what="two card runs, the second with SE only",
+        same_metrics=same, apart=gaps,
+        same_with_cudnn_deterministic=deterministic)
+
+
 # each generation family's own kernels, launched in every SGD step; the
 # NanoGPT family's global attention layers run the plain blockwise path
 LM_KERNELS = {"mamba": ("ssm_scan", "ssm_scan_bwd"),
@@ -1868,7 +2145,9 @@ def main() -> int:
     heads["gemma3"] = window["gemma3_full_width"]
     # each path's own counts, zeroed just before it and read just after
     launches = {"local_small": check_small(torch, K)}
+    check_table1_small(torch, K)
     launches["cnn"] = cnn_path(torch, K)
+    launches["table1"] = table1_path(torch, K)
     for fam in LM_KERNELS:
         launches[fam] = lm_path(torch, K, fam)
     full_width(torch, K)

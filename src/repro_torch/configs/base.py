@@ -1,7 +1,7 @@
 """Configuration dataclasses of the port: the model, the input shapes, the
 federation and the optimizer.  Field names and defaults follow
-``repro.configs.base``; the federation and optimizer keep only the fields
-the port's paths read (adamw's fields arrive with adamw)."""
+``repro.configs.base``; the federation keeps only the fields the port's
+paths read."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -125,7 +125,11 @@ class FLConfig:
 
 @dataclass(frozen=True)
 class OptimizerConfig:
-    name: str = "sgdm"         # sgd | sgdm (adamw arrives with the LMs)
+    name: str = "adamw"        # adamw | adamw_bf16 | sgd | sgdm
     lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0
     momentum: float = 0.9
     grad_clip: float = 1.0

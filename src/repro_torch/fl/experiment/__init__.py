@@ -24,3 +24,9 @@ from repro_torch.fl.experiment.session import (FederatedSession,  # noqa: F401
                                                StageReport, UnlearnRequest)
 from repro_torch.fl.experiment.stage import train_stage  # noqa: F401
 from repro_torch.fl.simulator import StageRecord, UnlearnResult  # noqa: F401
+
+# Auto-register the verification subsystem (the retrain ``oracle`` framework
+# and the VERIFIERS registry).  ``repro_torch.verify`` imports only
+# submodules of this package, never the package itself, so the cycle is safe
+# at any import order.
+import repro_torch.verify  # noqa: F401, E402

@@ -7,8 +7,9 @@ stacked steps, stored-norm lookups and store reads — and returns
 ``(models, cost_units)``.  ``run_unlearn`` dispatches by name, waits for the
 device, and packages a timed ``UnlearnResult``.
 
-The port carries SE / SE-uncoded, FE and FR; RR arrives with the Fisher
-estimate it needs.
+The port carries the paper's four frameworks, SE / SE-uncoded, FE, FR and
+RR, and the retrain oracle of ``repro_torch.verify`` registers itself here
+as ``"oracle"`` / ``"retrain-oracle"``.
 """
 from __future__ import annotations
 
@@ -95,17 +96,35 @@ class UnlearnContext:
         """The calibrated-retraining pass of K shards together."""
         return self.sim.calib_stage(ws, xs, ys, nmats, self.retrain_epochs)
 
-    def local_train(self, w, xs, ys, epochs: int):
-        """Stacked local training of the M clients from one model."""
+    def local_train(self, w, xs, ys, epochs: int, fisher=None):
+        """Stacked local training of the M clients from one model (with
+        ``fisher``, Fisher-preconditioned steps) -> (M, ...) client
+        params."""
         from repro_torch.fl.simulator import _broadcast, _lift
         p0 = _broadcast(_lift(w), (xs.shape[0],))
-        return self.sim.local_train(p0, xs, ys, epochs)
+        return self.sim.local_train(p0, xs, ys, epochs, fisher)
 
     def stacked_mean(self, stacked):
         return unlearning.stacked_mean(stacked)
 
     def init_model(self, salt: int = 777):
         return self.sim.init_model(salt)
+
+    def stage_init_model(self):
+        """The stage's actual initial model w0: the simulator's draw at salt
+        ``plan.stage``, through the same ``init_fn`` hook the stage trained
+        from — retraining from it with a client removed is the exact
+        counterfactual the retrain oracle (``repro_torch.verify.oracle``)
+        measures against."""
+        return self.sim.init_model(self.plan.stage)
+
+    def retrain_shards(self, w0, xs, ys, g_rounds: int):
+        """From-scratch FedAvg of a stacked (K, M, n, ...) batch of shards
+        at the full L local epochs; returns the (K, ...) final models."""
+        return self.sim.retrain_shards(w0, xs, ys, g_rounds)
+
+    def estimate_fisher(self, w, clients: Sequence[int]):
+        return self.sim._estimate_fisher(w, clients)
 
 
 class UnlearnFramework:
@@ -276,19 +295,34 @@ class FedEraser(UnlearnFramework):
         return {0: w}, cost
 
 
-@register_framework("FR")
-class FedRetrain(UnlearnFramework):
-    """The gold standard: federation-wide retraining from scratch at the
-    original L epochs (no stored parameters used)."""
+class _FullRetrain(UnlearnFramework):
+    """Federation-wide retraining from scratch (no stored parameters
+    used)."""
+
+    use_fisher = False
 
     def run(self, ctx: UnlearnContext):
         retained = ctx.retained_all()
         xs, ys = ctx.stack_client_data(retained)
         w = ctx.init_model(777)
-        ep = ctx.fl.local_epochs
+        ep = ctx.retrain_epochs if self.use_fisher else ctx.fl.local_epochs
+        # RR: estimate the diagonal Fisher on retained data once
+        fisher = ctx.estimate_fisher(w, retained) if self.use_fisher else None
         cost = 0.0
         for g in range(ctx.rounds):
-            locals_ = ctx.local_train(w, xs, ys, ep)
+            locals_ = ctx.local_train(w, xs, ys, ep, fisher)
             w = ctx.stacked_mean(locals_)
             cost += len(retained) * ep
         return {0: w}, cost
+
+
+@register_framework("FR")
+class FedRetrain(_FullRetrain):
+    """The gold standard: full retraining at the original L epochs."""
+
+
+@register_framework("RR")
+class RapidRetrain(_FullRetrain):
+    """Rapid retraining: reduced L/r epochs with diagonal-Fisher
+    preconditioned local steps."""
+    use_fisher = True

@@ -35,9 +35,10 @@ from repro_torch.core.sharding import ShardManager, StagePlan
 from repro_torch.core.tree import tree_leaves, tree_map, tree_replace_leaves
 from repro_torch.fl.tasks import resolve_task
 from repro_torch.kernels import resolve_device
-from repro_torch.models import (init_params, stacked_loss_fn,
+from repro_torch.models import (init_params, predict_fn, stacked_loss_fn,
                                 stacked_predict_fn)
 from repro_torch.optim import make_optimizer
+from repro_torch.optim.fisher import diag_fisher, fisher_precondition
 from repro_torch.stores.store import StoreStats, make_store
 
 
@@ -133,6 +134,43 @@ class UnlearnResult:
         return json.dumps(self.to_dict(), **kw)
 
 
+def mean_logits(stacked_predict: Callable, make_batch: Callable,
+                    stacked: dict, k: int, x: torch.Tensor,
+                    y: torch.Tensor) -> torch.Tensor:
+    """Mean fp32 logits of K models on one batch: the stacked (K, ...)
+    models run as one stack over the batch repeated K times."""
+    b = make_batch(x.unsqueeze(0).expand(k, *x.shape), y)
+    return stacked_predict(stacked, b).float().sum(0) / k
+
+
+@dataclass(frozen=True)
+class PredictInterface:
+    """The simulator's public evaluation surface.
+
+    Everything an external evaluator (the MIA attack, canary probes,
+    benchmarks) needs to score models without reaching into
+    ``FLSimulator`` internals: ``predict(model, batch) -> logits`` for one
+    model, ``stacked_predict(models, batch)`` for a (K, ...) stack of models
+    on a batch with a leading K axis, the task's batch constructor, the
+    ``TaskSpec`` itself (which owns metric and MIA-feature shapes) and the
+    device the models live on.  Obtained via
+    ``FLSimulator.predict_interface``.
+    """
+    predict: Callable
+    make_batch: Callable
+    task: object                       # the simulator's TaskSpec instance
+    stacked_predict: Callable
+    device: torch.device
+
+    @torch.no_grad()
+    def ensemble_logits(self, models: Dict[int, object], x, y):
+        """Mean float32 logits of a model ensemble on one batch."""
+        x = torch.as_tensor(np.asarray(x)).to(self.device)
+        y = torch.as_tensor(np.asarray(y)).to(self.device)
+        return mean_logits(self.stacked_predict, self.make_batch,
+                           _stack(list(models.values())), len(models), x, y)
+
+
 class FLSimulator:
     """``init_fn(salt) -> params``, when given, supplies every initial model
     the protocol draws: stage ``k``'s w0 (salt ``k``) and FR's restart
@@ -159,6 +197,7 @@ class FLSimulator:
         self.mgr = ShardManager(fl_cfg.num_clients, fl_cfg.num_shards,
                                 fl_cfg.clients_per_round, seed)
         self._loss = stacked_loss_fn(model_cfg)
+        self._pf = predict_fn(model_cfg)
         self._spf = stacked_predict_fn(model_cfg)
         self._opt_init, self._opt_update = make_optimizer(self.opt)
 
@@ -198,10 +237,12 @@ class FLSimulator:
 
     @torch.no_grad()
     def local_train(self, params: dict, xs: torch.Tensor, ys: torch.Tensor,
-                    epochs: int) -> dict:
+                    epochs: int, fisher=None) -> dict:
         """Minibatch SGD of a stack of B client models: params (B, ...),
         xs (B, n, ...).  Minibatches in the reference's order: the first
-        ``n // bs * bs`` examples, consecutive, no shuffle."""
+        ``n // bs * bs`` examples, consecutive, no shuffle.  With ``fisher``
+        (one unstacked tree, RR's), each step's gradients are divided by
+        F + 1e-3 before the optimizer (and its clip) sees them."""
         bs = self.local_batch
         nb = xs.shape[1] // bs
         state = self._opt_init(params)
@@ -210,6 +251,8 @@ class FLSimulator:
                 x = xs[:, i * bs:(i + 1) * bs]
                 y = ys[:, i * bs:(i + 1) * bs]
                 grads = self._grads(params, x, y)
+                if fisher is not None:
+                    grads = fisher_precondition(grads, fisher)
                 params, state = self._opt_update(params, grads, state)
         return params
 
@@ -263,6 +306,34 @@ class FLSimulator:
                 nmats[g, i]) for i in range(k)])
         return ws
 
+    @torch.no_grad()
+    def retrain_shards(self, w0: dict, xs: torch.Tensor, ys: torch.Tensor,
+                       g_rounds: int) -> dict:
+        """From-scratch FedAvg of K shards at once at the full L local
+        epochs (the retrain oracle's pass, ``repro_torch.verify.oracle``):
+        every shard starts from the one model ``w0`` and runs ``g_rounds``
+        of ``shard_round``; xs (K, M, n, ...).  Returns only the final
+        (K, ...) shard models."""
+        ws = _broadcast(_lift(w0), (xs.shape[0],))
+        for _ in range(g_rounds):
+            ws = self.shard_round(ws, xs, ys, self.fl.local_epochs,
+                                  "stacked")[0]
+        return ws
+
+    def _estimate_fisher(self, params: dict, clients: Sequence[int],
+                         n_batches: int = 4):
+        """RR's diagonal Fisher at ``params``: the running mean of squared
+        single-model gradients on the first ``local_batch`` examples of each
+        of the first ``n_batches`` clients, in that order."""
+        fisher = None
+        for i, c in enumerate(clients[:n_batches]):
+            x, y = self.client_data[c]
+            x = torch.from_numpy(x[: self.local_batch]).to(self.device)
+            y = torch.from_numpy(y[: self.local_batch]).to(self.device)
+            g = self._grads(_lift(params), x.unsqueeze(0), y.unsqueeze(0))
+            fisher = diag_fisher(fisher, _row(g, 0), i)
+        return fisher
+
     def _get_stage_program(self, epochs: int, kind: str, g_rounds: int,
                            encode: bool, out_dtype=None):
         """The whole-stage program for ``engine="stage"``: all S shards
@@ -305,6 +376,12 @@ class FLSimulator:
         return stage_body
 
     # ------------------------------------------------------------ evaluate
+    def predict_interface(self) -> PredictInterface:
+        """Public evaluation surface (see ``PredictInterface``) — the API
+        the verification suite evaluates through."""
+        return PredictInterface(self._pf, self.task_spec.make_batch,
+                                self.task_spec, self._spf, self.device)
+
     @torch.no_grad()
     def evaluate(self, models: Dict[int, object], xs: np.ndarray,
                  ys: np.ndarray, batch: int = 200) -> Dict[str, float]:
@@ -325,12 +402,35 @@ class FLSimulator:
         for i in range(nb):
             x = x_all[i * batch:(i + 1) * batch]
             y = y_all[i * batch:(i + 1) * batch].long()
-            b = self.task_spec.make_batch(x.unsqueeze(0).expand(k, *x.shape),
-                                          y)
-            logits = self._spf(stacked, b).float().sum(0) / k
+            logits = mean_logits(self._spf, self.task_spec.make_batch,
+                                 stacked, k, x, y)
             ll = torch.log_softmax(logits, -1)
             correct = correct + (logits.argmax(-1) == y).sum()
             loss = loss + (-ll.gather(-1, y.unsqueeze(-1))).sum()
         total = nb * batch * self.task_spec.labels_per_example(ys.shape)
         return self.task_spec.eval_metrics(int(correct.item()),
                                            float(loss.item()), max(total, 1))
+
+    @torch.no_grad()
+    def evaluate_host(self, models: Dict[int, object], xs: np.ndarray,
+                      ys: np.ndarray, batch: int = 200) -> Dict[str, float]:
+        """Per-batch, per-model eval loop, one model at a time — the
+        reference implementation ``evaluate`` is held to."""
+        total, correct, loss_sum = 0, 0, 0.0
+        batch = min(batch, len(xs))
+        for i in range(0, len(xs) - batch + 1, batch):
+            x = torch.from_numpy(np.ascontiguousarray(xs[i:i + batch]))
+            y = torch.from_numpy(np.ascontiguousarray(ys[i:i + batch]))
+            x, y = x.to(self.device), y.to(self.device).long()
+            b = self.task_spec.make_batch(x, y)
+            logits = None
+            for m in models.values():
+                lg = self._pf(m, b)
+                logits = lg if logits is None else logits + lg
+            logits = logits / len(models)
+            ll = torch.log_softmax(logits.float(), -1)
+            gold = ll.gather(-1, y.unsqueeze(-1)).squeeze(-1)
+            loss_sum += float(-gold.sum())
+            correct += int((logits.argmax(-1) == y).sum())
+            total += y.shape[0] * self.task_spec.labels_per_example(y.shape)
+        return self.task_spec.eval_metrics(correct, loss_sum, max(total, 1))

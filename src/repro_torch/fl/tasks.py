@@ -5,8 +5,8 @@ construction, per-example label counting and the eval metrics.  The port
 carries the classification task (the paper's CNN track) and the generation
 task (accuracy, perplexity and bits per char; its default family is the
 paper's NanoGPT, ``"transformer"``, and ``model="mamba"`` or ``"rwkv6"``
-picks another).  The MIA features and canaries arrive with the verify
-suite.
+picks another).  Each task also owns its membership-inference features and
+its canaries (``repro_torch.fl.mia``, ``repro_torch.verify``).
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import math
 from typing import Dict, Tuple, Type
 
 import numpy as np
+import torch
 
 from repro_torch.data.synthetic import (lm_examples, make_char_data,
                                         make_image_data)
@@ -43,6 +44,21 @@ class TaskSpec:
     def eval_metrics(self, correct: int, loss: float,
                      total: int) -> Dict[str, float]:
         return {"acc": correct / max(total, 1), "loss": loss / max(total, 1)}
+
+    def mia_features(self, logits: torch.Tensor,
+                     y: torch.Tensor) -> torch.Tensor:
+        """Per-example membership features ``[nll, max_prob, entropy]`` from
+        the (already ensemble-averaged) float32 logits: an ``(n, 3)`` tensor
+        consumed by ``repro_torch.fl.mia`` and the shadow attack in
+        ``repro_torch.verify``."""
+        raise NotImplementedError
+
+    def make_canaries(self, model_cfg, like_x, like_y, n: int, seed: int):
+        """``n`` seeded memorization-only canary examples, shaped and dtyped
+        like the ``(like_x, like_y)`` exemplars: inputs off the task's data
+        manifold mapped to random targets (``repro_torch.verify.canary``).
+        Returns ``(xs, ys, chance_rate)``, numpy."""
+        raise NotImplementedError
 
 
 TASKS: Dict[str, Type[TaskSpec]] = {}
@@ -118,6 +134,20 @@ class ClassificationTask(TaskSpec):
     def labels_per_example(self, y_shape) -> int:
         return 1
 
+    def mia_features(self, logits, y):
+        ll = torch.log_softmax(logits, -1)
+        nll = -ll.gather(-1, y.long()[:, None])[:, 0]
+        p = torch.exp(ll)
+        return torch.stack([nll, p.max(-1).values, -(p * ll).sum(-1)], dim=1)
+
+    def make_canaries(self, model_cfg, like_x, like_y, n: int, seed: int):
+        # high-contrast binary noise images: maximally off the smooth
+        # class-prototype manifold, random labels -> chance = 1/num_classes
+        rng = np.random.default_rng(seed)
+        xs = rng.integers(0, 2, (n,) + like_x.shape[1:]).astype(like_x.dtype)
+        ys = rng.integers(0, model_cfg.num_classes, n).astype(like_y.dtype)
+        return xs, ys, 1.0 / model_cfg.num_classes
+
 
 @register_task("generation", "lm")
 class GenerationTask(TaskSpec):
@@ -154,3 +184,20 @@ class GenerationTask(TaskSpec):
         return {"acc": correct / max(total, 1), "loss": nll,
                 "ppl": float(math.exp(min(nll, 30.0))),
                 "bpc": nll / math.log(2.0)}
+
+    def mia_features(self, logits, y):
+        # per-sequence means over the position axis
+        ll = torch.log_softmax(logits, -1)
+        gold = ll.gather(-1, y.long()[..., None])[..., 0]
+        p = torch.exp(ll)
+        return torch.stack([-gold.mean(-1), p.max(-1).values.mean(-1),
+                            (-(p * ll).sum(-1)).mean(-1)], dim=1)
+
+    def make_canaries(self, model_cfg, like_x, like_y, n: int, seed: int):
+        # random token sequences mapped to random (NOT next-token) targets:
+        # no n-gram structure to generalize from, chance = 1/vocab
+        rng = np.random.default_rng(seed)
+        v = model_cfg.vocab_size
+        xs = rng.integers(0, v, (n,) + like_x.shape[1:]).astype(like_x.dtype)
+        ys = rng.integers(0, v, (n,) + like_y.shape[1:]).astype(like_y.dtype)
+        return xs, ys, 1.0 / v

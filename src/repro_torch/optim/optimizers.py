@@ -4,10 +4,11 @@
     state = init_fn(params)
     new_params, new_state = update_fn(params, grads, state)
 
-The port carries ``sgd`` and ``sgdm``, with the reference's arithmetic
-(``repro.optim.optimizers``).  Parameters may be a stack of B models (the
-clients a shard trains together); gradient clipping then takes each model's
-own global norm, as the reference's per-client vmap does.
+Supported, with the reference's arithmetic (``repro.optim.optimizers``):
+sgd, sgdm, adamw (fp32 moments) and adamw_bf16 (bf16 moments, rounded to
+nearest even as ``jnp.bfloat16`` is).  Parameters may be a stack of B models
+(the clients a shard trains together); gradient clipping then takes each
+model's own global norm, as the reference's per-client vmap does.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ from repro_torch.core.tree import (tree_leaves, tree_map,
 
 class OptState(NamedTuple):
     step: int
-    mu: Any          # momentum; None for sgd
+    mu: Any          # first moment (or momentum); None for sgd
+    nu: Any = None   # second moment; None for sgd / sgdm
 
 
 def _clip_by_global_norm(grads, max_norm: float, stacked: bool):
@@ -47,19 +49,25 @@ def _clip_by_global_norm(grads, max_norm: float, stacked: bool):
 def make_optimizer(cfg: OptimizerConfig, stacked: bool = True
                    ) -> Tuple[Callable, Callable]:
     name = cfg.name
-    if name not in ("sgd", "sgdm"):
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet; the port has sgd and sgdm")
+    if name not in ("sgd", "sgdm", "adamw", "adamw_bf16"):
+        raise ValueError(f"unknown optimizer {name!r}")
+    mom_dtype = torch.bfloat16 if name == "adamw_bf16" else torch.float32
 
     def init_fn(params) -> OptState:
+        def zeros():
+            return tree_map(lambda p: torch.zeros_like(p, dtype=mom_dtype),
+                            params)
         if name == "sgd":
             return OptState(0, None)
-        return OptState(0, tree_map(
-            lambda p: torch.zeros_like(p, dtype=torch.float32), params))
+        if name == "sgdm":
+            return OptState(0, zeros())
+        return OptState(0, zeros(), zeros())
 
     def update_fn(params, grads, state: OptState):
         grads = _clip_by_global_norm(grads, cfg.grad_clip, stacked)
         step = state.step + 1
+        if name in ("adamw", "adamw_bf16"):
+            return _adamw(cfg, params, grads, state, step)
         # one multi-tensor op per update over every leaf, in tree order
         ps = tree_leaves(params)
         gs = [g.to(p.dtype) for p, g in zip(ps, tree_leaves(grads))]
@@ -73,3 +81,40 @@ def make_optimizer(cfg: OptimizerConfig, stacked: bool = True
                 OptState(step, tree_replace_leaves(state.mu, mus)))
 
     return init_fn, update_fn
+
+
+def _adamw(cfg: OptimizerConfig, params, grads, state: OptState, step: int):
+    """The reference's adamw step: fp32 arithmetic, moments stored in their
+    own dtype, bias corrections 1 - beta^t computed in fp32."""
+    b1, b2 = cfg.beta1, cfg.beta2
+    gs = [g.float() for g in tree_leaves(grads)]
+    m0, v0 = tree_leaves(state.mu), tree_leaves(state.nu)
+    mus = torch._foreach_add(torch._foreach_mul([m.float() for m in m0], b1),
+                             torch._foreach_mul(gs, 1 - b1))
+    nus = torch._foreach_add(torch._foreach_mul([v.float() for v in v0], b2),
+                             torch._foreach_mul(torch._foreach_mul(gs, gs),
+                                                1 - b2))
+    mus = [m.to(o.dtype) for m, o in zip(mus, m0)]
+    nus = [v.to(o.dtype) for v, o in zip(nus, v0)]
+    t = torch.tensor(float(step), dtype=torch.float32)
+    bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** t)
+    bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** t)
+    ps = tree_leaves(params)
+    mhat = torch._foreach_div([m.float() for m in mus], bc1)
+    vhat = torch._foreach_div([v.float() for v in nus], bc2)
+    delta = torch._foreach_div(mhat, torch._foreach_add(
+        torch._foreach_sqrt(vhat), cfg.eps))
+    if cfg.weight_decay:
+        delta = torch._foreach_add(
+            delta, torch._foreach_mul([p.float() for p in ps],
+                                      cfg.weight_decay))
+    new = torch._foreach_sub([p.float() for p in ps],
+                             torch._foreach_mul(delta, cfg.lr))
+    new = [n.to(p.dtype) for n, p in zip(new, ps)]
+    return (tree_replace_leaves(params, new),
+            OptState(step, tree_replace_leaves(state.mu, mus),
+                     tree_replace_leaves(state.nu, nus)))
+
+
+def init_optimizer(cfg: OptimizerConfig, params) -> OptState:
+    return make_optimizer(cfg)[0](params)
