@@ -3,13 +3,15 @@
 
 Phases (any failed check raises, and the script exits non-zero):
 
-1. device  — require CUDA; print the card's name and power limit and the
-   TF32 switches (both off for the port's fp32 math).
+1. device  — require CUDA; print the card's name and power limit, the
+   TF32 switches (both off for the port's fp32 math) and cuDNN's
+   ``deterministic`` (on) and ``benchmark`` (off) switches, which
+   ``resolve_device`` sets so that two runs give the same bits.
 2. build   — compile the hand-written kernels under
    ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a and load them.
 3. kernels — hold each kernel against its plain PyTorch version at the
    shapes each path of phases 5 and 6 gives it (the coding kernels and
-   encode_decode at the CNN's, the mamba, rwkv6 and NanoGPT families'
+   encode_decode at the CNN's, the mamba, rwkv6, NanoGPT and moe families'
    sizes, ``PATHS``; the scan kernels at the mamba path's, the wkv kernels
    at the rwkv6 path's and at rwkv6-3b's full width, the window-attention
    kernels at the small local-attention model's and at gemma3-27b's full
@@ -68,19 +70,27 @@ Phases (any failed check raises, and the script exits non-zero):
    1's dq and dk, within 1e-4 of the case's largest gradient entry); both
    directions' two launches bit-identical.
 4. small   — tiny scenarios on the card and on the CPU (plain versions):
-   classification (2 shards, and 20 shards of 2 clients: the coding
-   kernels past S = 16), and generation with the mamba, rwkv6 and NanoGPT
-   families (tests/test_scenario_zoo.py's configuration), and a local-
-   attention model (NanoGPT cut to 2 layers "local", "global", d_model 64,
-   4 heads of 16 over 2 kv heads, window 16 < 64 tokens) through the port's
-   FLSimulator: StoreStats equal, models within rtol 1e-3 / atol 1e-4.  The
-   rwkv6 stage amplifies fp32 rounding chaotically (a CPU run ends as far
-   from itself with one-ulp-perturbed initial weights as from the card), so
+   classification (2 shards, on the fused and on the ``legacy`` engine,
+   whose coded store encodes per-client trees a round at a time; and 20
+   shards of 2 clients: the coding kernels past S = 16), and generation
+   with the mamba, rwkv6, NanoGPT and moe families
+   (tests/test_scenario_zoo.py's configuration; for moe every router
+   call's experts equal on the card and the CPU, checked first), one SGD
+   step of ``reduce_for_smoke(jamba-1.5-large-398b)`` (a global layer,
+   then a mamba layer with an MoE FFN: ssm_scan and its backward beside
+   the MoE router; routing equal, then loss and gradients at the rwkv6
+   step's tolerances), and a local-attention model (NanoGPT cut to 2
+   layers "local", "global", d_model 64, 4 heads of 16 over 2 kv heads,
+   window 16 < 64 tokens) through the port's FLSimulator: StoreStats
+   equal, models within rtol 1e-3 / atol 1e-4.  The rwkv6 stage amplifies
+   fp32 rounding chaotically (a CPU run ends as far from itself with
+   one-ulp-perturbed initial weights as from the card), so
    there the stage's models are held to twice that one-ulp spread; so is
    the 20-shard scenario's, whose decode operator (the reference's quorum
    at S = 20, C = 40) has entries near 7e4 and amplifies rounding.  For
    rwkv6, NanoGPT and the local-attention model one SGD step's loss and
-   gradients are held at 1e-5 rel and 1e-4|r| + 5e-5 max|r|.
+   gradients are held at 1e-5 rel and 1e-4|r| + 5e-5 max|r|; so are the
+   moe family's.
    table1_small — the port's verification suite (``run_verification``
    with SE, FE, FR, RR, the oracle and the no-unlearn baseline; two shadow
    federations, canaries, utility) at tests/test_verify.py's scenario (G
@@ -89,9 +99,11 @@ Phases (any failed check raises, and the script exits non-zero):
    the one-ulp spread on the CPU, the attack's decisions differing in at
    most 2 % of the examples or twice as many as between the one-ulp CPU
    runs (at G 6 the stage is chaotic in fp32); then two card runs, the
-   second with SE only, compared and printed (with cuDNN's deterministic
-   algorithms too, where they differ).
-5. main    — four federated main paths through the port's entry points,
+   second with SE only: their metrics must be equal bit for bit.  The
+   SE-only run is timed (wall and device-busy) as ``resolve_device`` sets
+   cuDNN, then once more with ``cudnn.deterministic`` off: what the flag
+   costs.
+5. main    — five federated main paths through the port's entry points,
    each with its launch counts zeroed just before and read just after:
    (a) the paper CNN at full width (conv 16/32, fc 128, 28x28x1) in the
    paper's federation (100 clients, 20 per stage, S=4, L=10, 100 samples
@@ -102,12 +114,15 @@ Phases (any failed check raises, and the script exits non-zero):
    the rwkv6 family (``model="rwkv6"``), (d) the same with the task's
    default family, the paper's NanoGPT (no ``model=``), G cut from 30 to
    5, whose global attention layers run the plain blockwise path and no
-   kernel of their own.  The mamba and rwkv6 paths' G went from 10 to 5
-   when the NanoGPT path arrived, and NanoGPT's from 10 to 5 when the
-   coding kernels' route checks arrived, to keep the script near half its
-   time limit.  On the NanoGPT path a diagnostic runs first: each op of one SGD
-   step on the stage engine's stack of S*M models and on its first M (the
-   fused engine's), their rows compared bit for bit.
+   kernel of their own, (f) the same with the moe family (``model="moe"``:
+   2 global layers with MoE FFNs of 4 experts, top-2, P = 63,904), G cut
+   from 30 to 5, whose router, dispatch and experts are plain torch ops.
+   The mamba and rwkv6 paths' G went from 10 to 5 when the NanoGPT path
+   arrived, and NanoGPT's from 10 to 5 when the coding kernels' route
+   checks arrived, to keep the script near half its time limit.  On the
+   NanoGPT path a diagnostic runs first: each op of one SGD step on the
+   stage engine's stack of S*M models and on its first M (the fused
+   engine's), their rows compared bit for bit.
    Each: one stage on the fused engine with the coded store, one SE
    request, one batched SE request over two shards, one stage on the stage
    engine; every kernel of the path must have launched.  Then
@@ -119,7 +134,9 @@ Phases (any failed check raises, and the script exits non-zero):
    LM perplexity < 109, the uniform guess over the 109 symbols, on ten
    clients the stage did not sample: the task's test stream has a word
    inventory of its own).  Last, one fused shard round is profiled: wall
-   time, device-busy time, idle share and the kernels that take the time.
+   time, device-busy time, idle share and the kernels that take the time;
+   on the CNN path the round is measured again with
+   ``cudnn.deterministic`` off (what the flag costs).
    (e) table1: the paper's Table 1 through ``run_verification`` in (a)'s
    federation at the paper CNN's width: FR, FE, RR and SE against the
    retrain oracle and the no-unlearn baseline, scored by the shadow attack
@@ -146,7 +163,16 @@ Phases (any failed check raises, and the script exits non-zero):
    q/k/v, RoPE, window attention, wo, ln2, gated MLP), forward and
    backward on fp32 input (2, 4096, 5376): batch cut from 256 to 2, one
    layer of 62, no embedding.  Its launch counts are zeroed before and
-   read after; the window kernels are timed alone at that shape.
+   read after; the window kernels are timed alone at that shape.  Last,
+   one layer of granite-moe-3b-a800m at its published width (d_model 1536,
+   24 heads of 64 over 8 kv heads, 40 experts of width 512, top-8,
+   capacity factor 1.25; 100,727,808 parameters) through
+   ``apply_block_train`` (ln1, global attention, ln2, MoE FFN), forward
+   and backward on fp32 input (2, 4096, 1536): batch cut from 256 to 2,
+   one layer of 32, no embedding; 16 groups of 512 tokens, capacity 128.
+   It runs with each dispatch form (``moe_impl`` "einsum", then "gather"):
+   each form's ms, peak memory and dropped share, and the gather form's
+   output and gradients within 1e-4 of the einsum form's largest entry.
 7. report  — one JSON line listing the kernels (each row's numbers from
    the path it was ported for, every path's launches and times under
    ``by_path``), the card's name and power limit, and the final line
@@ -154,6 +180,7 @@ Phases (any failed check raises, and the script exits non-zero):
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -384,7 +411,8 @@ def times(kernel, plain, library, iters: int, bnd) -> dict:
 PATHS = {"cnn": {"p_client": 206_922, "rounds": 10},
          "mamba": {"p_client": 61_984, "rounds": 5},
          "rwkv6": {"p_client": 62_304, "rounds": 5},
-         "nanogpt": {"p_client": 32_912, "rounds": 5}}
+         "nanogpt": {"p_client": 32_912, "rounds": 5},
+         "moe": {"p_client": 63_904, "rounds": 5}}
 CODING = ("coded_matmul", "coded_matmul_rounds", "calibrate")
 CLIENTS_PER_SHARD = 5
 # the paper's Table 1 (benchmarks/table1_f1_time.py): MIA F1 and retraining
@@ -1038,6 +1066,40 @@ def check_window(torch, K):
     return heads
 
 
+@contextlib.contextmanager
+def routing_log():
+    """Records (expert_idx, keep) of every MoE router call made inside, on
+    the host, in call order."""
+    from repro_torch.models import moe
+    real, seen = moe._route, []
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        seen.append((out[1].detach().cpu(), out[3].detach().cpu()))
+        return out
+    moe._route = spy
+    try:
+        yield seen
+    finally:
+        moe._route = real
+
+
+def same_routing(name: str, card: list, cpu: list, moe: bool) -> int:
+    """Fail unless the card's router calls chose the CPU's experts, call by
+    call (ties in top-k are the trap), and, for an MoE model (``moe``),
+    unless there was at least one call; returns the number of calls."""
+    import torch
+    if len(card) != len(cpu) or not all(
+            torch.equal(a[0], b[0]) for a, b in zip(card, cpu)):
+        raise AssertionError(f"{name}: the card's MoE routing differs from "
+                             f"the CPU's ({len(card)} and {len(cpu)} router "
+                             f"calls)")
+    if moe and not card:
+        raise AssertionError(f"{name}: an MoE model made no router call "
+                             f"that the routing check could see")
+    return len(card)
+
+
 def _small_run(cfg, dev, init_fn=None):
     from repro_torch.core.tree import tree_map
     from repro_torch.fl.experiment import build_session
@@ -1066,9 +1128,9 @@ def _ulp_perturbed(torch, model_cfg, seed: int):
 def check_first_step(torch, name: str, cfg, seq: int = 16) -> dict:
     """The loss and gradients of one SGD step of the model ``cfg`` (called
     ``name``) at its initial weights on (4, ``seq``) tokens, on the card
-    and on the CPU: loss within 1e-5 rel, each gradient leaf within
-    1e-4|r| + 5e-5 max|r| (tests/test_torch_rwkv6.py's tolerance against
-    the reference)."""
+    and on the CPU: an MoE model's routing equal first, then the loss
+    within 1e-5 rel, each gradient leaf within 1e-4|r| + 5e-5 max|r|
+    (tests/test_torch_rwkv6.py's tolerance against the reference)."""
     import numpy as np
     from repro_torch.core.tree import leaves_with_paths, tree_leaves, tree_map
     from repro_torch.models import init_params, loss_fn
@@ -1077,13 +1139,17 @@ def check_first_step(torch, name: str, cfg, seq: int = 16) -> dict:
     batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, seq))
                                  .astype(np.int32)) for k in ("tokens",
                                                               "labels")}
-    out = {}
+    out, routes = {}, {}
     for dev in ("cuda", "cpu"):
         p = tree_map(lambda v: v.requires_grad_(True),
                      init_params(cfg, 0, dev))
-        loss, _ = loss_fn(cfg)(p, {k: v.to(dev) for k, v in batch.items()})
+        with routing_log() as routes[dev]:
+            loss, _ = loss_fn(cfg)(p, {k: v.to(dev)
+                                       for k, v in batch.items()})
         out[dev] = (float(loss.detach()), [g.cpu() for g in torch.autograd.grad(
             loss, tree_leaves(p))], [path for path, _ in leaves_with_paths(p)])
+    n_routes = same_routing(f"first step {name}", routes["cuda"],
+                            routes["cpu"], bool(cfg.num_experts))
     (lg, gg, paths), (lc, gc, _) = out["cuda"], out["cpu"]
     if abs(lg - lc) > 1e-5 * abs(lc):
         raise AssertionError(f"first step {name}: loss {lg} on the card, "
@@ -1095,7 +1161,8 @@ def check_first_step(torch, name: str, cfg, seq: int = 16) -> dict:
                                    msg=f"first step {name} {path}")
         worst = max(worst, float((g - c).abs().max()) / max(cmax, 1e-30))
     return {"loss_card": lg, "loss_cpu": lc,
-            "grad_max_abs_err_of_leaf_max": worst}
+            "grad_max_abs_err_of_leaf_max": worst,
+            "router_calls_equal": n_routes}
 
 
 def _small_local_run(torch, K, dev):
@@ -1143,10 +1210,13 @@ SPREAD_HELD = {"generation_rwkv6": "rwkv6", "classification_s20": "cnn"}
 def check_small(torch, K):
     """Phase 4: tiny scenarios on the card against the same runs on the
     CPU through the kernels' plain versions: the paper CNN's
-    classification, generation with the mamba, rwkv6 and NanoGPT families
-    (the scenario-zoo configuration of tests/test_scenario_zoo.py), and
-    the local-attention model through the FLSimulator.  Returns the local
-    run's launch counts.
+    classification (also on the ``legacy`` engine), generation with the
+    mamba, rwkv6, NanoGPT and moe
+    families (the scenario-zoo configuration of tests/test_scenario_zoo.py;
+    every MoE router call's experts equal first), one SGD step of
+    ``reduce_for_smoke(jamba-1.5-large)`` (the scan kernels beside an MoE
+    FFN), and the local-attention model through the FLSimulator.  Returns
+    the local run's launch counts.
 
     One stage of the rwkv6 scenario amplifies fp32 rounding chaotically:
     the CPU run itself ends as far from a CPU run whose initial weights
@@ -1156,6 +1226,7 @@ def check_small(torch, K):
     held the same way: the scheme's quorum at S = 20, C = 40 decodes through
     an operator with entries near 7e4, so rounding anywhere before the
     decode moves its unlearned models by about 2 % (``SPREAD_HELD``)."""
+    from repro_torch.configs import get_config, reduce_for_smoke
     from repro_torch.core.tree import leaves_with_paths, tree_leaves
     from repro_torch.fl.experiment import (RequestSchedule, ScenarioConfig,
                                            UnlearnRequest)
@@ -1192,12 +1263,22 @@ def check_small(torch, K):
     configs["generation_nanogpt"] = {k: v for k, v in
                                      configs["generation_mamba"].items()
                                      if k != "model"}
+    configs["generation_moe"] = dict(configs["generation_mamba"],
+                                     model="moe")
+    # the legacy engine: per-client tree payloads, encoded a round at a time
+    configs["classification_legacy"] = dict(configs["classification"],
+                                            engine="legacy")
     first = {}
     for name, kw in configs.items():
         cfg = ScenarioConfig(schedule=schedule(), **kw)
         K.reset_launches()
-        out = {dev: _small_run(cfg, dev) for dev in ("cuda", "cpu")}
+        out, routes = {}, {}
+        for dev in ("cuda", "cpu"):
+            with routing_log() as routes[dev]:
+                out[dev] = _small_run(cfg, dev)
         launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        n_routes = same_routing(f"small {name}", routes["cuda"],
+                                routes["cpu"], cfg.model == "moe")
         (gs, gc, gm), (cs, cc, cm) = out["cuda"], out["cpu"]
         if gs != cs or gc != cc:
             raise AssertionError(f"small {name}: StoreStats/cost differ on "
@@ -1208,7 +1289,8 @@ def check_small(torch, K):
                                  f"calibrate kernel not launched on the "
                                  f"card: {launches}")
         worst = gap(gm, cm)
-        if name in ("generation_rwkv6", "generation_nanogpt"):
+        if name in ("generation_rwkv6", "generation_nanogpt",
+                    "generation_moe"):
             fam = get_model_family(cfg.model)
             first[name] = check_first_step(torch, cfg.model, fam.build(cfg))
         if name in SPREAD_HELD:
@@ -1232,7 +1314,23 @@ def check_small(torch, K):
         log("small", scenario=name, num_shards=cfg.num_shards,
             launches=launches, store_stats_equal=True, cost_units=gc,
             max_abs_diff_vs_cpu=worst, tol="rtol 1e-3, atol 1e-4",
-            first_step=first.get(name))
+            router_calls_equal=n_routes, first_step=first.get(name))
+
+    # reduce_for_smoke(jamba-1.5-large): a global layer, then a mamba layer
+    # with an MoE FFN; one SGD step on the card against the CPU
+    jcfg = reduce_for_smoke(get_config("jamba-1.5-large-398b"))
+    K.reset_launches()
+    step = check_first_step(torch, "jamba_smoke", jcfg, seq=32)
+    jl = {k: v for k, v in K.LAUNCHES.items() if v}
+    if not (jl.get("ssm_scan") and jl.get("ssm_scan_bwd")
+            and step["router_calls_equal"]):
+        raise AssertionError(f"small jamba_smoke: scan kernels or the MoE "
+                             f"router not reached: {jl}, {step}")
+    log("small", scenario="jamba_smoke_step", layer_kinds=jcfg.layer_kinds,
+        moe_ffn=[jcfg.ffn_is_moe(i) for i in range(jcfg.num_layers)],
+        d_model=jcfg.d_model, experts=jcfg.num_experts,
+        top_k=jcfg.experts_per_token, launches=jl, first_step=step,
+        tol="loss 1e-5 rel, gradients 1e-4|r| + 5e-5 max|r|")
 
     # the local-attention model: its local layers through the window kernels
     cfg, launches, (gs, gc, gm) = _small_local_run(torch, K, "cuda")
@@ -1391,13 +1489,15 @@ def main_path(torch, K, name, make_sim, test, need, metric_ok):
         if not metric_ok(m):
             raise AssertionError(f"{name}: {which} ensemble fails its "
                                  f"check: {m}")
-    profile_round(torch, fused.sim, plan, name)
+    profile_round(torch, fused.sim, plan, name, flag_cost=name == "cnn")
     return launches
 
 
-def profile_round(torch, sim, plan, name):
+def profile_round(torch, sim, plan, name, flag_cost: bool = False):
     """Where a stage's time goes: one fused ``shard_round`` (M clients, L
-    epochs) timed on the host clock, then traced for its device time."""
+    epochs) timed on the host clock, then traced for its device time.  With
+    ``flag_cost``, the same again with ``torch.backends.cudnn.deterministic``
+    off (``resolve_device`` sets it): what the flag costs."""
     from repro_torch.core.tree import tree_map
     clients = plan.shard_clients[sorted(plan.shard_clients)[0]]
     xs, ys = sim._stack_client_data(clients)
@@ -1406,20 +1506,35 @@ def profile_round(torch, sim, plan, name):
     def run():
         sim.shard_round(w, xs[None], ys[None], sim.fl.local_epochs, "flat")
         torch.cuda.synchronize()
-    run()
-    t0 = time.perf_counter()
-    run()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = trace_device(run) or {}
+
+    def measure():
+        run()
+        t0 = time.perf_counter()
+        run()
+        wall = (time.perf_counter() - t0) * 1e3
+        return wall, trace_device(run) or {}
+    wall_ms, by_name = measure()
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     steps = sim.fl.local_epochs * (xs.shape[1] // sim.local_batch)
+    extra = {}
+    if flag_cost:
+        torch.backends.cudnn.deterministic = False
+        try:
+            off_wall, off_by = measure()
+        finally:
+            torch.backends.cudnn.deterministic = True
+        extra = {"cudnn_deterministic_off": {
+            "wall_ms": off_wall, "device_busy_ms": sum(off_by.values()),
+            "top_ms": [[n[:80], ms] for n, ms in sorted(
+                off_by.items(), key=lambda kv: -kv[1])[:4]]}}
     log("profile", path=name, what=f"one fused shard_round: {len(clients)} "
         f"clients, {steps} SGD steps", wall_ms=wall_ms,
         device_busy_ms=busy_ms,
         device_idle_share=(max(0.0, 1 - busy_ms / wall_ms) if by_name
                            else None),
-        top_ms=[[n[:80], ms] for n, ms in top])
+        cudnn_deterministic=torch.backends.cudnn.deterministic,
+        top_ms=[[n[:80], ms] for n, ms in top], **extra)
 
 
 def cnn_path(torch, K):
@@ -1664,39 +1779,58 @@ def check_table1_small(torch, K):
 
 
 def check_card_repeat(torch, cfg, card):
-    """Two card runs of the suite give the same metrics: ``card`` (every
-    framework) against a run with SE only, on the candidates both scored.
-    cuDNN picks its convolution algorithms freely, and some of them sum in
-    an order that changes from run to run: where the two runs differ, the
-    distance is printed (ROADMAP queue 3 records it), and the same pair of
-    runs is repeated with ``torch.backends.cudnn.deterministic`` to show
-    whether cuDNN is the cause.  A difference does not fail the phase."""
+    """Two card runs of the suite give the same metrics, bit for bit:
+    ``card`` (every framework) against a run with SE only, on the
+    candidates both scored; any difference fails the phase.  The reference
+    is bit-reproducible under a fixed seed, and ``resolve_device`` sets
+    ``torch.backends.cudnn.deterministic`` so the port is too (ROADMAP
+    queue 3 item 10: cuDNN's nondeterministic convolution algorithms made
+    two runs differ).  Then what the flag costs: the SE-only run's wall and
+    device-busy time as set, and once more with the flag off."""
     def apart(a, b):
         a, b = a.metrics_dict(), b.metrics_dict()
         return {n: {k: abs(a[n][k] - v) for k, v in b[n].items()
                     if a[n][k] != v} for n in b}
-    gaps = apart(card, _verify_small(torch, cfg, "cuda",
-                                     frameworks=("SE",))[0])
-    same = not any(gaps.values())
-    deterministic = None
-    if not same:
+
+    def se_run():
+        out = _verify_small(torch, cfg, "cuda", frameworks=("SE",))[0]
+        torch.cuda.synchronize()
+        return out
+    t0 = time.perf_counter()
+    second = se_run()
+    walls = {"deterministic": time.perf_counter() - t0}
+    gaps = apart(card, second)
+    busy = {"deterministic": trace_device(se_run)}
+    torch.backends.cudnn.deterministic = False
+    try:
+        t0 = time.perf_counter()
+        loose = se_run()
+        walls["not_deterministic"] = time.perf_counter() - t0
+        busy["not_deterministic"] = trace_device(se_run)
+    finally:
         torch.backends.cudnn.deterministic = True
-        try:
-            first = _verify_small(torch, cfg, "cuda", frameworks=("SE",))[0]
-            deterministic = not any(apart(first, _verify_small(
-                torch, cfg, "cuda", frameworks=("SE",))[0]).values())
-        finally:
-            torch.backends.cudnn.deterministic = False
+    busy = {k: (sum(v.values()) if v else None) for k, v in busy.items()}
+    same = not any(gaps.values())
     log("table1_small", what="two card runs, the second with SE only",
         same_metrics=same, apart=gaps,
-        same_with_cudnn_deterministic=deterministic)
+        cudnn_deterministic=torch.backends.cudnn.deterministic,
+        flag_cost={"what": "one table1_small run with SE only (victim and "
+                           "two shadow stages, SE, the verifiers)",
+                   "wall_s": walls, "device_busy_ms": busy,
+                   "flag_off_same_metrics": not any(
+                       apart(second, loose).values())})
+    if not same:
+        raise AssertionError(f"table1_small: two card runs differ: {gaps}")
 
 
 # each generation family's own kernels, launched in every SGD step; the
-# NanoGPT family's global attention layers run the plain blockwise path
+# NanoGPT family's global attention layers run the plain blockwise path, and
+# the moe family's router, dispatch and experts are plain torch ops (as the
+# reference's are plain jnp ops)
 LM_KERNELS = {"mamba": ("ssm_scan", "ssm_scan_bwd"),
               "rwkv6": ("wkv", "wkv_bwd"),
-              "nanogpt": ()}
+              "nanogpt": (),
+              "moe": ()}
 
 
 def check_engine_gemms(torch, sim, seq: int) -> dict:
@@ -2093,6 +2227,120 @@ def full_width_gemma(torch, K):
     return launches
 
 
+def full_width_granite(torch, K):
+    """Phase 6d: one granite-moe-3b-a800m layer at its published width (ln1,
+    global attention, ln2, MoE FFN of 40 experts, top-8), forward and
+    backward through ``apply_block_train`` at train_4k's sequence length,
+    batch 2, fp32, with each dispatch form (``moe_impl`` "einsum", then
+    "gather"): each form's ms (the layer's, and the MoE FFN's alone), peak
+    memory (and its rise over what was allocated before the step) and the
+    share of (token, choice) pairs dropped past the experts' capacity; the
+    gather form's output and
+    gradients held to the einsum form's within 1e-4 of each one's largest
+    entry (the window backward's tolerance: sums in another order; the
+    gather form's backward adds by ``scatter_add``)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.tree import leaves_with_paths, tree_leaves, tree_map
+    from repro_torch.models.attention import init_attention
+    from repro_torch.models.layers import init_norm
+    from repro_torch.models.moe import apply_moe, init_moe
+    from repro_torch.models.params import RealInit
+    from repro_torch.models.transformer import apply_block_train
+
+    base = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                               param_dtype="float32", compute_dtype="float32")
+    bsz, s = 2, SHAPES["train_4k"].seq_len
+    t0 = time.perf_counter()
+    fac = RealInit(torch.Generator().manual_seed(0))
+    p = {"ln1": init_norm(fac, base), "attn": init_attention(fac, base),
+         "ln2": init_norm(fac, base), "ffn": init_moe(fac, base)}
+    p = tree_map(lambda v: v[None].to("cuda").requires_grad_(True), p)
+    n_params = sum(v.numel() for v in tree_leaves(p))
+    # one layer's share of the analytic count: less the tied embedding and
+    # the final norm
+    per_layer = (base.param_count() - base.vocab_size * base.d_model
+                 - base.d_model) // base.num_layers
+    x = torch.randn(1, bsz, s, base.d_model, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+    x.requires_grad_(True)
+    init_s = time.perf_counter() - t0
+    leaves = [x, *tree_leaves(p)]
+    # the MoE FFN alone, on the layer's ln2 input
+    h = torch.randn(1, bsz, s, base.d_model, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3),
+                    requires_grad=True)
+    ffn_leaves = [h, *tree_leaves(p["ffn"])]
+    out, rows = {}, {}
+    for impl in ("einsum", "gather"):
+        cfg = dataclasses.replace(base, moe_impl=impl)
+
+        def step():
+            y, aux = apply_block_train(p, x, cfg, "global", 0)
+            loss = (y * y).mean() + aux.sum()
+            return y, aux, torch.autograd.grad(loss, leaves)
+
+        def ffn_step():
+            y, aux = apply_moe(p["ffn"], h, cfg)
+            return torch.autograd.grad((y * y).mean() + aux.sum(),
+                                       ffn_leaves)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        with routing_log() as routes:
+            y, aux, grads = step()            # warm-up, checked below
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        K.reset_launches()
+        layer_ms = batch_ms(step, 3)
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        (idx, keep), = routes
+        # on the host, so that the next form's peak holds none of this one's
+        out[impl] = (y.detach().cpu(), [g.detach().cpu() for g in grads],
+                     idx)
+        rows[impl] = {"fwd_bwd_ms": layer_ms,
+                      "moe_ffn_fwd_bwd_ms": batch_ms(ffn_step, 3),
+                      "peak_mem_bytes": peak,
+                      "peak_over_start_bytes": peak - start,
+                      "dropped_share": 1.0 - float(keep.float().mean()),
+                      "aux": float(aux.detach()), "launches": launches}
+        del y, aux, grads
+    (ye, ge, ie), (yg, gg, ig) = out["einsum"], out["gather"]
+    names = ["x"] + ["/".join(path) for path, _ in leaves_with_paths(p)]
+    worst = {}
+    for nm, g, r in zip(["y"] + names, [yg] + gg, [ye] + ge):
+        rmax = float(r.abs().max())
+        err = float((g - r).abs().max())
+        worst[nm] = err / max(rmax, 1e-30)
+        if not (err <= 1e-4 * rmax and bool(torch.isfinite(g).all())):
+            raise AssertionError(f"granite layer: the gather form's {nm} "
+                                 f"is {err} from the einsum form's (max "
+                                 f"{rmax})")
+    g, k, e = 512, base.experts_per_token, base.num_experts
+    cap = max(int(g * k / e * base.moe_capacity_factor), 4)
+    if not (torch.equal(ie, ig) and n_params == per_layer
+            and tuple(ye.shape) == (1, bsz, s, base.d_model)):
+        raise AssertionError(f"granite layer: routing equal "
+                             f"{torch.equal(ie, ig)}, params {n_params} vs "
+                             f"{per_layer}, shape {tuple(ye.shape)}")
+    log("full", model="granite-moe-3b-a800m layer (global attention + MoE "
+        "FFN)", d_model=base.d_model, heads=base.num_heads,
+        kv_heads=base.num_kv_heads, head_dim=base.head_dim,
+        experts=e, top_k=k, moe_d_ff=base.moe_d_ff,
+        capacity_factor=base.moe_capacity_factor, group=g,
+        groups=bsz * s // g, capacity=cap, params=n_params,
+        input=[bsz, s, base.d_model],
+        reduced={"depth": "one layer of 32 (embedding and unembedding left "
+                          "out)",
+                 "batch": "train_4k's 256 cut to 2"},
+        init_s=init_s, forms=rows,
+        gather_vs_einsum_max_err_of_max=max(worst.values()),
+        tol="1e-4 of each tensor's largest entry")
+    del p, x, h, out, ye, ge, yg, gg
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     src = root / "src"
@@ -2113,7 +2361,9 @@ def main() -> int:
         torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0],
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
-        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        cudnn_deterministic=torch.backends.cudnn.deterministic,
+        cudnn_benchmark=torch.backends.cudnn.benchmark)
 
     K.load_library()
     ptxas = ptxas_summary(K.BUILD_INFO["log"])
@@ -2153,6 +2403,7 @@ def main() -> int:
     full_width(torch, K)
     full_width_rwkv(torch, K)
     launches["gemma3"] = full_width_gemma(torch, K)
+    full_width_granite(torch, K)
 
     # one row per kernel, its numbers from the path it was ported for; the
     # launches and times on every path under "by_path"

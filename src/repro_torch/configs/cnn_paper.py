@@ -20,3 +20,10 @@ CONFIG = ModelConfig(
     compute_dtype="float32",
     source="paper Sec 5.1 (CNN)",
 )
+
+import dataclasses as _dc  # noqa: E402
+
+# CIFAR-10 variant: 32x32 RGB inputs, same topology.
+CONFIG_CIFAR = _dc.replace(
+    CONFIG, name="cnn-paper-cifar", image_size=32, image_channels=3
+)

@@ -3,8 +3,10 @@ vocab=65536, MoE 16 experts top-2, Mamba:attention 7:1 interleave (each period
 of 8 layers = 1 attention + 7 mamba), MoE FFN on every 2nd layer.
 [arXiv:2403.19887]
 
-The port runs its mamba mixer (``models.mamba.mamba_block``) at this width;
-the attention and MoE layers arrive with their slices.
+The port runs every layer kind of this config: its mamba mixer
+(``models.mamba.mamba_block``) at this width in ``chip_smoke.py``, and
+``reduce_for_smoke`` of it (a ``global`` layer, then a ``mamba`` layer
+with an MoE FFN) in the CPU tests and on the card.
 """
 from repro_torch.configs.base import ModelConfig
 

@@ -199,6 +199,22 @@ def decode_erasure(scheme: CodingScheme, slices: torch.Tensor,
     return coded_matmul(dm, sl)
 
 
+def decode_vandermonde(scheme: CodingScheme,
+                       slices: torch.Tensor) -> torch.Tensor:
+    """The paper's literal eq. (7): the power-basis Vandermonde
+    pseudo-inverse recovers the polynomial's coefficients from all C
+    slices, which are then evaluated at omega.  Numerically sane only for
+    small C; kept for fidelity tests.  The float64 matrices are the
+    reference's; both products run through ``coded_matmul``."""
+    a = np.vander(np.asarray(scheme.alpha), scheme.num_shards, increasing=True)
+    pinv = np.linalg.pinv(a)                        # (S, C)
+    coeffs = coded_matmul(_matrix(pinv, slices.device),
+                          slices.float().contiguous())
+    v_omega = np.vander(np.asarray(scheme.omega), scheme.num_shards,
+                        increasing=True)            # (S, S)
+    return coded_matmul(_matrix(v_omega, slices.device), coeffs)
+
+
 def encode_decode_operators(scheme: CodingScheme,
                             client_ids: Optional[Sequence[int]] = None
                             ) -> Tuple[np.ndarray, np.ndarray]:
@@ -305,6 +321,22 @@ def locate_errors(scheme: CodingScheme, slices: np.ndarray,
     return locate_errors(scheme, slices, num_probe, seed, tol, method="ransac")
 
 
+def decode_with_errors(scheme: CodingScheme, slices: torch.Tensor
+                       ) -> Tuple[torch.Tensor, np.ndarray]:
+    """Full RS decode: localize corrupted slices (float64, on the host),
+    then erasure-decode without them.  slices: (C, P).  Returns
+    ``(W (S, P), bad_ids)``; raises ``CodingBudgetExceeded`` when the
+    corruption exceeds eq. 11's budget."""
+    bad = locate_errors(scheme,
+                        slices.detach().to("cpu", torch.float64).numpy())
+    good = np.setdiff1d(np.arange(scheme.num_clients), bad)
+    if len(good) < scheme.num_shards:
+        raise CodingBudgetExceeded(len(bad), scheme.max_errors)
+    rows = torch.as_tensor(good, device=slices.device)
+    return decode_erasure(scheme, slices.index_select(0, rows),
+                          list(good)), bad
+
+
 def decode_robust(scheme: CodingScheme, slices: torch.Tensor,
                   available: Optional[Sequence[int]] = None,
                   tol: float = 1e-3, seed: int = 0
@@ -409,3 +441,21 @@ def flat_to_client_trees(flat: torch.Tensor, spec: StackedRowSpec) -> dict:
         len(spec.client_ids), spec.row_len)
     return {c: flat_to_tree(rows[i], spec.row_spec)
             for i, c in enumerate(spec.client_ids)}
+
+
+def encode_pytrees(scheme: CodingScheme, shard_trees: Sequence):
+    """Encode S parameter trees (one per shard) into C coded slices, each
+    tree flattened in sorted-key order and zero-padded to the longest.
+    Returns ``(slices (C, P), specs)``; ``specs[s]`` reassembles shard s."""
+    flats, specs = zip(*[tree_to_flat(t) for t in shard_trees])
+    pmax = max(f.shape[0] for f in flats)
+    w = torch.stack([torch.nn.functional.pad(f, (0, pmax - f.shape[0]))
+                     for f in flats])
+    return encode(scheme, w), specs
+
+
+def decode_pytrees(scheme: CodingScheme, slices: torch.Tensor,
+                   client_ids: Sequence[int], specs) -> list:
+    """The S shard trees back from the slices of ``client_ids``."""
+    w = decode_erasure(scheme, slices, client_ids)
+    return [flat_to_tree(w[s], specs[s]) for s in range(scheme.num_shards)]

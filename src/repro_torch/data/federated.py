@@ -23,9 +23,11 @@ partition bit-for-bit.
 from __future__ import annotations
 
 import inspect
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.data.synthetic import ImageData
 
 Partitioner = Callable[..., List[np.ndarray]]
 
@@ -208,3 +210,33 @@ def partition_zipf(n: int, labels, num_clients: int, seed: int = 0,
     perm = rng.permutation(n)
     edges = np.cumsum(sizes)[:-1]
     return [np.sort(p) for p in np.split(perm, edges)]
+
+
+# ---------------------------------------------------------------------------
+# Client-dataset builders (the ``iid: bool`` flag lives on as a shim)
+# ---------------------------------------------------------------------------
+
+def _resolve(partitioner: Optional[str], iid: Optional[bool],
+             legacy_skew: str, **params) -> Partitioner:
+    if partitioner is None:
+        partitioner = "iid" if (iid is None or iid) else legacy_skew
+    return get_partitioner(partitioner, **params)
+
+
+def client_datasets_images(data: ImageData, num_clients: int,
+                           iid: Optional[bool] = None, seed: int = 0,
+                           partitioner: Optional[str] = None,
+                           **params) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
+    part = _resolve(partitioner, iid, "primary-class", **params)
+    parts = part(len(data.labels), data.labels, num_clients, seed)
+    return {k: (data.images[idx], data.labels[idx])
+            for k, idx in enumerate(parts)}
+
+
+def client_datasets_lm(tokens: np.ndarray, labels: np.ndarray,
+                       num_clients: int, iid: Optional[bool] = None,
+                       seed: int = 0, partitioner: Optional[str] = None,
+                       **params) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
+    part = _resolve(partitioner, iid, "buckets", **params)
+    parts = part(len(tokens), None, num_clients, seed)
+    return {k: (tokens[idx], labels[idx]) for k, idx in enumerate(parts)}

@@ -63,6 +63,18 @@ def make_char_data(n_tokens: int, vocab_size: int = 109, seed: int = 0,
     return np.asarray(out[:n_tokens], np.int32)
 
 
+def batch_iterator(data, labels, batch: int, seed: int = 0, epochs: int = 1):
+    """Shuffled minibatches of ``batch`` examples, the tail dropped, one
+    fresh permutation per epoch."""
+    rng = np.random.default_rng(seed)
+    n = len(data)
+    for _ in range(epochs):
+        perm = rng.permutation(n)
+        for i in range(0, n - batch + 1, batch):
+            idx = perm[i:i + batch]
+            yield data[idx], labels[idx]
+
+
 def lm_examples(stream: np.ndarray, seq_len: int
                 ) -> Tuple[np.ndarray, np.ndarray]:
     """Chop a token stream into (tokens, labels) next-token pairs."""

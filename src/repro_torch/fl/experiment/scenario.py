@@ -4,12 +4,15 @@
 ``ScenarioConfig`` names the task (``TASKS``), the model family
 (``FAMILIES``), the client partitioner (``PARTITIONERS``), the store kind,
 the engine, the stage count and the unlearning request schedule; every
-registry key is validated at construction.  ``build_simulator``,
-``build_session`` and ``run_scenario`` run on the CUDA card unless given
-``device="cpu"``.
+registry key is validated at construction.  The pre-registry spellings,
+``task="image" | "lm"`` and ``iid=True/False``, keep working as
+``DeprecationWarning`` shims with the reference's texts.
+``build_simulator``, ``build_session`` and ``run_scenario`` run on the CUDA
+card unless given ``device="cpu"``.
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -29,6 +32,8 @@ from repro_torch.stores.store import STORES
 
 InitFn = Optional[Callable[[int], dict]]
 
+_TASK_ALIASES = {"image": "classification", "lm": "generation"}
+
 
 @dataclass
 class ScenarioConfig:
@@ -38,6 +43,7 @@ class ScenarioConfig:
     model: str = ""                   # "" -> the task's default family
     partitioner: str = "iid"
     partitioner_kwargs: Dict[str, Any] = field(default_factory=dict)
+    iid: Optional[bool] = None        # DEPRECATED -> partitioner=
     seed: int = 0
     samples_per_client: int = 80
     image_size: int = 14
@@ -58,7 +64,7 @@ class ScenarioConfig:
     # orchestration
     store: str = "coded"
     store_options: Dict[str, Any] = field(default_factory=dict)
-    engine: str = "fused"                # "stage" | "fused"
+    engine: str = "fused"                # "stage" | "fused" | "legacy"
     encode_group: Optional[int] = None
     slice_dtype: Optional[Any] = None
     num_stages: int = 1
@@ -67,6 +73,7 @@ class ScenarioConfig:
     strict_schedule: bool = False        # raise on never-served requests
 
     def __post_init__(self):
+        self._apply_deprecated_spellings()
         task = get_task(self.task)           # raises listing TASKS
         self.task = task.name
         if not self.model:
@@ -101,6 +108,27 @@ class ScenarioConfig:
                 f"clients_per_round={self.clients_per_round} clients sampled "
                 f"per stage")
         as_dtype(self.slice_dtype)           # raises on a non-dtype
+
+    def _apply_deprecated_spellings(self):
+        if self.task in _TASK_ALIASES:
+            new = _TASK_ALIASES[self.task]
+            warnings.warn(
+                f"ScenarioConfig(task={self.task!r}) is deprecated; use "
+                f"task={new!r} (optionally with model=...)",
+                DeprecationWarning, stacklevel=4)
+            self.task = new
+        if self.iid is not None:
+            iid, self.iid = self.iid, None
+            warnings.warn(
+                "ScenarioConfig(iid=...) is deprecated; use partitioner= "
+                "('iid', 'primary-class', 'buckets', 'dirichlet', 'zipf')",
+                DeprecationWarning, stacklevel=4)
+            if self.partitioner != "iid":
+                raise ValueError(
+                    "pass either the deprecated iid= flag or partitioner=, "
+                    "not both")
+            if not iid:
+                self.partitioner = get_task(self.task).legacy_skew
 
     def fl_config(self) -> FLConfig:
         return FLConfig(num_clients=self.num_clients,

@@ -6,7 +6,7 @@ sampled stage and writes each round through ``ParameterStore.put_round``.
 The store's ``wants`` attribute picks the payload the round step computes
 ("flat" for the coded store, "stacked" for the uncoded ones).
 
-Two engines:
+Three engines:
 
 * ``engine="stage"`` — all S shards advance together as one stack of S*M
   clients, and the coded store's encode runs on the whole (G, S, M*P)
@@ -15,6 +15,13 @@ Two engines:
 * ``engine="fused"`` (default) — one stacked ``shard_round`` per (shard,
   round) over the shard's M clients, plus one deferred batched encode
   (``coded_matmul``) in the store's ``flush``.
+* ``engine="legacy"`` — the reference's seed per-client path, kept for A/B
+  benchmarking: each shard's clients train as one stack, but every client
+  is unstacked, its update norm pulled to the host one scalar at a time,
+  and each round stored as per-client trees (``RoundPayload.from_clients``:
+  the coded store flattens and encodes every round on its own).
+
+``FLSimulator.train_stage`` is a deprecated shim over ``train_stage``.
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ from repro_torch.core import coding
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.stores.store import RoundPayload
 
-ENGINES = ("stage", "fused")
+ENGINES = ("stage", "fused", "legacy")
 
 
 def train_stage(sim, store_kind: str = "coded", rounds: Optional[int] = None,
@@ -45,6 +52,10 @@ def train_stage(sim, store_kind: str = "coded", rounds: Optional[int] = None,
     """
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; use one of {ENGINES}")
+    if engine == "legacy" and (encode_group is not None
+                               or slice_dtype is not None):
+        raise ValueError("encode_group/slice_dtype need engine="
+                         "'fused' or 'stage'")
     if engine == "stage" and encode_group is not None:
         raise ValueError("encode_group is a fused-engine option; the stage "
                          "engine always encodes all rounds at once")
@@ -56,6 +67,8 @@ def train_stage(sim, store_kind: str = "coded", rounds: Optional[int] = None,
                       init_fn(plan.stage))
     else:
         w0 = sim.init_model(plan.stage)
+    if engine == "legacy":
+        return _train_stage_legacy(sim, plan, w0, store_kind, g_rounds)
     store = sim._make_store(store_kind, plan,
                             group_rounds=encode_group or g_rounds,
                             slice_dtype=slice_dtype, **(store_options or {}))
@@ -173,3 +186,38 @@ def _run_fused(sim, plan, store, w0, data, g_rounds, kind):
                       dim=1).cpu().numpy()              # (G, S, M)
     return StageRecord(plan, dict(ws), round_globals, store,
                        history_norms=_norms_dict(plan, shards, arr, g_rounds))
+
+
+def _train_stage_legacy(sim, plan, w0, store_kind: str, g_rounds: int):
+    """The reference's seed per-client round loop (unstack, one host pull
+    per update norm, per-round tree flatten and encode), for A/B."""
+    from repro_torch.core import unlearning
+    from repro_torch.fl.simulator import StageRecord, _broadcast, _lift
+
+    fl = sim.fl
+    store = sim._make_store(store_kind, plan)
+    ws = {s: w0 for s in plan.shard_clients}
+    data = {s: sim._stack_client_data(cs)
+            for s, cs in plan.shard_clients.items()}
+    round_globals = {s: [] for s in plan.shard_clients}
+    norms = {}
+    for g in range(g_rounds):
+        all_params = {}
+        for s, clients in plan.shard_clients.items():
+            round_globals[s].append(ws[s])
+            xs, ys = data[s]
+            p0 = _broadcast(_lift(ws[s]), (len(clients),))
+            locals_ = sim.local_train(p0, xs, ys, fl.local_epochs)
+            per_client = [tree_map(lambda v, i=i: v[i], locals_)
+                          for i in range(len(clients))]
+            all_params.update(dict(zip(clients, per_client)))
+            for i, c in enumerate(clients):
+                d = unlearning.tree_sub(per_client[i], ws[s])
+                norms[(s, g, c)] = float(unlearning.tree_norm(d))
+            ws[s] = unlearning.tree_mean(per_client)
+        store.put_round(RoundPayload.from_clients(g, plan.shard_clients,
+                                                  all_params))
+    for s in plan.shard_clients:
+        round_globals[s].append(ws[s])
+    return StageRecord(plan, dict(ws), round_globals, store,
+                       history_norms=norms)

@@ -1,10 +1,11 @@
 """Model-family registry — adapters that build a ``ModelConfig`` for one
 ``ScenarioConfig``, declare the task kind they play and name the kernel ops
-their forward routes through.  The port carries the paper CNN, the paper's
-NanoGPT (the generation task's default family), the mamba family (through
-the ``ssm_scan`` forward and backward kernels) and the rwkv6 family
-(through the ``wkv`` forward and backward kernels); the moe family arrives
-with its model."""
+their forward routes through.  The port carries every family of
+``repro.fl.families``: the paper CNN, the paper's NanoGPT (the generation
+task's default family), the mamba family (through the ``ssm_scan`` forward
+and backward kernels), the rwkv6 family (through the ``wkv`` forward and
+backward kernels) and the moe family (its router, dispatch and experts are
+plain torch ops, as the reference's are plain jnp ops)."""
 from __future__ import annotations
 
 import dataclasses
@@ -49,6 +50,11 @@ def get_model_family(name: str) -> ModelFamily:
     except KeyError:
         raise ValueError(f"unknown model family {name!r}; registered: "
                          f"{sorted(FAMILIES)}") from None
+
+
+def canonical_families() -> Tuple[str, ...]:
+    """The registered families, one name per class, sorted."""
+    return tuple(sorted({cls.name for cls in FAMILIES.values()}))
 
 
 @register_model_family("cnn")
@@ -117,3 +123,21 @@ class RWKV6Family(ModelFamily):
                            rwkv_impl="pallas", norm_type="layernorm",
                            act="silu", source="scenario zoo (rwkv6)",
                            **_TINY_LM)
+
+
+@register_model_family("moe")
+class MoEFamily(ModelFamily):
+    """Mixture-of-experts FFN transformer (granite-style top-k routing;
+    ``repro.fl.families.MoEFamily``: 2 global layers, d_model 32, 4 heads
+    over 2 kv heads, 4 experts of width 32, top-2, vocab 109 padded to
+    512) — per-client expert specialization under label/quantity skew."""
+
+    task = "generation"
+    default_lr = 0.1
+
+    def build(self, cfg) -> ModelConfig:
+        return ModelConfig(name="moe-fl", family="moe", num_heads=4,
+                           num_kv_heads=2, num_experts=4,
+                           experts_per_token=2, moe_d_ff=32,
+                           norm_type="rmsnorm", act="silu",
+                           source="scenario zoo (moe)", **_TINY_LM)

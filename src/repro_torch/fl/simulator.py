@@ -23,6 +23,7 @@ through the hand-written kernels; on the CPU through their plain versions.
 from __future__ import annotations
 
 import json
+import warnings
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -223,6 +224,36 @@ class FLSimulator:
                           num_clients=self.fl.clients_per_round,
                           group_rounds=group_rounds, slice_dtype=slice_dtype,
                           **store_options)
+
+    # --------------------------------------------------- deprecated shims
+    def train_stage(self, store_kind: str = "coded",
+                    rounds: Optional[int] = None, engine: str = "fused",
+                    encode_group: Optional[int] = None,
+                    slice_dtype=None) -> StageRecord:
+        """Deprecated shim over ``repro_torch.fl.experiment.train_stage``."""
+        warnings.warn(
+            "FLSimulator.train_stage is deprecated; use "
+            "repro_torch.fl.experiment.train_stage(sim, ...) or "
+            "FederatedSession",
+            DeprecationWarning, stacklevel=2)
+        from repro_torch.fl.experiment.stage import train_stage
+        return train_stage(self, store_kind=store_kind, rounds=rounds,
+                           engine=engine, encode_group=encode_group,
+                           slice_dtype=slice_dtype)
+
+    def unlearn(self, framework: str, record: StageRecord,
+                requests: Sequence[int], rounds: Optional[int] = None,
+                available: Optional[Sequence[int]] = None,
+                corrupt: Optional[np.ndarray] = None) -> UnlearnResult:
+        """Deprecated shim over ``repro_torch.fl.experiment.run_unlearn``."""
+        warnings.warn(
+            "FLSimulator.unlearn is deprecated; use "
+            "repro_torch.fl.experiment.run_unlearn(sim, ...) or "
+            "FederatedSession",
+            DeprecationWarning, stacklevel=2)
+        from repro_torch.fl.experiment.frameworks import run_unlearn
+        return run_unlearn(self, framework, record, requests, rounds=rounds,
+                           available=available, corrupt=corrupt)
 
     # ------------------------------------------------------------ training
     def _grads(self, params, x: torch.Tensor, y: torch.Tensor):

@@ -27,6 +27,7 @@ class TaskSpec:
     name: str = ""
     kind: str = ""              # batch/metric shape family; defaults to name
     default_family: str = ""    # model family used when ScenarioConfig.model=""
+    legacy_skew: str = ""       # partitioner the deprecated iid=False maps to
     default_lr: float = 0.05
     default_batch: int = 20
 
@@ -112,6 +113,7 @@ class ClassificationTask(TaskSpec):
     synthetic images, accuracy + mean NLL metrics."""
 
     default_family = "cnn"
+    legacy_skew = "primary-class"
     default_lr = 0.05
     default_batch = 20
 
@@ -155,6 +157,7 @@ class GenerationTask(TaskSpec):
     family): zipfian char stream, perplexity / bits-per-char metrics."""
 
     default_family = "transformer"
+    legacy_skew = "buckets"
     default_lr = 0.3
     default_batch = 10
 

@@ -82,6 +82,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         # about three decimal digits; the reference computes in full fp32.
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        # the reference is bit-reproducible under a fixed seed, so two runs
+        # on the card must be too: cuDNN may otherwise pick (or benchmark
+        # its way to) convolution algorithms that sum in a different order
+        # from one run to the next.
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
     return dev

@@ -99,8 +99,8 @@ def loss_fn(cfg: ModelConfig):
     def lm_loss(params, batch):
         p1, b1 = _one(params, batch)
         logits, aux = tfm.forward_train(p1, cfg, b1)
-        loss = _xent(logits, b1["labels"])[0] + aux
-        return loss, {"loss": loss, "aux": aux}
+        loss = _xent(logits, b1["labels"])[0] + aux[0]
+        return loss, {"loss": loss, "aux": aux[0]}
     return lm_loss
 
 

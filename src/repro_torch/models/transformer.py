@@ -10,10 +10,13 @@ Python loop.  The reference's ``remat="block"`` (``jax.checkpoint``)
 changes no numbers and has no counterpart here.
 
 The port carries the attention layer kinds (``global`` and ``local``,
-sliding-window) and the ``mamba`` layer kind, each with its dense FFN, and
-the ``rwkv`` layer kind (time-mix and channel-mix, from zero states).  MoE
-FFNs (ROADMAP queue 1 item 11), the audio/vlm frontends and the
-prefill/decode caches raise ``NotImplementedError``.
+sliding-window) and the ``mamba`` layer kind, each with a dense or an MoE
+FFN (``cfg.ffn_is_moe``), and the ``rwkv`` layer kind (time-mix and
+channel-mix, from zero states).  The MoE FFN's load-balancing loss is per
+model: ``forward_train`` returns aux of shape (K,), each entry from that
+model's own tokens, as the reference's loss vmapped over clients gives.
+The audio/vlm frontends and the prefill/decode caches raise
+``NotImplementedError`` (ROADMAP queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from repro_torch.kernels.window_attn.ops import window_attention
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import rwkv6 as rw
+from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.models.layers import (apply_embed, apply_mlp, apply_norm,
                                        apply_rope, apply_unembed, init_embed,
                                        init_mlp, init_norm, matmul)
@@ -36,16 +40,13 @@ KINDS = ("global", "local", "mamba", "rwkv")
 
 
 def check_kinds(cfg: ModelConfig) -> None:
-    """Raise for the layer kinds, FFNs and frontends not ported yet."""
+    """Raise for the layer kinds and frontends not ported yet."""
     if cfg.family in ("audio", "vlm") or cfg.frontend:
         raise NotImplementedError(f"the {cfg.family!r} family's frontend is "
-                                  f"not ported yet (ROADMAP queue 1)")
-    for i, kind in enumerate(cfg.layer_kinds):
+                                  f"not ported yet (ROADMAP queue 1 item 5)")
+    for kind in cfg.layer_kinds:
         if kind not in KINDS:
             raise ValueError(kind)
-        if cfg.ffn_is_moe(i % len(cfg.layer_pattern)):
-            raise NotImplementedError("MoE FFNs arrive with the moe family "
-                                      "(ROADMAP queue 1 item 11)")
 
 
 def pattern_info(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -85,8 +86,10 @@ def _init_block(fac, cfg: ModelConfig, kind: str, pat_idx: int):
         mixer = {"mamba": mb.init_mamba(fac, cfg)}
     else:                     # check_kinds has refused the others
         raise ValueError(kind)
+    ffn = init_moe(fac, cfg) if cfg.ffn_is_moe(pat_idx) else init_mlp(fac,
+                                                                       cfg)
     return {"ln1": init_norm(fac, cfg), **mixer, "ln2": init_norm(fac, cfg),
-            "ffn": init_mlp(fac, cfg)}
+            "ffn": ffn}
 
 
 def _attention(p, h, cfg: ModelConfig, kind: str) -> torch.Tensor:
@@ -134,9 +137,18 @@ def init_lm(fac, cfg: ModelConfig):
     return params
 
 
+def _apply_ffn(p, x, cfg: ModelConfig, is_moe: bool):
+    """The dense or MoE FFN: x (K, bs, S, d) -> (y, aux (K,))."""
+    if is_moe:
+        y, aux = apply_moe(p, x, cfg)
+        return y, aux.float()
+    return apply_mlp(p, x, cfg), x.new_zeros((x.shape[0],),
+                                             dtype=torch.float32)
+
+
 def apply_block_train(p, x, cfg: ModelConfig, kind: str, pat_idx: int):
-    """One layer in train mode: x (K, bs, S, d) -> (x, aux)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    """One layer in train mode: x (K, bs, S, d) -> (x, aux (K,))."""
+    aux = x.new_zeros((x.shape[0],), dtype=torch.float32)
     if kind == "rwkv":
         km, bs, _, d = x.shape
         hh, nn = rw.rwkv_heads(cfg)
@@ -154,17 +166,19 @@ def apply_block_train(p, x, cfg: ModelConfig, kind: str, pat_idx: int):
         x = x + mb.mamba_block(p["mamba"], h, cfg)[0]
     else:                     # check_kinds has refused the others
         raise ValueError(kind)
-    x = x + apply_mlp(p["ffn"], apply_norm(p["ln2"], x, cfg), cfg)
-    return x, aux
+    y, aux = _apply_ffn(p["ffn"], apply_norm(p["ln2"], x, cfg), cfg,
+                        cfg.ffn_is_moe(pat_idx))
+    return x + y, aux
 
 
 def forward_train(params, cfg: ModelConfig, batch):
-    """Returns (logits (K, bs, S, V), aux_loss).  batch: tokens (K, bs, S)."""
+    """Returns (logits (K, bs, S, V), aux_loss (K,)).  batch: tokens
+    (K, bs, S)."""
     check_kinds(cfg)
     plen, n_full, rem = pattern_info(cfg)
     x = apply_embed(params["embed"], batch["tokens"], cfg).to(
         getattr(torch, cfg.compute_dtype))
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_total = x.new_zeros((x.shape[0],), dtype=torch.float32)
     # each stacked leaf (K, n_full, ...) split once into its n_full layers
     layers = {f"p{pidx}": tree_map(lambda v: v.unbind(1),
                                    params["stack"][f"p{pidx}"])

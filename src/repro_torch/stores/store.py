@@ -110,21 +110,30 @@ class StoreStats:
 @dataclass
 class RoundPayload:
     """One FedAvg round's parameters, in producer-native form: exactly one
-    of ``stacked`` ({shard: (M, ...) tree}, rows in ``shard_clients`` order)
-    or ``flat`` ({shard: (M, P) matrix} + ``row_spec``).  The reference's
-    per-client form served only its legacy engine, which is not ported."""
+    of ``client_params`` ({client: tree}, the legacy engine's per-client
+    form), ``stacked`` ({shard: (M, ...) tree}, rows in ``shard_clients``
+    order) or ``flat`` ({shard: (M, P) matrix} + ``row_spec``)."""
     rnd: int
     shard_clients: Dict[int, List[int]]
+    client_params: Optional[Dict[int, object]] = None
     stacked: Optional[Dict[int, object]] = None
     flat: Optional[Dict[int, torch.Tensor]] = None
     row_spec: object = None
 
     def __post_init__(self):
-        if (self.stacked is None) == (self.flat is None):
+        forms = [x is not None for x in
+                 (self.client_params, self.stacked, self.flat)]
+        if sum(forms) != 1:
             raise ValueError("RoundPayload needs exactly one of "
-                             "stacked / flat")
+                             "client_params / stacked / flat")
         if self.flat is not None and self.row_spec is None:
             raise ValueError("flat payload requires row_spec")
+
+    @classmethod
+    def from_clients(cls, rnd: int, shard_clients: Dict[int, List[int]],
+                     client_params: Dict[int, object]) -> "RoundPayload":
+        return cls(rnd, {s: list(cs) for s, cs in shard_clients.items()},
+                   client_params=client_params)
 
     @classmethod
     def from_stacked(cls, rnd: int, shard_clients: Dict[int, List[int]],
@@ -139,13 +148,19 @@ class RoundPayload:
                    flat=flat, row_spec=row_spec)
 
     def iter_client_trees(self):
-        """Yield (shard, client, lazy row) for every client."""
-        if self.stacked is None:
+        """Yield (shard, client, tree or lazy row) for every client."""
+        if self.client_params is not None:
+            for s, cs in self.shard_clients.items():
+                for c in cs:
+                    if c in self.client_params:
+                        yield s, c, self.client_params[c]
+        elif self.stacked is not None:
+            for s, cs in self.shard_clients.items():
+                for i, c in enumerate(cs):
+                    yield s, c, _StackedRow(self.stacked[s], i)
+        else:
             raise ValueError("flat payload carries no per-client trees; "
-                             "use a 'stacked' payload")
-        for s, cs in self.shard_clients.items():
-            for i, c in enumerate(cs):
-                yield s, c, _StackedRow(self.stacked[s], i)
+                             "use a 'stacked' or 'client_params' payload")
 
 
 @runtime_checkable
@@ -209,7 +224,7 @@ class FullStore:
         self._shards[payload.rnd] = payload.shard_clients
         for _s, c, p in payload.iter_client_trees():
             self._data[(payload.rnd, c)] = p
-            b = p.nbytes()
+            b = p.nbytes() if isinstance(p, _StackedRow) else tree_bytes(p)
             self.stats.server_bytes += b
             self.stats.comm_bytes_store += b
 
@@ -249,7 +264,7 @@ class UncodedShardStore(FullStore):
         self._shards[payload.rnd] = payload.shard_clients
         for s, c, p in payload.iter_client_trees():
             self._data[(payload.rnd, c)] = p
-            b = p.nbytes()
+            b = p.nbytes() if isinstance(p, _StackedRow) else tree_bytes(p)
             self._per_shard[s] = self._per_shard.get(s, 0) + b
             self.stats.comm_bytes_store += b
         self.stats.server_bytes = max(self._per_shard.values(), default=0)
@@ -283,12 +298,29 @@ class CodedStore:
     def put_round(self, payload: RoundPayload) -> None:
         if payload.flat is not None:
             self._put_flat(payload.rnd, payload.flat, payload.row_spec)
+        elif payload.client_params is not None:
+            self._put_trees(payload.rnd, payload.client_params)
         else:
             flat, row_spec = {}, None
             for s, _cs in sorted(payload.shard_clients.items()):
                 flat[s], row_spec = coding.tree_to_flat_stacked(
                     payload.stacked[s])
             self._put_flat(payload.rnd, flat, row_spec)
+
+    def _put_trees(self, rnd: int, client_params: Dict[int, object]):
+        """Encode this round's per-shard parameter sets ({client: tree},
+        flattened in client order) into client slices, at once."""
+        shard_trees, layout = [], []
+        for s in sorted(self.shard_clients):
+            cs = [c for c in self.shard_clients[s] if c in client_params]
+            layout.append((s, cs))
+            shard_trees.append({c: client_params[c] for c in cs})
+        slices, specs = coding.encode_pytrees(self.scheme, shard_trees)
+        with self._lock:
+            self._slices[rnd] = slices
+            self._specs[rnd] = specs
+            self._layouts[rnd] = layout
+            self._account_stored(slices)
 
     def _put_flat(self, rnd: int, shard_flats: Dict[int, torch.Tensor],
                   row_spec):
@@ -421,7 +453,10 @@ class CodedStore:
                     self.stats.corrupted_slices += len(bad)
         for idx, (s, _cs) in enumerate(layout):
             if s == shard:
-                return coding.flat_to_client_trees(w[idx], specs[idx])
+                spec = specs[idx]
+                if isinstance(spec, coding.StackedRowSpec):
+                    return coding.flat_to_client_trees(w[idx], spec)
+                return coding.flat_to_tree(w[idx], spec)
         raise KeyError(f"shard {shard} not stored at round {rnd}")
 
     def clients_at(self, rnd: int) -> List[int]:

@@ -123,3 +123,16 @@ def test_init_params_without_device_raises_when_no_gpu(monkeypatch, arch):
         init_params(cfg, 0)
     assert all(v.device.type == "cpu"
                for v in tree_leaves(init_params(cfg, 0, device="cpu")))
+
+
+def test_resolve_device_cpu_leaves_cudnn_switches_alone(monkeypatch):
+    """``resolve_device`` sets cuDNN's deterministic algorithms (and no
+    benchmarking) only for the card, where two runs must give the same
+    bits; a CPU run leaves the process's switches as the caller set them."""
+    from repro_torch.kernels import resolve_device
+    for det, bench in ((False, True), (True, False)):
+        monkeypatch.setattr(torch.backends.cudnn, "deterministic", det)
+        monkeypatch.setattr(torch.backends.cudnn, "benchmark", bench)
+        assert resolve_device("cpu").type == "cpu"
+        assert torch.backends.cudnn.deterministic is det
+        assert torch.backends.cudnn.benchmark is bench
