@@ -134,7 +134,10 @@ Phases (any failed check raises, and the script exits non-zero):
    LM perplexity < 109, the uniform guess over the 109 symbols, on ten
    clients the stage did not sample: the task's test stream has a word
    inventory of its own).  Last, one fused shard round is profiled: wall
-   time, device-busy time, idle share and the kernels that take the time;
+   time, then from one trace the kernels that take the time, their sum,
+   their union (device-busy time) and the idle share, and each stream's
+   records (cuDNN runs the grouped convolution's groups on streams of its
+   own, so the CNN's sum exceeds its union);
    on the CNN path the round is measured again with
    ``cudnn.deterministic`` off (what the flag costs).
    (e) table1: the paper's Table 1 through ``run_verification`` in (a)'s
@@ -146,6 +149,34 @@ Phases (any failed check raises, and the script exits non-zero):
    G'·|retained|·epochs, a framework's F1 is not finite (RR's is left out
    where its models are not finite, and the line says so) or coded_matmul
    or calibrate did not launch; its counts join ``by_path`` as "table1".
+   (s) service: the online unlearning service (``repro_torch.service``)
+   on (a)'s trained session, right after (a); launch counts zeroed just
+   before each serve of that session and read just after, their sum
+   joining ``by_path`` as "service" (the tiny sessions and (e)'s training
+   stage are not counted).  (a)
+   ``sequenced_trace(even_requests(plan, 4), spacing=0.0, rounds=2)``
+   served by FIFO on ``single_device_placement()`` and by ``window``
+   (width 1.0) on four slots of the card (``DevicePlacement(devices=
+   [cuda] * 4)``: a worker thread and a stream each): slots [0, 1, 2, 3]
+   in one batch of 4 jobs on shards [0, 1, 2, 3], per-shard models bit
+   for bit equal to the one-slot serve's, and equal ``coded_matmul`` and
+   ``calibrate`` launches; both walls, and each serve's device-busy time
+   (the union of its kernels' intervals) and idle share.  (b)
+   ``poisson_trace(plan.clients, n=16, rate=4.0, seed=0, deadline=30.0,
+   skew=1.0)`` under fifo, window (1.0) and sla (deadline 30.0) on four
+   slots: p50, p95, p99, throughput, SLA hit rate.  (c) the chaotic plan
+   of tests/test_faults.py (two corrupted slices a round, one transient
+   failure a job) with slot 1 dead, on (a)'s trace and four slots: every
+   request completes, models bit-identical to the fault-free serve,
+   retries and recoveries > 0, no abort; on tests/test_faults.py's tiny
+   session, trained once on the card and once on the CPU, the same plan
+   and trace give equal ``FaultLedger.signature()``s.  (d) that serve's
+   audit-chain head equal on the card and the CPU, and a resume from a
+   journal with two of four requests committed re-dispatches only the
+   other two.  (e) a traced serve of (a): its Chrome trace validates with
+   a lane per slot; the disabled tracer's cost (tests/test_telemetry.py's
+   arithmetic bound) against a fused CNN stage cut to G 2, traced and
+   untraced.
 6. full    — one mamba mixer of jamba-1.5-large-398b at its published width
    (d_model 8192, d_inner 16384, state 16, conv 4, dt_rank 512; 420,331,520
    parameters) through ``mamba_block``, forward and backward on fp32
@@ -200,6 +231,7 @@ EXP_PER_S = 16 * 132 * 1.98e9
 
 T_START = time.perf_counter()
 TRACE_TRIES = 3       # CUPTI traces taken before falling back to events
+TRAINED: dict = {}    # path -> its trained FederatedSession (phase 5)
 
 
 def log(tag: str, **kw) -> None:
@@ -252,39 +284,93 @@ def time_ms(fn, iters: int) -> float:
     return statistics.median(times)
 
 
-def trace_device(fn):
-    """{kernel name: device ms} of the GPU work ``fn`` launches, from the
-    CUPTI trace of torch.profiler; None when the profiler cannot trace the
-    card here or records no device activity."""
+# the device records that are work, by their category in the profiler's
+# trace: the GPU side of ``record_function`` ranges
+# (``gpu_user_annotation``) and the stream syncs span other work and are
+# left out
+DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_records(fn):
+    """(host seconds of ``fn`` under the profiler, its device records):
+    one (name, stream, start us, end us) per kernel, copy and fill ``fn``
+    launched, from torch.profiler's CUPTI trace as exported to Chrome's
+    format (the one form that names each record's category in every
+    torch version)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-    except RuntimeError as e:
-        log("profiler", unavailable=str(e)[:200])
-        return None
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    path = Path(__file__).resolve().parent / "build" / "device_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    path.unlink()
+    return wall, [(e["name"], e.get("args", {}).get("stream"), e["ts"],
+                   e["ts"] + e["dur"]) for e in events
+                  if e.get("ph") == "X" and e.get("cat") in DEVICE_WORK]
+
+
+def device_busy(fn):
+    """What the card did while ``fn`` ran, from one trace
+    (``device_records``): ``wall_s`` (host seconds of ``fn`` under the
+    profiler), ``by_name`` (summed ms of each kernel, copy and fill),
+    ``sum_ms`` (their total), ``busy_ms`` (the union of their intervals:
+    work that overlaps counts once), ``by_stream`` ({stream: [records,
+    summed ms, union ms]}), ``stream_overlap_ms`` (each stream's summed ms
+    less its union, added over the streams: 0 when a stream's records run
+    one after another, so that the sum's excess over ``busy_ms`` is work
+    that ran at once on several streams), ``records``, ``distinct`` and
+    ``streams``."""
+    wall, recs = device_records(fn)
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3
-    return by_name or None
+    for name, _st, a, b in recs:
+        by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
+    by_stream = {}
+    for st in sorted({st for _n, st, _a, _b in recs}, key=str):
+        mine = [r for r in recs if r[1] == st]
+        by_stream[str(st)] = [len(mine), sum(b - a for _n, _st, a, b in mine)
+                              / 1e3, _union_ms(mine)]
+    total = sum(b - a for _n, _st, a, b in recs) / 1e3
+    return {"wall_s": wall, "by_name": by_name, "by_stream": by_stream,
+            "sum_ms": total, "busy_ms": _union_ms(recs),
+            "stream_overlap_ms": sum(n - u for _r, n, u in
+                                     by_stream.values()),
+            "records": len(recs), "distinct": len(set(recs)),
+            "streams": len(by_stream)}
+
+
+def _union_ms(recs) -> float:
+    """ms covered by the union of the records' [start, end) intervals
+    (in us)."""
+    spans = sorted((a, b) for _n, _st, a, b in recs)
+    if not spans:
+        return 0.0
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return (busy + hi - lo) / 1e3
 
 
 def device_ms(fn, iters: int):
     """Device time per call of ``fn``: the CUPTI durations of every kernel,
     copy and fill it launches over ``iters`` calls, divided by ``iters``;
-    None when the profiler records no device activity."""
+    None when the profiler records no device work."""
     fn()
 
     def many():
         for _ in range(iters):
             fn()
-    by_name = trace_device(many)
-    return None if by_name is None else sum(by_name.values()) / iters
+    d = device_busy(many)
+    return d["sum_ms"] / iters if d["records"] else None
 
 
 def batch_ms(fn, iters: int) -> float:
@@ -1490,14 +1576,17 @@ def main_path(torch, K, name, make_sim, test, need, metric_ok):
             raise AssertionError(f"{name}: {which} ensemble fails its "
                                  f"check: {m}")
     profile_round(torch, fused.sim, plan, name, flag_cost=name == "cnn")
+    TRAINED[name] = fused
     return launches
 
 
 def profile_round(torch, sim, plan, name, flag_cost: bool = False):
     """Where a stage's time goes: one fused ``shard_round`` (M clients, L
-    epochs) timed on the host clock, then traced for its device time.  With
-    ``flag_cost``, the same again with ``torch.backends.cudnn.deterministic``
-    off (``resolve_device`` sets it): what the flag costs."""
+    epochs) timed on the host clock, then traced once: its kernels by name,
+    their sum, their union (the device-busy time) and the idle share, all
+    from that one traced run.  With ``flag_cost``, the same again with
+    ``torch.backends.cudnn.deterministic`` off (``resolve_device`` sets
+    it): what the flag costs."""
     from repro_torch.core.tree import tree_map
     clients = plan.shard_clients[sorted(plan.shard_clients)[0]]
     xs, ys = sim._stack_client_data(clients)
@@ -1512,34 +1601,37 @@ def profile_round(torch, sim, plan, name, flag_cost: bool = False):
         t0 = time.perf_counter()
         run()
         wall = (time.perf_counter() - t0) * 1e3
-        return wall, trace_device(run) or {}
-    wall_ms, by_name = measure()
-    busy_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        d = device_busy(run)
+        traced = d["wall_s"] * 1e3
+        return {"wall_ms": wall, "traced_wall_ms": traced,
+                "device_busy_ms": d["busy_ms"],
+                "device_idle_share": (1 - d["busy_ms"] / traced
+                                      if d["records"] else None),
+                "kernel_sum_ms": d["sum_ms"],
+                "stream_overlap_ms": d["stream_overlap_ms"],
+                "device_records": d["records"], "distinct": d["distinct"],
+                "streams": d["streams"], "by_stream": d["by_stream"],
+                "top_ms": [[n[:80], ms] for n, ms in sorted(
+                    d["by_name"].items(), key=lambda kv: -kv[1])[:8]]}
+    row = measure()
     steps = sim.fl.local_epochs * (xs.shape[1] // sim.local_batch)
-    extra = {}
     if flag_cost:
         torch.backends.cudnn.deterministic = False
         try:
-            off_wall, off_by = measure()
+            off = measure()
         finally:
             torch.backends.cudnn.deterministic = True
-        extra = {"cudnn_deterministic_off": {
-            "wall_ms": off_wall, "device_busy_ms": sum(off_by.values()),
-            "top_ms": [[n[:80], ms] for n, ms in sorted(
-                off_by.items(), key=lambda kv: -kv[1])[:4]]}}
+        off["top_ms"] = off["top_ms"][:4]
+        row["cudnn_deterministic_off"] = off
     log("profile", path=name, what=f"one fused shard_round: {len(clients)} "
-        f"clients, {steps} SGD steps", wall_ms=wall_ms,
-        device_busy_ms=busy_ms,
-        device_idle_share=(max(0.0, 1 - busy_ms / wall_ms) if by_name
-                           else None),
-        cudnn_deterministic=torch.backends.cudnn.deterministic,
-        top_ms=[[n[:80], ms] for n, ms in top], **extra)
+        f"clients, {steps} SGD steps",
+        cudnn_deterministic=torch.backends.cudnn.deterministic, **row)
 
 
-def cnn_path(torch, K):
-    """Phase 5a: the paper CNN at full width, cut from G = 30 to
-    ``PATHS["cnn"]["rounds"]`` rounds to keep the script's time."""
+def cnn_federation():
+    """Phase 5a's federation: ``(make_sim, test)``, a factory of fresh
+    simulators of the paper CNN at full width (G cut from 30 to
+    ``PATHS["cnn"]["rounds"]``) and the task's test set."""
     from repro_torch.configs import FLConfig, OptimizerConfig, get_config
     from repro_torch.data.federated import get_partitioner
     from repro_torch.fl import FLSimulator
@@ -1559,6 +1651,13 @@ def cnn_path(torch, K):
                            opt_cfg=OptimizerConfig(name="sgd", lr=0.05,
                                                    grad_clip=0.0),
                            local_batch=20, seed=0)
+    return make_sim, test
+
+
+def cnn_path(torch, K):
+    """Phase 5a: the paper CNN at full width, cut from G = 30 to
+    ``PATHS["cnn"]["rounds"]`` rounds to keep the script's time."""
+    make_sim, test = cnn_federation()
     return main_path(torch, K, "cnn", make_sim, test, CODING,
                      lambda m: m["test"]["acc"] > 0.1)
 
@@ -1567,6 +1666,300 @@ def _models_finite(torch, models) -> bool:
     from repro_torch.core.tree import tree_leaves
     return all(bool(torch.isfinite(v).all()) for m in models.values()
                for v in tree_leaves(m))
+
+
+# tests/test_faults.py's tiny CNN session: 10 clients, 8 a stage, S = 2
+SERVICE_TINY = dict(num_clients=10, clients_per_round=8, num_shards=2,
+                    local_epochs=2, global_rounds=3, retrain_ratio=2.0)
+SERVICE_FAULT_SEED = 7      # tests/test_faults.py's FAULT_SEED
+
+
+def _chaotic_plan():
+    """tests/test_faults.py's chaotic plan, with slot 1 dead."""
+    from repro_torch.faults import FaultPlan
+    return (FaultPlan(SERVICE_FAULT_SEED)
+            .add("slice_corruption", count=2, scale=10.0)
+            .add("job_exception", rate=1.0, fail_attempts=1)
+            .add("device_failure", device=1))
+
+
+def _tiny_service_session(dev):
+    from repro_torch.configs import FLConfig, OptimizerConfig, get_config
+    from repro_torch.data import client_datasets_images, make_image_data
+    from repro_torch.fl import FLSimulator
+    from repro_torch.fl.experiment import FederatedSession
+    cfg = dataclasses.replace(get_config("cnn-paper"), image_size=8,
+                              d_model=16, cnn_channels=(4, 4))
+    data = make_image_data(300, image_size=8, seed=0)
+    sim = FLSimulator(cfg, FLConfig(**SERVICE_TINY),
+                      client_datasets_images(data, 10, iid=True),
+                      task="image",
+                      opt_cfg=OptimizerConfig(name="sgdm", lr=0.05,
+                                              grad_clip=0.0),
+                      local_batch=10, seed=0, device=dev)
+    session = FederatedSession(sim, store_kind="coded")
+    session.run_stage()
+    return session
+
+
+def _served(session, start: int) -> dict:
+    """{shard: model} of the results a serve landed after index
+    ``start`` of the session's report."""
+    out = {}
+    for r in [u for st in session.report.stages for u in st.unlearn][start:]:
+        for s in r.impacted_shards:
+            out[s] = r.models[s]
+    return out
+
+
+def _same_models(torch, a: dict, b: dict, what: str) -> None:
+    from repro_torch.core.tree import tree_leaves
+    if set(a) != set(b) or not all(
+            torch.equal(x, y) for s in a
+            for x, y in zip(tree_leaves(a[s]), tree_leaves(b[s]))):
+        raise AssertionError(f"service: {what}: per-shard models are not "
+                             f"bit-identical")
+
+
+def service_path(torch, K, session):
+    """Phase 5s: the online unlearning service on the paper CNN's trained
+    session of phase 5a (full width, 100 clients, 20 a stage, S = 4, M =
+    5, C = 20, L = 10, G = 10): (a) four requests on four shards served by
+    FIFO on one slot and by a window on four slots of the card (one stream
+    each), models bit-identical, the same launches; (b) a Poisson trace
+    under fifo, window and sla on four slots; (c) the chaotic plan with
+    slot 1 dead, bit-identical to the fault-free serve, and on the tiny
+    session of tests/test_faults.py the card's ledger signature equal to
+    the CPU's; (d) the audit chain's head on the card equal to the CPU's,
+    and a resume from a journal with two requests committed; (e) a traced
+    serve's Chrome trace valid with a lane per slot, and the disabled
+    tracer's overhead against a CNN stage's walls.  Returns the path's
+    launches: the sum over the full-width session's serves, each counted
+    from zero just before it and read just after."""
+    import math
+
+    from repro_torch import telemetry as TT
+    from repro_torch.core.sharding import even_requests
+    from repro_torch.durability import Journal
+    from repro_torch.fl.experiment import train_stage
+    from repro_torch.service import (DevicePlacement, RetryPolicy,
+                                     UnlearningService, poisson_trace,
+                                     sequenced_trace, single_device_placement)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    plan = session.records[0].plan
+    trace = sequenced_trace(even_requests(plan, 4), spacing=0.0, rounds=2)
+    # the path's launches: each serve of the full-width session counted
+    # from zero just before it and read just after; the tiny sessions'
+    # training and serves and (e)'s training stage stay out
+    served = dict.fromkeys(K.LAUNCHES, 0)
+
+    def serve(sess, placement, policy, trace, opts=None, faults=None,
+              journal=None, resume=False):
+        n0 = len([u for st in sess.report.stages for u in st.unlearn])
+        torch.cuda.synchronize()
+        K.reset_launches()
+        svc = UnlearningService(sess, policy=policy, policy_opts=opts or {},
+                                placement=placement, faults=faults,
+                                retry=RetryPolicy(backoff=0.001),
+                                journal=journal)
+        t0 = time.perf_counter()
+        try:
+            rep = svc.serve(trace, resume=resume)
+        finally:
+            for r in sess.records:
+                r.store.attach_faults(None)
+        wall = time.perf_counter() - t0
+        if sess is session:
+            for k, v in K.LAUNCHES.items():
+                served[k] += v
+        counts = {k: K.LAUNCHES[k] for k in CODING}
+        return rep, _served(sess, n0), counts, wall, svc
+
+    one = single_device_placement()
+    four = DevicePlacement(devices=[dev] * 4)
+    # (a) concurrency: a first serve of each makes the workers, their
+    # streams and their library handles; the second is the one measured
+    serve(session, one, "fifo", trace)
+    serve(session, four, "window", trace, {"width": 1.0})
+    seq, seq_models, seq_counts, seq_wall, _ = serve(session, one, "fifo",
+                                                     trace)
+    par, par_models, par_counts, par_wall, _ = serve(
+        session, four, "window", trace, {"width": 1.0})
+    used = sorted({d for e in par.entries for d in e.devices})
+    merged = [u for st in session.report.stages for u in st.unlearn][-1]
+    if (used, par.num_batches, max(e.n_jobs for e in par.entries),
+            sorted(merged.impacted_shards)) != ([0, 1, 2, 3], 1, 4,
+                                                [0, 1, 2, 3]):
+        raise AssertionError(f"service (a): devices {used}, batches "
+                             f"{par.num_batches}, jobs "
+                             f"{[e.n_jobs for e in par.entries]}, impacted "
+                             f"{merged.impacted_shards}")
+    _same_models(torch, seq_models, par_models, "four slots vs one slot")
+    if seq_counts != par_counts or not all(seq_counts[k] for k in
+                                           ("coded_matmul", "calibrate")):
+        raise AssertionError(f"service (a): launches {par_counts} on four "
+                             f"slots, {seq_counts} on one")
+    traced = {}
+    for label, args in (("one_slot", (one, "fifo", trace)),
+                        ("four_slots", (four, "window", trace,
+                                        {"width": 1.0}))):
+        d = device_busy(lambda: serve(session, *args))
+        traced[label] = {"wall_s": d["wall_s"],
+                         "device_busy_ms": d["busy_ms"],
+                         "kernel_sum_ms": d["sum_ms"],
+                         "stream_overlap_ms": d["stream_overlap_ms"],
+                         "device_records": d["records"],
+                         "distinct": d["distinct"], "streams": d["streams"],
+                         "idle_share": (1 - d["busy_ms"] / (d["wall_s"] * 1e3)
+                                        if d["records"] else None)}
+    log("service", part="a_concurrency", requests=len(trace),
+        one_slot_serve_wall_s=seq_wall, four_slot_serve_wall_s=par_wall,
+        one_slot_report_wall_s=seq.serve_wall,
+        four_slot_report_wall_s=par.serve_wall,
+        launches_one_slot=seq_counts, launches_four_slots=par_counts,
+        traced=traced,
+        models_bit_identical=True, devices_used=used)
+
+    # (b) latency under each policy, four slots
+    lat = {}
+    ptrace = poisson_trace(plan.clients, n=16, rate=4.0, seed=0,
+                           deadline=30.0, skew=1.0)
+    for policy, opts in (("fifo", {}), ("window", {"width": 1.0}),
+                         ("sla", {"default_deadline": 30.0})):
+        rep, _m, counts, wall, _ = serve(session, four, policy, ptrace, opts)
+        row = {"p50_s": rep.p50, "p95_s": rep.p95, "p99_s": rep.p99,
+               "throughput_rps": rep.throughput,
+               "sla_hit_rate": rep.sla_hit_rate,
+               "batches": rep.num_batches, "serve_wall_s": rep.serve_wall,
+               "launches": counts}
+        if rep.num_aborted or len(rep.entries) != 16 or not all(
+                math.isfinite(row[k]) for k in ("p50_s", "p99_s",
+                                                "throughput_rps")):
+            raise AssertionError(f"service (b) {policy}: {row}")
+        lat[policy] = row
+    log("service", part="b_latency", trace="poisson n 16 rate 4.0 seed 0 "
+        "deadline 30.0 skew 1.0", slots=4, policies=lat)
+
+    # (c) chaos at full width: the plan, slot 1 dead, four slots
+    cplan = _chaotic_plan()
+    crep, c_models, c_counts, c_wall, _ = serve(
+        session, four, "window", trace, {"width": 1.0}, faults=cplan)
+    _same_models(torch, par_models, c_models, "chaotic vs fault-free")
+    f = crep.faults
+    if (len(crep.entries) != len(trace) or crep.num_aborted
+            or f["aborts"] or not f["retries"] or not f["recoveries"]
+            or crep.placement["unhealthy"] != [1]):
+        raise AssertionError(f"service (c): {f}, unhealthy "
+                             f"{crep.placement['unhealthy']}")
+    log("service", part="c_chaos", serve_wall_s=c_wall,
+        fault_free_serve_wall_s=par_wall,
+        fault_path_overhead_s=c_wall - par_wall,
+        retries=f["retries"], recoveries=f["recoveries"],
+        recovered_slices=f["recovered_slices"], ledger=f.get("ledger"),
+        launches=c_counts, models_bit_identical=True)
+
+    # (c, d) the tiny session on the card and on the CPU: the chaotic
+    # serve's ledger signature and audit head; resume from a journal
+    small = {}
+    for where in ("cuda", "cpu"):
+        sess = _tiny_service_session(where)
+        slots = DevicePlacement(devices=[where] * 4)
+        strace = sequenced_trace(even_requests(sess.records[0].plan, 4),
+                                 spacing=0.0, rounds=2)
+        p = _chaotic_plan()
+        rep, _m, _c, _w, svc = serve(sess, slots, "window", strace,
+                                     {"width": 1.0}, faults=p)
+        small[where] = (p.ledger.signature(), svc.audit.head,
+                        rep.num_aborted, sess, slots, strace)
+    (sig_card, head_card, ab_card, tsess, tslots, strace), \
+        (sig_cpu, head_cpu, ab_cpu, _s, cpu_slots, _t) = \
+        small["cuda"], small["cpu"]
+    cpu_slots.shutdown()
+    if not sig_card or sig_card != sig_cpu or ab_card or ab_cpu:
+        raise AssertionError("service (c): the tiny session's ledger "
+                             "signature differs between the card and the "
+                             "CPU")
+    if head_card != head_cpu:
+        raise AssertionError("service (d): audit heads differ between the "
+                             "card and the CPU")
+    jdir = Path(__file__).resolve().parent / "build" / "service_smoke"
+    jdir.mkdir(parents=True, exist_ok=True)
+    jpath = jdir / "svc.journal"
+    if jpath.exists():
+        jpath.unlink()
+    serve(tsess, tslots, "fifo", strace[:2], journal=Journal(str(jpath)))
+    n_before = len(Journal(str(jpath)).events())
+    rrep, _m, _c, _w, rsvc = serve(tsess, tslots, "fifo", strace,
+                                   journal=Journal(str(jpath)),
+                                   resume=True)
+    again = [e["request_id"] for e in Journal(str(jpath)).events()[n_before:]
+             if e["ev"] == "svc_dispatch"]
+    if again != ["svc-2", "svc-3"] or [e.rid for e in rrep.entries] != \
+            [0, 1, 2, 3]:
+        raise AssertionError(f"service (d): resume re-dispatched {again}")
+    rsvc.audit.verify()
+    tslots.shutdown()
+    log("service", part="cd_small_card_vs_cpu",
+        ledger_signature_equal=True, ledger_events=len(sig_card),
+        audit_head=head_card, audit_head_equal=True,
+        resume_redispatched=again)
+
+    # (e) telemetry: a traced serve of (a), then the disabled tracer's cost
+    tr = TT.configure(enabled=True)
+    try:
+        serve(session, four, "window", trace, {"width": 1.0})
+        obj = TT.to_chrome_trace(tr)
+    finally:
+        TT.configure(enabled=False)
+    problems = TT.validate_chrome_trace(obj)
+    lanes = sorted({e["args"]["name"] for e in obj["traceEvents"]
+                    if e["name"] == "thread_name"})
+    slot_lanes = [f"device-{i}" for i in range(4)]
+    if problems or not set(slot_lanes) <= set(lanes):
+        raise AssertionError(f"service (e): trace problems {problems[:5]}, "
+                             f"lanes {lanes}")
+    with open(jdir / "trace.json", "w") as fh:
+        json.dump(obj, fh)
+    null = TT.get_tracer()
+    n = 100_000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with null.span("stage.train", engine="fused", shards=4) as sp:
+            sp.annotate(stage=1)
+    per_call = (time.perf_counter() - t0) / n
+    sim = session.sim
+
+    def stage():
+        # the fused engine's stage at G cut from 10 to 2: a shorter wall
+        # makes the overhead bound stricter
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_stage(sim, store_kind="coded", engine="fused", rounds=2)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    untraced = stage()
+    tr = TT.configure(enabled=True)
+    try:
+        traced = stage()
+        n_sites = len(tr.all_spans())
+    finally:
+        TT.configure(enabled=False)
+    overhead = per_call * 4 * max(n_sites, 1)
+    if overhead >= 0.02 * untraced:
+        raise AssertionError(f"service (e): disabled-tracer overhead "
+                             f"{overhead} s against a stage of {untraced} s")
+    log("service", part="e_telemetry", chrome_trace_events=len(
+        obj["traceEvents"]), lanes=lanes, validate_problems=0,
+        null_span_ns=per_call * 1e9, spans_per_stage=n_sites,
+        null_tracer_overhead_s=overhead,
+        stage_wall_untraced_s=untraced, stage_wall_traced_s=traced,
+        null_overhead_share_of_stage=overhead / untraced,
+        launches=served, phase_s=time.perf_counter() - t_phase)
+    one.shutdown()
+    four.shutdown()
+    return served
 
 
 def table1_path(torch, K):
@@ -1800,16 +2193,18 @@ def check_card_repeat(torch, cfg, card):
     second = se_run()
     walls = {"deterministic": time.perf_counter() - t0}
     gaps = apart(card, second)
-    busy = {"deterministic": trace_device(se_run)}
+    traces = {"deterministic": device_busy(se_run)}
     torch.backends.cudnn.deterministic = False
     try:
         t0 = time.perf_counter()
         loose = se_run()
         walls["not_deterministic"] = time.perf_counter() - t0
-        busy["not_deterministic"] = trace_device(se_run)
+        traces["not_deterministic"] = device_busy(se_run)
     finally:
         torch.backends.cudnn.deterministic = True
-    busy = {k: (sum(v.values()) if v else None) for k, v in busy.items()}
+    busy = {k: {"busy_ms": d["busy_ms"], "kernel_sum_ms": d["sum_ms"],
+                "stream_overlap_ms": d["stream_overlap_ms"]}
+            for k, d in traces.items()}
     same = not any(gaps.values())
     log("table1_small", what="two card runs, the second with SE only",
         same_metrics=same, apart=gaps,
@@ -2397,6 +2792,7 @@ def main() -> int:
     launches = {"local_small": check_small(torch, K)}
     check_table1_small(torch, K)
     launches["cnn"] = cnn_path(torch, K)
+    launches["service"] = service_path(torch, K, TRAINED.pop("cnn"))
     launches["table1"] = table1_path(torch, K)
     for fam in LM_KERNELS:
         launches[fam] = lm_path(torch, K, fam)

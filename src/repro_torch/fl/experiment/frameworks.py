@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.core import unlearning
 from repro_torch.core.tree import tree_map
+from repro_torch.telemetry import get_tracer
 
 
 @dataclass
@@ -182,9 +183,13 @@ def run_unlearn(sim, framework: str, record, requests: Sequence[int],
                          rounds or sim.fl.global_rounds, available, corrupt)
     t0 = time.perf_counter()
     impacted = ctx.impacted
-    models, cost = fw.run(ctx)
-    if sim.device.type == "cuda":
-        torch.cuda.synchronize(sim.device)
+    with get_tracer().span("unlearn.dispatch", framework=fw.name,
+                           clients=sorted(requests),
+                           impacted=impacted) as sp:
+        models, cost = fw.run(ctx)
+        if sim.device.type == "cuda":
+            torch.cuda.synchronize(sim.device)
+        sp.annotate(cost_units=float(cost))
     wall = time.perf_counter() - t0
     stats = getattr(record.store, "stats", None)
     return UnlearnResult(framework, models, wall, cost, stats, impacted)
@@ -266,14 +271,24 @@ class ShardedEraser(UnlearnFramework):
         return models, cost
 
 
-def run_prepared_job(ctx: UnlearnContext, job):
+def run_prepared_job(ctx: UnlearnContext, job, device=None):
     """Retrain ONE prepared shard job (eq. 3, G' calibrated rounds) and
-    return ``(shard, model, cost_units)``."""
+    return ``(shard, model, cost_units)``.
+
+    With ``device`` set, the job's tensors move there first — the unit of
+    work the service's ``DevicePlacement`` runs on a slot (whose stream
+    the caller has made current).  ``device=None`` is the sequential path,
+    unchanged."""
     s, retained, xs, ys, w, nmat, n_r = job
-    cost = 0.0
-    for g in range(n_r):
-        w = ctx.calib_round(w, xs, ys, nmat[g])
-        cost += len(retained) * ctx.retrain_epochs
+    with get_tracer().span("unlearn.shard", shard=s, rounds=n_r,
+                           retained=len(retained)):
+        if device is not None:
+            xs, ys, nmat = xs.to(device), ys.to(device), nmat.to(device)
+            w = tree_map(lambda v: v.to(device), w)
+        cost = 0.0
+        for g in range(n_r):
+            w = ctx.calib_round(w, xs, ys, nmat[g])
+            cost += len(retained) * ctx.retrain_epochs
     return s, w, cost
 
 

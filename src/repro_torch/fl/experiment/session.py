@@ -5,8 +5,12 @@ registered framework on only the impacted stages and, within each, only the
 impacted shards retrain.  With ``batch_requests=True`` the requests due
 after a stage merge into one request per compatible option set.
 
-Checkpointing, the journal, the audit log and fault plans arrive with the
-durability, telemetry and faults layers.
+A fault plan (``faults=``) reaches every stage's training and store and
+fires its crash injectors at the session's named sites (``after_stage``,
+``after_requests``); every request's lifecycle (received, retrained,
+committed) lands in a hash-chained ``AuditLog``, held in memory:
+checkpointing and the journal the reference's session writes arrive with
+the rest of the durability layer.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from typing import Callable, List, Optional, Sequence, Union
 from repro_torch.fl.experiment.frameworks import run_unlearn
 from repro_torch.fl.experiment.stage import train_stage
 from repro_torch.stores.store import StoreStats
+from repro_torch.telemetry import AuditLog, get_tracer
 
 ClientSpec = Union[Sequence[int], Callable[[object], Sequence[int]]]
 
@@ -108,7 +113,7 @@ class SessionReport:
         return total
 
     def to_dict(self) -> dict:
-        return {
+        d = {
             "store_kind": self.store_kind,
             "num_stages": len(self.stages),
             "total_train_wall_s": self.total_train_wall,
@@ -117,6 +122,10 @@ class SessionReport:
             "store_stats": self.store_stats.to_dict(),
             "stages": [s.to_dict() for s in self.stages],
         }
+        tr = get_tracer()
+        if tr.enabled:
+            d["telemetry"] = tr.describe()
+        return d
 
     def to_json(self, **kw) -> str:
         kw.setdefault("indent", 2)
@@ -131,7 +140,7 @@ class FederatedSession:
     def __init__(self, sim, store_kind: str = "coded", engine: str = "fused",
                  encode_group: Optional[int] = None, slice_dtype=None,
                  rounds: Optional[int] = None, batch_requests: bool = False,
-                 strict_schedule: bool = False,
+                 strict_schedule: bool = False, faults=None,
                  store_options: Optional[dict] = None,
                  init_fn: Optional[Callable[[int], dict]] = None):
         self.sim = sim
@@ -145,25 +154,34 @@ class FederatedSession:
         self.rounds = rounds
         self.batch_requests = batch_requests
         self.strict_schedule = strict_schedule
+        self.faults = faults                     # optional FaultPlan
         self.records: List[object] = []
         self.report = SessionReport(store_kind=store_kind)
         self._served: set = set()
+        # hash-chained audit of unlearning lifecycle events (in memory)
+        self.audit = AuditLog()
 
     def run_stage(self, rounds: Optional[int] = None):
         """Train the next stage and append its record + report entry."""
+        tr = get_tracer()
         t0 = time.perf_counter()
-        record = train_stage(self.sim, store_kind=self.store_kind,
-                             rounds=rounds or self.rounds, engine=self.engine,
-                             encode_group=self.encode_group,
-                             slice_dtype=self.slice_dtype,
-                             store_options=self.store_options)
+        with tr.span("session.stage", stage=len(self.records),
+                     engine=self.engine, store=self.store_kind):
+            record = train_stage(self.sim, store_kind=self.store_kind,
+                                 rounds=rounds or self.rounds,
+                                 engine=self.engine,
+                                 encode_group=self.encode_group,
+                                 slice_dtype=self.slice_dtype,
+                                 faults=self.faults,
+                                 store_options=self.store_options)
         wall = time.perf_counter() - t0
         self.records.append(record)
+        stats = record.store.stats.snapshot()
+        tr.metrics.absorb_store_stats(stats, stage=len(self.records) - 1)
         self.report.stages.append(StageReport(
             stage=len(self.records) - 1, plan_stage=record.plan.stage,
             train_wall=wall, num_shards=record.plan.num_shards,
-            clients=record.plan.clients,
-            store_stats=record.store.stats.snapshot()))
+            clients=record.plan.clients, store_stats=stats))
         return record
 
     def _target_stages(self, request: UnlearnRequest,
@@ -252,6 +270,12 @@ class FederatedSession:
             results.extend(self.unlearn(merged))
         return results
 
+    def _crash_site(self, phase: str, stage: int) -> None:
+        """Named process-crash site for the chaos harness (``process_kill``
+        fires here; a plan without crash injectors is a no-op)."""
+        if self.faults is not None and hasattr(self.faults, "crash_site"):
+            self.faults.crash_site(("session", phase, stage))
+
     def run(self, num_stages: int,
             schedule: Optional[RequestSchedule] = None) -> SessionReport:
         """K stages back-to-back; after stage k, serve every scheduled
@@ -260,20 +284,37 @@ class FederatedSession:
         never come due warn (or raise with ``strict_schedule``)."""
         for k in range(num_stages):
             self.run_stage()
+            self._crash_site("after_stage", k)
             due = schedule.due(k) if schedule is not None else []
             for i, req in enumerate(due):
                 if not req.request_id:
                     req.request_id = f"req-s{k}-{i}"
             due = [r for r in due if r.request_id not in self._served]
-            if not due:
-                continue
-            if self.batch_requests:
-                self.unlearn_batch(due)
-                self._served.update(r.request_id for r in due)
-            else:
-                for req in due:
-                    self.unlearn(req)
-                    self._served.add(req.request_id)
+            if due:
+                rids = [r.request_id for r in due]
+                for rid in rids:
+                    self.audit.record("received", request_id=rid,
+                                      after_stage=k)
+                if self.batch_requests:
+                    self.unlearn_batch(due)
+                    self._served.update(rids)
+                    for rid in rids:
+                        self.audit.record("retrained", request_id=rid,
+                                          after_stage=k, batched=True)
+                    for rid in rids:
+                        self.audit.record("committed", request_id=rid,
+                                          after_stage=k)
+                else:
+                    for req in due:
+                        self.unlearn(req)
+                        self._served.add(req.request_id)
+                        self.audit.record("retrained",
+                                          request_id=req.request_id,
+                                          after_stage=k, batched=False)
+                        self.audit.record("committed",
+                                          request_id=req.request_id,
+                                          after_stage=k)
+            self._crash_site("after_requests", k)
         if schedule is not None:
             missed = [r for r in schedule.requests
                       if not 0 <= r.after_stage < num_stages]

@@ -26,16 +26,19 @@ from CUDA when this module is imported.
 
 Dispatch follows the tensor: a wrapper given CPU tensors runs the kernel's
 plain PyTorch version (``ref.py``); given CUDA tensors it launches the
-kernel, or raises.  Each launch adds one to ``LAUNCHES[name]``.
+kernel, or raises.  Each launch adds one to ``LAUNCHES[name]`` through
+``count_launch``, under a lock: the online service launches kernels from
+several worker threads at once.  ``load_library`` builds under a lock too,
+so exactly one thread runs nvcc and the rest wait and load its result.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional, Union
@@ -56,10 +59,22 @@ LAUNCHES = {"coded_matmul": 0, "coded_matmul_rounds": 0, "calibrate": 0,
 # last build's wall time and compiler output (``-Xptxas -v``)
 BUILD_INFO: dict = {}
 
+_LAUNCH_LOCK = threading.Lock()
+_BUILD_LOCK = threading.Lock()
+_LIBRARY: Optional[ctypes.CDLL] = None
+
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``LAUNCHES[name]``: the one place a wrapper counts the
+    launch of its kernel (a bare ``+=`` from several threads loses counts)."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -119,9 +134,21 @@ def _nvcc() -> str:
     return path
 
 
-@functools.cache
 def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernels' shared library."""
+    """Build (once per source hash) and load the kernels' shared library,
+    once per process: the first caller builds under a lock, every other
+    thread waits for it and gets the same library."""
+    global _LIBRARY
+    lib = _LIBRARY
+    if lib is None:
+        with _BUILD_LOCK:
+            if _LIBRARY is None:
+                _LIBRARY = _build_and_load()
+            lib = _LIBRARY
+    return lib
+
+
+def _build_and_load() -> ctypes.CDLL:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in _sources():
         h.update(p.name.encode())

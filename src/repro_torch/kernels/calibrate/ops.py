@@ -53,5 +53,5 @@ def calibrate_update(w: torch.Tensor, deltas: torch.Tensor,
         w.data_ptr(), deltas.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
         m, p, splits, K.stream_of(w))
     K.check_launch(err, "calibrate")
-    K.LAUNCHES["calibrate"] += 1
+    K.count_launch("calibrate")
     return out

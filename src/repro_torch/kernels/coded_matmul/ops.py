@@ -50,7 +50,7 @@ def coded_matmul(coeff: torch.Tensor, w: torch.Tensor,
     if w.dim() != 2 or coeff.dim() != 2:
         raise ValueError("coded_matmul takes coeff (C,S) and w (S,P)")
     out = _launch(coeff, w.unsqueeze(0), out_dtype or torch.float32)[0]
-    K.LAUNCHES["coded_matmul"] += 1
+    K.count_launch("coded_matmul")
     return out
 
 
@@ -65,7 +65,7 @@ def coded_matmul_rounds(coeff: torch.Tensor, w: torch.Tensor,
         raise ValueError("coded_matmul_rounds takes coeff (C,S) and "
                          "w (G,S,P)")
     out = _launch(coeff, w, out_dtype or torch.float32)
-    K.LAUNCHES["coded_matmul_rounds"] += 1
+    K.count_launch("coded_matmul_rounds")
     return out
 
 
@@ -94,5 +94,5 @@ def coded_encode_decode(enc: torch.Tensor, dec: torch.Tensor,
         enc.data_ptr(), dec.data_ptr(), w.data_ptr(), out.data_ptr(), c, s, p,
         int(vec), K.stream_of(w))
     K.check_launch(err, "encode_decode")
-    K.LAUNCHES["encode_decode"] += 1
+    K.count_launch("encode_decode")
     return out

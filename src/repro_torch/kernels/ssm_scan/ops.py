@@ -66,7 +66,7 @@ def _fwd(dt, b, c, x, a, h0, g: int, keep: bool):
         ckpt.data_ptr() if keep else None,
         bsz, s, d, n, g, K.stream_of(dt))
     K.check_launch(err, "ssm_scan")
-    K.LAUNCHES["ssm_scan"] += 1
+    K.count_launch("ssm_scan")
     return y, h_last, ckpt
 
 
@@ -86,7 +86,7 @@ def _bwd(dt, b, c, x, a, ckpt, gy, ghl, g: int):
         db.data_ptr(), dc.data_ptr(), dx.data_ptr(), da.data_ptr(),
         dh0.data_ptr(), work.data_ptr(), bsz, s, d, n, g, K.stream_of(dt))
     K.check_launch(err, "ssm_scan_bwd")
-    K.LAUNCHES["ssm_scan_bwd"] += 1
+    K.count_launch("ssm_scan_bwd")
     return ddt, db, dc, dx, da, dh0
 
 

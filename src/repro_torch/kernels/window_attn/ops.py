@@ -55,7 +55,7 @@ def _fwd(q, k, v, window: int):
         lse.data_ptr(), bsz, s, h, k.shape[2], hd, window, hd ** -0.5,
         *_strides(q, k, v), K.stream_of(q))
     K.check_launch(err, "window_attention")
-    K.LAUNCHES["window_attention"] += 1
+    K.count_launch("window_attention")
     return o, lse
 
 
@@ -72,7 +72,7 @@ def _bwd(q, k, v, o, lse, do, window: int):
         dv.data_ptr(), delta.data_ptr(), bsz, s, h, k.shape[2], hd, window,
         hd ** -0.5, *_strides(q, k, v), K.stream_of(q))
     K.check_launch(err, "window_attention_bwd")
-    K.LAUNCHES["window_attention_bwd"] += 1
+    K.count_launch("window_attention_bwd")
     return dq, dk, dv
 
 

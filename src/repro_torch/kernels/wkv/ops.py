@@ -64,7 +64,7 @@ def _fwd(r, k, v, lw, u, h0, g: int, keep: bool):
         ckpt.data_ptr() if keep else None, bsz, s, h, n, g,
         K.stream_of(r))
     K.check_launch(err, "wkv")
-    K.LAUNCHES["wkv"] += 1
+    K.count_launch("wkv")
     return y, h_last, ckpt
 
 
@@ -83,7 +83,7 @@ def _bwd(r, k, v, lw, u, ckpt, gy, ghl, g: int):
         du.data_ptr(), dh0.data_ptr(), work.data_ptr(), bsz, s, h, n, g,
         K.stream_of(r))
     K.check_launch(err, "wkv_bwd")
-    K.LAUNCHES["wkv_bwd"] += 1
+    K.count_launch("wkv_bwd")
     return dr, dk, dv, dlw, du, dh0
 
 

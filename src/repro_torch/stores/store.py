@@ -13,7 +13,11 @@ Every store implements ``put_round(RoundPayload)`` and reports exact
 integer byte/FLOP accounting (``StoreStats``), as ``repro.stores.store``
 does.  On the card, ``CodedStore``'s encode and decode run through the
 ``coded_matmul`` kernel; ``put_stage_encoded`` registers slices the stage
-engine already encoded with ``coded_matmul_rounds``.
+engine already encoded with ``coded_matmul_rounds``.  With a
+``repro_torch.faults.FaultPlan`` attached (``attach_faults``), reads run in
+quorum mode around the plan's injected erasures and corruptions, and the
+store's spans (``store.read``, ``store.encode``, ``store.put_stage``) go
+to the current tracer.
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ import torch.nn.functional as F
 
 from repro_torch.core import coding
 from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.faults.events import RecoveryEvent
+from repro_torch.telemetry import get_tracer
 
 
 def tree_bytes(tree) -> int:
@@ -290,6 +296,7 @@ class CodedStore:
         self._layouts: Dict[int, list] = {}          # round -> client order
         self._pending: List[Tuple[int, torch.Tensor]] = []   # deferred rounds
         self._row_layout = None               # cached flat-path geometry
+        self.faults = None                    # optional attached FaultPlan
         self.stats = StoreStats()
         self.stats.server_bytes = 16 * scheme.num_clients  # the keys
         # get_shard may flush and always updates stats: serialize readers
@@ -365,7 +372,8 @@ class CodedStore:
             layout.append((s, cs))
             specs.append(coding.StackedRowSpec(tuple(cs), row_len, row_spec))
         specs = tuple(specs)
-        with self._lock:
+        with self._lock, get_tracer().span("store.put_stage",
+                                           rounds=int(coded.shape[0])):
             for g in range(int(coded.shape[0])):
                 self._slices[g] = coded[g]
                 self._layouts[g] = layout
@@ -380,8 +388,12 @@ class CodedStore:
             rounds = [r for r, _ in self._pending]
             mats = [w for _, w in self._pending]
             self._pending = []
-            coded = coding.encode_batched(self.scheme, mats,
-                                          out_dtype=self.slice_dtype)
+            # ``kernel``: whether the encode ran the CUDA kernel (the plain
+            # version on the CPU), the reference's ``use_kernel`` label
+            with get_tracer().span("store.encode", rounds=len(rounds),
+                                   kernel=bool(mats[0].is_cuda)):
+                coded = coding.encode_batched(self.scheme, mats,
+                                              out_dtype=self.slice_dtype)
             for rnd, slices in zip(rounds, coded):
                 self._slices[rnd] = slices
                 self._account_stored(slices)
@@ -395,9 +407,30 @@ class CodedStore:
         self.stats.encode_flops += (2 * self.scheme.num_clients
                                     * self.scheme.num_shards * p)
 
-    def _decode_tol(self, slices: torch.Tensor) -> float:
+    def attach_faults(self, plan) -> None:
+        """Attach a ``repro_torch.faults.FaultPlan``: its slice injectors
+        fire on every later ``get_shard`` (keyed per round — every reader of
+        a round observes the same fault) and reads route through the
+        quorum-read recovery path.  ``None`` detaches."""
+        self.faults = plan
+
+    def _injected_faults(self, rnd: int, slices: torch.Tensor):
+        """Ask the attached ``FaultPlan`` (if any) for this round's slice
+        faults: ``(lost_ids, {row: noise})``.  The noise scale is the mean
+        |slice|, summed in float64 where the slices lie: one scalar moves
+        to the host, not the (C, P) tensor."""
+        if self.faults is None:
+            return [], {}
+        scale_ref = float(slices.detach().abs().sum(dtype=torch.float64)
+                          ) / max(slices.numel(), 1)
+        return self.faults.slice_faults(rnd, self.scheme,
+                                        int(slices.shape[1]),
+                                        scale_ref=scale_ref)
+
+    def _decode_tol(self, rnd: int, slices: torch.Tensor) -> float:
         """Corruption-detection tolerance for ``decode_robust``: bf16 slices
-        round-trip with ~4e-3 relative residual."""
+        round-trip with ~4e-3 relative residual, so the tolerance scales
+        with the storage dtype."""
         return 1e-3 if slices.element_size() >= 4 else 3e-2
 
     def get(self, rnd: int, client: int):
@@ -414,50 +447,73 @@ class CodedStore:
 
         ``available``: client ids whose slices are reachable (default all).
         ``corrupt``: optional (C, P) noise modelling erroneous slices.  With
-        either, the read runs in quorum mode (``coding.decode_robust``) with
-        per-read recovery accounting; faults beyond eq. 11's budget raise
-        ``coding.CodingBudgetExceeded``.
+        either, or with an attached ``FaultPlan`` that injects faults into
+        this round, the read runs in quorum mode (``coding.decode_robust``)
+        with per-read recovery accounting; faults beyond eq. 11's budget
+        raise ``coding.CodingBudgetExceeded``.
         """
-        with self._lock:
-            if rnd not in self._slices:
-                self.flush()              # materialize deferred encodes
-            slices = self._slices[rnd]
-            layout = self._layouts[rnd]
-            specs = self._specs[rnd]
-            self.stats.reads += 1
-            self.stats.comm_bytes_retrieve += int(
-                self.scheme.num_shards * slices.shape[1]
-                * slices.element_size())
-            self.stats.decode_flops += (2 * self.scheme.num_shards ** 2
-                                        * slices.shape[1])
-        c = self.scheme.num_clients
-        if corrupt is None and available is None:
-            w = coding.decode_erasure(self.scheme, slices, list(range(c)))
-        else:
-            if corrupt is not None:
-                slices = slices + torch.as_tensor(corrupt, dtype=slices.dtype,
-                                                  device=slices.device)
-            avail = set(available) if available is not None else set(range(c))
-            try:
-                w, lost, bad = coding.decode_robust(
-                    self.scheme, slices, available=sorted(avail),
-                    tol=self._decode_tol(slices))
-            except coding.CodingBudgetExceeded:
-                with self._lock:
-                    self.stats.failed_reads += 1
-                raise
-            if lost or bad:
-                with self._lock:
-                    self.stats.recovered_reads += 1
-                    self.stats.erased_slices += len(lost)
-                    self.stats.corrupted_slices += len(bad)
-        for idx, (s, _cs) in enumerate(layout):
-            if s == shard:
-                spec = specs[idx]
-                if isinstance(spec, coding.StackedRowSpec):
-                    return coding.flat_to_client_trees(w[idx], spec)
-                return coding.flat_to_tree(w[idx], spec)
-        raise KeyError(f"shard {shard} not stored at round {rnd}")
+        with get_tracer().span("store.read", round=rnd, shard=shard) as sp:
+            with self._lock:
+                if rnd not in self._slices:
+                    self.flush()              # materialize deferred encodes
+                slices = self._slices[rnd]
+                layout = self._layouts[rnd]
+                specs = self._specs[rnd]
+                self.stats.reads += 1
+                self.stats.comm_bytes_retrieve += int(
+                    self.scheme.num_shards * slices.shape[1]
+                    * slices.element_size())
+                self.stats.decode_flops += (2 * self.scheme.num_shards ** 2
+                                            * slices.shape[1])
+            # decode outside the lock: a pure function of the slices, so
+            # interleaved serves decode different shards concurrently
+            c = self.scheme.num_clients
+            inj_lost, inj_noise = self._injected_faults(rnd, slices)
+            if corrupt is None and available is None \
+                    and not inj_lost and not inj_noise:
+                w = coding.decode_erasure(self.scheme, slices, list(range(c)))
+            else:
+                if inj_noise:
+                    rows = sorted(inj_noise)
+                    noise = np.stack([inj_noise[r] for r in rows])
+                    slices = slices.index_add(
+                        0, torch.tensor(rows, device=slices.device),
+                        torch.as_tensor(noise, dtype=slices.dtype,
+                                        device=slices.device))
+                if corrupt is not None:
+                    slices = slices + torch.as_tensor(
+                        corrupt, dtype=slices.dtype, device=slices.device)
+                avail = (set(available) if available is not None
+                         else set(range(c)))
+                avail -= set(inj_lost)
+                try:
+                    w, lost, bad = coding.decode_robust(
+                        self.scheme, slices, available=sorted(avail),
+                        tol=self._decode_tol(rnd, slices))
+                except coding.CodingBudgetExceeded:
+                    with self._lock:
+                        self.stats.failed_reads += 1
+                    sp.annotate(failed=True)
+                    raise
+                if lost or bad:
+                    with self._lock:
+                        self.stats.recovered_reads += 1
+                        self.stats.erased_slices += len(lost)
+                        self.stats.corrupted_slices += len(bad)
+                    sp.annotate(recovered=True, erased=len(lost),
+                                corrupted=len(bad))
+                    if self.faults is not None:
+                        self.faults.ledger.record(RecoveryEvent(
+                            "quorum_read",
+                            site=("round", rnd, "shard", shard),
+                            detail=(tuple(lost), tuple(bad))))
+            for idx, (s, _cs) in enumerate(layout):
+                if s == shard:
+                    spec = specs[idx]
+                    if isinstance(spec, coding.StackedRowSpec):
+                        return coding.flat_to_client_trees(w[idx], spec)
+                    return coding.flat_to_tree(w[idx], spec)
+            raise KeyError(f"shard {shard} not stored at round {rnd}")
 
     def clients_at(self, rnd: int) -> List[int]:
         return sorted(c for _, cs in self._layouts[rnd] for c in cs)

@@ -136,3 +136,42 @@ def test_resolve_device_cpu_leaves_cudnn_switches_alone(monkeypatch):
         assert resolve_device("cpu").type == "cpu"
         assert torch.backends.cudnn.deterministic is det
         assert torch.backends.cudnn.benchmark is bench
+
+
+SYSTEMS = ("telemetry", "faults", "durability", "service")
+
+
+@pytest.mark.parametrize("pkg", SYSTEMS)
+def test_systems_packages_import_alone_with_reference_names(pkg):
+    """Each systems package of the port, with every module under it,
+    imports in a fresh interpreter without jax or ``repro``, and exports
+    the reference package's public names (less the reference's
+    ``hlo_cost_of``, which has no torch counterpart, and the durability
+    modules not ported yet: the snapshots, the checkpointer and the
+    session's capture/restore)."""
+    mods = [m for m in _modules()
+            if m == f"repro_torch.{pkg}"
+            or m.startswith(f"repro_torch.{pkg}.")]
+    assert len(mods) > 1
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    import importlib
+    ref = importlib.import_module(f"repro.{pkg}")
+    port = importlib.import_module(f"repro_torch.{pkg}")
+    names = set(getattr(ref, "__all__", None) or
+                [n for n in vars(ref) if not n.startswith("_")
+                 and not isinstance(vars(ref)[n], type(ref))])
+    names -= {"hlo_cost_of", "CheckpointManager", "SnapshotCorruption",
+              "load_snapshot", "save_snapshot", "capture_session",
+              "restore_session"}
+    missing = sorted(n for n in names if not hasattr(port, n))
+    assert not missing, missing
