@@ -10,7 +10,7 @@ import warnings
 warnings.warn(
     "repro_torch.checkpoint is deprecated; it holds parameter stores, not "
     "checkpoints — import repro_torch.stores instead (crash-recovery "
-    "checkpointing is not ported yet: ROADMAP queue 1 item 4)",
+    "checkpointing lives in repro_torch.durability)",
     DeprecationWarning,
     stacklevel=2,
 )

@@ -3,8 +3,9 @@
 
 ``ScenarioConfig`` names the task (``TASKS``), the model family
 (``FAMILIES``), the client partitioner (``PARTITIONERS``), the store kind,
-the engine, the stage count and the unlearning request schedule; every
-registry key is validated at construction.  The pre-registry spellings,
+the engine, the stage count, the unlearning request schedule and the
+durability knobs (``checkpoint_every`` / ``checkpoint_dir``, passed on to
+the session); every registry key is validated at construction.  The pre-registry spellings,
 ``task="image" | "lm"`` and ``iid=True/False``, keep working as
 ``DeprecationWarning`` shims with the reference's texts.
 ``build_simulator``, ``build_session`` and ``run_scenario`` run on the CUDA
@@ -12,6 +13,7 @@ card unless given ``device="cpu"``.
 """
 from __future__ import annotations
 
+import os
 import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -71,6 +73,11 @@ class ScenarioConfig:
     schedule: Optional[RequestSchedule] = None
     batch_requests: bool = False         # merge requests due after each stage
     strict_schedule: bool = False        # raise on never-served requests
+    # durability (repro_torch.durability): snapshot every N completed stages
+    # into checkpoint_dir; 0 disables periodic snapshots (a dir alone
+    # implies 1)
+    checkpoint_every: int = 0
+    checkpoint_dir: Optional[str] = None
 
     def __post_init__(self):
         self._apply_deprecated_spellings()
@@ -108,6 +115,24 @@ class ScenarioConfig:
                 f"clients_per_round={self.clients_per_round} clients sampled "
                 f"per stage")
         as_dtype(self.slice_dtype)           # raises on a non-dtype
+        if self.checkpoint_every < 0:
+            raise ValueError(
+                f"checkpoint_every={self.checkpoint_every} must be >= 0 "
+                f"(0 disables periodic snapshots)")
+        if self.checkpoint_every and not self.checkpoint_dir:
+            raise ValueError(
+                f"checkpoint_every={self.checkpoint_every} needs a "
+                f"checkpoint_dir to write snapshots to")
+        if self.checkpoint_dir is not None:
+            parent = os.path.dirname(
+                os.path.abspath(self.checkpoint_dir)) or os.sep
+            probe = self.checkpoint_dir if os.path.isdir(self.checkpoint_dir) \
+                else parent
+            if not os.path.isdir(probe) or not os.access(probe, os.W_OK):
+                raise ValueError(
+                    f"checkpoint_dir {self.checkpoint_dir!r} is not writable "
+                    f"(nor creatable under {parent!r}); snapshots need a "
+                    f"writable directory")
 
     def _apply_deprecated_spellings(self):
         if self.task in _TASK_ALIASES:
@@ -179,6 +204,8 @@ def build_session(cfg: ScenarioConfig, device=None, init_fn: InitFn = None
                                slice_dtype=cfg.slice_dtype,
                                batch_requests=cfg.batch_requests,
                                strict_schedule=cfg.strict_schedule,
+                               checkpoint_every=cfg.checkpoint_every,
+                               checkpoint_dir=cfg.checkpoint_dir,
                                store_options=cfg.store_options)
     return session, test
 

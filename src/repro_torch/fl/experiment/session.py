@@ -7,14 +7,19 @@ after a stage merge into one request per compatible option set.
 
 A fault plan (``faults=``) reaches every stage's training and store and
 fires its crash injectors at the session's named sites (``after_stage``,
-``after_requests``); every request's lifecycle (received, retrained,
-committed) lands in a hash-chained ``AuditLog``, held in memory:
-checkpointing and the journal the reference's session writes arrive with
-the rest of the durability layer.
+``after_requests``, ``after_snapshot``); every request's lifecycle
+(received, retrained, committed) lands in a hash-chained ``AuditLog``.
+With ``checkpoint_dir`` (and ``checkpoint_every``) the session journals
+every stage and request event through a ``CheckpointManager``'s write-ahead
+journal, on which the audit chain lives too, and commits a snapshot every
+``checkpoint_every`` completed stages; ``run(..., resume_from=<dir>)``
+restores the newest good snapshot and finishes the run bit-identically to
+an uninterrupted one (``repro_torch.durability``).
 """
 from __future__ import annotations
 
 import json
+import os
 import time
 import warnings
 from dataclasses import dataclass, field
@@ -141,8 +146,18 @@ class FederatedSession:
                  encode_group: Optional[int] = None, slice_dtype=None,
                  rounds: Optional[int] = None, batch_requests: bool = False,
                  strict_schedule: bool = False, faults=None,
+                 checkpoint_every: int = 0,
+                 checkpoint_dir: Optional[str] = None,
                  store_options: Optional[dict] = None,
                  init_fn: Optional[Callable[[int], dict]] = None):
+        if checkpoint_every and not checkpoint_dir:
+            raise ValueError(
+                f"checkpoint_every={checkpoint_every} needs a "
+                f"checkpoint_dir to write snapshots to")
+        if checkpoint_every < 0:
+            raise ValueError(
+                f"checkpoint_every must be >= 0 (0 disables periodic "
+                f"snapshots), got {checkpoint_every}")
         self.sim = sim
         if init_fn is not None:
             sim.init_fn = init_fn
@@ -157,9 +172,22 @@ class FederatedSession:
         self.faults = faults                     # optional FaultPlan
         self.records: List[object] = []
         self.report = SessionReport(store_kind=store_kind)
-        self._served: set = set()
-        # hash-chained audit of unlearning lifecycle events (in memory)
-        self.audit = AuditLog()
+        self.checkpoint_every = int(checkpoint_every)
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpointer = None
+        if checkpoint_dir is not None:
+            from repro_torch.durability.checkpointer import CheckpointManager
+            self.checkpointer = CheckpointManager(checkpoint_dir,
+                                                  faults=faults)
+            if not self.checkpoint_every:
+                self.checkpoint_every = 1        # dir given: snapshot per stage
+        self._served: set = set()                # committed request ids
+        self.last_resume_info: Optional[dict] = None
+        # hash-chained audit of unlearning lifecycle events; journal-backed
+        # (and crash-durable) whenever the session checkpoints
+        self.audit = AuditLog(
+            journal=self.checkpointer.journal
+            if self.checkpointer is not None else None)
 
     def run_stage(self, rounds: Optional[int] = None):
         """Train the next stage and append its record + report entry."""
@@ -270,19 +298,101 @@ class FederatedSession:
             results.extend(self.unlearn(merged))
         return results
 
+    # ------------------------------------------------------------ durability
+    def _journal(self, event: dict) -> None:
+        if self.checkpointer is not None:
+            self.checkpointer.journal.append(event)
+
     def _crash_site(self, phase: str, stage: int) -> None:
         """Named process-crash site for the chaos harness (``process_kill``
         fires here; a plan without crash injectors is a no-op)."""
         if self.faults is not None and hasattr(self.faults, "crash_site"):
             self.faults.crash_site(("session", phase, stage))
 
+    def _maybe_checkpoint(self, k: int, num_stages: int) -> None:
+        if self.checkpointer is None or self.checkpoint_every <= 0:
+            return
+        if (k + 1) % self.checkpoint_every == 0 or k == num_stages - 1:
+            from repro_torch.durability import session_state
+            path = self.checkpointer.save(
+                session_state.capture_session(self), step=k)
+            self._journal({"ev": "snapshot", "step": k,
+                           "path": os.path.basename(path)})
+            self._crash_site("after_snapshot", k)
+
+    def resume(self, resume_from: str) -> int:
+        """Restore from the newest good snapshot under ``resume_from`` (its
+        tensors onto this session's device) and replay its journal.
+        Returns the first stage index still to run.
+
+        Corrupt snapshots (torn writes) are skipped — recovery falls back
+        to the previous good one.  Requests the journal shows dispatched
+        but never committed re-dispatch exactly once: the restored report
+        does not contain them, and re-serving from the restored RNG state
+        reproduces the uninterrupted run bit-for-bit."""
+        from repro_torch.durability import session_state
+        from repro_torch.durability.checkpointer import CheckpointManager
+        mgr = self.checkpointer
+        if mgr is None or os.path.abspath(mgr.directory) != \
+                os.path.abspath(resume_from):
+            mgr = CheckpointManager(resume_from, faults=self.faults)
+        got = mgr.load_latest(device=self.sim.device)
+        if got is None:
+            raise FileNotFoundError(
+                f"no usable snapshot under {resume_from!r}"
+                + (f" ({len(mgr.skipped)} corrupt snapshot(s) skipped: "
+                   f"{mgr.skipped})" if mgr.skipped else ""))
+        state, step, path = got
+        start = session_state.restore_session(self, state)
+        if self.checkpointer is None:
+            self.checkpointer = mgr
+        # splice the audit chain: replay + verify the journaled chain and
+        # continue appending from its head, one verifiable history
+        if getattr(self.audit, "journal", None) is not mgr.journal:
+            self.audit = AuditLog(journal=mgr.journal)
+        # exactly-once accounting: ids dispatched but never committed in the
+        # journal are re-dispatched by the resumed run (they are absent from
+        # the restored report); committed ids at/before the snapshot are in
+        # ``self._served`` and are never served twice
+        dispatched: list = []
+        committed: set = set()
+        for ev in mgr.journal.events():
+            if ev.get("ev") == "req_dispatch":
+                dispatched.extend(ev.get("rids", []))
+            elif ev.get("ev") == "req_commit":
+                committed.update(ev.get("rids", []))
+        inflight = sorted(set(dispatched) - committed - self._served)
+        self.last_resume_info = {
+            "step": step, "path": path, "start_stage": start,
+            "skipped_snapshots": list(mgr.skipped), "inflight": inflight,
+        }
+        self._journal({"ev": "resume", "from_step": step, "start": start,
+                       "skipped": [os.path.basename(p) for p in mgr.skipped],
+                       "inflight": inflight})
+        return start
+
+    # ------------------------------------------------------------------- run
     def run(self, num_stages: int,
-            schedule: Optional[RequestSchedule] = None) -> SessionReport:
+            schedule: Optional[RequestSchedule] = None,
+            resume_from: Optional[str] = None) -> SessionReport:
         """K stages back-to-back; after stage k, serve every scheduled
         request with ``after_stage == k`` (one by one, or merged when the
         session was built with ``batch_requests=True``).  Requests that can
-        never come due warn (or raise with ``strict_schedule``)."""
-        for k in range(num_stages):
+        never come due warn (or raise with ``strict_schedule``).
+
+        With ``checkpoint_dir``/``checkpoint_every`` set, a snapshot is
+        committed every ``checkpoint_every`` completed stages (and after
+        the last), and every stage completion / request dispatch / request
+        commit is journaled first.  ``resume_from=<dir>`` restores the
+        newest good snapshot and continues: completed stages are skipped,
+        served requests (by ``request_id``) are never re-applied, and the
+        resumed run's models, slices, and accounting are bit-identical to
+        an uninterrupted run."""
+        start = 0
+        if resume_from is not None:
+            start = self.resume(resume_from)
+        for k in range(start, num_stages):
+            self._journal({"ev": "stage_begin", "stage": k})
             self.run_stage()
             self._crash_site("after_stage", k)
             due = schedule.due(k) if schedule is not None else []
@@ -296,25 +406,37 @@ class FederatedSession:
                     self.audit.record("received", request_id=rid,
                                       after_stage=k)
                 if self.batch_requests:
+                    self._journal({"ev": "req_dispatch", "rids": rids,
+                                   "stage_after": k})
                     self.unlearn_batch(due)
                     self._served.update(rids)
                     for rid in rids:
                         self.audit.record("retrained", request_id=rid,
                                           after_stage=k, batched=True)
+                    self._journal({"ev": "req_commit", "rids": rids,
+                                   "stage_after": k})
                     for rid in rids:
                         self.audit.record("committed", request_id=rid,
                                           after_stage=k)
                 else:
                     for req in due:
+                        self._journal({"ev": "req_dispatch",
+                                       "rids": [req.request_id],
+                                       "stage_after": k})
                         self.unlearn(req)
                         self._served.add(req.request_id)
                         self.audit.record("retrained",
                                           request_id=req.request_id,
                                           after_stage=k, batched=False)
+                        self._journal({"ev": "req_commit",
+                                       "rids": [req.request_id],
+                                       "stage_after": k})
                         self.audit.record("committed",
                                           request_id=req.request_id,
                                           after_stage=k)
             self._crash_site("after_requests", k)
+            self._maybe_checkpoint(k, num_stages)
+            self._journal({"ev": "stage_commit", "stage": k})
         if schedule is not None:
             missed = [r for r in schedule.requests
                       if not 0 <= r.after_stage < num_stages]

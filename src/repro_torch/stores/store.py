@@ -72,8 +72,7 @@ class StoreStats:
     erased_slices: int = 0        # unreachable slices tolerated across reads
     corrupted_slices: int = 0     # corrupted slices localized + excluded
     failed_reads: int = 0         # reads aborted: faults exceeded the budget
-    # tiered-store accounting, keyed by tier name (the tiered store is not
-    # ported yet; the fields keep ``to_dict`` equal to the reference's)
+    # tiered-store accounting, keyed by tier name (``repro_torch.tiering``)
     tier_bytes: Dict[str, int] = dataclasses.field(default_factory=dict)
     tier_hits: Dict[str, int] = dataclasses.field(default_factory=dict)
     tier_misses: Dict[str, int] = dataclasses.field(default_factory=dict)
@@ -421,11 +420,16 @@ class CodedStore:
         to the host, not the (C, P) tensor."""
         if self.faults is None:
             return [], {}
-        scale_ref = float(slices.detach().abs().sum(dtype=torch.float64)
-                          ) / max(slices.numel(), 1)
         return self.faults.slice_faults(rnd, self.scheme,
                                         int(slices.shape[1]),
-                                        scale_ref=scale_ref)
+                                        scale_ref=self._scale_ref(slices))
+
+    @staticmethod
+    def _scale_ref(slices: torch.Tensor) -> float:
+        """The injected noise's scale, mean |slice|: summed in float64 on
+        the slices' device, one scalar moved to the host."""
+        return float(slices.detach().abs().sum(dtype=torch.float64)
+                     ) / max(slices.numel(), 1)
 
     def _decode_tol(self, rnd: int, slices: torch.Tensor) -> float:
         """Corruption-detection tolerance for ``decode_robust``: bf16 slices

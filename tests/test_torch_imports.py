@@ -138,7 +138,7 @@ def test_resolve_device_cpu_leaves_cudnn_switches_alone(monkeypatch):
         assert torch.backends.cudnn.benchmark is bench
 
 
-SYSTEMS = ("telemetry", "faults", "durability", "service")
+SYSTEMS = ("telemetry", "faults", "durability", "service", "tiering")
 
 
 @pytest.mark.parametrize("pkg", SYSTEMS)
@@ -146,9 +146,7 @@ def test_systems_packages_import_alone_with_reference_names(pkg):
     """Each systems package of the port, with every module under it,
     imports in a fresh interpreter without jax or ``repro``, and exports
     the reference package's public names (less the reference's
-    ``hlo_cost_of``, which has no torch counterpart, and the durability
-    modules not ported yet: the snapshots, the checkpointer and the
-    session's capture/restore)."""
+    ``hlo_cost_of``, which has no torch counterpart)."""
     mods = [m for m in _modules()
             if m == f"repro_torch.{pkg}"
             or m.startswith(f"repro_torch.{pkg}.")]
@@ -170,8 +168,6 @@ def test_systems_packages_import_alone_with_reference_names(pkg):
     names = set(getattr(ref, "__all__", None) or
                 [n for n in vars(ref) if not n.startswith("_")
                  and not isinstance(vars(ref)[n], type(ref))])
-    names -= {"hlo_cost_of", "CheckpointManager", "SnapshotCorruption",
-              "load_snapshot", "save_snapshot", "capture_session",
-              "restore_session"}
+    names -= {"hlo_cost_of"}
     missing = sorted(n for n in names if not hasattr(port, n))
     assert not missing, missing
