@@ -234,7 +234,36 @@ Phases (any failed check raises, and the script exits non-zero):
    It runs with each dispatch form (``moe_impl`` "einsum", then "gather"):
    each form's ms, peak memory and dropped share, and the gather form's
    output and gradients within 1e-4 of the einsum form's largest entry.
-7. report  — one JSON line listing the kernels (each row's numbers from
+7. serve   — the LM serving path (``repro_torch.launch.serve``'s
+   ``make_prefill_step`` / ``make_decode_step``) on the card in fp32 at the
+   published widths of six configs, weights from ``init_params(cfg, 0,
+   device="cuda")``: gemma3-27b cut from 62 layers to 6 (one 5:1
+   superblock), batch 4, prompt 1536 > window 1024 (the rings wrap), 32
+   greedy decode steps; rwkv6-3b cut from 32 to 4, batch 4, prompt 512, 32
+   steps; jamba-1.5-large-398b cut from 72 to 2 (global, mamba) with the
+   experts off (the dense FFN at d_ff 24576), batch 4, prompt 512, 32
+   steps; granite-moe-3b-a800m cut to 2, batch 4, prompt 512, 32 steps;
+   whisper-tiny whole, 1500 encoder frames, prompt 4, 60 steps;
+   internvl2-2b whole, 256 patch tokens and a 64-token prompt, 32 steps.
+   Launch counts zeroed just before each case's serve and read just after,
+   their sum joining ``by_path`` as "serve"; window_attention, wkv and
+   ssm_scan must have launched.  Each case: prefill ms, decode ms a token
+   (the median step, by CUDA events: the loop never waits for the card),
+   tokens/s, peak memory (and the case's own: less what earlier phases
+   hold); every decode step's logits (and prefill's last)
+   within 5e-3 + 5e-3|r| (the reference's bound) and 1e-3 + 1e-3|r|
+   (near the measured spread) of ``forward_train`` at that position, a row
+   at a time (granite with its capacity unbound, as tests/test_arch_smoke.py
+   does: the drop depends on the group size).  gemma3 serves a second time
+   (tokens and logits bit-identical), once more at its own bfloat16 (it
+   must finish, finite; its gap to the fp32 logits is printed), and one
+   traced decode step gives its device-busy time and idle share.  Every
+   ``reduce_for_smoke`` config of ``ASSIGNED_ARCHS`` and a gemma3 with
+   window 16 < prompt 40 serve on the card and on the CPU, fed the same
+   tokens: logits within 1e-4 + 1e-4|r| (tests/test_torch_serve.py's
+   tolerance).  Phases 3b-3d hold the three kernels to their plain
+   versions at the serve shapes (cases ``serve_*``, inference forwards).
+8. report  — one JSON line listing the kernels (each row's numbers from
    the path it was ported for, every path's launches and times under
    ``by_path``), the card's name and power limit, and the final line
    ``{"ok": true, "device": {...}}``.
@@ -852,7 +881,9 @@ def check_ssm(torch, K):
              ("large_dt_stage", 50, 64, 64, 8, 5, 20, "large"),
              ("tiny_dt_s1024", 2, 1024, 4096, 16, 1, 3, "tiny"),
              ("large_dt_s1024", 2, 1024, 4096, 16, 1, 3, "large"),
-             ("full_width_s2048", 2, 2048, 16384, 16, 1, 3, "model")]
+             ("full_width_s2048", 2, 2048, 16384, 16, 1, 3, "model"),
+             # the serve path's prefill: jamba's mixer, batch 4, prompt 512
+             ("serve_jamba", 4, 512, 16384, 16, 1, 3, "model")]
     for label, bsz, s, d, n, g, iters, regime in cases:
         args = ssm_inputs(torch, gen, bsz, s, d, n, g, regime)
         row = check_forward(
@@ -862,6 +893,11 @@ def check_ssm(torch, K):
             train_row=label == "fused_stage")
         if label == "fused_stage":
             heads["ssm_scan"] = row
+        if label.startswith("serve"):   # inference forward only
+            heads["serve"] = row
+            del args
+            torch.cuda.empty_cache()
+            continue
         # backward: the kernel from the forward's checkpoints against
         # autograd through the plain loop, on the same cotangents
         gg = ops._check(*args)
@@ -979,7 +1015,9 @@ def check_wkv(torch, K):
              ("full_width_s1024", 8, 1024, 40, 64, 1, 3, "compare", "model"),
              ("near1_s1024", 2, 1024, 40, 64, 1, 3, "compare", "near1"),
              ("clip_s1024", 2, 1024, 40, 64, 1, 3, "compare", "clip"),
-             ("chunk_walk_proxy", 512, 64, 40, 64, 1, 3, "none", "model")]
+             ("chunk_walk_proxy", 512, 64, 40, 64, 1, 3, "none", "model"),
+             # the serve path's prefill: rwkv6-3b, batch 4, prompt 512
+             ("serve_rwkv6", 4, 512, 40, 64, 1, 3, "none", "model")]
     for label, bsz, s, h, n, g, iters, bwd_mode, decay in cases:
         args = wkv_inputs(torch, gen, bsz, s, h, n, g, decay)
         row = check_forward(
@@ -989,6 +1027,8 @@ def check_wkv(torch, K):
             train_row=label == "fused_stage")
         if label == "fused_stage":
             heads["wkv"] = row
+        if label.startswith("serve"):
+            heads["serve"] = row
         if bwd_mode == "none":
             del args
             torch.cuda.empty_cache()
@@ -1087,7 +1127,9 @@ def check_window(torch, K):
              ("window1", 2, 100, 4, 2, 64, 1, 20),
              ("ragged_hd27", 1, 130, 6, 3, 27, 70, 20),
              ("local_small", 4, 64, 4, 2, 16, 16, 50),
-             ("gemma3_full_width", 2, 4096, 32, 16, 128, 1024, 3)]
+             ("gemma3_full_width", 2, 4096, 32, 16, 128, 1024, 3),
+             # the serve path's prefill (forward only): batch 4, prompt 1536
+             ("serve_gemma3", 4, 1536, 32, 16, 128, 1024, 3)]
     for label, b, s, h, kv, hd, window, iters in cases:
         q, k, v = (torch.randn(b, s, n, hd, generator=gen, device="cuda")
                    for n in (h, kv, kv))
@@ -1123,6 +1165,10 @@ def check_window(torch, K):
         share(row, bnd)
         log("kernel", **row)
         heads[label] = {"window_attention": row}
+        if label.startswith("serve"):   # inference forward only
+            del q, k, v, lq, lk, lv, mask
+            torch.cuda.empty_cache()
+            continue
         # backward: the kernels from the forward's O and log-sum-exp against
         # autograd through the dense softmax, on the same cotangent
         o, lse = ops._fwd(q, k, v, window)
@@ -3043,8 +3089,8 @@ def check_engine_gemms(torch, sim, seq: int) -> dict:
             q[:n * bs], k[:n * bs], v[:n * bs], causal=True,
             block_q=cfg.attn_block_q or seq),
         "attention block (projections, RoPE, attention, wo)": lambda n:
-            transformer._attention({a: b[:n] for a, b in p.items()}, h[:n],
-                                   cfg, "global"),
+            attn.attention_block({a: b[:n] for a, b in p.items()}, h[:n],
+                                 cfg),
         "gated MLP (apply_mlp: three bmm)": lambda n: layers.apply_mlp(
             sliced(ffn, n), h[:n], cfg),
         "unembedding (apply_unembed)": lambda n: layers.apply_unembed(
@@ -3226,7 +3272,7 @@ def full_width_rwkv(torch, K):
     torch.cuda.reset_peak_memory_stats()
 
     def step():
-        y, _aux = apply_block_train(p, x, cfg, "rwkv", 0)
+        y, _aux, _ = apply_block_train(p, x, cfg, "rwkv", 0)
         loss = (y * y).mean()
         grads = torch.autograd.grad(loss, [x, *tree_leaves(p)])
         return y, grads
@@ -3314,7 +3360,7 @@ def full_width_gemma(torch, K):
     torch.cuda.reset_peak_memory_stats()
 
     def step():
-        y, _aux = apply_block_train(p, x, cfg, "local", 0)
+        y, _aux, _ = apply_block_train(p, x, cfg, "local", 0)
         loss = (y * y).mean()
         grads = torch.autograd.grad(loss, [x, *tree_leaves(p)])
         return y, grads
@@ -3422,7 +3468,7 @@ def full_width_granite(torch, K):
         cfg = dataclasses.replace(base, moe_impl=impl)
 
         def step():
-            y, aux = apply_block_train(p, x, cfg, "global", 0)
+            y, aux, _ = apply_block_train(p, x, cfg, "global", 0)
             loss = (y * y).mean() + aux.sum()
             return y, aux, torch.autograd.grad(loss, leaves)
 
@@ -3488,6 +3534,272 @@ def full_width_granite(torch, K):
     return rows
 
 
+# phase 7: (arch, changes to the published config, batch, prompt, decode
+# steps, what was cut); every case runs in fp32
+SERVE_CASES = (
+    ("gemma3-27b", dict(num_layers=6), 4, 1536, 32,
+     "depth 62 -> 6 (one 5:1 superblock of local and global layers)"),
+    ("rwkv6-3b", dict(num_layers=4), 4, 512, 32, "depth 32 -> 4"),
+    ("jamba-1.5-large-398b", dict(num_layers=2,
+                                  layer_pattern=("global", "mamba"),
+                                  num_experts=0, experts_per_token=0),
+     4, 512, 32, "depth 72 -> 2 (global, mamba); experts off: the dense FFN "
+     "at d_ff 24576 (16 experts of one MoE layer are 9.7 B parameters)"),
+    ("granite-moe-3b-a800m", dict(num_layers=2), 4, 512, 32,
+     "depth 32 -> 2"),
+    ("whisper-tiny", {}, 4, 4, 60, "none (4 encoder and 4 decoder layers)"),
+    ("internvl2-2b", {}, 4, 64, 32, "none (24 layers)"))
+SERVE_FRAMES = 1500    # src/repro/launch/inputs.py's AUDIO_ENC_FRAMES
+SERVE_KERNELS = ("window_attention", "wkv", "ssm_scan")
+SERVE_TOL = 5e-3       # tests/test_arch_smoke.py's decode-vs-forward
+# and the bound near the spread measured at the serve widths (worst 1.97e-4,
+# rwkv6-3b, H100 80GB HBM3 at 700 W), which a cache or ring fault that
+# shifts logits by a few 1e-3 breaks where the reference's bound does not
+SERVE_SPREAD_TOL = 1e-3
+
+
+def serve_inputs(torch, cfg, bsz: int, prompt: int, seed: int,
+                 frames: int = SERVE_FRAMES):
+    """A serve batch drawn on the CPU from ``seed`` (so the card and the
+    CPU get the same one): tokens (bsz, prompt), plus vlm patches or audio
+    frames."""
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (bsz, prompt),
+                                     generator=gen, dtype=torch.int32)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn(bsz, cfg.vision_tokens, cfg.d_model,
+                                       generator=gen)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(bsz, frames, cfg.d_model,
+                                      generator=gen)
+    return batch
+
+
+def serve_run(torch, cfg, params, batch, steps: int, feed=None) -> dict:
+    """Prefill, then ``steps`` decode steps through ``make_prefill_step`` /
+    ``make_decode_step``: greedy (each step fed the argmax of the last
+    logits, on the device) unless ``feed`` (B, steps) gives the tokens.
+    Returns the logits (steps + 1, B, V), prefill's last then each
+    step's; the tokens fed (B, steps); prefill ms (host clock to a sync);
+    each step's ms (CUDA events; the loop never waits for the card, so a
+    step's time is its host's or its device's, the longer); the decode
+    wall; the last cache and the decode step."""
+    from repro_torch.launch.serve import make_decode_step, make_prefill_step
+    cuda = batch["tokens"].is_cuda
+    n_prefix = cfg.vision_tokens if cfg.family == "vlm" else 0
+    prefill = make_prefill_step(
+        cfg, max_len=n_prefix + batch["tokens"].shape[1] + steps)
+    decode = make_decode_step(cfg)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    out, fed = [logits[:, -1]], []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)] \
+        if cuda else []
+    t1 = time.perf_counter()
+    if cuda:
+        ev[0].record()
+    for i in range(steps):
+        tok = (feed[:, i:i + 1] if feed is not None
+               else out[-1].argmax(-1, keepdim=True).to(torch.int32))
+        fed.append(tok)
+        logits, cache = decode(params, tok, cache)
+        out.append(logits[:, -1])
+        if cuda:
+            ev[i + 1].record()
+    sync()
+    wall = time.perf_counter() - t1
+    return {"logits": torch.stack(out), "fed": torch.cat(fed, 1),
+            "prefill_ms": prefill_ms, "decode_wall_s": wall,
+            "step_ms": [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+            if cuda else [], "cache": cache, "decode": decode}
+
+
+def serve_vs_forward(torch, cfg, params, batch, run) -> float:
+    """Each decode step's logits (and prefill's last) against
+    ``forward_train`` on the prompt and the tokens decode was fed, at
+    their positions, a batch row at a time (gemma3's full logits would
+    take 6.6 GB): |d| <= SERVE_TOL (1 + |r|), the reference's bound, and
+    |d| <= SERVE_SPREAD_TOL (1 + |r|), near the measured spread.  Returns
+    the max abs error."""
+    from repro_torch.models import predict_fn
+    prompt = batch["tokens"].shape[1]
+    toks = torch.cat([batch["tokens"], run["fed"]], 1)
+    predict, worst = predict_fn(cfg), 0.0
+    for b in range(toks.shape[0]):
+        row = {k: v[b:b + 1] for k, v in batch.items()}
+        row["tokens"] = toks[b:b + 1]
+        with torch.no_grad():
+            want = predict(params, row)[0, prompt - 1:]     # (steps+1, V)
+        diff = (run["logits"][:, b] - want).abs()
+        worst = max(worst, float(diff.max()))
+        for tol in (SERVE_TOL, SERVE_SPREAD_TOL):
+            if not bool((diff <= tol * (1 + want.abs())).all()):
+                raise AssertionError(
+                    f"serve {cfg.name}: decode row {b} is "
+                    f"{float(diff.max())} from the forward, past "
+                    f"{tol} (1 + |r|)")
+        del want, diff
+    return worst
+
+
+def serve_card_vs_cpu(torch) -> dict:
+    """Every ``reduce_for_smoke`` config of ``ASSIGNED_ARCHS`` and a gemma3
+    with window 16 < prompt 40, on the card and on the CPU with the same
+    weights, batch and fed tokens (2 rows, prompt 24, 4 steps): logits
+    within 1e-4 + 1e-4|r|.  Returns each config's max abs difference."""
+    from repro_torch.configs import ASSIGNED_ARCHS, get_config
+    from repro_torch.configs import reduce_for_smoke
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import init_params
+    cases = [(a, {}, 24) for a in ASSIGNED_ARCHS] + \
+        [("gemma3-27b", {"sliding_window": 16}, 40)]
+    out = {}
+    for arch, changes, prompt in cases:
+        cfg = dataclasses.replace(reduce_for_smoke(get_config(arch)),
+                                  **changes)
+        cpu_params = init_params(cfg, 0, device="cpu")
+        batch = serve_inputs(torch, cfg, 2, prompt, 3, frames=20)
+        feed = torch.randint(0, cfg.vocab_size, (2, 4), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(4))
+        want = serve_run(torch, cfg, cpu_params, batch, 4, feed)["logits"]
+        got = serve_run(torch, cfg, tree_map(lambda v: v.cuda(), cpu_params),
+                        {k: v.cuda() for k, v in batch.items()}, 4,
+                        feed.cuda())["logits"].cpu()
+        diff = (got - want).abs()
+        name = arch + ("-window16" if changes else "")
+        out[name] = float(diff.max())
+        if not bool((diff <= 1e-4 + 1e-4 * want.abs()).all()):
+            raise AssertionError(f"serve {name}: card {out[name]} from the "
+                                 f"CPU")
+    return out
+
+
+def serve_path(torch, K):
+    """Phase 7: the serving path's six cases at published widths (see the
+    module docstring), each with its launches counted, the checks after
+    the counted serve; then the reduced configs on the card and the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models import init_params
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in K.LAUNCHES}
+    for arch, changes, bsz, prompt, steps, cut in SERVE_CASES:
+        cfg = dataclasses.replace(get_config(arch), param_dtype="float32",
+                                  compute_dtype="float32", **changes)
+        base = torch.cuda.memory_allocated()    # what earlier phases hold
+        t0 = time.perf_counter()
+        params = init_params(cfg, 0, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(v.numel() for v in tree_leaves(params))
+        batch = {k: v.cuda() for k, v in
+                 serve_inputs(torch, cfg, bsz, prompt, 1).items()}
+        serve_run(torch, cfg, params, batch, 2)          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        run = serve_run(torch, cfg, params, batch, steps)
+        launches = dict(K.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        for k, v in launches.items():
+            total[k] += v
+        if not bool(torch.isfinite(run["logits"]).all()):
+            raise AssertionError(f"serve {arch}: logits not finite")
+        check_cfg = (dataclasses.replace(cfg, moe_capacity_factor=16.0)
+                     if cfg.num_experts else cfg)
+        check = run if check_cfg is cfg else serve_run(
+            torch, check_cfg, params, batch, steps)
+        err = serve_vs_forward(torch, check_cfg, params, batch, check)
+        step_ms = statistics.median(run["step_ms"])
+        row = dict(case=arch, params=n_params, param_count=cfg.param_count(),
+                   batch=bsz, prompt=prompt, decode_steps=steps,
+                   reduced={"depth": cut}, init_s=init_s,
+                   prefill_ms=run["prefill_ms"], decode_ms_per_token=step_ms,
+                   decode_ms_min=min(run["step_ms"]),
+                   decode_ms_max=max(run["step_ms"]),
+                   decode_wall_s=run["decode_wall_s"],
+                   tokens_per_s=bsz * steps / run["decode_wall_s"],
+                   prefill_tokens_per_s=bsz * prompt / run["prefill_ms"] * 1e3,
+                   peak_mem_bytes=peak, case_peak_bytes=peak - base,
+                   launches={k: v for k, v in launches.items() if v},
+                   decode_vs_forward_max_abs=err,
+                   decode_vs_forward_tol=f"{SERVE_TOL} (1 + |r|) and "
+                   f"{SERVE_SPREAD_TOL} (1 + |r|)" +
+                   (", capacity unbound" if check_cfg is not cfg else ""))
+        if cfg.family == "audio":
+            row["encoder_frames"] = SERVE_FRAMES
+        if cfg.family == "vlm":
+            row["patch_tokens"] = cfg.vision_tokens
+        if arch == "gemma3-27b":
+            row.update(gemma3_extras(torch, K, cfg, params, batch, run))
+        log("serve", **row)
+        del params, batch, run, check
+        torch.cuda.empty_cache()
+    missing = [k for k in SERVE_KERNELS if not total[k]]
+    if missing:
+        raise AssertionError(f"serve: {missing} never launched ({total})")
+    log("serve_card_vs_cpu", max_abs=serve_card_vs_cpu(torch),
+        tol="1e-4 + 1e-4*|ref|")
+    log("serve_phase", seconds=time.perf_counter() - t_phase,
+        launches={k: v for k, v in total.items() if v})
+    return total
+
+
+def gemma3_extras(torch, K, cfg, params, batch, run) -> dict:
+    """gemma3's second fp32 serve (bit for bit the first), its bf16 serve
+    (finite; gap to the fp32 logits, greedy tokens in common; the window
+    kernel fed fp32), then one traced decode step's device-busy time."""
+    from repro_torch.core.tree import tree_map
+    steps = run["fed"].shape[1]
+    again = serve_run(torch, cfg, params, batch, steps)
+    if not (torch.equal(again["logits"], run["logits"])
+            and torch.equal(again["fed"], run["fed"])):
+        raise AssertionError("serve gemma3: two runs differ")
+    del again
+    cfg16 = dataclasses.replace(cfg, param_dtype="bfloat16",
+                                compute_dtype="bfloat16")
+    p16 = tree_map(lambda v: v.to(torch.bfloat16), params)
+    K.reset_launches()
+    r16 = serve_run(torch, cfg16, p16, batch, steps)
+    wa16 = K.LAUNCHES["window_attention"]
+    del p16
+    lg16 = r16["logits"].float()
+    if not bool(torch.isfinite(lg16).all()) or not wa16:
+        raise AssertionError(f"serve gemma3 bf16: finite "
+                             f"{bool(torch.isfinite(lg16).all())}, "
+                             f"window launches {wa16}")
+    bf16 = {"prefill_ms": r16["prefill_ms"],
+            "decode_ms_per_token": statistics.median(r16["step_ms"]),
+            "prefill_logits_max_abs_gap_to_fp32":
+                float((lg16[0] - run["logits"][0]).abs().max()),
+            "fp32_logit_max_abs": float(run["logits"][0].abs().max()),
+            "greedy_tokens_equal_share":
+                float((r16["fed"] == run["fed"]).float().mean()),
+            "window_attention_launches": wa16}
+    del r16, lg16
+    tok = run["logits"][-1].argmax(-1, keepdim=True).to(torch.int32)
+    cache, decode = run["cache"], run["decode"]
+    d = device_busy(lambda: decode(params, tok, cache))
+    step_ms = statistics.median(run["step_ms"])
+    # the profiler slows the host: the idle share against the traced wall
+    # and against the untraced median step
+    traced = {"wall_ms": d["wall_s"] * 1e3, "busy_ms": d["busy_ms"],
+              "sum_ms": d["sum_ms"], "records": d["records"],
+              "idle_share": 1.0 - d["busy_ms"] / (d["wall_s"] * 1e3),
+              "untraced_step_ms": step_ms,
+              "idle_share_of_untraced_step": 1.0 - d["busy_ms"] / step_ms,
+              "top": sorted(d["by_name"].items(), key=lambda kv: -kv[1])[:6]}
+    return {"repeat_bit_identical": True, "bf16": bf16,
+            "traced_decode_step": traced}
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     src = root / "src"
@@ -3537,9 +3849,13 @@ def main() -> int:
         heads[fam] = check_kernels(torch, K, fam,
                                    get_model_family(fam).build(None),
                                    ragged=False)
-    heads["mamba"].update(check_ssm(torch, K))
-    heads["rwkv6"].update(check_wkv(torch, K))
+    ssm, wkv = check_ssm(torch, K), check_wkv(torch, K)
     window = check_window(torch, K)
+    # the serve path's rows: each kernel's inference forward at its shape
+    heads["serve"] = {"ssm_scan": ssm.pop("serve"), "wkv": wkv.pop("serve"),
+                      **window["serve_gemma3"]}
+    heads["mamba"].update(ssm)
+    heads["rwkv6"].update(wkv)
     heads["local_small"] = window["local_small"]
     heads["gemma3"] = window["gemma3_full_width"]
     # each path's own counts, zeroed just before it and read just after
@@ -3559,6 +3875,7 @@ def main() -> int:
     full_width_rwkv(torch, K)
     launches["gemma3"] = full_width_gemma(torch, K)
     full_width_granite(torch, K)
+    launches["serve"] = serve_path(torch, K)
 
     # one row per kernel, its numbers from the path it was ported for; the
     # launches and times on every path under "by_path"

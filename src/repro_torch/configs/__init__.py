@@ -1,9 +1,5 @@
-"""Config registry: ``get_config(arch_id)`` and the assigned-architecture
-list.  The port carries every configuration of ``repro.configs`` whose
-layers it runs: the paper CNN, the paper's NanoGPT, the dense llama3.2-3b,
-olmo-1b, yi-6b and gemma3-27b, the MoE granite-moe-1b-a400m and
-granite-moe-3b-a800m, jamba-1.5-large and rwkv6-3b.  internvl2-2b and
-whisper-tiny arrive with their frontends (ROADMAP queue 1 item 5)."""
+"""Config registry: ``get_config(arch_id)``, ``list_archs()`` and the
+assigned-architecture list, every configuration of ``repro.configs``."""
 from __future__ import annotations
 
 import importlib
@@ -20,9 +16,11 @@ from repro_torch.configs.base import (  # noqa: F401
 # arch id (as assigned) -> module name, in the reference's order
 _ARCH_MODULES = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "internvl2-2b": "internvl2_2b",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "jamba-1.5-large-398b": "jamba_1p5_large_398b",
     "gemma3-27b": "gemma3_27b",
+    "whisper-tiny": "whisper_tiny",
     "olmo-1b": "olmo_1b",
     "yi-6b": "yi_6b",
     "llama3.2-3b": "llama3p2_3b",
@@ -40,3 +38,7 @@ def get_config(arch: str) -> ModelConfig:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
     return mod.CONFIG
+
+
+def list_archs() -> tuple:
+    return tuple(_ARCH_MODULES)

@@ -15,14 +15,13 @@ class ModelConfig:
     """Architecture hyper-parameters, with ``repro.configs.base``'s field
     names and defaults.
 
-    ``family`` selects the block stack; the port runs ``cnn`` (the paper's
-    conv classifier) and, for the LM families, the ``global`` and ``local``
-    attention layer kinds of ``dense`` and ``moe`` stacks, the ``mamba``
-    layer kind of ``hybrid`` stacks and the ``rwkv`` layer kind of ``ssm``
-    stacks, each with a dense or an MoE FFN.  The ``audio`` and ``vlm``
-    frontends are not ported (ROADMAP queue 1), so the fields only they
-    read (``encoder_layers``, ``decoder_context``, ``vision_tokens``) are
-    left out.
+    ``family`` selects the block stack: ``cnn`` (the paper's conv
+    classifier); ``dense`` and ``moe`` (``global`` and ``local`` attention
+    layers), ``hybrid`` (attention and ``mamba`` layers) and ``ssm``
+    (``rwkv`` layers) decoder LMs, each layer with a dense or an MoE FFN;
+    ``vlm``, a decoder LM reading a vision-patch prefix, and ``audio``, an
+    encoder-decoder reading mel-frame embeddings (both frontends are stubs
+    in the reference too: the batch carries their embeddings).
     """
 
     name: str
@@ -69,8 +68,15 @@ class ModelConfig:
     tie_embeddings: bool = False
     logit_softcap: float = 0.0
 
-    # --- frontends ---
-    frontend: str = ""
+    # --- encoder-decoder (audio) ---
+    encoder_layers: int = 0
+    # architectural max decoder len (0 = unlimited): carried for parity
+    # with the reference's fields; no module of the port reads it yet
+    decoder_context: int = 0
+
+    # --- frontends (stubs: the batch carries their embeddings) ---
+    frontend: str = ""             # "" | "vision" | "audio"
+    vision_tokens: int = 256       # VLM patch-prefix length
 
     # --- cnn (paper model) ---
     cnn_channels: Tuple[int, ...] = (16, 32)
@@ -96,14 +102,14 @@ class ModelConfig:
         return tuple((pat * reps)[: self.num_layers])
 
     def param_count(self) -> int:
-        """Analytic parameter count (matches init within rounding; the
-        reference's audio encoder terms are left out with the frontend)."""
+        """Analytic parameter count (matches init within rounding)."""
         d, h, kv, hd = (self.d_model, self.num_heads, self.num_kv_heads,
                         self.head_dim)
         n = self.vocab_size * d                      # embed
         if not self.tie_embeddings and self.family != "cnn":
             n += self.vocab_size * d                 # unembed
-        for i, kind in enumerate(self.layer_kinds):
+        kinds = self.layer_kinds
+        for i, kind in enumerate(kinds):
             if kind in ("global", "local"):
                 n += d * (h * hd) + 2 * d * (kv * hd) + (h * hd) * d
                 n += self._ffn_params(i)
@@ -125,6 +131,12 @@ class ModelConfig:
                 n += 5 * d + 32 * d * 2    # token-shift mixers + decay lora
                 n += int(d * self.d_ff) + int(self.d_ff * d)  # channel-mix
                 n += 2 * self._norm_params()
+        if self.family == "audio":
+            for _ in range(self.encoder_layers):
+                n += 4 * d * (h * hd) + self._ffn_params() \
+                    + 2 * self._norm_params()
+            # decoder cross-attention
+            n += len(kinds) * (4 * d * (h * hd) + self._norm_params())
         n += self._norm_params()           # final norm
         return n
 
@@ -194,8 +206,7 @@ class OptimizerConfig:
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     """2 layers, d_model <= 256, <= 4 experts: the same family and block
-    wiring (``repro.configs.base.reduce_for_smoke``, without the frontend
-    fields the port does not carry)."""
+    wiring (``repro.configs.base.reduce_for_smoke``)."""
     d = min(cfg.d_model, 256)
     heads = min(cfg.num_heads, 4)
     kv = min(cfg.num_kv_heads, heads)
@@ -219,7 +230,9 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
         num_experts=min(cfg.num_experts, 4),
         experts_per_token=min(cfg.experts_per_token, 2),
         layer_pattern=kinds,
+        encoder_layers=min(cfg.encoder_layers, 2),
         sliding_window=min(cfg.sliding_window, 64),
+        vision_tokens=min(cfg.vision_tokens, 16),
         rwkv_head_dim=min(cfg.rwkv_head_dim, max(d // 4, 16)),
         param_dtype="float32",
         compute_dtype="float32",

@@ -1,7 +1,11 @@
 from repro_torch.models.model import (  # noqa: F401
+    decode_fn,
+    init_cache,
     init_params,
     loss_fn,
+    num_params,
     predict_fn,
+    prefill_fn,
     stacked_loss_fn,
     stacked_predict_fn,
 )

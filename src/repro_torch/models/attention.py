@@ -1,6 +1,7 @@
-"""GQA attention for training (``repro.models.attention``): the blockwise
-(flash-style) path with an online softmax, its causal block-skipping form
-and the sliding-window path with structural skipping.
+"""GQA attention (``repro.models.attention``): the blockwise
+(flash-style) training and prefill path with an online softmax, its causal
+block-skipping form, the sliding-window path with structural skipping and
+the direct single-token decode path against a cache.
 
 q: (B, S, H, hd); k, v: (B, S, KV, hd), with query head h reading kv head
 h // (H // KV).  A stack of K models folds its model axis into B: these
@@ -9,9 +10,9 @@ reference's arithmetic, so the CPU and the card run the same operations;
 the hand-written sliding-window kernel (``kernels.window_attn``) takes the
 place of ``local_blockwise_attention`` in the model's local layers on the
 card, as the reference's Pallas kernel is a drop-in for it.
-
-Not ported: ``decode_attention`` and ``attention_block`` (serving with the
-caches) and cross-attention (the audio family).
+``project_qkv`` and ``project_out`` are the projections of a layer of K
+models (leaves (K, d, heads, hd)); ``attention_layer`` is the whole layer
+with the k and v it computed, ``attention_block`` its output alone.
 """
 from __future__ import annotations
 
@@ -20,11 +21,15 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.window_attn.ops import window_attention
+from repro_torch.models.layers import apply_rope, matmul
 
 NEG_INF = -1e30
 
 
 def init_attention(fac, cfg: ModelConfig):
+    """q/k/v/o projections; the decoder's cross-attention draws the same
+    shapes, kept under the block's ``xattn`` key."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     return {
         "wq": fac.param((d, h, hd)),
@@ -163,3 +168,87 @@ def causal_skip_attention(q, k, v, *, window: int = 0, block_q: int = 0,
             q[:, i * bq:end], k[:, :end], v[:, :end], causal=True,
             window=window, q_offset=i * bq, block_q=bq, block_kv=block_kv))
     return torch.cat(outs, dim=1)
+
+
+def decode_attention(q, k_cache, v_cache, kv_positions, *,
+                     window: int = 0) -> torch.Tensor:
+    """Single-token decode: q (B, 1, H, hd) against a cache (B, S, KV, hd).
+    ``kv_positions`` (S,) or (B, S) int: the original position of each
+    cache slot, -1 for an empty one, so a ring-buffer (window) cache, whose
+    slot order is not position order, works too; the token being generated
+    attends to every filled slot (``window`` is the reference's argument and
+    masks nothing: the ring holds only the window).  Returns (B, 1, H, hd)
+    in q's dtype."""
+    b, sq, h, hd = q.shape
+    nkv = k_cache.shape[2]
+    qg = q.reshape(b, sq, nkv, h // nkv, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
+                     k_cache.float()) * hd ** -0.5
+    if kv_positions.dim() == 1:
+        kv_positions = kv_positions[None].expand(b, -1)
+    bias = torch.where(kv_positions >= 0, 0.0, NEG_INF)     # (B, S)
+    p = torch.softmax(s + bias[:, None, None, None, :], dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.float())
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def project(x, w) -> torch.Tensor:
+    """x (K, bs, S, d) @ w (K, d, heads, hd) -> (K*bs, S, heads, hd): the
+    model axis folded into the batch."""
+    km, bs, s, d = x.shape
+    return matmul(x, w.reshape(km, d, -1)).reshape(km * bs, s, *w.shape[2:])
+
+
+def project_qkv(p, x, cfg: ModelConfig, positions):
+    """q, k (RoPE at ``positions``, broadcast against (K*bs, S)) and v of a
+    layer of K models: x (K, bs, S, d) -> (K*bs, S, heads, hd) each."""
+    q = apply_rope(project(x, p["wq"]), positions, cfg.rope_theta)
+    k = apply_rope(project(x, p["wk"]), positions, cfg.rope_theta)
+    return q, k, project(x, p["wv"])
+
+
+def project_out(p, o, km: int) -> torch.Tensor:
+    """o (K*bs, S, H, hd) @ wo (K, H, hd, d) -> (K, bs, S, d)."""
+    kb, s, h, hd = o.shape
+    return matmul(o.reshape(km, kb // km * s, h * hd),
+                  p["wo"].reshape(km, h * hd, -1)).reshape(
+                      km, kb // km, s, -1)
+
+
+def attention_layer(p, x, cfg: ModelConfig, kind: str, *, q_offset: int = 0,
+                    positions: Optional[torch.Tensor] = None):
+    """A whole attention layer for train / prefill on a stack of K models
+    (q/k/v projections, RoPE, attention, output projection): x (K, bs, S,
+    d) -> (out (K, bs, S, d), k, v), k and v (K*bs, S, KV, hd) as the cache
+    stores them.  A local layer longer than its window runs the
+    ``window_attention`` kernel in fp32, the reference's local arithmetic,
+    and casts back, when its queries and keys share positions (``q_offset``
+    0); with an offset, ``local_blockwise_attention``'s masks, which shift
+    the queries alone, are what the reference computes."""
+    km, bs, s, _ = x.shape
+    if positions is None:
+        positions = q_offset + torch.arange(s, dtype=torch.int32,
+                                            device=x.device)[None]
+    q, k, v = project_qkv(p, x, cfg, positions)
+    win = cfg.sliding_window if kind == "local" else 0
+    if win and s > win and not q_offset:
+        o = window_attention(q.float(), k.float(), v.float(),
+                             win).to(q.dtype)
+    elif win and s > win:
+        o = local_blockwise_attention(q, k, v, window=win, q_offset=q_offset)
+    elif cfg.attn_block_skip and not q_offset:
+        o = causal_skip_attention(q, k, v, window=win)
+    else:
+        o = blockwise_attention(q, k, v, causal=True, window=win,
+                                q_offset=q_offset,
+                                block_q=cfg.attn_block_q or s)
+    return project_out(p, o, km), k, v
+
+
+def attention_block(p, x, cfg: ModelConfig, *, kind: str = "global",
+                    q_offset: int = 0,
+                    positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``attention_layer``'s output alone: x (K, bs, S, d) -> (K, bs, S,
+    d)."""
+    return attention_layer(p, x, cfg, kind, q_offset=q_offset,
+                           positions=positions)[0]

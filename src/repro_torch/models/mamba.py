@@ -6,7 +6,10 @@ The recurrence runs through the ``ssm_scan`` kernel for both
 each model's own ``a = -exp(a_log)`` as one group of the kernel's grouped
 ``a``.  The scan keeps its state in fp32; ``ssm_chunk_dtype`` other than
 float32 is the reference's bf16 chunk option for its XLA path and is not
-ported.  Decode (``mamba_decode_step``) arrives with serving.
+ported.  Prefill carries the final conv and scan states out
+(``mamba_block``, the scan's h0 in and h_last out); decode
+(``mamba_decode_step``) is one recurrence step in plain PyTorch, as the
+reference's is plain jnp outside any kernel.
 """
 from __future__ import annotations
 
@@ -43,13 +46,15 @@ def init_mamba(fac, cfg: ModelConfig):
     }
 
 
-def _conv1d_causal(x, conv_w, conv_b):
+def _conv1d_causal(x, conv_w, conv_b, conv_state=None):
     """Depthwise causal conv of each model's sequences: x (K, ..., S, di);
-    conv_w (K, w, di); conv_b (K, di).  A sum over the w taps with zero
-    left padding.  Returns (y, the last w-1 inputs)."""
+    conv_w (K, w, di); conv_b (K, di); ``conv_state`` (K, ..., w-1, di),
+    the inputs before x (decode continuity), zeros when None.  A sum over
+    the w taps.  Returns (y, the last w-1 inputs)."""
     taps = conv_w.unbind(1)
     w, s = len(taps), x.shape[-2]
-    xp = F.pad(x, (0, 0, w - 1, 0))
+    xp = (F.pad(x, (0, 0, w - 1, 0)) if conv_state is None
+          else torch.cat([conv_state, x], dim=-2))
     y = sum(xp[..., i:i + s, :] * per_model(taps[i], x) for i in range(w))
     return y + per_model(conv_b, x), xp[..., s:, :]
 
@@ -91,13 +96,33 @@ def mamba_scan(p, x, cfg: ModelConfig, h0=None):
 
 
 def mamba_block(p, x, cfg: ModelConfig, state=None):
-    """Full block (training and prefill form). x: (K, bs, S, d).
+    """Full block (training and prefill form). x: (K, bs, S, d).  state =
+    (conv_state (K, bs, w-1, di), h (K, bs, di, n)) or None (zeros).
     Returns (y, (conv_state, h_last))."""
-    if state is not None:
-        raise NotImplementedError("the mamba decode path (state carried "
-                                  "across calls) arrives with serving")
+    conv_state, h0 = state if state is not None else (None, None)
     xin, z = torch.chunk(matmul(x, p["in_proj"]), 2, dim=-1)
-    xc, new_conv = _conv1d_causal(xin, p["conv_w"], p["conv_b"])
-    y, h_last = mamba_scan(p, F.silu(xc), cfg)
+    xc, new_conv = _conv1d_causal(xin, p["conv_w"], p["conv_b"], conv_state)
+    y, h_last = mamba_scan(p, F.silu(xc), cfg, h0=h0)
     y = y * F.silu(z)
     return matmul(y, p["out_proj"]), (new_conv, h_last)
+
+
+def mamba_decode_step(p, x, cfg: ModelConfig, state):
+    """One token: x (K, bs, 1, d); state = (conv_state (K, bs, w-1, di),
+    h (K, bs, di, n) fp32).  Returns (y, (conv_state, h))."""
+    conv_state, h = state
+    xin, z = torch.chunk(matmul(x, p["in_proj"]), 2, dim=-1)
+    xc, new_conv = _conv1d_causal(xin, p["conv_w"], p["conv_b"], conv_state)
+    xc = F.silu(xc)                                          # (K, bs, 1, di)
+    dt, b_, c_ = _ssm_params(p, xc, cfg)
+    a = -torch.exp(p["a_log"].float())                       # (K, di, n)
+    x32 = xc[..., 0, :].float()                              # (K, bs, di)
+    dt32 = dt[..., 0, :].float()
+    abar = torch.exp(dt32[..., None] * a[:, None])           # (K, bs, di, n)
+    bu = dt32[..., None] * b_[..., 0, :].float()[..., None, :] \
+        * x32[..., None]
+    h_new = abar * h + bu
+    y = torch.einsum("kbn,kbdn->kbd", c_[..., 0, :].float(), h_new)
+    y = y + x32 * per_model(p["d_skip"].float(), x32)
+    y = y[..., None, :].to(x.dtype) * F.silu(z)
+    return matmul(y, p["out_proj"]), (new_conv, h_new)

@@ -1,21 +1,26 @@
-"""Top-level model API: init / loss / predict, for the paper CNN and the
-decoder LMs (``repro.models.model``).
+"""Top-level model API: init / loss / predict / serve, for the paper CNN
+and the LMs (``repro.models.model``).
 
 ``init_params(cfg, seed, device)``   -> parameter tree (real tensors)
 ``loss_fn(cfg)(params, batch)``      -> (loss, metrics) for one model
 ``stacked_loss_fn(cfg)(params, b)``  -> (K,) losses of a stack of K models
 ``predict_fn(cfg)(params, batch)``   -> logits of one model
 ``stacked_predict_fn(cfg)``          -> logits of a stack of K models
+``prefill_fn(cfg, max_len)``, ``decode_fn(cfg)``, ``init_cache`` for
+serving one model.
 
 An LM batch is ``{"tokens": (.., bs, S), "labels": (.., bs, S)}`` with -100
-labels ignored; the prefill/decode serving API arrives with serving.
+labels ignored, plus ``patches`` (vlm) or ``frames`` (audio) embeddings.
+The reference's mesh-sharding context (``ctx``) has no counterpart.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.kernels import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.cnn import cnn_forward, cnn_forward_stacked, init_cnn
@@ -104,6 +109,10 @@ def loss_fn(cfg: ModelConfig):
     return lm_loss
 
 
+def num_params(params) -> int:
+    return sum(v.numel() for v in tree_leaves(params))
+
+
 def predict_fn(cfg: ModelConfig):
     _check_family(cfg)
     if cfg.family == "cnn":
@@ -121,3 +130,55 @@ def stacked_predict_fn(cfg: ModelConfig):
         return lambda params, batch: cnn_forward_stacked(params,
                                                          batch["images"])
     return lambda params, batch: tfm.forward_train(params, cfg, batch)[0]
+
+
+# ---------------------------------------------------------------------------
+# Serving: one model, lifted to a stack of one
+# ---------------------------------------------------------------------------
+
+def _lift_cache(cache):
+    """The public cache (no model axis) as the stack's: views, so the
+    stack's in-place writes land in the caller's tensors."""
+    return {"pos": cache["pos"],
+            **{k: tree_map(lambda v: v.unsqueeze(0), cache[k])
+               for k in ("stack", "rem")}}
+
+
+def _drop_model_axis(cache):
+    return {"pos": cache["pos"],
+            **{k: tree_map(lambda v: v[0], cache[k])
+               for k in ("stack", "rem")}}
+
+
+def prefill_fn(cfg: ModelConfig, max_len: Optional[int] = None):
+    """fn(params, batch) -> (last-token logits (B, 1, V), cache) of one
+    model; the cache holds ``max(max_len, prompt)`` positions."""
+    def prefill(params, batch):
+        p1, b1 = _one(params, batch)
+        logits, cache = tfm.forward_prefill(p1, cfg, b1, max_len=max_len)
+        return logits[0], _drop_model_axis(cache)
+    return prefill
+
+
+def decode_fn(cfg: ModelConfig):
+    """fn(params, tokens (B, 1), cache) -> (logits (B, 1, V), cache): the
+    cache's tensors are written in place (the reference donates its cache
+    to the jitted step) and returned with the next ``pos``."""
+    def step(params, tokens, cache):
+        logits, new = tfm.forward_decode(
+            tree_map(lambda v: v.unsqueeze(0), params), cfg,
+            tokens.unsqueeze(0), _lift_cache(cache))
+        return logits[0], _drop_model_axis(new)
+    return step
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
+               enc_len: int = 0, device: Device = None):
+    """An empty decode cache of one model on ``device`` (the card unless
+    the caller passes ``"cpu"``), in ``dtype`` (default the compute
+    dtype)."""
+    dtype = dtype or cfg.compute_dtype
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    return _drop_model_axis(tfm.init_cache(cfg, batch, cache_len, dtype,
+                                           enc_len, 1, device))

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import tree_map
+from repro_torch.kernels import resolve_device
 
 Device = Union[str, torch.device]
 
@@ -56,11 +57,13 @@ class RealInit:
         return draw(self.gen, tuple(shape), init, scale, in_dims, fan_in)
 
 
-def from_numpy_params(tree, device: Device = "cpu"):
+def from_numpy_params(tree, device: Optional[Device] = None):
     """A tree of numpy arrays (e.g. the reference's ``init_params`` pulled
-    to the host) as a tree of tensors on ``device``, bit for bit."""
+    to the host) as a tree of tensors on ``device``, bit for bit: the CUDA
+    card unless the caller passes ``"cpu"``."""
+    dev = resolve_device(device)
     return tree_map(lambda a: torch.from_numpy(np.array(a, copy=True)).to(
-        device), tree)
+        dev), tree)
 
 
 def to_numpy_params(tree):

@@ -1,5 +1,4 @@
-"""RWKV-6 "Finch" block on a stack of K models (``repro.models.rwkv6``,
-train mode).
+"""RWKV-6 "Finch" block on a stack of K models (``repro.models.rwkv6``).
 
 Recurrence (per head, key-dim N x value-dim N state S):
     y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
@@ -7,9 +6,11 @@ Recurrence (per head, key-dim N x value-dim N state S):
 
 The recurrence runs through the ``wkv`` kernel for both ``rwkv_impl``
 values: the K models' sequences go into one launch, with each model's own
-``u`` as one group of the kernel's grouped ``u``.  The reference's
-chunk-parallel XLA form (``wkv_scan``) and the decode step
-(``time_mix_step``) are not ported; decode arrives with serving.
+``u`` as one group of the kernel's grouped ``u``; prefill carries its
+final state out.  The reference's chunk-parallel XLA form (``wkv_scan``)
+is not ported.  Decode (``time_mix_step``, which ``rwkv_block`` picks for
+a one-token sequence, as the reference's does) is the O(N^2) single-step
+recurrence in plain PyTorch, as the reference's is plain jnp.
 """
 from __future__ import annotations
 
@@ -108,6 +109,31 @@ def time_mix(p, x, cfg: ModelConfig, state):
                                 h_new.reshape(km, bs, h, n, n))
 
 
+def time_mix_step(p, x, cfg: ModelConfig, state):
+    """Decode: x (K, bs, 1, d).  state = (shift_prev (K, bs, d), h (K, bs,
+    H, N, N)).  Returns (y, (x[..., 0, :], h_new))."""
+    h, n = rwkv_heads(cfg)
+    km, bs = x.shape[:2]
+    prev, hstate = state
+    xs = prev.unsqueeze(-2)
+    xr, xk, xv, xg, xw = (_mix(x, xs, m) for m in p["mu"].unbind(1))
+
+    def heads(t):
+        return t.float().reshape(km, bs, h, n)
+    r = heads(matmul(xr, p["wr"]))
+    k = heads(matmul(xk, p["wk"])) * (n ** -0.5)
+    v = heads(matmul(xv, p["wv"]))
+    g = F.silu(matmul(xg, p["wg"]))
+    w = heads(torch.exp(_log_decay(p, xw)))
+    u = p["u"].float().reshape(km, 1, h, n)
+    # y = r (S + diag(u) k^T v)
+    y = torch.einsum("kbhn,kbhnm->kbhm", r, hstate) \
+        + (r * u * k).sum(-1, keepdim=True) * v
+    h_new = w[..., None] * hstate + torch.einsum("kbhn,kbhm->kbhnm", k, v)
+    y = _headnorm(p, y.unsqueeze(2), cfg).to(x.dtype) * g
+    return matmul(y, p["wo"]), (x[..., 0, :], h_new)
+
+
 def channel_mix(p, x, cfg: ModelConfig, prev):
     """RWKV channel-mix (the FFN).  Returns (y, x[..., -1, :])."""
     xs = _shift(x, prev)
@@ -119,11 +145,12 @@ def channel_mix(p, x, cfg: ModelConfig, prev):
 
 
 def rwkv_block(p, x, cfg: ModelConfig, state, norm_fn):
-    """Full RWKV layer in train mode: ln -> time-mix -> residual -> ln ->
-    channel-mix.  state = (tm_prev, h, cm_prev); ``norm_fn(i, x)`` applies
-    the stack's i-th pre-norm."""
+    """Full RWKV layer: ln -> time-mix -> residual -> ln -> channel-mix;
+    a one-token x takes the decode step.  state = (tm_prev, h, cm_prev);
+    ``norm_fn(i, x)`` applies the stack's i-th pre-norm."""
     tm_prev, hstate, cm_prev = state
-    a, (tm_prev2, h2) = time_mix(p, norm_fn(0, x), cfg, (tm_prev, hstate))
+    mix = time_mix_step if x.shape[-2] == 1 else time_mix
+    a, (tm_prev2, h2) = mix(p, norm_fn(0, x), cfg, (tm_prev, hstate))
     x = x + a
     bmix, cm_prev2 = channel_mix(p, norm_fn(1, x), cfg, cm_prev)
     x = x + bmix

@@ -1,49 +1,69 @@
-"""Block stacks for the decoder LM on a stack of K models
-(``repro.models.transformer``, train mode).
+"""Block stacks on a stack of K models (``repro.models.transformer``): the
+decoder LM (dense / MoE / hybrid / ssm), the encoder-decoder (audio) and
+the vision-prefix LM (vlm), in three modes:
+  train    -> logits over the full sequence (plus the MoE aux loss)
+  prefill  -> last-token logits and a populated decode cache
+  decode   -> one-token step against the cache
 
 Layers are grouped into superblocks, one repetition of
 ``cfg.layer_pattern``; the parameters of the ``n_full`` full repetitions
 are stacked along a ``layers`` axis (``params["stack"]["p<i>"]``, leaves
 (K, n_full, ...)) and the remainder layers sit under ``params["rem"]``.
 The reference scans the stack with ``lax.scan``; the port walks it with a
-Python loop.  The reference's ``remat="block"`` (``jax.checkpoint``)
-changes no numbers and has no counterpart here.
+Python loop.  The reference's ``remat="block"`` (``jax.checkpoint``) and
+its mesh-sharding context change no numbers and have no counterpart here.
 
-The port carries the attention layer kinds (``global`` and ``local``,
-sliding-window) and the ``mamba`` layer kind, each with a dense or an MoE
-FFN (``cfg.ffn_is_moe``), and the ``rwkv`` layer kind (time-mix and
-channel-mix, from zero states).  The MoE FFN's load-balancing loss is per
-model: ``forward_train`` returns aux of shape (K,), each entry from that
-model's own tokens, as the reference's loss vmapped over clients gives.
-The audio/vlm frontends and the prefill/decode caches raise
-``NotImplementedError`` (ROADMAP queue 1 item 5).
+Layer kinds: ``global`` and ``local`` (sliding-window) attention and
+``mamba``, each with a dense or an MoE FFN (``cfg.ffn_is_moe``), and
+``rwkv`` (time-mix and channel-mix).  The MoE FFN's load-balancing loss is
+per model: ``forward_train`` returns aux of shape (K,), each entry from
+that model's own tokens, as the reference's loss vmapped over clients
+gives.  The audio family's decoder layers add cross-attention to the
+encoder's memory; the frontends are the reference's stubs (the batch
+carries post-conv frame or patch embeddings, projected by
+``frontend_proj``).
+
+The decode cache is the reference's tree with the model axis leading
+every leaf but ``pos`` (a 0-d int32 tensor: the tokens so far):
+``stack/p<i>`` leaves (K, n_full, B, ...) and ``rem/r<j>`` leaves (K, B,
+...).  An attention layer holds ``k`` and ``v`` (.., B, slots, KV, hd): a
+local layer a ring of ``min(window, cache_len)`` slots, position p in slot
+p % slots; a global layer its positions in order (past the last slot,
+decode overwrites the last, as the reference does); an audio decoder layer
+also ``xk`` / ``xv``, its cross-attention keys and values of the encoder's
+memory.  A mamba layer holds ``conv`` (the last w-1 inputs) and ``h`` (fp32
+state), an rwkv layer ``tm_prev``, ``h`` and ``cm_prev``.
+
+Prefill and decode run under ``torch.no_grad``, so the scan and wkv kernels
+launch their inference forwards.  ``forward_decode`` writes the cache's
+tensors in place, as the reference donates the cache to its jitted step,
+and returns them with the next ``pos``: a caller that needs the cache as
+it was clones it first.  Decode keeps ``pos`` on the device (slots are
+written by ``index_copy_``), so a step never waits for the card.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_map
-from repro_torch.kernels.window_attn.ops import window_attention
+from repro_torch.kernels import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import rwkv6 as rw
 from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.models.layers import (apply_embed, apply_mlp, apply_norm,
-                                       apply_rope, apply_unembed, init_embed,
-                                       init_mlp, init_norm, matmul)
+                                       apply_unembed, init_embed, init_mlp,
+                                       init_norm, matmul)
 
 KINDS = ("global", "local", "mamba", "rwkv")
 
 
 def check_kinds(cfg: ModelConfig) -> None:
-    """Raise for the layer kinds and frontends not ported yet."""
-    if cfg.family in ("audio", "vlm") or cfg.frontend:
-        raise NotImplementedError(f"the {cfg.family!r} family's frontend is "
-                                  f"not ported yet (ROADMAP queue 1 item 5)")
+    """Raise for a layer kind the stack does not have."""
     for kind in cfg.layer_kinds:
         if kind not in KINDS:
             raise ValueError(kind)
@@ -76,12 +96,20 @@ class _Stacked:
                               scale=scale, fan_in=fan_in)
 
 
-def _init_block(fac, cfg: ModelConfig, kind: str, pat_idx: int):
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _init_block(fac, cfg: ModelConfig, kind: str, pat_idx: int,
+                cross: bool = False):
     if kind == "rwkv":        # no ffn: channel-mix is the rwkv layer's FFN
         return {"ln1": init_norm(fac, cfg), "ln2": init_norm(fac, cfg),
                 "rwkv": rw.init_rwkv(fac, cfg)}
     if kind in ("global", "local"):
         mixer = {"attn": attn.init_attention(fac, cfg)}
+        if cross:             # the audio decoder's cross-attention
+            mixer.update(lnx=init_norm(fac, cfg),
+                         xattn=attn.init_attention(fac, cfg))
     elif kind == "mamba":
         mixer = {"mamba": mb.init_mamba(fac, cfg)}
     else:                     # check_kinds has refused the others
@@ -92,50 +120,112 @@ def _init_block(fac, cfg: ModelConfig, kind: str, pat_idx: int):
             "ffn": ffn}
 
 
-def _attention(p, h, cfg: ModelConfig, kind: str) -> torch.Tensor:
-    """q/k/v projections, RoPE, attention and the output projection of a
-    stack of K models: h (K, bs, S, d) -> (K, bs, S, d).  The model axis
-    folds into the batch for the attention, which holds no parameters."""
-    km, bs, s, d = h.shape
-    hh, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-
-    def proj(w, heads):
-        return matmul(h, w.reshape(km, d, heads * hd)).reshape(
-            km * bs, s, heads, hd)
-    positions = torch.arange(s, dtype=torch.int32, device=h.device)[None]
-    q = apply_rope(proj(p["wq"], hh), positions, cfg.rope_theta)
-    k = apply_rope(proj(p["wk"], kv), positions, cfg.rope_theta)
-    v = proj(p["wv"], kv)
-    if kind == "local" and cfg.sliding_window and s > cfg.sliding_window:
-        o = window_attention(q, k, v, cfg.sliding_window).to(q.dtype)
-    else:
-        win = cfg.sliding_window if kind == "local" else 0
-        if cfg.attn_block_skip:
-            o = attn.causal_skip_attention(q, k, v, window=win)
-        else:
-            o = attn.blockwise_attention(q, k, v, causal=True, window=win,
-                                         block_q=cfg.attn_block_q or s)
-    return matmul(o.reshape(km, bs, s, hh * hd),
-                  p["wo"].reshape(km, hh * hd, d))
-
-
 def init_lm(fac, cfg: ModelConfig):
     """Full parameter tree of one LM (no model axis)."""
     check_kinds(cfg)
     plen, n_full, rem = pattern_info(cfg)
+    cross = cfg.family == "audio"
     params: Dict[str, Any] = {"embed": init_embed(fac, cfg)}
+    if cfg.frontend:
+        params["frontend_proj"] = fac.param((cfg.d_model, cfg.d_model))
     stack: Dict[str, Any] = {}
     if n_full:
         sfac = _Stacked(fac, n_full)
         for pidx, kind in enumerate(cfg.layer_pattern):
-            stack[f"p{pidx}"] = _init_block(sfac, cfg, kind, pidx)
+            stack[f"p{pidx}"] = _init_block(sfac, cfg, kind, pidx, cross)
     params["stack"] = stack
     params["rem"] = {f"r{j}": _init_block(
-        fac, cfg, cfg.layer_kinds[n_full * plen + j], j % plen)
+        fac, cfg, cfg.layer_kinds[n_full * plen + j], j % plen, cross)
         for j in range(rem)}
+    if cfg.family == "audio":
+        enc = {}
+        for j in range(cfg.encoder_layers):
+            a = attn.init_attention(fac, cfg)
+            enc[f"e{j}"] = {"ln1": init_norm(fac, cfg), "attn": a,
+                            "ln2": init_norm(fac, cfg),
+                            "ffn": init_mlp(fac, cfg)}
+        params["encoder"] = enc
+        params["enc_ln"] = init_norm(fac, cfg)
     params["final_ln"] = init_norm(fac, cfg)
     return params
 
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+def _attn_cache_len(cfg: ModelConfig, kind: str, cache_len: int) -> int:
+    if kind == "local" and cfg.sliding_window:
+        return min(cfg.sliding_window, cache_len)
+    return cache_len
+
+
+def init_layer_cache(cfg: ModelConfig, kind: str, batch: int,
+                     cache_len: int, dtype, lead: Tuple[int, ...] = (),
+                     device=None):
+    """One layer's zero cache, its leaves ``lead + (batch, ...)``."""
+    kvh, hd = cfg.num_kv_heads, cfg.head_dim
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(lead + (batch,) + shape, dtype=dt, device=device)
+    if kind in ("global", "local"):
+        s = _attn_cache_len(cfg, kind, cache_len)
+        return {"k": zeros(s, kvh, hd), "v": zeros(s, kvh, hd)}
+    if kind == "mamba":
+        di = mb.d_inner(cfg)
+        return {"conv": zeros(cfg.ssm_conv_width - 1, di),
+                "h": zeros(di, cfg.ssm_state_dim, dt=torch.float32)}
+    if kind == "rwkv":
+        h, n = rw.rwkv_heads(cfg)
+        return {"tm_prev": zeros(cfg.d_model),
+                "h": zeros(h, n, n, dt=torch.float32),
+                "cm_prev": zeros(cfg.d_model)}
+    raise ValueError(kind)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               dtype=torch.bfloat16, enc_len: int = 0, models: int = 1,
+               device=None):
+    """Decode cache for the whole stack of ``models`` models, on ``device``
+    (the CUDA card unless the caller passes ``"cpu"``)."""
+    dev = resolve_device(device)
+    plen, n_full, rem = pattern_info(cfg)
+
+    def layer(kind, lead):
+        lc = init_layer_cache(cfg, kind, batch, cache_len, dtype, lead, dev)
+        if cfg.family == "audio":
+            lc["xk"] = torch.zeros(lead + (batch, enc_len, cfg.num_kv_heads,
+                                           cfg.head_dim), dtype=dtype,
+                                   device=dev)
+            lc["xv"] = torch.zeros_like(lc["xk"])
+        return lc
+    stack = ({f"p{pidx}": layer(kind, (models, n_full))
+              for pidx, kind in enumerate(cfg.layer_pattern)}
+             if n_full else {})
+    remc = {f"r{j}": layer(cfg.layer_kinds[n_full * plen + j], (models,))
+            for j in range(rem)}
+    return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
+            "stack": stack, "rem": remc}
+
+
+def _ring_positions(cache_slots: int, pos, window: int):
+    """Original position of each ring-buffer slot given the current length
+    ``pos`` (a 0-d int tensor).  Slot i holds the latest position p < pos
+    with p % slots == i; -1 if empty or expired (p <= pos - window)."""
+    idx = torch.arange(cache_slots, dtype=torch.int32, device=pos.device)
+    last = pos - 1 - torch.remainder(pos - 1 - idx, cache_slots)
+    valid = (last >= 0) & (last >= pos - window) & (pos > 0)
+    return torch.where(valid, last, -1)
+
+
+def _full_positions(cache_slots: int, pos):
+    idx = torch.arange(cache_slots, dtype=torch.int32, device=pos.device)
+    return torch.where(idx < pos, idx, -1)
+
+
+# ---------------------------------------------------------------------------
+# Block application
+# ---------------------------------------------------------------------------
 
 def _apply_ffn(p, x, cfg: ModelConfig, is_moe: bool):
     """The dense or MoE FFN: x (K, bs, S, d) -> (y, aux (K,))."""
@@ -146,52 +236,253 @@ def _apply_ffn(p, x, cfg: ModelConfig, is_moe: bool):
                                              dtype=torch.float32)
 
 
-def apply_block_train(p, x, cfg: ModelConfig, kind: str, pat_idx: int):
-    """One layer in train mode: x (K, bs, S, d) -> (x, aux (K,))."""
+def _cross_attention(p, h, memory, cfg: ModelConfig):
+    """The audio decoder's attention over the encoder's memory (K, bs, F,
+    d), unmasked, without RoPE."""
+    o = attn.blockwise_attention(attn.project(h, p["wq"]),
+                                 attn.project(memory, p["wk"]),
+                                 attn.project(memory, p["wv"]), causal=False)
+    return attn.project_out(p, o, h.shape[0])
+
+
+_RWKV_STATE = ("tm_prev", "h", "cm_prev")     # rwkv_block's state order
+
+
+def _rwkv_norms(p, cfg: ModelConfig):
+    """rwkv_block's ``norm_fn``: the layer's i-th pre-norm."""
+    return lambda i, v: apply_norm(p[("ln1", "ln2")[i]], v, cfg)
+
+
+def apply_block_train(p, x, cfg: ModelConfig, kind: str, pat_idx: int,
+                      memory=None, positions=None, want_kv: bool = False):
+    """One layer in train or prefill mode: x (K, bs, S, d) -> (x, aux (K,),
+    kv).  ``memory``: the encoder's output, read by cross-attention;
+    ``positions``: RoPE positions (default 0..S-1).  With ``want_kv``, kv is
+    an attention layer's (k, v) (K*bs, S, KV, hd) or a mamba / rwkv layer's
+    final states by cache name; else None."""
+    kv = None
     aux = x.new_zeros((x.shape[0],), dtype=torch.float32)
     if kind == "rwkv":
         km, bs, _, d = x.shape
         hh, nn = rw.rwkv_heads(cfg)
-        prev = torch.zeros((km, bs, d), dtype=x.dtype, device=x.device)
+        prev = x.new_zeros((km, bs, d))
         h0 = torch.zeros((km, bs, hh, nn, nn), dtype=torch.float32,
                          device=x.device)
-        x, _state = rw.rwkv_block(
-            p["rwkv"], x, cfg, (prev, h0, prev),
-            lambda i, v: apply_norm(p[("ln1", "ln2")[i]], v, cfg))
-        return x, aux
+        x, state = rw.rwkv_block(p["rwkv"], x, cfg, (prev, h0, prev),
+                                 _rwkv_norms(p, cfg))
+        if want_kv:
+            kv = dict(zip(_RWKV_STATE, state))
+        return x, aux, kv
     h = apply_norm(p["ln1"], x, cfg)
     if kind in ("global", "local"):
-        x = x + _attention(p["attn"], h, cfg, kind)
+        o, k, v = attn.attention_layer(p["attn"], h, cfg, kind,
+                                         positions=positions)
+        x = x + o
+        if want_kv:
+            kv = (k, v)
+        if memory is not None:
+            x = x + _cross_attention(p["xattn"], apply_norm(p["lnx"], x, cfg),
+                                     memory, cfg)
     elif kind == "mamba":
-        x = x + mb.mamba_block(p["mamba"], h, cfg)[0]
+        y, (conv, h_last) = mb.mamba_block(p["mamba"], h, cfg)
+        x = x + y
+        if want_kv:           # prefill: the final (conv, ssm) states
+            kv = {"conv": conv, "h": h_last}
     else:                     # check_kinds has refused the others
         raise ValueError(kind)
     y, aux = _apply_ffn(p["ffn"], apply_norm(p["ln2"], x, cfg), cfg,
                         cfg.ffn_is_moe(pat_idx))
-    return x + y, aux
+    return x + y, aux, kv
+
+
+def apply_block_decode(p, x, cfg: ModelConfig, kind: str, pat_idx: int,
+                       cache, pos):
+    """One-token decode of one layer: x (K, B, 1, d); ``cache`` this layer's
+    leaves (K, B, ...), written in place; ``pos`` the 0-d position of the
+    token.  Returns (x, cache)."""
+    if kind == "rwkv":        # one token: rwkv_block takes time_mix_step
+        x, state = rw.rwkv_block(p["rwkv"], x, cfg,
+                                 tuple(cache[n] for n in _RWKV_STATE),
+                                 _rwkv_norms(p, cfg))
+        for name, val in zip(_RWKV_STATE, state):
+            cache[name].copy_(val)
+        return x, cache
+    h = apply_norm(p["ln1"], x, cfg)
+    if kind in ("global", "local"):
+        km, bs = x.shape[:2]
+        q, k, v = attn.project_qkv(p["attn"], h, cfg, pos.reshape(1, 1))
+        slots = cache["k"].shape[2]
+        if kind == "local" and cfg.sliding_window:
+            slot = torch.remainder(pos, slots)
+            kv_pos = _ring_positions(slots, pos + 1, cfg.sliding_window)
+        else:
+            slot = torch.clamp(pos, max=slots - 1)
+            kv_pos = _full_positions(slots, pos + 1)
+        slot = slot.reshape(1).long()
+        for name, val in (("k", k), ("v", v)):
+            cache[name].index_copy_(2, slot, val.reshape(
+                km, bs, *val.shape[1:]).to(cache[name].dtype))
+        o = attn.decode_attention(
+            q, cache["k"].flatten(0, 1), cache["v"].flatten(0, 1), kv_pos,
+            window=cfg.sliding_window if kind == "local" else 0)
+        x = x + attn.project_out(p["attn"], o, km)
+        if "xk" in cache:     # cross-attention against the cached memory
+            qx = attn.project(apply_norm(p["lnx"], x, cfg), p["xattn"]["wq"])
+            enc_pos = torch.arange(cache["xk"].shape[2], dtype=torch.int32,
+                                   device=x.device)
+            ox = attn.decode_attention(qx, cache["xk"].flatten(0, 1),
+                                       cache["xv"].flatten(0, 1), enc_pos)
+            x = x + attn.project_out(p["xattn"], ox, km)
+    elif kind == "mamba":
+        y, (conv, h_new) = mb.mamba_decode_step(p["mamba"], h, cfg,
+                                                (cache["conv"], cache["h"]))
+        cache["conv"].copy_(conv)
+        cache["h"].copy_(h_new)
+        x = x + y
+    else:                     # check_kinds has refused the others
+        raise ValueError(kind)
+    y, _aux = _apply_ffn(p["ffn"], apply_norm(p["ln2"], x, cfg), cfg,
+                         cfg.ffn_is_moe(pat_idx))
+    return x + y, cache
+
+
+# ---------------------------------------------------------------------------
+# Full-stack forward
+# ---------------------------------------------------------------------------
+
+def _layers(params, cfg: ModelConfig):
+    """Each layer in order as (parameters, kind, pattern index, cache key,
+    layer): ``layer`` indexes the stacked cache's n_full axis, None for a
+    remainder layer.  Each stacked leaf (K, n_full, ...) is split once."""
+    plen, n_full, rem = pattern_info(cfg)
+    split = {f"p{pidx}": tree_map(lambda v: v.unbind(1),
+                                  params["stack"][f"p{pidx}"])
+             for pidx in range(plen)} if n_full else {}
+    for layer in range(n_full):
+        for pidx, kind in enumerate(cfg.layer_pattern):
+            yield (tree_map(lambda vs: vs[layer], split[f"p{pidx}"]), kind,
+                   pidx, ("stack", f"p{pidx}"), layer)
+    for j in range(rem):
+        yield (params["rem"][f"r{j}"], cfg.layer_kinds[n_full * plen + j],
+               j % plen, ("rem", f"r{j}"), None)
+
+
+def _layer_cache(cache, key, layer: Optional[int]):
+    """One layer's cache leaves (K, B, ...): views into the stacked leaves
+    for a stacked layer, so writes land in the cache."""
+    lc = cache[key[0]][key[1]]
+    return lc if layer is None else {n: t[:, layer] for n, t in lc.items()}
+
+
+def _frontend_prefix(params, cfg: ModelConfig, batch):
+    """VLM patch prefix (projected), in the two operands' promoted dtype
+    as the reference's ``@`` gives it."""
+    if cfg.family == "vlm" and "patches" in batch:
+        pt, w = batch["patches"], params["frontend_proj"]
+        dt = torch.promote_types(pt.dtype, w.dtype)
+        return matmul(pt.to(dt), w.to(dt))
+    return None
+
+
+def encode_audio(params, cfg: ModelConfig, frames):
+    """Bidirectional encoder over the (stub) post-conv frame embeddings:
+    frames (K, B, F, d) -> memory (K, B, F, d)."""
+    x = matmul(frames, params["frontend_proj"])
+    km = x.shape[0]
+    for j in range(cfg.encoder_layers):
+        p = params["encoder"][f"e{j}"]
+        h = apply_norm(p["ln1"], x, cfg)
+        pa = p["attn"]
+        o = attn.blockwise_attention(attn.project(h, pa["wq"]),
+                                     attn.project(h, pa["wk"]),
+                                     attn.project(h, pa["wv"]), causal=False)
+        x = x + attn.project_out(pa, o, km)
+        x = x + apply_mlp(p["ffn"], apply_norm(p["ln2"], x, cfg), cfg)
+    return apply_norm(params["enc_ln"], x, cfg)
+
+
+def _inputs(params, cfg: ModelConfig, batch):
+    """The stack's input: (x (K, B, S', d) with any patch prefix in front,
+    the encoder's memory or None, the prefix's length)."""
+    x = apply_embed(params["embed"], batch["tokens"], cfg).to(
+        getattr(torch, cfg.compute_dtype))
+    memory = None
+    if cfg.family == "audio":
+        memory = encode_audio(params, cfg, batch["frames"].to(x.dtype))
+    prefix = _frontend_prefix(params, cfg, batch)
+    if prefix is None:
+        return x, memory, 0
+    return torch.cat([prefix.to(x.dtype), x], dim=2), memory, prefix.shape[2]
 
 
 def forward_train(params, cfg: ModelConfig, batch):
     """Returns (logits (K, bs, S, V), aux_loss (K,)).  batch: tokens
-    (K, bs, S)."""
+    (K, bs, S) [+ patches (K, bs, P, d) | frames (K, bs, F, d)]."""
     check_kinds(cfg)
-    plen, n_full, rem = pattern_info(cfg)
-    x = apply_embed(params["embed"], batch["tokens"], cfg).to(
-        getattr(torch, cfg.compute_dtype))
+    x, memory, n_prefix = _inputs(params, cfg, batch)
+    positions = torch.arange(x.shape[2], dtype=torch.int32,
+                             device=x.device)[None]
     aux_total = x.new_zeros((x.shape[0],), dtype=torch.float32)
-    # each stacked leaf (K, n_full, ...) split once into its n_full layers
-    layers = {f"p{pidx}": tree_map(lambda v: v.unbind(1),
-                                   params["stack"][f"p{pidx}"])
-              for pidx in range(plen)} if n_full else {}
-    for layer in range(n_full):
-        for pidx, kind in enumerate(cfg.layer_pattern):
-            p = tree_map(lambda vs: vs[layer], layers[f"p{pidx}"])
-            x, aux = apply_block_train(p, x, cfg, kind, pidx)
-            aux_total = aux_total + aux
-    for j in range(rem):
-        kind = cfg.layer_kinds[n_full * plen + j]
-        x, aux = apply_block_train(params["rem"][f"r{j}"], x, cfg, kind,
-                                   j % plen)
+    for p, kind, pidx, _key, _layer in _layers(params, cfg):
+        x, aux, _ = apply_block_train(p, x, cfg, kind, pidx, memory=memory,
+                                      positions=positions)
         aux_total = aux_total + aux
     x = apply_norm(params["final_ln"], x, cfg)
+    if n_prefix:
+        x = x[:, :, n_prefix:]
     return apply_unembed(params["embed"], x, cfg), aux_total
+
+
+@torch.no_grad()
+def forward_prefill(params, cfg: ModelConfig, batch,
+                    max_len: Optional[int] = None):
+    """Prefill: the full forward that also fills the decode cache.  Returns
+    (last-token logits (K, B, 1, V), cache).  ``max_len`` sets the cache's
+    length (at least the prefill's, the default), headroom for decode.
+    Local layers keep the last window of their keys and values as a ring;
+    mamba and rwkv layers store their final states."""
+    check_kinds(cfg)
+    x, memory, _n_prefix = _inputs(params, cfg, batch)
+    km, bsz, total, _ = x.shape
+    positions = torch.arange(total, dtype=torch.int32, device=x.device)[None]
+    cache = init_cache(cfg, bsz, max(max_len or total, total), x.dtype,
+                       memory.shape[2] if memory is not None else 0, km,
+                       x.device)
+    cache["pos"].fill_(total)
+    for p, kind, pidx, key, layer in _layers(params, cfg):
+        x, _aux, kv = apply_block_train(p, x, cfg, kind, pidx, memory=memory,
+                                        positions=positions, want_kv=True)
+        lc = _layer_cache(cache, key, layer)
+        if isinstance(kv, dict):       # mamba / rwkv final states
+            for name, val in kv.items():
+                lc[name].copy_(val)
+        else:
+            slots = lc["k"].shape[2]
+            for name, val in zip(("k", "v"), kv):
+                val = val.reshape(km, bsz, total, *val.shape[2:])
+                if slots < total:      # a local ring: the last slots entries,
+                    # position p in slot p % slots
+                    val = torch.roll(val[:, :, -slots:], total % slots, 2)
+                # past the prompt: headroom, left zero
+                lc[name][:, :, :val.shape[2]].copy_(val)
+            if memory is not None:
+                for name, w in (("xk", "wk"), ("xv", "wv")):
+                    lc[name].copy_(attn.project(memory, p["xattn"][w])
+                                   .reshape(lc[name].shape))
+    x = apply_norm(params["final_ln"], x, cfg)
+    return apply_unembed(params["embed"], x[:, :, -1:], cfg), cache
+
+
+@torch.no_grad()
+def forward_decode(params, cfg: ModelConfig, tokens, cache):
+    """One decode step.  tokens: (K, B, 1).  Returns (logits (K, B, 1, V),
+    cache): the cache's tensors written in place, with the next ``pos``."""
+    pos = cache["pos"]
+    x = apply_embed(params["embed"], tokens, cfg).to(
+        getattr(torch, cfg.compute_dtype))
+    for p, kind, pidx, key, layer in _layers(params, cfg):
+        x, _ = apply_block_decode(p, x, cfg, kind, pidx,
+                                  _layer_cache(cache, key, layer), pos)
+    x = apply_norm(params["final_ln"], x, cfg)
+    return apply_unembed(params["embed"], x, cfg), {
+        "pos": pos + 1, "stack": cache["stack"], "rem": cache["rem"]}

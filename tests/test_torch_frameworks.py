@@ -62,7 +62,7 @@ def test_frameworks_match_reference_on_generation(model, store, monkeypatch):
 
     def init_fn(salt):
         return from_numpy_params(jax.tree.map(
-            np.asarray, jinit(jsim.cfg, jax.random.key(jsim.seed + salt))))
+            np.asarray, jinit(jsim.cfg, jax.random.key(jsim.seed + salt))), device="cpu")
     tcfg = ScenarioConfig(schedule=RequestSchedule(
         _requests(UnlearnRequest, case)), **kw)
     tsession, _ = build_session(tcfg, device="cpu", init_fn=init_fn)

@@ -152,7 +152,7 @@ def _port_cfg(engine):
 def _init_fn(jax_run):
     """The reference's stage-0 initial model, for the port's init_fn hook."""
     w0 = jax.tree.map(np.asarray, jax_run[0].records[0].round_globals[0][0])
-    return lambda salt: from_numpy_params(w0)
+    return lambda salt: from_numpy_params(w0, device="cpu")
 
 
 def _port_run(jax_run, engine):

@@ -125,6 +125,18 @@ def test_init_params_without_device_raises_when_no_gpu(monkeypatch, arch):
                for v in tree_leaves(init_params(cfg, 0, device="cpu")))
 
 
+def test_from_numpy_params_without_device_raises_when_no_gpu(monkeypatch):
+    """``from_numpy_params`` defaults to the card, as ``init_params`` does:
+    with none it raises instead of building CPU weights."""
+    import numpy as np
+    from repro_torch.models import from_numpy_params
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = {"w": np.ones((2, 3), np.float32)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        from_numpy_params(tree)
+    assert from_numpy_params(tree, device="cpu")["w"].device.type == "cpu"
+
+
 def test_resolve_device_cpu_leaves_cudnn_switches_alone(monkeypatch):
     """``resolve_device`` sets cuDNN's deterministic algorithms (and no
     benchmarking) only for the card, where two runs must give the same

@@ -210,7 +210,7 @@ def test_encode_and_decode_pytrees_match_reference():
                                     [jax.tree.map(jnp.asarray, t)
                                      for t in trees])
     tsl, tspecs = tc.encode_pytrees(tc.CodingScheme(3, 9),
-                                    [from_numpy_params(t) for t in trees])
+                                    [from_numpy_params(t, device="cpu") for t in trees])
     np.testing.assert_allclose(_np(tsl), _np(jsl), **TOL)
     ids = [0, 4, 8]
     jback = jc.decode_pytrees(jc.CodingScheme(3, 9), jsl[jnp.asarray(ids)],
@@ -328,7 +328,7 @@ def legacy_runs():
     w0 = jax.tree.map(np.asarray, jinit(jsim.cfg, jax.random.key(
         jsim.seed + jrec.plan.stage)))
     sim, _ = build_simulator(ScenarioConfig(**SMALL), device="cpu",
-                             init_fn=lambda salt: from_numpy_params(w0))
+                             init_fn=lambda salt: from_numpy_params(w0, device="cpu"))
     return jrec, train_stage(sim, store_kind="coded", engine="legacy"), w0
 
 
@@ -363,7 +363,7 @@ def test_legacy_engine_serves_se_and_agrees_with_fused(legacy_runs):
     from repro_torch.fl.experiment import run_unlearn
     _, trec, w0 = legacy_runs
     sim, _ = build_simulator(ScenarioConfig(**SMALL), device="cpu",
-                             init_fn=lambda salt: from_numpy_params(w0))
+                             init_fn=lambda salt: from_numpy_params(w0, device="cpu"))
     frec = train_stage(sim, store_kind="coded", engine="fused")
     for s in frec.shard_models:
         for g, w in zip(tree_leaves(trec.shard_models[s]),
@@ -430,7 +430,7 @@ def test_dense_smoke_loss_and_grads_match_reference(arch):
         lambda p, b: jloss(jcfg)(p, b), has_aux=True))(
         jp, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labs)})
     tp = tree_map(lambda v: v.requires_grad_(True), from_numpy_params(
-        jax.tree.map(np.asarray, jp)))
+        jax.tree.map(np.asarray, jp), device="cpu"))
     tl, _ = loss_fn(cfg)(tp, {"tokens": torch.from_numpy(toks),
                               "labels": torch.from_numpy(labs)})
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)

@@ -51,7 +51,7 @@ def _close(a, b, rtol, atol):
 
 def test_from_numpy_params_round_trips():
     p = _jparams(3)
-    t = from_numpy_params(p)
+    t = from_numpy_params(p, device="cpu")
     assert sorted(t) == sorted(p)
     back = to_numpy_params(t)
     for k in p:
@@ -76,7 +76,7 @@ def test_cnn_logits_loss_grads_match(seed):
     p = _jparams(seed)
     x, y = _images(12, seed)
     jl = jforward(jax.tree.map(jnp.asarray, p), jnp.asarray(x))
-    tp = from_numpy_params(p)
+    tp = from_numpy_params(p, device="cpu")
     tl = cnn_forward(tp, torch.from_numpy(x))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5,
                                atol=1e-6)
@@ -113,7 +113,7 @@ def test_local_train_epoch_matches(opt):
     jout = jsim._local_train[1](jax.tree.map(jnp.asarray, p),
                                 jnp.asarray(xs), jnp.asarray(ys))
     p0 = _broadcast({k: v.unsqueeze(0) for k, v in
-                     from_numpy_params(p).items()}, (3,))
+                     from_numpy_params(p, device="cpu").items()}, (3,))
     tout = tsim.local_train(p0, torch.from_numpy(xs), torch.from_numpy(ys), 1)
     _close(jax.tree.map(np.asarray, jout), tout, 1e-4, 1e-5)
 
@@ -129,7 +129,7 @@ def _stacked(m, seed):
 def test_stacked_mean_and_norms_match(m):
     st = _stacked(m, m)
     jst = jax.tree.map(jnp.asarray, st)
-    tst = from_numpy_params(st)
+    tst = from_numpy_params(st, device="cpu")
     _close(jax.tree.map(np.asarray, ju.stacked_mean(jst)),
            tu.stacked_mean(tst), 1e-5, 1e-5)
     np.testing.assert_allclose(tu.stacked_norms(tst).numpy(),
@@ -139,7 +139,7 @@ def test_stacked_mean_and_norms_match(m):
 
 def test_stacked_mean_is_a_left_fold():
     """The port's FedAvg mean is bit-identical to the sequential sum."""
-    st = from_numpy_params(_stacked(5, 0))
+    st = from_numpy_params(_stacked(5, 0), device="cpu")
     got = tu.stacked_mean(st)
     for k, v in st.items():
         acc = v[0]
@@ -157,7 +157,7 @@ def test_calibrate_stacked_matches(use_kernel, m):
     jout = ju.calibrate_stacked(jax.tree.map(jnp.asarray, w),
                                 jax.tree.map(jnp.asarray, deltas),
                                 jnp.asarray(norms), use_kernel=use_kernel)
-    tout = tu.calibrate_stacked(from_numpy_params(w),
-                                from_numpy_params(deltas),
+    tout = tu.calibrate_stacked(from_numpy_params(w, device="cpu"),
+                                from_numpy_params(deltas, device="cpu"),
                                 torch.from_numpy(norms))
     _close(jax.tree.map(np.asarray, jout), tout, 1e-5, 1e-5)

@@ -83,7 +83,7 @@ def _moe_case(jcfg, seed=0, b=2, s=24):
     jp = jmoe.init_moe(JRealInit(jax.random.key(seed), jnp.float32), jcfg)
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((b, s, jcfg.d_model)).astype(np.float32)
-    return jp, x, from_numpy_params(jax.tree.map(np.asarray, jp))
+    return jp, x, from_numpy_params(jax.tree.map(np.asarray, jp), device="cpu")
 
 
 # ----------------------------------------------------------------- router
@@ -174,7 +174,7 @@ def test_init_moe_fan_in_is_the_reference_s():
 def family_weights():
     jcfg = jfamily("moe").build(None)
     jp = jax.jit(lambda key: jinit(jcfg, key))(jax.random.key(0))
-    return jcfg, jp, from_numpy_params(jax.tree.map(np.asarray, jp))
+    return jcfg, jp, from_numpy_params(jax.tree.map(np.asarray, jp), device="cpu")
 
 
 def test_family_tree_matches_reference(family_weights):
@@ -249,7 +249,7 @@ def test_jamba_smoke_loss_and_grads_match_reference():
     assert cfg.layer_kinds == ("global", "mamba")
     assert [cfg.ffn_is_moe(i) for i in range(2)] == [False, True]
     jp = jax.jit(lambda key: jinit(jcfg, key))(jax.random.key(1))
-    tp = from_numpy_params(jax.tree.map(np.asarray, jp))
+    tp = from_numpy_params(jax.tree.map(np.asarray, jp), device="cpu")
     assert tuple(tp["stack"]["p1"]["ffn"]["wi_gate"].shape) == (1, 4, 256,
                                                                 256)
     rng = np.random.default_rng(2)
@@ -306,8 +306,10 @@ def test_param_counts_and_smoke_reduction_match_reference(arch):
 
 def test_assigned_archs_are_the_reference_s_that_the_port_runs():
     from repro.configs import ASSIGNED_ARCHS as J_ASSIGNED
-    assert ASSIGNED_ARCHS == tuple(a for a in J_ASSIGNED if a not in (
-        "internvl2-2b", "whisper-tiny"))
+    from repro.configs import list_archs as j_list_archs
+    from repro_torch.configs import list_archs
+    assert ASSIGNED_ARCHS == J_ASSIGNED
+    assert list_archs() == j_list_archs()
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
@@ -360,7 +362,7 @@ def _port_cfg_run(engine):
 
 def _init_fn(jax_run):
     w0 = jax.tree.map(np.asarray, jax_run[0].records[0].round_globals[0][0])
-    return lambda salt: from_numpy_params(w0)
+    return lambda salt: from_numpy_params(w0, device="cpu")
 
 
 @pytest.fixture(scope="module")

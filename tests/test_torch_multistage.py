@@ -67,7 +67,7 @@ def test_two_stage_session_matches_reference(name):
     model_cfg = jfamily("cnn").build(jcfg)
     trep = run_scenario(tcfg, device="cpu", init_fn=lambda salt: (
         from_numpy_params(jax.tree.map(
-            np.asarray, jinit(model_cfg, jax.random.key(jcfg.seed + salt))))))
+            np.asarray, jinit(model_cfg, jax.random.key(jcfg.seed + salt))), device="cpu")))
     assert trep.store_stats.to_dict() == jrep.store_stats.to_dict()
     assert trep.total_cost_units == jrep.total_cost_units
     jd, td = jrep.to_dict(), trep.to_dict()

@@ -114,7 +114,7 @@ def weights(request):
     jcfg = _jcfg(request.param)
     jp = jax.jit(lambda key: jinit(jcfg, key))(jax.random.key(0))
     return (request.param, jcfg, jp,
-            from_numpy_params(jax.tree.map(np.asarray, jp)))
+            from_numpy_params(jax.tree.map(np.asarray, jp), device="cpu"))
 
 
 def test_family_tree_matches_reference(weights):
@@ -196,8 +196,8 @@ def test_attention_layer_matches_reference(kind):
                           jnp.float32)
     jy, aux, _ = jtfm.apply_block_train(jp, x, jcfg, kind, 0, jtfm.NULL_CTX)
     tp = tree_map(lambda v: v.unsqueeze(0),
-                  from_numpy_params(jax.tree.map(np.asarray, jp)))
-    ty, taux = apply_block_train(tp, torch.from_numpy(np.array(x))[None],
+                  from_numpy_params(jax.tree.map(np.asarray, jp), device="cpu"))
+    ty, taux, _ = apply_block_train(tp, torch.from_numpy(np.array(x))[None],
                                  _port_cfg(jcfg), kind, 0)
     np.testing.assert_allclose(ty[0].detach().numpy(), np.asarray(jy),
                                rtol=1e-5, atol=1e-5)
@@ -236,7 +236,7 @@ def _port_cfg_run(engine):
 def _init_fn(jax_run):
     """The reference's stage-0 initial model, for the port's init_fn hook."""
     w0 = jax.tree.map(np.asarray, jax_run[0].records[0].round_globals[0][0])
-    return lambda salt: from_numpy_params(w0)
+    return lambda salt: from_numpy_params(w0, device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -82,7 +82,7 @@ def _close(port, ref, **tol):
 
 def _jax_init(cfg, seed=0):
     return lambda salt: from_numpy_params(jax.tree.map(
-        np.asarray, jinit(cfg, jax.random.key(seed + salt))))
+        np.asarray, jinit(cfg, jax.random.key(seed + salt))), device="cpu")
 
 
 def test_diag_fisher_and_precondition_match_reference():

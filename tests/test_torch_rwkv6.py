@@ -253,7 +253,7 @@ def layer_case():
     x = jax.random.normal(jax.random.key(2), (2, 40, jcfg.d_model),
                           jnp.float32)
     tp = tree_map(lambda v: v.unsqueeze(0),
-                  from_numpy_params(jax.tree.map(np.asarray, jp)))
+                  from_numpy_params(jax.tree.map(np.asarray, jp), device="cpu"))
     return jp, tp, x, torch.from_numpy(np.array(x))[None]
 
 
@@ -293,7 +293,7 @@ def test_rwkv_layer_matches_reference(layer_case, impl):
     jcfg = _smoke(impl)
     jy, aux, _ = jtfm.apply_block_train(jp, x, jcfg, "rwkv", 0,
                                         jtfm.NULL_CTX)
-    ty, taux = apply_block_train(tp, tx, _port_cfg(jcfg), "rwkv", 0)
+    ty, taux, _ = apply_block_train(tp, tx, _port_cfg(jcfg), "rwkv", 0)
     _close(ty[0], jy, **_IMPL_TOL[impl])
     assert float(taux) == float(aux) == 0.0
 
@@ -302,7 +302,7 @@ def test_rwkv_layer_matches_reference(layer_case, impl):
 def family_weights():
     jcfg = jfamily("rwkv6").build(None)
     jp = jax.jit(lambda key: jinit(jcfg, key))(jax.random.key(0))
-    return jcfg, jp, from_numpy_params(jax.tree.map(np.asarray, jp))
+    return jcfg, jp, from_numpy_params(jax.tree.map(np.asarray, jp), device="cpu")
 
 
 def test_family_tree_matches_reference(family_weights):
@@ -466,7 +466,7 @@ def _port_session(jax_run, engine):
         _first_of_shard0, framework="SE", rounds=1)]), engine=engine, **ZOO)
     w0 = jax.tree.map(np.asarray, jax_run[0].records[0].round_globals[0][0])
     session, _ = build_session(cfg, device="cpu",
-                               init_fn=lambda salt: from_numpy_params(w0))
+                               init_fn=lambda salt: from_numpy_params(w0, device="cpu"))
     return cfg, session
 
 
@@ -486,7 +486,7 @@ def test_run_scenario_matches_reference(jax_run, engine):
     cfg, _ = _port_session(jax_run, engine)
     w0 = jax.tree.map(np.asarray, jax_run[0].records[0].round_globals[0][0])
     trep = run_scenario(cfg, device="cpu",
-                        init_fn=lambda salt: from_numpy_params(w0))
+                        init_fn=lambda salt: from_numpy_params(w0, device="cpu"))
     assert trep.store_stats.to_dict() == jrep.store_stats.to_dict()
     assert trep.total_cost_units == jrep.total_cost_units
     for js, ts in zip(jrep.to_dict()["stages"], trep.to_dict()["stages"]):

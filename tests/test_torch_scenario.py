@@ -46,7 +46,7 @@ def _clients():
 
 def _jax_init(cfg, seed=0):
     return lambda salt: from_numpy_params(jax.tree.map(
-        np.asarray, jinit(cfg, jax.random.key(seed + salt))))
+        np.asarray, jinit(cfg, jax.random.key(seed + salt))), device="cpu")
 
 
 def _np(t):

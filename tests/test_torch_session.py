@@ -44,7 +44,7 @@ def _clients():
 def _jax_init(cfg, seed=0):
     """The reference's initial weights, by salt, for the port's hook."""
     return lambda salt: from_numpy_params(jax.tree.map(
-        np.asarray, jinit(cfg, jax.random.key(seed + salt))))
+        np.asarray, jinit(cfg, jax.random.key(seed + salt))), device="cpu")
 
 
 def _jsim():

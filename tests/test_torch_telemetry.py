@@ -64,7 +64,7 @@ def _clients():
 
 def _jax_init(salt):
     return from_numpy_params(jax.tree.map(
-        np.asarray, jinit(JCFG, jax.random.key(salt))))
+        np.asarray, jinit(JCFG, jax.random.key(salt))), device="cpu")
 
 
 def _tsim():

@@ -72,7 +72,7 @@ def _clients():
 
 def _jax_init(salt):
     return from_numpy_params(jax.tree.map(
-        np.asarray, jinit(JCFG, jax.random.key(SEED + salt))))
+        np.asarray, jinit(JCFG, jax.random.key(SEED + salt))), device="cpu")
 
 
 def _jsim():

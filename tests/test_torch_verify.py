@@ -83,7 +83,7 @@ def _init_for_seed(jcfg):
 
     def for_seed(seed):
         return lambda salt: from_numpy_params(jax.tree.map(
-            np.asarray, jinit(model_cfg, jax.random.key(seed + salt))))
+            np.asarray, jinit(model_cfg, jax.random.key(seed + salt))), device="cpu")
     return for_seed
 
 
