@@ -13,7 +13,8 @@ Phases (any failed check raises, and the script exits non-zero):
    shapes each path of phases 5 and 6 gives it (the coding kernels and
    encode_decode at the CNN's, the mamba, rwkv6, NanoGPT and moe families'
    sizes, ``PATHS``; the scan kernels at the mamba path's, the wkv kernels
-   at the rwkv6 path's and at rwkv6-3b's full width, the window-attention
+   at the rwkv6 path's, at rwkv6-3b's full width and at the train path's
+   client step (1, 4096, 40, 64; case ``train_rwkv6``), the window-attention
    kernels at the small local-attention model's and at gemma3-27b's full
    width) and at ragged small ones; the coding kernels also past their
    register tile and shared tables (cases ``s20*``: S = 20 shards of 2
@@ -263,7 +264,35 @@ Phases (any failed check raises, and the script exits non-zero):
    tokens: logits within 1e-4 + 1e-4|r| (tests/test_torch_serve.py's
    tolerance).  Phases 3b-3d hold the three kernels to their plain
    versions at the serve shapes (cases ``serve_*``, inference forwards).
-8. report  — one JSON line listing the kernels (each row's numbers from
+8. train   — the production training steps (``repro_torch.launch.train``)
+   at rwkv6-3b's published width (d_model 2560, 40 heads of 64, d_ff 8960,
+   vocab 65,536) in fp32, depth cut from 32 to 8, weights from
+   ``init_params(cfg, 0, device="cuda")``, the adamw server of the dry
+   run's ``optimizer_for``: ``make_fedavg_step`` with 4 clients of one
+   4,096-token sequence and one local step each (the reference dry run's
+   ``FLConfig``; train_4k's global batch cut from 256 to 4), block remat;
+   one warm-up step, then launches zeroed and 3 timed fedavg steps, one
+   ``make_central_step`` (one client's sequence) and one
+   ``make_calibration_step`` fed the last round's ``delta_norm`` as every
+   client's stored norm, launches read.  Each step: wall (host clock to a
+   sync), peak memory, tokens/s, ``mfu`` (``model_flops`` over the wall,
+   as a share of the fp32 peak), loss and ``delta_norm`` (finite).  wkv
+   and wkv_bwd must have launched (the training forward twice a layer a
+   local step: forward and checkpoint recompute).  One traced fedavg step
+   gives device-busy, idle share and the GEMMs' ms against the port's
+   kernels'; the dry run's predicted bytes for the case are printed beside
+   the measured peak.  ``make_central_step`` at remat "none" and "block"
+   (one 2,048-token sequence, sgd at lr 1 and no clip, so each new leaf is
+   p - g): loss and every leaf bit-identical, each one's peak memory.
+   Then ``make_fedavg_step`` (sgd server) and ``make_calibration_step`` at
+   ``reduce_for_smoke`` configs of rwkv6-3b, jamba-1.5-large-398b (global
+   and mamba) and gemma3-27b (128 tokens past its window of 64) on the
+   card and on the CPU from the same weights: metrics within 1e-4 rel,
+   every new leaf within 1e-5 abs; ``wkv``, ``ssm_scan``,
+   ``window_attention`` and their backwards must have launched there.
+   The full-width steps' and the reduced card runs' launches join
+   ``by_path`` as "train".
+9. report  — one JSON line listing the kernels (each row's numbers from
    the path it was ported for, every path's launches and times under
    ``by_path``), the card's name and power limit, and the final line
    ``{"ok": true, "device": {...}}``.
@@ -273,6 +302,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -994,7 +1024,10 @@ def check_wkv(torch, K):
     autograd graph fits in memory) and timed alone at S = 4096.  Case
     ``chunk_walk_proxy`` runs the forward on every 64-step chunk of the
     full-width call as a sequence of its own, (512, 64, 40, 64): the walk a
-    chunk-parallel forward would add to its chunk-state pass and combine."""
+    chunk-parallel forward would add to its chunk-state pass and combine.
+    Cases ``serve_rwkv6`` and ``train_rwkv6`` are the serve path's prefill
+    (4, 512, 40, 64) and the train path's client step (1, 4096, 40, 64;
+    both directions compared, the training forward timed too)."""
     from repro_torch.kernels.wkv import ops
     from repro_torch.kernels.wkv.ref import wkv_ref
 
@@ -1017,18 +1050,22 @@ def check_wkv(torch, K):
              ("clip_s1024", 2, 1024, 40, 64, 1, 3, "compare", "clip"),
              ("chunk_walk_proxy", 512, 64, 40, 64, 1, 3, "none", "model"),
              # the serve path's prefill: rwkv6-3b, batch 4, prompt 512
-             ("serve_rwkv6", 4, 512, 40, 64, 1, 3, "none", "model")]
+             ("serve_rwkv6", 4, 512, 40, 64, 1, 3, "none", "model"),
+             # the train path's client step: rwkv6-3b, one sequence of 4096
+             ("train_rwkv6", 1, 4096, 40, 64, 1, 3, "compare", "model")]
     for label, bsz, s, h, n, g, iters, bwd_mode, decay in cases:
         args = wkv_inputs(torch, gen, bsz, s, h, n, g, decay)
         row = check_forward(
             torch, ops, wkv_ref, args, "wkv", label, 5e-4, iters,
             [bsz, s, h, n, g],
             lambda train: wkv_work(bsz, s, h, n, g, False, train),
-            train_row=label == "fused_stage")
+            train_row=label in ("fused_stage", "train_rwkv6"))
         if label == "fused_stage":
             heads["wkv"] = row
         if label.startswith("serve"):
             heads["serve"] = row
+        if label.startswith("train"):
+            heads["train"] = row
         if bwd_mode == "none":
             del args
             torch.cuda.empty_cache()
@@ -1079,6 +1116,8 @@ def check_wkv(torch, K):
         log("kernel", **row)
         if label == "fused_stage":
             heads["wkv_bwd"] = row
+        if label.startswith("train"):
+            heads["train_bwd"] = row
         del args, ckpt, gy, ghl
         torch.cuda.empty_cache()
     return heads
@@ -1306,7 +1345,7 @@ def check_first_step(torch, name: str, cfg, seq: int = 16) -> dict:
         p = tree_map(lambda v: v.requires_grad_(True),
                      init_params(cfg, 0, dev))
         with routing_log() as routes[dev]:
-            loss, _ = loss_fn(cfg)(p, {k: v.to(dev)
+            loss, _ = loss_fn(cfg, remat="none")(p, {k: v.to(dev)
                                        for k, v in batch.items()})
         out[dev] = (float(loss.detach()), [g.cpu() for g in torch.autograd.grad(
             loss, tree_leaves(p))], [path for path, _ in leaves_with_paths(p)])
@@ -2051,7 +2090,7 @@ DURABILITY_STAGES = 3
 WALL_FIELDS = ("train_wall_s", "wall_time_s", "total_train_wall_s",
                "total_unlearn_wall_s")
 COLD_FAULT_SEED = 20240     # tests/test_tiering.py's FAULT_SEED
-CARD = "cuda"               # the device phases 5t and 5u run on
+CARD = "cuda"               # the device phases 5t, 5u and 8 run on
 
 
 def zero_walls(node):
@@ -3549,7 +3588,6 @@ SERVE_CASES = (
      "depth 32 -> 2"),
     ("whisper-tiny", {}, 4, 4, 60, "none (4 encoder and 4 decoder layers)"),
     ("internvl2-2b", {}, 4, 64, 32, "none (24 layers)"))
-SERVE_FRAMES = 1500    # src/repro/launch/inputs.py's AUDIO_ENC_FRAMES
 SERVE_KERNELS = ("window_attention", "wkv", "ssm_scan")
 SERVE_TOL = 5e-3       # tests/test_arch_smoke.py's decode-vs-forward
 # and the bound near the spread measured at the serve widths (worst 1.97e-4,
@@ -3559,10 +3597,13 @@ SERVE_SPREAD_TOL = 1e-3
 
 
 def serve_inputs(torch, cfg, bsz: int, prompt: int, seed: int,
-                 frames: int = SERVE_FRAMES):
+                 frames: int = None):
     """A serve batch drawn on the CPU from ``seed`` (so the card and the
     CPU get the same one): tokens (bsz, prompt), plus vlm patches or audio
-    frames."""
+    frames (``frames`` of them, by default whisper's window,
+    ``launch.inputs.AUDIO_ENC_FRAMES``)."""
+    from repro_torch.launch.inputs import AUDIO_ENC_FRAMES
+    frames = frames or AUDIO_ENC_FRAMES
     gen = torch.Generator().manual_seed(seed)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (bsz, prompt),
                                      generator=gen, dtype=torch.int32)}
@@ -3734,7 +3775,7 @@ def serve_path(torch, K):
                    f"{SERVE_SPREAD_TOL} (1 + |r|)" +
                    (", capacity unbound" if check_cfg is not cfg else ""))
         if cfg.family == "audio":
-            row["encoder_frames"] = SERVE_FRAMES
+            row["encoder_frames"] = batch["frames"].shape[1]
         if cfg.family == "vlm":
             row["patch_tokens"] = cfg.vision_tokens
         if arch == "gemma3-27b":
@@ -3800,6 +3841,289 @@ def gemma3_extras(torch, K, cfg, params, batch, run) -> dict:
             "traced_decode_step": traced}
 
 
+# phase 8: the production training steps (``launch/train.py``) at
+# rwkv6-3b's published width, fp32, depth cut; the step's shape is the
+# reference's dry run's (4 clients, 1 local step), one train_4k sequence a
+# client
+TRAIN_ARCH = "rwkv6-3b"
+TRAIN_CUT = dict(num_layers=8, param_dtype="float32", compute_dtype="float32")
+TRAIN_CLIENTS, TRAIN_SEQ = 4, 4096
+TRAIN_TIMED = 3
+TRAIN_REMAT_SEQ = 2048     # remat "none" against "block": both fit here
+TRAIN_KERNELS = ("wkv", "wkv_bwd")
+# the reduced card-vs-CPU check: reduce_for_smoke configs, 2 clients of 2
+# sequences (gemma3: 128 tokens, past its reduced window of 64)
+TRAIN_SMALL = (("rwkv6-3b", 32), ("jamba-1.5-large-398b", 32),
+               ("gemma3-27b", 128))
+TRAIN_SMALL_KERNELS = ("wkv", "wkv_bwd", "ssm_scan", "ssm_scan_bwd",
+                       "window_attention", "window_attention_bwd")
+# card vs CPU: the port's own fp32 rounding in another order (the CPU tests
+# hold the CPU to the reference at 1e-5 rel, 1e-7 / 1e-6 abs)
+TRAIN_SMALL_TOL = dict(metric_rtol=1e-4, param_atol=1e-5)
+
+
+def train_batch(torch, cfg, n_clients: int, bpc: int, seq: int, seed: int,
+                device):
+    """A client-serial batch drawn on the CPU from ``seed`` (the card and
+    the CPU get the same one): tokens (n_clients, bpc, seq) and the next
+    token as each one's label (the last position's label is ignored)."""
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (n_clients, bpc, seq + 1),
+                         generator=gen, dtype=torch.int32)
+    labels = toks[..., 1:].clone()
+    labels[..., -1] = -100
+    return {"tokens": toks[..., :-1].contiguous().to(device),
+            "labels": labels.to(device)}
+
+
+def gemm_kernel_split(by_name: dict) -> dict:
+    """A traced step's device ms by kind: the port's own kernels (wkv,
+    ssm, window attention; each by name too), the GEMMs (cuBLAS / CUTLASS
+    names), the rest (elementwise, reductions, copies)."""
+    out = {"port_kernels_ms": 0.0, "gemm_ms": 0.0, "other_ms": 0.0,
+           "port_kernels": {}}
+    for name, ms in by_name.items():
+        low = name.lower()
+        if any(k in low for k in ("wkv", "ssm_", "wattn")):
+            out["port_kernels_ms"] += ms
+            out["port_kernels"][name[:80]] = ms
+        elif "gemm" in low or "cutlass" in low or "xmma" in low:
+            out["gemm_ms"] += ms
+        else:
+            out["other_ms"] += ms
+    return out
+
+
+def train_step_row(torch, step, state, batch, tokens: int, flops: float,
+                   peak_flops: float):
+    """Run one step on ``state`` (host clock to a sync, peak memory from a
+    reset); returns (its new state, its metrics, the row)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, mets = step(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    vals = {k: float(v) for k, v in mets.items()}
+    if not all(math.isfinite(v) for v in vals.values()):
+        raise AssertionError(f"train: metrics not finite {vals}")
+    return state, vals, {"wall_ms": wall * 1e3,
+                         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                         "tokens_per_s": tokens / wall,
+                         "mfu": flops / wall / peak_flops, **vals}
+
+
+def train_path(torch, K):
+    """Phase 8 (see the module docstring): ``make_fedavg_step`` (one
+    warm-up, ``TRAIN_TIMED`` timed), ``make_central_step`` and
+    ``make_calibration_step`` at rwkv6-3b's width, their launches counted;
+    one traced fedavg step; remat "none" against "block"; the reduced
+    card-vs-CPU check.  Returns the launches of the full-width steps and
+    of the reduced check's card runs, summed."""
+    from repro_torch.configs import FLConfig, ShapeConfig, get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import (make_calibration_step,
+                                          make_central_step,
+                                          make_fedavg_step)
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_optimizer
+    from repro_torch.roofline import analysis as rl
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), **TRAIN_CUT)
+    fl = FLConfig(fl_clients_per_step=TRAIN_CLIENTS, fl_local_steps=1)
+    opt = dryrun.optimizer_for(cfg)
+    shape = ShapeConfig("train_case", TRAIN_SEQ, TRAIN_CLIENTS, "train")
+    flops = rl.model_flops(cfg, shape)
+    peak_flops = rl.peak_flops(cfg.compute_dtype)
+    tokens = TRAIN_CLIENTS * TRAIN_SEQ
+    predicted = dryrun.run_one(TRAIN_ARCH, "train_4k", save=False, fl=fl,
+                               changes=TRAIN_CUT, global_batch=TRAIN_CLIENTS)
+    base = torch.cuda.memory_allocated()        # what earlier phases hold
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device=CARD)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in tree_leaves(params))
+    state = (params, init_optimizer(opt, params))
+    del params
+    batch = train_batch(torch, cfg, TRAIN_CLIENTS, 1, TRAIN_SEQ, 11, CARD)
+    fedavg = make_fedavg_step(cfg, fl, opt)
+    state, warm, _row = train_step_row(torch, fedavg, state, batch, tokens,
+                                       flops, peak_flops)
+    K.reset_launches()
+    rows = []
+    for _ in range(TRAIN_TIMED):
+        state, mets, row = train_step_row(torch, fedavg, state, batch,
+                                          tokens, flops, peak_flops)
+        rows.append(row)
+    fedavg_launches = dict(K.LAUNCHES)
+    central = make_central_step(cfg, opt)
+    state, _m, central_row = train_step_row(
+        torch, central, state, {k: v[0] for k, v in batch.items()},
+        TRAIN_SEQ, flops / TRAIN_CLIENTS, peak_flops)
+    hist = torch.full((TRAIN_CLIENTS,), mets["delta_norm"], device=CARD)
+    cal = make_calibration_step(cfg, fl)
+    _p, cal_mets, cal_row = train_step_row(
+        torch, lambda st, b: cal(st[0], b, hist), state, batch, tokens,
+        flops, peak_flops)
+    del _p
+    launches = dict(K.LAUNCHES)
+    missing = [k for k in TRAIN_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"train: {missing} never launched ({launches})")
+    # one traced fedavg step: device-busy against idle, GEMMs against the
+    # port's kernels
+    trace = device_busy(lambda: fedavg(state, batch))
+    split = gemm_kernel_split(trace["by_name"])
+    walls = [r["wall_ms"] for r in rows]
+    median = statistics.median(walls)
+    traced = {"wall_ms": trace["wall_s"] * 1e3, "busy_ms": trace["busy_ms"],
+              "sum_ms": trace["sum_ms"], "records": trace["records"],
+              "idle_share": 1.0 - trace["busy_ms"] / (trace["wall_s"] * 1e3),
+              "untraced_step_ms": median,
+              "idle_share_of_untraced_step":
+                  1.0 - trace["busy_ms"] / median,
+              **split,
+              "top": sorted(trace["by_name"].items(),
+                            key=lambda kv: -kv[1])[:8]}
+    remat = train_remat(torch, cfg, state[0], opt)
+    del state, batch
+    torch.cuda.empty_cache()
+    log("train", case=TRAIN_ARCH, params=n_params,
+        param_count=cfg.param_count(), d_model=cfg.d_model,
+        heads=cfg.num_heads, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+        layers=cfg.num_layers, dtype="float32", optimizer=opt.name,
+        clients=TRAIN_CLIENTS, local_steps=fl.fl_local_steps,
+        seq_len=TRAIN_SEQ, remat="block",
+        reduced={"depth": f"{get_config(TRAIN_ARCH).num_layers} -> "
+                          f"{cfg.num_layers}",
+                 "global_batch": "train_4k's 256 cut to 4 (one sequence a "
+                                 "client)",
+                 "dtype": "bfloat16 -> float32 (the port's fp32 path)"},
+        init_s=init_s, model_flops_per_step=flops,
+        peak_flops=peak_flops, warmup=warm,
+        fedavg=rows, fedavg_wall_ms_median=median,
+        fedavg_mfu_median=flops / (median / 1e3) / peak_flops,
+        central=central_row, calibration=cal_row,
+        calibration_loss=cal_mets["loss"],
+        case_peak_bytes=max(r["peak_mem_bytes"] for r in rows) - base,
+        dryrun_predicted_bytes=predicted["total_bytes"],
+        dryrun_parts={k: predicted[k] for k in (
+            "param_bytes", "opt_state_bytes", "fedavg_buffer_bytes",
+            "grad_bytes", "activation_bytes_estimate", "local_step_bytes",
+            "server_update_bytes")},
+        fedavg_launches_3_steps={k: v for k, v in fedavg_launches.items()
+                                 if v},
+        launches={k: v for k, v in launches.items() if v},
+        launches_note="under block remat each rwkv layer's wkv training "
+                      "forward launches twice a local step (forward and "
+                      "recompute), wkv_bwd once",
+        traced_fedavg_step=traced, remat_check=remat)
+    small, small_launches = train_card_vs_cpu(torch, K)
+    log("train_card_vs_cpu", cases=small, tol=TRAIN_SMALL_TOL,
+        launches={k: v for k, v in small_launches.items() if v})
+    total = {k: launches[k] + small_launches[k] for k in launches}
+    log("train_phase", seconds=time.perf_counter() - t_phase,
+        launches={k: v for k, v in total.items() if v})
+    return total
+
+
+def train_remat(torch, cfg, params, opt) -> dict:
+    """``make_central_step`` at remat "none" and "block" on one sequence of
+    ``TRAIN_REMAT_SEQ`` tokens from the same params, with an sgd server at
+    lr 1 and no clip, so each new leaf is p - g: the loss and every new
+    leaf must be equal bit for bit.  Returns each one's wall and peak."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.train import make_central_step
+    from repro_torch.optim import init_optimizer
+    sgd = dataclasses.replace(opt, name="sgd", lr=1.0, grad_clip=0.0)
+    batch = {k: v[0] for k, v in train_batch(torch, cfg, 1, 1,
+                                              TRAIN_REMAT_SEQ, 12,
+                                              CARD).items()}
+    out = {}
+    for remat in ("none", "block"):
+        step = make_central_step(cfg, sgd, remat=remat)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (new, _o), mets = step((params, init_optimizer(sgd, params)), batch)
+        torch.cuda.synchronize()
+        out[remat] = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+                      "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                      "step_peak_bytes":
+                          torch.cuda.max_memory_allocated() - base,
+                      "loss": float(mets["loss"]), "new": new}
+    a, b = out["none"].pop("new"), out["block"].pop("new")
+    same = out["none"]["loss"] == out["block"]["loss"] and all(
+        torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    if not same:
+        worst = max(float((x - y).abs().max())
+                    for x, y in zip(tree_leaves(a), tree_leaves(b)))
+        raise AssertionError(f"train remat: block differs from none (loss "
+                             f"{out['none']['loss']} / "
+                             f"{out['block']['loss']}, params {worst})")
+    del a, b
+    return {"seq_len": TRAIN_REMAT_SEQ, "bit_identical": True, **out}
+
+
+def train_card_vs_cpu(torch, K):
+    """``make_fedavg_step`` (sgd server, lr 0.5) and
+    ``make_calibration_step`` at ``reduce_for_smoke`` configs on the card
+    and on the CPU from the same weights and batch (``TRAIN_SMALL``):
+    loss and delta_norm within ``metric_rtol``, every new leaf within
+    ``param_atol``.  Returns each case's largest gaps and the card runs'
+    launches (zeroed before the first, read after the last)."""
+    from repro_torch.configs import (FLConfig, OptimizerConfig, get_config,
+                                     reduce_for_smoke)
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch.train import (make_calibration_step,
+                                          make_fedavg_step)
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_optimizer
+    fl = FLConfig(fl_clients_per_step=2, fl_local_steps=2)
+    opt = OptimizerConfig(name="sgd", lr=0.5)
+    tol = TRAIN_SMALL_TOL
+    cases, launches = {}, {k: 0 for k in K.LAUNCHES}
+    for arch, seq in TRAIN_SMALL:
+        cfg = reduce_for_smoke(get_config(arch))
+        cpu_params = init_params(cfg, 0, device="cpu")
+        cpu_batch = train_batch(torch, cfg, 2, 2, seq, 13, "cpu")
+        hist = torch.tensor([0.5, 0.3])
+        out = {}
+        for dev in (CARD, "cpu"):
+            p = tree_map(lambda v: v.to(dev), cpu_params)
+            b = {k: v.to(dev) for k, v in cpu_batch.items()}
+            if dev == CARD:
+                K.reset_launches()
+            (new, _o), mets = make_fedavg_step(cfg, fl, opt)(
+                (p, init_optimizer(opt, p)), b)
+            cal, cmets = make_calibration_step(cfg, fl)(p, b, hist.to(dev))
+            if dev == CARD:
+                for k, v in K.LAUNCHES.items():
+                    launches[k] += v
+            out[dev] = ({k: float(v) for k, v in {**mets, **{
+                "calibration_loss": cmets["loss"]}}.items()},
+                [t.cpu() for t in tree_leaves(new)],
+                [t.cpu() for t in tree_leaves(cal)])
+        (gm, gp, gc), (cm, cp, cc) = out[CARD], out["cpu"]
+        metric_gap = max(abs(gm[k] - cm[k]) / abs(cm[k]) for k in cm)
+        param_gap = max(float((x - y).abs().max())
+                        for x, y in zip(gp + gc, cp + cc))
+        cases[arch] = {"seq_len": seq, "card": gm, "cpu": cm,
+                       "metric_max_rel_gap": metric_gap,
+                       "param_max_abs_gap": param_gap}
+        if metric_gap > tol["metric_rtol"] or param_gap > tol["param_atol"]:
+            raise AssertionError(f"train {arch}: card vs CPU {cases[arch]}")
+    missing = [k for k in TRAIN_SMALL_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"train reduced check: {missing} never "
+                             f"launched ({launches})")
+    return cases, launches
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     src = root / "src"
@@ -3854,6 +4178,9 @@ def main() -> int:
     # the serve path's rows: each kernel's inference forward at its shape
     heads["serve"] = {"ssm_scan": ssm.pop("serve"), "wkv": wkv.pop("serve"),
                       **window["serve_gemma3"]}
+    # the train path's rows: wkv at its full-width client step
+    heads["train"] = {"wkv": wkv.pop("train"),
+                      "wkv_bwd": wkv.pop("train_bwd")}
     heads["mamba"].update(ssm)
     heads["rwkv6"].update(wkv)
     heads["local_small"] = window["local_small"]
@@ -3876,6 +4203,7 @@ def main() -> int:
     launches["gemma3"] = full_width_gemma(torch, K)
     full_width_granite(torch, K)
     launches["serve"] = serve_path(torch, K)
+    launches["train"] = train_path(torch, K)
 
     # one row per kernel, its numbers from the path it was ported for; the
     # launches and times on every path under "by_path"
@@ -3913,8 +4241,8 @@ def main() -> int:
     rows = []
     for name, (source, replaces, path) in sources.items():
         by_path = {p: {"launches": launches[p][name],
-                       **{k: heads[p][name][k] for k in keys
-                          if name in heads.get(p, {})}}
+                       **{k: heads[p][name][k] for k in keys + train_keys
+                          if k in heads.get(p, {}).get(name, {})}}
                    for p in launches}
         head = heads[path or "cnn"][name]
         rows.append({"name": name, "route": "cuda", "source": source,

@@ -6,10 +6,13 @@ import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
     FLConfig,
+    MeshConfig,
     ModelConfig,
     OptimizerConfig,
+    RunConfig,
     SHAPES,
     ShapeConfig,
+    ShardingConfig,
     reduce_for_smoke,
 )
 

@@ -1,7 +1,7 @@
 """Configuration dataclasses of the port: the model, the input shapes, the
-federation and the optimizer.  Field names and defaults follow
-``repro.configs.base``; the federation keeps only the fields the port's
-paths read.  ``param_count``, ``active_param_count`` and
+federation, the optimizer and a run (``RunConfig``, with the reference's
+mesh and sharding records).  Field names and defaults follow
+``repro.configs.base``.  ``param_count``, ``active_param_count`` and
 ``reduce_for_smoke`` are the reference's integer arithmetic."""
 from __future__ import annotations
 
@@ -175,6 +175,9 @@ class ShapeConfig:
 
 SHAPES = {
     "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
 
 
@@ -186,6 +189,13 @@ class FLConfig:
     local_epochs: int = 10          # L
     global_rounds: int = 30         # G
     retrain_ratio: float = 2.0      # r  (retraining uses L/r local epochs)
+    coded: bool = True              # coded vs uncoded sharding
+    mu: float = 0.1                 # tolerated erroneous-slice fraction
+    # the production training step (``launch/train.py``):
+    fl_clients_per_step: int = 4    # clients folded into one fedavg round
+    fl_local_steps: int = 1         # local steps per client per round
+    client_mode: str = "serial"     # the reference's serial (scan) |
+    # parallel (vmap); the port's step is always client-serial
 
     @property
     def clients_per_shard(self) -> int:
@@ -202,6 +212,68 @@ class OptimizerConfig:
     weight_decay: float = 0.0
     momentum: float = 0.9
     grad_clip: float = 1.0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The reference's TPU pod mesh: 16 x 16 chips, or two such pods.  The
+    port runs on one card, and nothing in it reads these axes; the record
+    is kept so a ``RunConfig`` says what the reference would lay out."""
+    multi_pod: bool = False
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (2, 16, 16) if self.multi_pod else (16, 16)
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return ("pod", "data", "model") if self.multi_pod else ("data",
+                                                                "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+@dataclass(frozen=True)
+class ShardingConfig:
+    """The reference's logical-axis -> mesh-axis rules for the pod.  Of
+    these only ``remat`` means something on one card: the value to give
+    the training steps' and ``loss_fn``'s ``remat`` (none | block | full;
+    block and full checkpoint each superblock,
+    ``models.transformer.forward_train``).  The axes and the other knobs
+    describe the TPU pod's sharding."""
+    # parameter axes
+    tensor_axes: Tuple[str, ...] = ("model",)        # mlp/heads/expert/vocab
+    fsdp_axes: Tuple[str, ...] = ()                  # embed dim of params
+    # activation axes
+    batch_axes: Tuple[str, ...] = ("data",)
+    kvseq_axes: Tuple[str, ...] = ()                 # decode long-context KV
+    # policy knobs
+    remat: str = "block"                             # none | block | full
+    scan_layers: bool = True
+    shard_optimizer: bool = True
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """One run: the model, the input shape, the federation's step
+    (``fl``), the server ``optimizer``, the ``seed`` and the remat policy
+    (``sharding.remat``); ``mesh`` and the sharding axes describe a TPU pod
+    and are read by nothing on one card."""
+    model: ModelConfig
+    shape: ShapeConfig
+    mesh: MeshConfig = MeshConfig()
+    sharding: ShardingConfig = ShardingConfig()
+    fl: FLConfig = FLConfig()
+    optimizer: OptimizerConfig = OptimizerConfig()
+    seed: int = 0
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)
 
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:

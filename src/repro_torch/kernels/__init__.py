@@ -103,7 +103,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         # from one run to the next.
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):   # meta: shapes only, the dry run
         raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
     return dev
 

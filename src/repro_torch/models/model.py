@@ -2,7 +2,9 @@
 and the LMs (``repro.models.model``).
 
 ``init_params(cfg, seed, device)``   -> parameter tree (real tensors)
-``loss_fn(cfg)(params, batch)``      -> (loss, metrics) for one model
+``abstract_params(cfg, dtype)``      -> the same tree on the ``meta``
+                                        device (shapes, no memory)
+``loss_fn(cfg, remat)(params, batch)`` -> (loss, metrics) for one model
 ``stacked_loss_fn(cfg)(params, b)``  -> (K,) losses of a stack of K models
 ``predict_fn(cfg)(params, batch)``   -> logits of one model
 ``stacked_predict_fn(cfg)``          -> logits of a stack of K models
@@ -11,7 +13,12 @@ serving one model.
 
 An LM batch is ``{"tokens": (.., bs, S), "labels": (.., bs, S)}`` with -100
 labels ignored, plus ``patches`` (vlm) or ``frames`` (audio) embeddings.
-The reference's mesh-sharding context (``ctx``) has no counterpart.
+``loss_fn`` checkpoints each superblock by default (``remat="block"``, the
+reference's default); ``stacked_loss_fn``, which the federated simulator's
+small stacks train through, and ``predict_fn`` keep every activation
+(``remat="none"``).  The reference's mesh-sharding context (``ctx``) and
+its logical-axis tree (``param_axes``) have no counterpart: both only lay
+out a TPU pod's sharding.
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.kernels import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.cnn import cnn_forward, cnn_forward_stacked, init_cnn
-from repro_torch.models.params import Device, RealInit
+from repro_torch.models.params import Device, RealInit, ShapeOnly
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -43,6 +50,23 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: Device = None):
             else tfm.init_lm(RealInit(gen), cfg))
     dtype = getattr(torch, cfg.param_dtype)
     return tree_map(lambda v: v.to(dev, dtype), tree)
+
+
+def abstract_params(cfg: ModelConfig, dtype=None):
+    """The parameter tree as ``meta`` tensors in ``dtype`` (default the
+    param dtype): every key and shape of ``init_params``, no memory
+    allocated, nothing drawn (the reference's ``ShapeDtypeStruct`` tree)."""
+    _check_family(cfg)
+    dtype = dtype or cfg.param_dtype
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    if cfg.family == "cnn":     # a few hundred thousand values: drawn, then
+        # dropped for their shapes
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        return tree_map(lambda v: torch.empty(v.shape, dtype=dtype,
+                                              device="meta"),
+                        init_cnn(cfg, gen))
+    return tfm.init_lm(ShapeOnly(dtype), cfg)
 
 
 def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -89,8 +113,9 @@ def _one(params, batch):
             {k: v.unsqueeze(0) for k, v in batch.items()})
 
 
-def loss_fn(cfg: ModelConfig):
-    """Returns fn(params, batch) -> (loss, metrics) for one model."""
+def loss_fn(cfg: ModelConfig, remat: str = "block"):
+    """Returns fn(params, batch) -> (loss, metrics) for one model;
+    ``remat`` as ``transformer.forward_train`` takes it."""
     _check_family(cfg)
     if cfg.family == "cnn":
         def cnn_loss(params, batch):
@@ -103,7 +128,7 @@ def loss_fn(cfg: ModelConfig):
 
     def lm_loss(params, batch):
         p1, b1 = _one(params, batch)
-        logits, aux = tfm.forward_train(p1, cfg, b1)
+        logits, aux = tfm.forward_train(p1, cfg, b1, remat=remat)
         loss = _xent(logits, b1["labels"])[0] + aux[0]
         return loss, {"loss": loss, "aux": aux[0]}
     return lm_loss

@@ -8,6 +8,12 @@ filled.
 The draws come from a ``torch.Generator``, so they follow the same
 distribution as ``jax.random`` but not its bits; a run that needs the
 reference's exact weights passes them in through ``from_numpy_params``.
+
+``ShapeOnly`` is the reference's factory of the same name: each leaf an
+empty tensor on the ``meta`` device (shape and dtype, no memory), for the
+one-card dry run.  The reference's ``AxesOnly`` (a tree of logical-axis
+names), ``spec_for`` and ``tree_shardings`` map those names onto a TPU
+pod's mesh axes; one card shards nothing, so they have no counterpart.
 """
 from __future__ import annotations
 
@@ -55,6 +61,19 @@ class RealInit:
               scale: float = 1.0, in_dims: int = 1,
               fan_in: Optional[int] = None) -> torch.Tensor:
         return draw(self.gen, tuple(shape), init, scale, in_dims, fan_in)
+
+
+class ShapeOnly:
+    """Leaves as empty ``meta`` tensors of ``dtype``: the tree's keys,
+    shapes and bytes without allocating or drawing anything."""
+
+    def __init__(self, dtype=torch.float32):
+        self.dtype = dtype
+
+    def param(self, shape: Tuple[int, ...], init: str = "normal",
+              scale: float = 1.0, in_dims: int = 1,
+              fan_in: Optional[int] = None) -> torch.Tensor:
+        return torch.empty(tuple(shape), dtype=self.dtype, device="meta")
 
 
 def from_numpy_params(tree, device: Optional[Device] = None):

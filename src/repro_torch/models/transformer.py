@@ -10,8 +10,17 @@ Layers are grouped into superblocks, one repetition of
 are stacked along a ``layers`` axis (``params["stack"]["p<i>"]``, leaves
 (K, n_full, ...)) and the remainder layers sit under ``params["rem"]``.
 The reference scans the stack with ``lax.scan``; the port walks it with a
-Python loop.  The reference's ``remat="block"`` (``jax.checkpoint``) and
-its mesh-sharding context change no numbers and have no counterpart here.
+Python loop.  ``forward_train(..., remat="block")`` (or ``"full"``, the
+same) runs each superblock under ``torch.utils.checkpoint`` (non-reentrant)
+where the reference wraps it in ``jax.checkpoint``: only the superblock's
+input is kept, and backward runs its forward again; the remainder layers
+are not wrapped, as in the reference.  Under checkpoint the first forward
+runs with grad enabled, so the ``ssm_scan``, ``wkv`` and
+``window_attention`` wrappers launch their training forwards (the
+recurrences with checkpoints of the state) twice a step, once in the
+forward and once in the recompute, and ``kernels.LAUNCHES`` counts both.
+Remat changes no number: the recompute is the same arithmetic.  The
+reference's mesh-sharding context has no counterpart here.
 
 Layer kinds: ``global`` and ``local`` (sliding-window) attention and
 ``mamba``, each with a dense or an MoE FFN (``cfg.ffn_is_moe``), and
@@ -43,10 +52,12 @@ written by ``index_copy_``), so a step never waits for the card.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_map
@@ -60,6 +71,8 @@ from repro_torch.models.layers import (apply_embed, apply_mlp, apply_norm,
                                        init_norm, matmul)
 
 KINDS = ("global", "local", "mamba", "rwkv")
+REMAT = ("none", "block", "full")     # block and full: one checkpoint a
+#                                       superblock, as the reference's
 
 
 def check_kinds(cfg: ModelConfig) -> None:
@@ -415,17 +428,44 @@ def _inputs(params, cfg: ModelConfig, batch):
     return torch.cat([prefix.to(x.dtype), x], dim=2), memory, prefix.shape[2]
 
 
-def forward_train(params, cfg: ModelConfig, batch):
+def _superblock(x, blocks, cfg: ModelConfig, memory, positions):
+    """The layers of one superblock in turn: (x, their aux summed (K,))."""
+    aux_sb = x.new_zeros((x.shape[0],), dtype=torch.float32)
+    for p, kind, pidx in blocks:
+        x, aux, _ = apply_block_train(p, x, cfg, kind, pidx, memory=memory,
+                                      positions=positions)
+        aux_sb = aux_sb + aux
+    return x, aux_sb
+
+
+def forward_train(params, cfg: ModelConfig, batch, remat: str = "none"):
     """Returns (logits (K, bs, S, V), aux_loss (K,)).  batch: tokens
-    (K, bs, S) [+ patches (K, bs, P, d) | frames (K, bs, F, d)]."""
+    (K, bs, S) [+ patches (K, bs, P, d) | frames (K, bs, F, d)].
+    ``remat`` "block" or "full" recomputes each superblock in backward
+    (``torch.utils.checkpoint``); "none" keeps every activation."""
     check_kinds(cfg)
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r}; expected one of {REMAT}")
     x, memory, n_prefix = _inputs(params, cfg, batch)
     positions = torch.arange(x.shape[2], dtype=torch.int32,
                              device=x.device)[None]
     aux_total = x.new_zeros((x.shape[0],), dtype=torch.float32)
-    for p, kind, pidx, _key, _layer in _layers(params, cfg):
-        x, aux, _ = apply_block_train(p, x, cfg, kind, pidx, memory=memory,
-                                      positions=positions)
+    # consecutive layers of one superblock share their ``layer`` index;
+    # the remainder layers (``layer`` None) run one at a time, unwrapped
+    for layer, group in itertools.groupby(_layers(params, cfg),
+                                          key=lambda t: t[4]):
+        blocks = [(p, kind, pidx) for p, kind, pidx, _key, _l in group]
+        if layer is None:
+            for block in blocks:
+                x, aux = _superblock(x, [block], cfg, memory, positions)
+                aux_total = aux_total + aux
+            continue
+        if remat != "none":       # the forward draws no random numbers
+            x, aux = checkpoint(_superblock, x, blocks, cfg, memory,
+                                positions, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, aux = _superblock(x, blocks, cfg, memory, positions)
         aux_total = aux_total + aux
     x = apply_norm(params["final_ln"], x, cfg)
     if n_prefix:

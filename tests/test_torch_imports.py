@@ -183,3 +183,30 @@ def test_systems_packages_import_alone_with_reference_names(pkg):
     names -= {"hlo_cost_of"}
     missing = sorted(n for n in names if not hasattr(port, n))
     assert not missing, missing
+
+
+@pytest.mark.parametrize("pkg", ["launch", "roofline"])
+def test_training_and_dry_run_packages_import_alone(pkg):
+    """The training slice's packages, every module under them, import in
+    a fresh interpreter without jax or ``repro``; ``roofline`` keeps the
+    reference's ``model_flops`` and peak names beside the card's."""
+    mods = [m for m in _modules()
+            if m == f"repro_torch.{pkg}"
+            or m.startswith(f"repro_torch.{pkg}.")]
+    assert len(mods) > 2
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    import importlib
+    port = importlib.import_module(f"repro_torch.{pkg}")
+    if pkg == "roofline":
+        for name in ("model_flops", "PEAK_FLOPS", "HBM_BW"):
+            assert hasattr(port, name), name
