@@ -126,7 +126,14 @@ Phases (any failed check raises, and the script exits non-zero):
    engine's), their rows compared bit for bit.
    Each: one stage on the fused engine with the coded store, one SE
    request, one batched SE request over two shards, one stage on the stage
-   engine; every kernel of the path must have launched.  Then
+   engine; every kernel of the path must have launched.  The stage-engine
+   stage runs under ``telemetry.configure(annotate_costs=True)``: a
+   ``stage_cost`` line prints its program span's ``train_flops`` (every
+   matrix product of every SGD step, forward and backward, and the
+   recurrence kernels' arithmetic: ``roofline.analysis.train_step_flops``),
+   ``train_bytes`` and ``encode_flops``, the stage's wall, the achieved
+   TFLOP/s and its share of the 67 TFLOP/s fp32 peak, beside the card's
+   name and power limit.  Then
    the checks: decoded round-0 locals average to the stored round-1
    global, a decode from another S-subset agrees, untouched shards are
    bit-identical, the two engines' coded slices are compared (logged; where
@@ -292,7 +299,17 @@ Phases (any failed check raises, and the script exits non-zero):
    ``window_attention`` and their backwards must have launched there.
    The full-width steps' and the reduced card runs' launches join
    ``by_path`` as "train".
-9. report  — one JSON line listing the kernels (each row's numbers from
+9. examples — each port example (``examples/<name>_torch.py``:
+   quickstart, coded_storage, unlearn_generation, serve_unlearning,
+   serve_batched) through its ``main`` on the card at the reference
+   example's sizes and flags' defaults, launch counts zeroed just before
+   each and read just after, their sum joining ``by_path`` as "examples":
+   each example's printed lines, wall and launches.  Fails when a kernel
+   the example runs did not launch (``EXAMPLES``), a printed metric is not
+   finite, SE's impacted shards are not [0], or coded_storage's located
+   clients are not [2, 11, 19] or a decode is more than 1e-3 off;
+   serve_batched's sampled tokens are printed, not judged.
+10. report — one JSON line listing the kernels (each row's numbers from
    the path it was ported for, every path's launches and times under
    ``by_path``), the card's name and power limit, and the final line
    ``{"ok": true, "device": {...}}``.
@@ -803,11 +820,6 @@ def check_kernels(torch, K, path: str, model_cfg, ragged: bool):
     return heads
 
 
-SSM_FWD_FLOPS = 6     # per (sequence, step, channel, state): dt*a, the
-#                       decay and input products, the add, c*h and its sum
-SSM_BWD_FLOPS = 20    # the h recompute (4) and the gradient formulas (16)
-
-
 def ssm_inputs(torch, gen, bsz, s, d, n, g, regime="model"):
     """The scan's inputs at one shape, as the model gives them: softplus-
     sized dt, unit-normal b, c, x, a = -exp(U[0, 1.5)) per group.
@@ -826,22 +838,6 @@ def ssm_inputs(torch, gen, bsz, s, d, n, g, regime="model"):
     a = -torch.exp(torch.rand(g, d, n, generator=gen, device=dev) * 1.5)
     return [dt, randn(bsz, s, n), randn(bsz, s, n), randn(bsz, s, d),
             a if g > 1 else a[0].contiguous(), randn(bsz, d, n) * 0.1]
-
-
-def ssm_work(bsz, s, d, n, g, backward: bool, train: bool = False):
-    """(bytes, flops, exps) the scan's forward or backward function needs:
-    each input read once and each output written once (in training mode
-    the forward also writes h every 8 steps); one exp per (sequence, step,
-    channel, state)."""
-    seq, st = bsz * s * d, bsz * s * n
-    small = g * d * n + 2 * bsz * d * n          # a; h0 and h_last / dh0
-    if backward:          # in: dt, x, gy, b, c, a, h0, g_hlast
-        nbytes = 4 * (5 * seq + 4 * st + 2 * g * d * n + 3 * bsz * d * n)
-    else:                 # in: dt, x, b, c, a, h0; out: y, h_last (, ckpt)
-        nbytes = 4 * (3 * seq + 2 * st + small
-                      + (bsz * -(-s // 8) * d * n if train else 0))
-    work = bsz * s * d * n
-    return nbytes, work * (SSM_BWD_FLOPS if backward else SSM_FWD_FLOPS), work
 
 
 def check_forward(torch, ops, ref, args, name: str, label: str, tol: float,
@@ -893,6 +889,7 @@ def check_ssm(torch, K):
     autograd graph fits in memory)."""
     from repro_torch.kernels.ssm_scan import ops
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    from repro_torch.roofline.analysis import ssm_work
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     heads = {}
@@ -973,12 +970,6 @@ def check_ssm(torch, K):
     return heads
 
 
-WKV_FWD_FLOPS = 4     # per (sequence, step, head, state element): the y
-#                       FMA and the state FMA
-WKV_BWD_FLOPS = 12    # 6 FMAs: the dr, dk, dlw and dv terms and the G
-#                       update (2)
-
-
 def wkv_inputs(torch, gen, bsz, s, h, n, g, decay="model"):
     """The recurrence's inputs at one shape, as the model gives them:
     unit-normal r and v, k scaled by N^-0.5, lw = -exp(clip(z, -10, 3))
@@ -999,22 +990,6 @@ def wkv_inputs(torch, gen, bsz, s, h, n, g, decay="model"):
             randn(bsz, h, n, n) * 0.1]
 
 
-def wkv_work(bsz, s, h, n, g, backward: bool, train: bool = False):
-    """(bytes, flops, exps) the recurrence's forward or backward function
-    needs: each input read once and each output written once (in training
-    mode the forward also writes S every 64 steps); one exp per lw
-    element."""
-    seq, state = bsz * s * h * n, bsz * h * n * n
-    if backward:    # in: r, k, v, lw, gy, u, h0, g_hlast; out: dr, dk, dv,
-        #             dlw, du, dh0
-        nbytes = 4 * (9 * seq + 2 * g * h * n + 3 * state)
-    else:           # in: r, k, v, lw, u, h0; out: y, h_last (, ckpt)
-        nbytes = 4 * (5 * seq + g * h * n + 2 * state
-                      + (state * -(-s // 64) if train else 0))
-    work = bsz * s * h * n * n
-    return nbytes, work * (WKV_BWD_FLOPS if backward else WKV_FWD_FLOPS), seq
-
-
 def check_wkv(torch, K):
     """Phase 3c: the WKV forward and backward kernels against the plain loop
     and autograd through it, at the rwkv6 main path's shapes (and the
@@ -1030,6 +1005,7 @@ def check_wkv(torch, K):
     both directions compared, the training forward timed too)."""
     from repro_torch.kernels.wkv import ops
     from repro_torch.kernels.wkv.ref import wkv_ref
+    from repro_torch.roofline.analysis import wkv_work
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     heads = {}
@@ -1123,24 +1099,6 @@ def check_wkv(torch, K):
     return heads
 
 
-def window_pairs(s: int, window: int) -> int:
-    """(query, key) pairs of one head: sum over i < s of min(i + 1, w)."""
-    w = min(window, s)
-    return w * (w + 1) // 2 + (s - w) * w
-
-
-def window_work(b, s, h, kv, hd, window, backward: bool):
-    """(bytes, flops, exps) the attention's forward or backward function
-    needs: each input read once and each output written once; 4 hd FLOPs
-    per (query, key) pair forward (q.k and p v), 10 hd backward (the
-    recomputed q.k, dO.v, dV, dQ, dK), one exp per pair."""
-    pairs = b * h * window_pairs(s, window)
-    q_el, kv_el, rows = b * s * h * hd, b * s * kv * hd, b * h * s
-    if backward:    # in: q, k, v, o, dO, lse; out: dq, dk, dv
-        return 4 * (4 * q_el + 4 * kv_el + rows), 10 * hd * pairs, pairs
-    return 4 * (2 * q_el + 2 * kv_el + rows), 4 * hd * pairs, pairs
-
-
 # the small local-attention model's shape: 2 clients of a shard x batch 2
 LOCAL_SMALL = dict(name="nanogpt-local", num_layers=2,
                    layer_pattern=("local", "global"), d_model=64,
@@ -1158,6 +1116,7 @@ def check_window(torch, K):
     import torch.nn.functional as F
     from repro_torch.kernels.window_attn import ops
     from repro_torch.kernels.window_attn.ref import window_attention_ref
+    from repro_torch.roofline.analysis import window_work
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     heads = {}
@@ -1570,6 +1529,7 @@ def main_path(torch, K, name, make_sim, test, need, metric_ok):
     ``held_out`` is the data of ten clients the stage did not sample.
     Launch counts are read around the driving."""
     import numpy as np
+    from repro_torch import telemetry
     from repro_torch.core import unlearning
     from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.fl.experiment import (FederatedSession, UnlearnRequest,
@@ -1608,13 +1568,17 @@ def main_path(torch, K, name, make_sim, test, need, metric_ok):
     batched = fused.unlearn(UnlearnRequest(pair, request_id="se-2"))[0]
     walls["unlearn_batched_se_s"] = time.perf_counter() - t0
     staged = FederatedSession(staged_sim, store_kind="coded", engine="stage")
+    # the stage program's span carries its analytic training FLOPs
+    tracer = telemetry.configure(enabled=True, annotate_costs=True)
     t0 = time.perf_counter()
     srec = staged.run_stage()
     torch.cuda.synchronize()
     walls["train_stage_engine_s"] = time.perf_counter() - t0
+    telemetry.configure(enabled=False)
     launches = dict(K.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     log("main", path=name, launches=launches, peak_mem_bytes=peak, **walls)
+    stage_cost_line(torch, name, tracer, walls["train_stage_engine_s"])
     missing = [k for k in need if launches[k] == 0]
     if missing:
         raise AssertionError(f"{name}: kernels never launched on the main "
@@ -1693,6 +1657,29 @@ def main_path(torch, K, name, make_sim, test, need, metric_ok):
     profile_round(torch, fused.sim, plan, name, flag_cost=name == "cnn")
     TRAINED[name] = (fused, make_sim)
     return launches
+
+
+def stage_cost_line(torch, name, tracer, wall_s: float) -> None:
+    """The stage-engine stage's ``device.stage_program`` span under
+    ``annotate_costs``: its analytic training FLOPs (every matrix product
+    of every SGD step, forward and backward, and the recurrence kernels'
+    arithmetic), bytes and encode FLOPs beside the stage's wall (host
+    clock to a synchronize; the encode's FLOPs are not in the rate), the
+    achieved training rate and its share of the fp32 peak, with the card's
+    name and power limit."""
+    (span,) = [s for s in tracer.all_spans()
+               if s.name == "device.stage_program"]
+    lab = span.labels
+    flops = lab["train_flops"]
+    row = {"train_flops": flops, "train_bytes": lab["train_bytes"],
+           "encode_flops": lab["encode_flops"], "stage_wall_s": wall_s,
+           "program_span_s": span.t1 - span.t0,
+           "achieved_tflops": flops / wall_s / 1e12,
+           "fp32_peak_share": flops / wall_s / FP32_FLOPS_PER_S,
+           "card": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi()}
+    if not (lab["train_flops"] > 0 and math.isfinite(row["achieved_tflops"])):
+        raise AssertionError(f"{name}: stage cost {row}")
+    log("stage_cost", path=name, **row)
 
 
 def profile_round(torch, sim, plan, name, flag_cost: bool = False):
@@ -3208,6 +3195,7 @@ def full_width(torch, K):
     from repro_torch.models.mamba import d_inner, dt_rank, init_mamba
     from repro_torch.models.mamba import mamba_block
     from repro_torch.models.params import RealInit
+    from repro_torch.roofline.analysis import ssm_work
 
     cfg = dataclasses.replace(get_config("jamba-1.5-large-398b"),
                               param_dtype="float32", compute_dtype="float32")
@@ -3292,6 +3280,7 @@ def full_width_rwkv(torch, K):
     from repro_torch.models.params import RealInit
     from repro_torch.models.rwkv6 import init_rwkv, rwkv_heads
     from repro_torch.models.transformer import apply_block_train
+    from repro_torch.roofline.analysis import wkv_work
 
     cfg = dataclasses.replace(get_config("rwkv6-3b"), param_dtype="float32",
                               compute_dtype="float32")
@@ -3379,6 +3368,7 @@ def full_width_gemma(torch, K):
     from repro_torch.models.layers import init_mlp, init_norm
     from repro_torch.models.params import RealInit
     from repro_torch.models.transformer import apply_block_train
+    from repro_torch.roofline.analysis import window_work
 
     cfg = dataclasses.replace(get_config("gemma3-27b"), param_dtype="float32",
                               compute_dtype="float32")
@@ -4124,6 +4114,113 @@ def train_card_vs_cpu(torch, K):
     return cases, launches
 
 
+# phase 9: each port example's main on the card at the reference's sizes,
+# and the kernels each must launch
+EXAMPLES = (("quickstart", ("coded_matmul", "calibrate")),
+            ("coded_storage", ("coded_matmul",)),
+            ("unlearn_generation", ("wkv", "wkv_bwd", "coded_matmul",
+                                    "calibrate")),
+            ("serve_unlearning", ("coded_matmul", "calibrate")),
+            ("serve_batched", ("ssm_scan", "wkv")))
+BYZANTINE = [2, 11, 19]   # the clients coded_storage corrupts
+
+
+def _numbers(obj):
+    """Every float and int of an example's result (dicts, lists, tensors,
+    the results' and reports' fields)."""
+    import numbers
+
+    import numpy as np
+    if isinstance(obj, bool):
+        return []
+    if isinstance(obj, numbers.Number):
+        return [float(obj)]
+    if isinstance(obj, dict):
+        return [x for v in obj.values() for x in _numbers(v)]
+    if isinstance(obj, (list, tuple)):
+        return [x for v in obj for x in _numbers(v)]
+    if isinstance(obj, np.ndarray):
+        return obj.astype(np.float64).ravel().tolist()
+    if hasattr(obj, "to_dict"):
+        return _numbers(obj.to_dict())
+    return []
+
+
+def _example_checks(torch, name, out) -> None:
+    """Every printed metric finite; SE's impacted shards [0]; the coded
+    store's located clients and round-trip errors."""
+    from repro_torch.core.tree import tree_leaves
+    if name == "serve_batched":
+        printed = [{k: o[k] for k in ("prefill_s", "decode_s_per_token")}
+                   for o in out]
+        if not all(bool(torch.isfinite(o["prefill_logits"]).all())
+                   for o in out):
+            raise AssertionError("serve_batched: non-finite logits")
+    elif name == "coded_storage":
+        printed = out["err"]
+        if out["located"] != BYZANTINE or max(out["err"].values()) > 1e-3:
+            raise AssertionError(f"coded_storage: located {out['located']}, "
+                                 f"errors {out['err']}")
+    elif name == "serve_unlearning":
+        printed = [s["report"].to_dict() for s in out["serves"]]
+        models = [m for s in out["serves"] for r in s["results"]
+                  for m in r.models.values()]
+        if not models or not all(bool(torch.isfinite(v).all())
+                                 for m in models for v in tree_leaves(m)):
+            raise AssertionError("serve_unlearning: non-finite models")
+    else:
+        se = (out["unlearn"]["SE"]["result"] if name == "quickstart"
+              else out["se"])
+        if list(se.impacted_shards) != [0]:
+            raise AssertionError(f"{name}: SE impacted "
+                                 f"{se.impacted_shards}")
+        printed = {k: v for k, v in out.items() if k != "record"}
+    bad = [x for x in _numbers(printed) if not math.isfinite(x)]
+    if bad:
+        raise AssertionError(f"{name}: non-finite printed metrics {bad}")
+
+
+def examples_path(torch, K) -> dict:
+    """Phase 9: each port example's ``main`` on the card at the reference
+    example's sizes (no arguments: the card, the reference's flags'
+    defaults), its launch counts zeroed just before and read just after:
+    its lines, wall and launches, and its checks (``_example_checks``;
+    serve_batched's sampled tokens are printed, not judged).  Returns the
+    five examples' launches summed (``by_path`` "examples")."""
+    import contextlib
+    import importlib.util
+    import io
+
+    root = Path(__file__).resolve().parent / "examples"
+    total = {k: 0 for k in K.LAUNCHES}
+    t_phase = time.perf_counter()
+    for name, need in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            f"{name}_torch", root / f"{name}_torch.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = mod.main([])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        log("examples", example=name, wall_s=wall, launches=launches,
+            lines=buf.getvalue().splitlines())
+        missing = [k for k in need if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"examples/{name}_torch.py: kernels never "
+                                 f"launched: {missing}")
+        _example_checks(torch, name, out)
+        for k, v in launches.items():
+            total[k] += v
+    log("examples", phase_s=time.perf_counter() - t_phase, launches=total)
+    return total
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     src = root / "src"
@@ -4204,6 +4301,7 @@ def main() -> int:
     full_width_granite(torch, K)
     launches["serve"] = serve_path(torch, K)
     launches["train"] = train_path(torch, K)
+    launches["examples"] = examples_path(torch, K)
 
     # one row per kernel, its numbers from the path it was ported for; the
     # launches and times on every path under "by_path"

@@ -1,8 +1,10 @@
 """SE (Sharding Eraser) unlearning engine: preparation (eq. 2) and calibrated
 retraining (eq. 3), on parameter trees of tensors.
 
-The algebraic operations only; the FL loop that drives them lives in
-``repro_torch.fl.simulator``.
+The algebraic operations only, in both of the reference's forms: the list
+form (``calibrate``, ``remove_client_effect``) over one tree per client,
+and the stacked form (``calibrate_stacked``) over a (M, ...) stack, which
+the FL loop in ``repro_torch.fl.simulator`` drives.
 """
 from __future__ import annotations
 
@@ -92,3 +94,33 @@ def prepare_initial_model(retained_locals: Sequence) -> object:
     if not retained_locals:
         raise ValueError("no retained clients in shard")
     return tree_mean(retained_locals)
+
+
+def calibrate(global_model, retrained_deltas: Sequence,
+              stored_deltas: Sequence, eps: float = 1e-12):
+    """eq. (3): one calibrated-retraining aggregation round.
+
+        w^{g'+1} = w^{g'} + (1/M) * sum_m  (||w^g_m|| / ||w'^{g'}_m||) w'^{g'}_m
+
+    ``retrained_deltas``: the retained clients' *new* local updates at
+    unlearning round g'; ``stored_deltas``: the same clients' *historical*
+    updates at the matching learning round g = g' — only their norms are
+    used.  Client by client in list order, as the reference adds them, so
+    fp32 sums associate alike."""
+    if len(retrained_deltas) != len(stored_deltas):
+        raise ValueError(f"{len(retrained_deltas)} retrained deltas but "
+                         f"{len(stored_deltas)} stored ones")
+    m = len(retrained_deltas)
+    out = global_model
+    for new, old in zip(retrained_deltas, stored_deltas):
+        ratio = tree_norm(old) / torch.clamp_min(tree_norm(new), eps)
+        out = tree_add(out, tree_scale(new, ratio / m))
+    return out
+
+
+def remove_client_effect(all_locals: dict,
+                         unlearn_clients: Sequence[int]) -> dict:
+    """Preparation step: drop the unlearning clients' stored parameters from a
+    {client_id: tree} mapping (w^g_{s_i} = w^g_{C_si} - w^g_{C'_si})."""
+    gone = set(unlearn_clients)
+    return {c: p for c, p in all_locals.items() if c not in gone}

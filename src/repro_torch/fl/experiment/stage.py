@@ -26,7 +26,9 @@ from the freshly sampled stage before training and attaches the plan to the
 stage's store; a stage the dropout made ragged degrades from the stage
 engine to the fused one, recorded as a ``DegradedModeEvent`` in the plan's
 ledger.  Spans: ``stage.train`` and, on the stage engine,
-``device.stage_program`` (the reference's ``xla.stage_program``).
+``device.stage_program`` (the reference's ``xla.stage_program``; under
+``annotate_costs`` it carries ``telemetry.stage_cost``'s training counts
+and, where it encodes, ``encode_cost``'s).
 
 ``FLSimulator.train_stage`` is a deprecated shim over ``train_stage``.
 """
@@ -42,7 +44,7 @@ from repro_torch.core import coding
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.faults.events import DegradedModeEvent
 from repro_torch.stores.store import RoundPayload
-from repro_torch.telemetry import encode_cost, get_tracer
+from repro_torch.telemetry import encode_cost, get_tracer, stage_cost
 
 ENGINES = ("stage", "fused", "legacy")
 
@@ -166,6 +168,8 @@ def _run_stage_program(sim, plan, store, w0, data, g_rounds, kind,
         args = (w0, xs, ys)
     with tr.span("device.stage_program", stage=plan.stage, shards=len(shards),
                  rounds=g_rounds, encode=encode) as sp:
+        if tr.annotate_costs:
+            sp.annotate(**stage_cost(sim, w0, xs, ys, g_rounds))
         if tr.annotate_costs and encode:
             sp.annotate(**encode_cost(
                 store.scheme.num_clients, store.scheme.num_shards, g_rounds,

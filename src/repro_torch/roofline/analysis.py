@@ -14,6 +14,12 @@ TPU pod); eager PyTorch compiles no such artefact, so their place is taken
 by ``step_bytes``, an analytic count of the bytes a step must move, and
 ``step_terms``.  One card has no collective term.
 
+The federated stage's training FLOPs are counted here too
+(``train_step_flops``: every matrix product of one client's SGD step, and
+the arithmetic inside the port's recurrence and window kernels, whose
+formulas ``ssm_work``, ``wkv_work`` and ``window_work`` also give
+``chip_smoke.py`` its kernels' bounds).
+
 The card: NVIDIA H100 80GB HBM3 (SXM), power limit 700.00 W, as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gave them
 in this port's chip runs; the rates are NVIDIA's data sheet's dense peaks
@@ -21,7 +27,11 @@ at that limit.  A card set below 700 W runs slower under load.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
+
+from repro_torch.models import mamba as mb
+from repro_torch.models import rwkv6 as rw
+from repro_torch.models.layers import pad_vocab
 
 CARD = "NVIDIA H100 80GB HBM3"
 POWER_LIMIT_W = 700.0
@@ -91,3 +101,203 @@ def step_terms(flops: float, nbytes: float,
     terms = {"compute_s": flops / peak, "memory_s": nbytes / HBM_BW}
     return {**terms, "dominant": max(terms, key=terms.get)}
 
+
+
+# ---------------------------------------------------------------------------
+# The port's kernels: the work each forward or backward function needs
+# ---------------------------------------------------------------------------
+
+SSM_FWD_FLOPS = 6     # per (sequence, step, channel, state): dt*a, the
+#                       decay and input products, the add, c*h and its sum
+SSM_BWD_FLOPS = 20    # the h recompute (4) and the gradient formulas (16)
+WKV_FWD_FLOPS = 4     # per (sequence, step, head, state element): the y
+#                       FMA and the state FMA
+WKV_BWD_FLOPS = 12    # 6 FMAs: the dr, dk, dlw and dv terms and the G
+#                       update (2)
+
+
+def ssm_work(bsz, s, d, n, g, backward: bool, train: bool = False):
+    """(bytes, flops, exps) the scan's forward or backward function needs:
+    each input read once and each output written once (in training mode
+    the forward also writes h every 8 steps); one exp per (sequence, step,
+    channel, state)."""
+    seq, st = bsz * s * d, bsz * s * n
+    small = g * d * n + 2 * bsz * d * n          # a; h0 and h_last / dh0
+    if backward:          # in: dt, x, gy, b, c, a, h0, g_hlast
+        nbytes = 4 * (5 * seq + 4 * st + 2 * g * d * n + 3 * bsz * d * n)
+    else:                 # in: dt, x, b, c, a, h0; out: y, h_last (, ckpt)
+        nbytes = 4 * (3 * seq + 2 * st + small
+                      + (bsz * -(-s // 8) * d * n if train else 0))
+    work = bsz * s * d * n
+    return nbytes, work * (SSM_BWD_FLOPS if backward else SSM_FWD_FLOPS), work
+
+
+def wkv_work(bsz, s, h, n, g, backward: bool, train: bool = False):
+    """(bytes, flops, exps) the recurrence's forward or backward function
+    needs: each input read once and each output written once (in training
+    mode the forward also writes S every 64 steps); one exp per lw
+    element."""
+    seq, state = bsz * s * h * n, bsz * h * n * n
+    if backward:    # in: r, k, v, lw, gy, u, h0, g_hlast; out: dr, dk, dv,
+        #             dlw, du, dh0
+        nbytes = 4 * (9 * seq + 2 * g * h * n + 3 * state)
+    else:           # in: r, k, v, lw, u, h0; out: y, h_last (, ckpt)
+        nbytes = 4 * (5 * seq + g * h * n + 2 * state
+                      + (state * -(-s // 64) if train else 0))
+    work = bsz * s * h * n * n
+    return nbytes, work * (WKV_BWD_FLOPS if backward else WKV_FWD_FLOPS), seq
+
+
+def window_pairs(s: int, window: int) -> int:
+    """(query, key) pairs of one head: sum over i < s of min(i + 1, w)."""
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def window_work(b, s, h, kv, hd, window, backward: bool):
+    """(bytes, flops, exps) the attention's forward or backward function
+    needs: each input read once and each output written once; 4 hd FLOPs
+    per (query, key) pair forward (q.k and p v), 10 hd backward (the
+    recomputed q.k, dO.v, dV, dQ, dK), one exp per pair."""
+    pairs = b * h * window_pairs(s, window)
+    q_el, kv_el, rows = b * s * h * hd, b * s * kv * hd, b * h * s
+    if backward:    # in: q, k, v, o, dO, lse; out: dq, dk, dv
+        return 4 * (4 * q_el + 4 * kv_el + rows), 10 * hd * pairs, pairs
+    return 4 * (2 * q_el + 2 * kv_el + rows), 4 * hd * pairs, pairs
+
+
+# ---------------------------------------------------------------------------
+# Training FLOPs of one client's SGD step (the federated stage's count)
+# ---------------------------------------------------------------------------
+
+def _trained(fwd: int, input_grad: bool = True) -> int:
+    """A product's forward FLOPs and its backward's: the weight's gradient
+    always, the input's unless the input is data (autograd skips it)."""
+    return fwd * (3 if input_grad else 2)
+
+
+def _padded(n: int, block: int) -> int:
+    """``n`` rounded up to a whole number of ``min(block, n)`` tiles."""
+    t = min(block, n)
+    return -(-n // t) * t
+
+
+def _blockwise_pairs(sq: int, skv: int, block_q: int,
+                     block_kv: int = 512) -> int:
+    """Score-tile entries ``attention.blockwise_attention`` computes: every
+    (block_q x block_kv) tile over the padded sequences, masked or not."""
+    return _padded(sq, block_q) * _padded(skv, block_kv)
+
+
+def _attention_pairs(cfg, s: int) -> int:
+    """(query, key) score entries one head of a global layer computes at
+    sequence length ``s`` (``attention.attention_layer``'s route)."""
+    if cfg.attn_block_skip:          # causal_skip_attention
+        bq = min(max(s // 16, 512), s)
+        if s % bq or s % 512:
+            return _blockwise_pairs(s, s, 512)
+        return sum(_blockwise_pairs(bq, (i + 1) * bq, bq)
+                   for i in range(s // bq))
+    return _blockwise_pairs(s, s, cfg.attn_block_q or s)
+
+
+def _moe_products(cfg, b: int, s: int, group_size: int = 512) -> int:
+    """``models.moe.apply_moe``'s products for one model's (b, s) tokens,
+    trained, as ``cfg.moe_impl`` dispatches them."""
+    d, e, k, f = cfg.d_model, cfg.num_experts, cfg.experts_per_token, \
+        cfg.moe_d_ff
+    g = min(group_size, s)
+    tokens = b * _padded(s, g)                   # N * T, S padded to groups
+    cap = max(int(g * k / e * cfg.moe_capacity_factor), 4)
+    slots = tokens // g * e * cap                # N * E * C expert rows
+    total = _trained(2 * tokens * d * e)         # the router
+    total += _trained(3 * 2 * slots * d * f)     # the experts' gated MLPs
+    if cfg.moe_impl == "gather":
+        return total + _trained(2 * tokens * k * d)      # gates x outputs
+    # one-hot dispatch: the (token, choice) x slot tables (the dispatch
+    # table has no gradient, the gate-weighted combine table the gates'
+    # only), the dispatch of the tokens (their gradient only) and the
+    # combine of the outputs
+    table = 2 * tokens * k * e * cap
+    total += table + 2 * table
+    total += 2 * (2 * tokens * e * cap * d)              # expert inputs
+    return total + _trained(2 * tokens * e * cap * d)    # outputs combined
+
+
+def _lm_layer(cfg, kind: str, pat_idx: int, b: int, s: int
+              ) -> Dict[str, int]:
+    """One LM layer's trained products and kernel arithmetic."""
+    t, d = b * s, cfg.d_model
+    products, kernels = 0, 0
+    if kind == "rwkv":
+        h, n = rw.rwkv_heads(cfg)
+        products += _trained(2 * t * d * d) * 6          # r, k, v, g, o, cr
+        products += _trained(2 * t * d * rw.LORA_DIM) * 2    # decay's lora
+        products += _trained(2 * t * d * cfg.d_ff) * 2      # ck, cv
+        kernels += (wkv_work(b, s, h, n, 1, False)[1]
+                    + wkv_work(b, s, h, n, 1, True)[1])
+        return {"products": products, "kernels": kernels}
+    if kind in ("global", "local"):
+        hq, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        products += _trained(2 * t * d * hd * (2 * hq + 2 * kv))
+        win = cfg.sliding_window if kind == "local" else 0
+        if win and s > win:                              # window kernels
+            kernels += (window_work(b, s, hq, kv, hd, win, False)[1]
+                        + window_work(b, s, hq, kv, hd, win, True)[1])
+        else:                                            # q.k and p v
+            products += _trained(2 * 2 * b * hq * hd
+                                 * _attention_pairs(cfg, s))
+    elif kind == "mamba":
+        di, n, r = mb.d_inner(cfg), cfg.ssm_state_dim, mb.dt_rank(cfg)
+        products += _trained(2 * t * (d * 2 * di + di * (r + 2 * n)
+                                      + r * di + di * d))
+        kernels += (ssm_work(b, s, di, n, 1, False)[1]
+                    + ssm_work(b, s, di, n, 1, True)[1])
+    else:
+        raise ValueError(f"layer kind {kind!r}")
+    if cfg.ffn_is_moe(pat_idx):
+        products += _moe_products(cfg, b, s)
+    else:
+        products += _trained(3 * 2 * t * d * cfg.d_ff)   # gate, up, out
+    return {"products": products, "kernels": kernels}
+
+
+def train_step_flops(cfg, batch: int, example_shape: Sequence[int]
+                     ) -> Dict[str, int]:
+    """FLOPs of one model's SGD step at ``batch`` examples of
+    ``example_shape`` (the CNN's (H, W, C) image, an LM's (S,) tokens),
+    forward and backward, from the config alone.
+
+    ``products``: every matrix product the step executes (convolutions,
+    dense and projection layers, attention's q.k and p v, the MoE router,
+    dispatch and experts as ``moe_impl`` runs them, the unembedding) at
+    2 FLOPs a multiply-add: forward once, backward twice (the input's and
+    the weight's gradient), except the first layer's input gradient, which
+    autograd skips for data.  ``kernels``: the arithmetic inside the
+    port's hand-written kernels that the products leave out, forward and
+    backward (the ``ssm_scan`` and ``wkv`` recurrences; window attention
+    past its window), at the rates ``ssm_work``, ``wkv_work`` and
+    ``window_work`` count.  ``total`` is their sum."""
+    if cfg.family == "cnn":
+        h, w, cin = example_shape
+        c1, c2 = cfg.cnn_channels
+        pix1, pix2 = h * w, (h // 2) * (w // 2)
+        flat = (h // 4) * (w // 4) * c2
+        products = (_trained(2 * batch * pix1 * 9 * cin * c1, False)
+                    + _trained(2 * batch * pix2 * 9 * c1 * c2)
+                    + _trained(2 * batch * flat * cfg.d_model)
+                    + _trained(2 * batch * cfg.d_model * cfg.num_classes))
+        return {"products": products, "kernels": 0, "total": products}
+    if cfg.frontend:
+        raise ValueError(f"{cfg.name}: the federated stage trains no "
+                         f"{cfg.frontend} frontend")
+    (s,) = example_shape
+    plen = len(cfg.layer_pattern)
+    parts = [_lm_layer(cfg, kind, i % plen, batch, s)
+             for i, kind in enumerate(cfg.layer_kinds)]
+    products = (sum(p["products"] for p in parts)
+                + _trained(2 * batch * s * cfg.d_model
+                           * pad_vocab(cfg.vocab_size)))
+    kernels = sum(p["kernels"] for p in parts)
+    return {"products": products, "kernels": kernels,
+            "total": products + kernels}

@@ -14,7 +14,8 @@ The single entry point every instrumented layer uses::
 ``get_tracer()`` returns a no-op tracer until ``configure(enabled=True)``
 installs a recording one — the hot path pays nothing when disabled.  See
 ``tracer`` (spans, dual clocks, determinism), ``metrics`` (registry),
-``export`` (Perfetto/JSONL/summary, analytic encode counts) and ``audit``
+``export`` (Perfetto/JSONL/summary, the stage program's analytic
+training and encode counts) and ``audit``
 (hash-chained unlearning event log).
 """
 from repro_torch.telemetry.audit import (
@@ -29,6 +30,7 @@ from repro_torch.telemetry.audit import (
 from repro_torch.telemetry.export import (
     encode_cost,
     render_tree,
+    stage_cost,
     to_chrome_trace,
     validate_chrome_trace,
     write_chrome_trace,
@@ -55,6 +57,7 @@ __all__ = [
     "verify_journal",
     "encode_cost",
     "render_tree",
+    "stage_cost",
     "to_chrome_trace",
     "validate_chrome_trace",
     "write_chrome_trace",

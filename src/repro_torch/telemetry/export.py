@@ -7,8 +7,11 @@ human summary tree.
   placement slot/worker — spans labelled ``device=<i>`` (the service's
   jobs, ``i`` the slot index) land on a ``device-<i>`` lane, everything
   else on its recording thread's lane.  With ``annotate_costs`` the stage
-  engine's ``device.stage_program`` span carries the analytic FLOP and
-  byte counts of its encode (``encode_cost``) in its ``args``.
+  engine's ``device.stage_program`` span carries analytic FLOP and byte
+  counts in its ``args``: its training steps' (``stage_cost``) and, where
+  the program encodes, its encode's (``encode_cost``).  They take the
+  place of the reference's ``hlo_cost_of``, whose XLA cost analysis counts
+  a loop's body once, whatever its trip count.
 * ``validate_chrome_trace`` — structural validation against the trace-event
   schema (required keys, phase-specific fields, numeric timestamps).
 * ``write_jsonl`` — one JSON object per span, flat, for ad-hoc ``jq``-style
@@ -34,6 +37,39 @@ def encode_cost(num_clients: int, num_shards: int, rounds: int,
     return {"encode_flops": float(2 * g * c * s * p),
             "encode_bytes": float(4 * (c * s + g * s * p)
                                   + int(out_bytes) * g * c * p)}
+
+
+def stage_cost(sim, w0, xs, ys, rounds: int) -> dict:
+    """Analytic counts of the training in the stage program: G rounds of
+    every model of the (S, M) stack, each ``sim.fl.local_epochs`` epochs of
+    ``n // sim.local_batch`` SGD steps (the simulator's last-batch rule:
+    a partial batch is dropped), with ``w0`` one client's parameters and
+    xs / ys the stage's (S, M, n, ...) data.
+
+    ``train_flops``: the steps times one client's step
+    (``roofline.analysis.train_step_flops``: every matrix product forward
+    and backward, plus the recurrence and window kernels' arithmetic).
+    ``train_bytes``: a lower bound, the bytes each step must move — it
+    reads and writes the client's parameters and optimizer state once and
+    reads its batch once; activations, gradients and the round's means and
+    norms are not counted."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.optim import make_optimizer
+    from repro_torch.roofline.analysis import train_step_flops
+
+    models, n = int(xs.shape[0]) * int(xs.shape[1]), int(xs.shape[2])
+    bs = sim.local_batch
+    steps = models * int(rounds) * sim.fl.local_epochs * (n // bs)
+    per_step = train_step_flops(sim.cfg, bs, tuple(xs.shape[3:]))["total"]
+    # one client's fp32 parameters and its optimizer's moments, in bytes
+    opt = make_optimizer(sim.opt)[0](w0)
+    state = sum(4 * v.numel() for v in tree_leaves(w0)) + sum(
+        v.numel() * v.element_size() for t in (opt.mu, opt.nu)
+        if t is not None for v in tree_leaves(t))
+    batch = bs * (xs[0, 0, 0].numel() * xs.element_size()
+                  + ys[0, 0, 0].numel() * ys.element_size())
+    return {"train_flops": float(steps * per_step),
+            "train_bytes": float(steps * (2 * state + batch))}
 
 
 # ---------------------------------------------------------------------------

@@ -293,8 +293,9 @@ def configure(enabled: bool = True, clock=None,
 
     ``annotate_costs=True`` additionally annotates the stage engine's
     ``device.stage_program`` span with the analytic FLOP and byte counts of
-    its encode (``export.encode_cost``; a count of the training FLOPs is
-    not made).
+    its training steps (``export.stage_cost``: ``train_flops``,
+    ``train_bytes``) and, where the program encodes, of its encode
+    (``export.encode_cost``: ``encode_flops``, ``encode_bytes``).
     """
     if not enabled:
         set_tracer(None)

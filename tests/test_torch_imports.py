@@ -1,7 +1,8 @@
-"""Import hygiene of the PyTorch port: ``repro_torch`` and ``chip_smoke.py``
-never import ``jax`` or anything of ``repro`` (checked both by importing
-every module in a fresh interpreter and by scanning the sources), and the
-entry points refuse to fall back to the CPU silently."""
+"""Import hygiene of the PyTorch port: ``repro_torch``, ``chip_smoke.py``
+and the port's examples (``examples/*_torch.py``) never import ``jax`` or
+anything of ``repro`` (checked by importing every module of the package in
+a fresh interpreter and by scanning every source), and the entry points
+refuse to fall back to the CPU silently."""
 import ast
 import os
 import pathlib
@@ -50,7 +51,8 @@ def test_importing_every_module_loads_no_jax_or_repro():
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+                         [ROOT / "chip_smoke.py"] +
+                         sorted((ROOT / "examples").glob("*_torch.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_no_jax_or_repro(path):
     tree = ast.parse(path.read_text(), filename=str(path))
