@@ -110,17 +110,19 @@ Phases (any failed check raises, and the script exits non-zero):
    paper's federation (100 clients, 20 per stage, S=4, L=10, 100 samples
    per client) with G cut from 30 to 10 rounds, (b) the generation task
    with the mamba family (``ScenarioConfig.paper_full(task="generation",
-   model="mamba", global_rounds=5)``: the paper's federation with G cut
-   from 30 to 5, 100 sequences of 64 tokens per client), (c) the same with
+   model="mamba", global_rounds=2)``: the paper's federation with G cut
+   from 30 to 2, 100 sequences of 64 tokens per client), (c) the same with
    the rwkv6 family (``model="rwkv6"``), (d) the same with the task's
-   default family, the paper's NanoGPT (no ``model=``), G cut from 30 to
-   5, whose global attention layers run the plain blockwise path and no
-   kernel of their own, (f) the same with the moe family (``model="moe"``:
-   2 global layers with MoE FFNs of 4 experts, top-2, P = 63,904), G cut
-   from 30 to 5, whose router, dispatch and experts are plain torch ops.
-   The mamba and rwkv6 paths' G went from 10 to 5 when the NanoGPT path
-   arrived, and NanoGPT's from 10 to 5 when the coding kernels' route
-   checks arrived, to keep the script near half its time limit.  On the
+   default family, the paper's NanoGPT (no ``model=``), whose global
+   attention layers run the plain blockwise path and no kernel of their
+   own, (f) the same with the moe family (``model="moe"``: 2 global
+   layers with MoE FFNs of 4 experts, top-2, P = 63,904), whose router,
+   dispatch and experts are plain torch ops.  The mamba and rwkv6 paths'
+   G went from 10 to 5 when the NanoGPT path arrived, NanoGPT's from 10
+   to 5 when the coding kernels' route checks arrived, and all four from
+   5 to 2 when the mesh phase arrived (the script had reached 1,239 s of
+   its 1,200 on a slow host), to keep the script inside its time
+   limit.  On the
    NanoGPT path a diagnostic runs first: each op of one SGD step on the
    stage engine's stack of S*M models and on its first M (the fused
    engine's), their rows compared bit for bit.
@@ -299,6 +301,22 @@ Phases (any failed check raises, and the script exits non-zero):
    ``window_attention`` and their backwards must have launched there.
    The full-width steps' and the reduced card runs' launches join
    ``by_path`` as "train".
+8b. mesh   — the training step sharded over a ``DeviceMesh``
+   (``launch.mesh``, ``launch.shardings``, ``ShardCtx``): a world of one
+   rank over NCCL (a ``FileStore``) with a (1, 1) mesh; rwkv6-3b at its
+   published width in fp32, depth cut to 2, 2 clients of one 4,096-token
+   sequence, the dry run's adamw server.  ``make_fedavg_step`` runs once
+   through ``ShardCtx`` and DTensors (the published config's rules,
+   ``launch.train.mesh_context``; the wkv kernels on each rank's shards
+   through ``local_map``) and once unsharded, on the same weights and
+   batch: the metrics within 1e-5 rel and the new params and moments by
+   tests/test_torch_train.py's first-adamw-step rule; whether the two are
+   bit-identical is printed.  After one warm-up step of each: both walls,
+   one traced step of each (device-busy and idle share), the sharded
+   step's launches (zeroed just
+   before it, read just after; wkv and wkv_bwd must have launched: by_path
+   "mesh"), and the dry run's per-card bytes of rwkv6-3b train_4k at full
+   depth on 1x1, 1x4, 2x2 and 4x1.
 9. examples — each port example (``examples/<name>_torch.py``:
    quickstart, coded_storage, unlearn_generation, serve_unlearning,
    serve_batched) through its ``main`` on the card at the reference
@@ -601,10 +619,10 @@ def times(kernel, plain, library, iters: int, bnd) -> dict:
 # the rounds G the path runs (M = 5 clients per shard, C = 20 coded slices
 # of S = 4 shards).  Each path checks its own model's size against these.
 PATHS = {"cnn": {"p_client": 206_922, "rounds": 10},
-         "mamba": {"p_client": 61_984, "rounds": 5},
-         "rwkv6": {"p_client": 62_304, "rounds": 5},
-         "nanogpt": {"p_client": 32_912, "rounds": 5},
-         "moe": {"p_client": 63_904, "rounds": 5}}
+         "mamba": {"p_client": 61_984, "rounds": 2},
+         "rwkv6": {"p_client": 62_304, "rounds": 2},
+         "nanogpt": {"p_client": 32_912, "rounds": 2},
+         "moe": {"p_client": 63_904, "rounds": 2}}
 CODING = ("coded_matmul", "coded_matmul_rounds", "calibrate")
 CLIENTS_PER_SHARD = 5
 # the paper's Table 1 (benchmarks/table1_f1_time.py): MIA F1 and retraining
@@ -4114,6 +4132,152 @@ def train_card_vs_cpu(torch, K):
     return cases, launches
 
 
+# phase 8b: the training step sharded over a DeviceMesh of one card
+MESH_ARCH = "rwkv6-3b"
+MESH_CUT = dict(num_layers=2, param_dtype="float32", compute_dtype="float32")
+MESH_CLIENTS, MESH_SEQ = 2, 4096
+MESH_KERNELS = ("wkv", "wkv_bwd")
+# the dry run's per-card bytes of MESH_ARCH train_4k at full depth
+MESH_DRYRUN = ("1x1", "1x4", "2x2", "4x1")
+# tests/test_torch_train.py's tolerances for the adamw fedavg step
+MESH_RTOL, MESH_MU_SHARE, MESH_OFF_SHARE = 1e-5, 2e-3, 0.01
+
+
+def _adamw_gaps(torch, new, ref, mu_new, mu_ref, lr) -> dict:
+    """tests/test_torch_train.py's rule for a first adamw step: the moments
+    within ``MESH_MU_SHARE`` of their largest entry; params within an fp32
+    ulp (1e-7 + 1.2e-7|p|) where |m| is above 1 % of its largest, within
+    2 lr + ulp everywhere, and under 1 % of entries past an ulp."""
+    from repro_torch.core.tree import tree_leaves
+    mus = [m.float() for m in tree_leaves(mu_ref)]
+    mu_max = max(float(m.abs().max()) for m in mus)
+    mu_gap = max(float((a.float() - b).abs().max())
+                 for a, b in zip(tree_leaves(mu_new), mus))
+    off = total = 0
+    big_gap = all_gap = 0.0
+    for t, r, m in zip(tree_leaves(new), tree_leaves(ref), mus):
+        d = (t.float() - r.float()).abs()
+        ulp = 1e-7 + 1.2e-7 * r.float().abs()
+        big = m.abs() > 0.01 * mu_max
+        if bool(big.any()):
+            big_gap = max(big_gap, float((d[big] - ulp[big]).max()))
+        all_gap = max(all_gap, float((d - 2 * lr - ulp).max()))
+        off += int((d > ulp).sum())
+        total += d.numel()
+    ok = (mu_gap <= MESH_MU_SHARE * mu_max and big_gap <= 0
+          and all_gap <= 0 and off < MESH_OFF_SHARE * total)
+    return {"ok": ok, "mu_max_abs_gap": mu_gap, "mu_max": mu_max,
+            "big_moment_excess_over_ulp": big_gap,
+            "excess_over_2lr_ulp": all_gap, "entries_past_ulp": off,
+            "entries": total}
+
+
+def mesh_path(torch, K):
+    """Phase 8b (see the module docstring): a world of one rank over NCCL
+    with a (1, 1) mesh; ``make_fedavg_step`` at rwkv6-3b's width cut to
+    ``MESH_CUT``, once through ``ShardCtx`` and DTensors (the published
+    config's rules, ``launch.train.mesh_context``) and once unsharded, on
+    the same weights and batch; then the dry run's per-card bytes on
+    ``MESH_DRYRUN``.  Returns the sharded step's launches."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import FLConfig, get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import init_world
+    from repro_torch.launch.shardings import gather_tree
+    from repro_torch.launch.train import make_fedavg_step, mesh_context
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_optimizer
+
+    t_phase = time.perf_counter()
+    # the dry run first: its meta counts need no process group
+    dry = {}
+    for mesh in MESH_DRYRUN:
+        rec = dryrun.run_one(MESH_ARCH, "train_4k", save=False, mesh=mesh,
+                             collectives=False)
+        dry[mesh] = {k: rec[k] for k in (
+            "num_layers", "param_bytes", "opt_state_bytes",
+            "fedavg_buffer_bytes", "batch_bytes",
+            "activation_bytes_estimate", "local_step_bytes",
+            "server_update_bytes", "total_bytes", "fits", "max_depth_fit")}
+    cfg = dataclasses.replace(get_config(MESH_ARCH), **MESH_CUT)
+    fl = FLConfig(fl_clients_per_step=MESH_CLIENTS, fl_local_steps=1)
+    opt = dryrun.optimizer_for(cfg)
+    params = init_params(cfg, 0, device=CARD)
+    batch = train_batch(torch, cfg, MESH_CLIENTS, 1, MESH_SEQ, 17, CARD)
+    with tempfile.TemporaryDirectory() as tmp:
+        init_world("nccl", 0, 1, dist.FileStore(tmp + "/store", 1))
+        try:
+            ctx, place = mesh_context(get_config(MESH_ARCH), "1x1", CARD)
+            plain = make_fedavg_step(cfg, fl, opt)
+            sharded = make_fedavg_step(cfg, fl, opt, ctx)
+            dstate = place((params, init_optimizer(opt, params)), cfg)
+            dbatch = place(batch, cfg, batch=True)
+            placements = sorted({str(tuple(t.placements))
+                                 for t in tree_leaves(dstate[0])})
+            walls = {}
+            runs = (("plain", plain, (params, init_optimizer(opt, params)),
+                     batch), ("sharded", sharded, dstate, dbatch))
+            for _name, step, st, b in runs:        # warm-up, not timed
+                step(st, b)
+            for name, step, st, b in runs:
+                if name == "sharded":
+                    K.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(st, b)
+                torch.cuda.synchronize()
+                walls[name] = (time.perf_counter() - t0) * 1e3
+                if name == "sharded":
+                    launches = dict(K.LAUNCHES)
+                    (new_s, opt_s), mets_s = out
+                else:
+                    (new_p, opt_p), mets_p = out
+            missing = [k for k in MESH_KERNELS if not launches[k]]
+            if missing:
+                raise AssertionError(f"mesh: {missing} never launched "
+                                     f"({launches})")
+            traces = {name: device_busy(lambda: step(st, b))
+                      for name, step, st, b in runs}
+            new_s, mu_s = gather_tree(new_s), gather_tree(opt_s.mu)
+            mets_s = {k: float(v.full_tensor()) for k, v in mets_s.items()}
+        finally:
+            dist.destroy_process_group()
+    mets_p = {k: float(v) for k, v in mets_p.items()}
+    metric_gap = max(abs(mets_s[k] - mets_p[k]) / abs(mets_p[k])
+                     for k in mets_p)
+    gaps = _adamw_gaps(torch, new_s, new_p, mu_s, opt_p.mu, opt.lr)
+    identical = (mets_s == mets_p and all(
+        torch.equal(a, b) for a, b in zip(
+            tree_leaves(new_s) + tree_leaves(mu_s),
+            tree_leaves(new_p) + tree_leaves(opt_p.mu))))
+    busy = {name: {"wall_ms": tr["wall_s"] * 1e3, "busy_ms": tr["busy_ms"],
+                   "idle_share": 1.0 - tr["busy_ms"] / (tr["wall_s"] * 1e3),
+                   "records": tr["records"]}
+            for name, tr in traces.items()}
+    log("mesh", case=MESH_ARCH, world="1 rank, nccl", mesh="1x1",
+        d_model=cfg.d_model, layers=cfg.num_layers, dtype="float32",
+        clients=MESH_CLIENTS, seq_len=MESH_SEQ, optimizer=opt.name,
+        reduced={"depth": f"{get_config(MESH_ARCH).num_layers} -> "
+                          f"{cfg.num_layers}",
+                 "global_batch": "train_4k's 256 cut to 2 (one sequence a "
+                                 "client)",
+                 "dtype": "bfloat16 -> float32 (the port's fp32 path)"},
+        param_placements=placements, metrics_sharded=mets_s,
+        metrics_plain=mets_p, metric_max_rel_gap=metric_gap,
+        adamw_rule=gaps, bit_identical=identical, wall_ms=walls,
+        traced=busy, launches={k: v for k, v in launches.items() if v},
+        dryrun_train_4k_full_depth=dry)
+    if metric_gap > MESH_RTOL or not gaps["ok"]:
+        raise AssertionError(f"mesh: sharded step off the plain one "
+                             f"(metrics {metric_gap}, {gaps})")
+    log("mesh_phase", seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 # phase 9: each port example's main on the card at the reference's sizes,
 # and the kernels each must launch
 EXAMPLES = (("quickstart", ("coded_matmul", "calibrate")),
@@ -4301,6 +4465,7 @@ def main() -> int:
     full_width_granite(torch, K)
     launches["serve"] = serve_path(torch, K)
     launches["train"] = train_path(torch, K)
+    launches["mesh"] = mesh_path(torch, K)
     launches["examples"] = examples_path(torch, K)
 
     # one row per kernel, its numbers from the path it was ported for; the

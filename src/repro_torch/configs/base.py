@@ -216,9 +216,10 @@ class OptimizerConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The reference's TPU pod mesh: 16 x 16 chips, or two such pods.  The
-    port runs on one card, and nothing in it reads these axes; the record
-    is kept so a ``RunConfig`` says what the reference would lay out."""
+    """The production mesh: (data=16, model=16) devices, or two such pods
+    (pod=2 leading).  ``launch.mesh.make_production_mesh(multi_pod)``
+    builds it as a ``DeviceMesh`` with these ``axes`` and ``shape``, and
+    ``launch.shardings`` lays a step out on it."""
     multi_pod: bool = False
 
     @property
@@ -240,12 +241,17 @@ class MeshConfig:
 
 @dataclass(frozen=True)
 class ShardingConfig:
-    """The reference's logical-axis -> mesh-axis rules for the pod.  Of
-    these only ``remat`` means something on one card: the value to give
-    the training steps' and ``loss_fn``'s ``remat`` (none | block | full;
-    block and full checkpoint each superblock,
-    ``models.transformer.forward_train``).  The axes and the other knobs
-    describe the TPU pod's sharding."""
+    """The logical-axis -> mesh-dim defaults of a run: tensor axes over
+    ``model``, batch over ``data``, FSDP and the long-context KV axes off
+    until the policy turns them on (``launch.shardings.param_rules`` /
+    ``act_rules`` derive the tables per arch and shape from the same
+    choices), and ``remat``, the value to give the training steps' and
+    ``loss_fn``'s ``remat`` (none | block | full; block and full
+    checkpoint each superblock, ``models.transformer.forward_train``).
+    ``scan_layers`` and ``shard_optimizer`` are the reference's knobs:
+    the port walks its layers in a loop, and its optimizer moments always
+    take their parameters' placements
+    (``launch.shardings.opt_state_shardings``)."""
     # parameter axes
     tensor_axes: Tuple[str, ...] = ("model",)        # mlp/heads/expert/vocab
     fsdp_axes: Tuple[str, ...] = ()                  # embed dim of params
@@ -261,9 +267,8 @@ class ShardingConfig:
 @dataclass(frozen=True)
 class RunConfig:
     """One run: the model, the input shape, the federation's step
-    (``fl``), the server ``optimizer``, the ``seed`` and the remat policy
-    (``sharding.remat``); ``mesh`` and the sharding axes describe a TPU pod
-    and are read by nothing on one card."""
+    (``fl``), the server ``optimizer``, the ``seed``, the remat policy
+    (``sharding.remat``) and the ``mesh`` it lays the step out on."""
     model: ModelConfig
     shape: ShapeConfig
     mesh: MeshConfig = MeshConfig()

@@ -1,9 +1,11 @@
-"""The one-card dry run (``repro.launch.dryrun``): for every architecture x
-input shape, the bytes a step holds on one H100 80GB and its roofline
-terms, counted on ``meta`` tensors: nothing is allocated, drawn or run.
+"""The dry run (``repro.launch.dryrun``): for every architecture x input
+shape, the bytes a step holds on each H100 80GB of a mesh (one card by
+default) and its roofline terms, counted on ``meta`` tensors: nothing is
+allocated, drawn or run.
 
     python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k
     python -m repro_torch.launch.dryrun --all [--out DIR]
+    python -m repro_torch.launch.dryrun --all --mesh 16x16 [--strategy auto]
 
 Per cell (``run_one``): the config with the reference's long-context
 policy (``resolve_config``: pure full-attention archs run ``long_500k``
@@ -19,16 +21,27 @@ largest depth at which it would.  Each record is written as JSON under
 ``experiments/dryrun_torch/`` (git-ignored), which ``roofline.report``
 renders.
 
-The reference lowers and compiles each step on a 16 x 16 (or 2 x 16 x 16)
-TPU mesh and reads XLA's memory and cost analyses.  One card has no mesh
-to lay out: ``resolve_strategy`` (tensor- or sequence-parallel prefill),
-``make_production_mesh``, the NamedShardings and the lowering have no
-counterpart, and eager PyTorch compiles no artefact whose costs could be
-read, so the counts here are analytic (``roofline.analysis``).
+With ``--mesh`` (16x16, 2x16x16 or any DxM / PxDxM) the same counts are
+per device: each leaf of the params, optimizer state, batch and decode
+cache at its shard's shape under the reference's policy
+(``launch.shardings``; ``resolve_strategy`` picks tensor- or
+sequence-parallel prefill as the reference's does), read from the
+placements' specs, with no process group; the activations are divided
+over the batch's shards.  For a train cell, one FedAvg step at a reduced
+depth (``TRACE_SUPERBLOCKS`` superblocks) is then run on ``meta``
+DTensors in a ``fake_world`` of the mesh's size, the kernels swapped for
+elementwise stand-ins of their shapes, and ``CommDebugMode``
+(``roofline.analysis.CollectiveTrace``) counts its collectives: their
+link bytes by kind, the reference's ``parse_collectives`` record, and a
+collective term over NVLink.  The record's ``mesh`` names the mesh as the
+reference's does.  The reference lowers and compiles each step and reads
+XLA's memory and cost analyses; eager PyTorch compiles no such artefact,
+so the counts here are analytic (``roofline.analysis``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
@@ -36,13 +49,17 @@ import traceback
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs import (ASSIGNED_ARCHS, SHAPES, FLConfig,
                                  OptimizerConfig, get_config)
-from repro_torch.core.tree import tree_leaves
+from repro_torch.core.tree import leaves_with_paths, tree_leaves
 from repro_torch.launch import inputs as inp
+from repro_torch.launch import shardings as sh
+from repro_torch.launch.mesh import mesh_name, parse_mesh
 from repro_torch.models import abstract_params, init_cache, num_params
+from repro_torch.models.params import local_shape
 from repro_torch.optim import make_optimizer
 from repro_torch.roofline import analysis as rl
 
@@ -89,8 +106,34 @@ def optimizer_for(cfg) -> OptimizerConfig:
     return OptimizerConfig(name=name, lr=3e-4)
 
 
-def tree_bytes(tree) -> int:
-    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+SEQPAR_MAX_PARAMS = 8e9
+TRACE_SUPERBLOCKS = 1     # the collective trace's depth, in superblocks
+
+
+def resolve_strategy(cfg, shape_kind: str, strategy: str) -> str:
+    """'auto': sequence-parallel prefill for attention-only models whose
+    head counts don't divide the model dim (tensor parallelism there
+    degenerates into per-block all-reduces) and that fit replicated;
+    tensor parallelism otherwise.  Recurrent stacks (rwkv / mamba) are
+    excluded: their time scans cannot shard over seq."""
+    if strategy != "auto":
+        return strategy
+    attention_only = all(k in ("global", "local") for k in cfg.layer_kinds)
+    if (shape_kind == "prefill" and attention_only
+            and (cfg.num_heads % 16 or cfg.num_kv_heads % 16)
+            and cfg.param_count() < SEQPAR_MAX_PARAMS):
+        return "seq_parallel"
+    return "tp"
+
+
+def tree_bytes(tree, specs=None, mesh=None) -> int:
+    """A tree's bytes, or with ``specs`` (a tree of the same keys) each
+    leaf's shard's on ``mesh``."""
+    if specs is None:
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    sp = dict(leaves_with_paths(specs))
+    return sum(int(np.prod(local_shape(tuple(t.shape), sp[p], mesh)))
+               * t.element_size() for p, t in leaves_with_paths(tree))
 
 
 def activation_bytes(cfg, shape, fl: FLConfig) -> int:
@@ -125,72 +168,219 @@ def activation_bytes(cfg, shape, fl: FLConfig) -> int:
     return saved + tokens * superblock + logits
 
 
-def count(cfg, shape, fl: FLConfig, opt: Optional[OptimizerConfig]) -> dict:
-    """The cell's bytes on the card (meta tensors only) and its peak: the
-    largest of a local step (params, optimizer state, accumulator, one
-    client's copy and gradients, activations) and the server update
-    (params, old and new optimizer state, accumulator, ``ADAMW_TEMPS``
-    fp32 copies); prefill and decode hold the params, the cache and the
-    activations."""
+class Layout:
+    """Where a cell's leaves live: one card (``mesh`` None) or each device
+    of a mesh under the reference's rules for the cell's kind and
+    strategy."""
+
+    def __init__(self, mesh=None, kind: str = "train", strategy: str = "tp",
+                 published=None):
+        self.mesh = mesh
+        if mesh is not None:
+            multi = "pod" in mesh.mesh_dim_names
+            self.prules = sh.param_rules(published, kind, multi, strategy)
+            self.arules = sh.act_rules(published, kind, multi, strategy)
+
+    def params(self, cfg, tree):
+        if self.mesh is None:
+            return tree_bytes(tree)
+        return tree_bytes(tree, sh.param_specs(cfg, self.mesh, self.prules,
+                                               abstract=tree), self.mesh)
+
+    def numel(self, cfg, tree):
+        """Parameters on one device."""
+        if self.mesh is None:
+            return num_params(tree)
+        sp = dict(leaves_with_paths(sh.param_specs(cfg, self.mesh,
+                                                   self.prules, tree)))
+        return sum(int(np.prod(local_shape(tuple(t.shape), sp[p],
+                                           self.mesh)))
+                   for p, t in leaves_with_paths(tree))
+
+    def batch(self, tree, client_leading: bool):
+        if self.mesh is None:
+            return tree_bytes(tree)
+        return tree_bytes(tree, sh.batch_specs(tree, self.mesh, self.arules,
+                                               client_leading), self.mesh)
+
+    def cache(self, tree):
+        if self.mesh is None:
+            return tree_bytes(tree)
+        return tree_bytes(tree, sh.cache_specs(tree, self.mesh,
+                                               self.arules), self.mesh)
+
+    def batch_parts(self, tokens, client_leading: bool) -> int:
+        """How many shards the batch's sequences are cut into."""
+        if self.mesh is None:
+            return 1
+        full = int(np.prod(tokens.shape))
+        return full // int(np.prod(local_shape(
+            tuple(tokens.shape), sh.batch_specs(
+                {"tokens": tokens}, self.mesh, self.arules,
+                client_leading)["tokens"], self.mesh)))
+
+
+def count(cfg, shape, fl: FLConfig, opt: Optional[OptimizerConfig],
+          layout: Optional[Layout] = None) -> dict:
+    """The cell's bytes on the card, or on each device of ``layout``'s
+    mesh (meta tensors only), and its peak: the largest of a local step
+    (params, optimizer state, accumulator, one client's copy and
+    gradients, activations) and the server update (params, old and new
+    optimizer state, accumulator, ``ADAMW_TEMPS`` fp32 copies); prefill
+    and decode hold the params, the cache and the activations."""
+    layout = layout or Layout()
     params = abstract_params(cfg)
-    p_bytes, n = tree_bytes(params), num_params(params)
-    rec = {"params": n, "param_bytes": p_bytes}
+    p_bytes, n = layout.params(cfg, params), layout.numel(cfg, params)
+    rec = {"params": num_params(params), "param_bytes": p_bytes}
     act = activation_bytes(cfg, shape, fl)
     if shape.kind == "train":
         state = make_optimizer(opt, stacked=False)[0](params)
-        o_bytes = sum(tree_bytes(t) for t in (state.mu, state.nu) if t)
+        o_bytes = sum(layout.params(cfg, t) for t in (state.mu, state.nu)
+                      if t)
+        b = inp.train_batch_specs(cfg, shape, fl)
+        act //= layout.batch_parts(b["tokens"], True)
         fedavg = 2 * p_bytes                 # accumulator, client copy
         local = p_bytes + o_bytes + fedavg + p_bytes + act
         server = p_bytes + 2 * o_bytes + p_bytes + ADAMW_TEMPS * n * 4
         rec.update(opt_state_bytes=o_bytes, fedavg_buffer_bytes=fedavg,
                    grad_bytes=p_bytes, cache_bytes=0,
+                   batch_bytes=layout.batch(b, True),
                    local_step_bytes=local, server_update_bytes=server,
                    total_bytes=max(local, server))
     else:
         cache_len, enc_len = inp.cache_len_for(cfg, shape)
         cache = init_cache(cfg, shape.global_batch, cache_len,
                            enc_len=enc_len, device="meta")
-        c_bytes = tree_bytes(cache)
+        c_bytes = layout.cache(cache)
+        b = (inp.prefill_batch_specs(cfg, shape) if shape.kind == "prefill"
+             else {"tokens": inp.decode_token_specs(shape)})
+        act //= layout.batch_parts(b["tokens"], False)
         rec.update(opt_state_bytes=0, fedavg_buffer_bytes=0, grad_bytes=0,
-                   cache_bytes=c_bytes,
+                   cache_bytes=c_bytes, batch_bytes=layout.batch(b, False),
                    total_bytes=p_bytes + c_bytes + act)
     rec["activation_bytes_estimate"] = act
     rec["fits"] = rec["total_bytes"] <= rl.HBM_BYTES
     return rec
 
 
-def max_depth_fit(cfg, shape, fl, opt) -> int:
+def max_depth_fit(cfg, shape, fl, opt, layout=None) -> int:
     """The largest depth (``num_layers``, the rest of the config as it
-    is) whose count fits the card; 0 when none does."""
+    is) whose count fits the card (each device of ``layout``'s mesh); 0
+    when none does."""
     lo, hi = 0, cfg.num_layers
     while lo < hi:
         mid = (lo + hi + 1) // 2
         if count(dataclasses.replace(cfg, num_layers=mid), shape, fl,
-                 opt)["fits"]:
+                 opt, layout)["fits"]:
             lo = mid
         else:
             hi = mid - 1
     return lo
 
 
+# ---------------------------------------------------------------------------
+# The collectives of one sharded FedAvg step
+# ---------------------------------------------------------------------------
+
+def _ssm_shape(dt, b, c, x, a, h0):
+    """``ssm_scan``'s outputs from elementwise ops on every input."""
+    return (dt + x + (b + c).sum(-1, keepdim=True),
+            h0 + a.sum(0, keepdim=True))
+
+
+def _wkv_shape(r, k, v, lw, u, h0):
+    u4 = u.reshape(-1, 1, *u.shape[-2:]).sum(0, keepdim=True)
+    return r + k + v + lw + u4, h0 + u4[:, 0, :, :, None]
+
+
+def _window_shape(q, k, v, window):
+    return q + (k + v).mean(2, keepdim=True)
+
+
+@contextlib.contextmanager
+def _shape_kernels():
+    """The recurrence and window kernels swapped for elementwise stand-ins
+    of their shapes (each output reached from every input, so backward
+    runs through them): a meta trace then walks no time loop."""
+    from repro_torch.models import attention, mamba, rwkv6
+    saved = (mamba.ssm_scan, rwkv6.wkv, attention.window_attention)
+    mamba.ssm_scan, rwkv6.wkv = _ssm_shape, _wkv_shape
+    attention.window_attention = _window_shape
+    try:
+        yield
+    finally:
+        mamba.ssm_scan, rwkv6.wkv, attention.window_attention = saved
+
+
+def trace_collectives(cfg, published, shape, fl: FLConfig, opt,
+                      mesh_shape, strategy: str = "tp") -> dict:
+    """One FedAvg step of ``cfg`` on ``meta`` DTensors laid out on a mesh
+    of ``mesh_shape`` in a ``fake_world`` of its size, under
+    ``published``'s rules; its collectives (``roofline.analysis``)."""
+    from repro_torch.launch.mesh import fake_world, make_mesh
+    from repro_torch.launch.train import make_fedavg_step
+    from repro_torch.models import ShardCtx
+    from repro_torch.optim import OptState
+    n_dev = int(np.prod(mesh_shape.shape))
+    multi = "pod" in mesh_shape.mesh_dim_names
+    with fake_world(n_dev), _shape_kernels():
+        mesh = make_mesh(mesh_shape.shape, mesh_shape.mesh_dim_names, "cpu")
+        prules = sh.param_rules(published, "train", multi, strategy)
+        arules = sh.act_rules(published, "train", multi, strategy)
+        params = abstract_params(cfg)
+        state = make_optimizer(opt, stacked=False)[0](params)
+        psh = sh.param_shardings(cfg, mesh, prules, abstract=params)
+        osh = sh.opt_state_shardings(state, psh, mesh)
+        dp = sh.distribute_tree(params, psh, mesh)
+        moments = [None if t is None else sh.distribute_tree(t, o, mesh)
+                   for t, o in ((state.mu, osh.mu), (state.nu, osh.nu))]
+        b = inp.train_batch_specs(cfg, shape, fl)
+        db = sh.distribute_tree(b, sh.batch_shardings(
+            b, mesh, arules, client_leading=True), mesh)
+        step = make_fedavg_step(cfg, fl, opt, ShardCtx(mesh, arules))
+        trace = rl.CollectiveTrace()
+        with trace:
+            step((dp, OptState(0, *moments)), db)
+    return rl.collectives_of(trace, n_dev)
+
+
 def run_one(arch: str, shape_name: str, variant: str = "auto",
             save: bool = True, out_dir: Optional[Path] = None,
             fl: Optional[FLConfig] = None, changes: Optional[dict] = None,
-            global_batch: Optional[int] = None) -> dict:
+            global_batch: Optional[int] = None, mesh: Optional[str] = None,
+            strategy: str = "tp", collectives: bool = True) -> dict:
     """One cell's record (and its JSON file when ``save``).  ``changes``
-    (e.g. a cut depth) and ``global_batch`` resize the cell."""
+    (e.g. a cut depth) and ``global_batch`` resize the cell; ``mesh``
+    ("16x16", "2x16x16", "DxM") counts each device of that mesh under the
+    reference's policy and ``strategy`` ("tp", "seq_parallel" or "auto");
+    ``collectives`` traces a train cell's collectives there."""
     t0 = time.perf_counter()
     fl = fl or FLConfig(fl_clients_per_step=4, fl_local_steps=1)
     rec = {"arch": arch, "shape": shape_name, "device": DEVICE,
            "status": "ok", "notes": []}
+    if mesh:
+        rec.update(mesh=mesh_name(parse_mesh(mesh)), strategy=strategy)
     try:
         cfg, rec["notes"] = resolve_config(arch, shape_name, variant)
         if cfg is None:
             rec["status"] = "skipped"
             return _finish(rec, t0, save, out_dir)
+        shape = SHAPES[shape_name]
+        layout = None
+        if mesh:
+            ms = parse_mesh(mesh)
+            strategy = resolve_strategy(cfg, shape.kind, strategy)
+            if strategy == "seq_parallel":
+                # q must stay a single shardable dim
+                cfg = dataclasses.replace(cfg, attn_block_q=0,
+                                          attn_block_skip=False)
+                rec["notes"].append("seq_parallel prefill (head counts "
+                                    "don't divide the model dim)")
+            layout = Layout(ms, shape.kind, strategy, cfg)
+            rec.update(strategy=strategy, num_devices=int(np.prod(ms.shape)))
+        published = cfg
         if changes:
             cfg = dataclasses.replace(cfg, **changes)
-        shape = SHAPES[shape_name]
         if global_batch:
             shape = dataclasses.replace(shape, global_batch=global_batch)
         opt = optimizer_for(cfg) if shape.kind == "train" else None
@@ -201,9 +391,17 @@ def run_one(arch: str, shape_name: str, variant: str = "auto",
                    param_count=cfg.param_count(),
                    hbm_bytes=rl.HBM_BYTES, card=rl.CARD,
                    power_limit_w=rl.POWER_LIMIT_W)
-        rec.update(count(cfg, shape, fl, opt))
+        rec.update(count(cfg, shape, fl, opt, layout))
         rec["max_depth_fit"] = (cfg.num_layers if rec["fits"] else
-                                max_depth_fit(cfg, shape, fl, opt))
+                                max_depth_fit(cfg, shape, fl, opt, layout))
+        if layout is not None and shape.kind == "train" and collectives:
+            depth = TRACE_SUPERBLOCKS * len(cfg.layer_pattern)
+            rec["collective_trace_layers"] = depth
+            rec.update(trace_collectives(
+                dataclasses.replace(cfg, num_layers=depth), published,
+                shape, fl, opt, ms, strategy))
+            rec["collective_s"] = (rec["collective_bytes_total"]
+                                   / (rec["num_devices"] * rl.NVLINK_BW))
         mf = rl.model_flops(cfg, shape)
         sb = rl.step_bytes(cfg, shape, rec["param_bytes"],
                            rec["cache_bytes"], fl, rec["opt_state_bytes"])
@@ -222,13 +420,15 @@ def _finish(rec, t0, save, out_dir):
     if save:
         d = Path(out_dir or OUT_DIR)
         d.mkdir(parents=True, exist_ok=True)
-        name = f"{rec['arch']}_{rec['shape']}_{rec['device']}.json"
+        where = rec.get("mesh", rec["device"])
+        name = f"{rec['arch']}_{rec['shape']}_{where}.json"
         (d / name).write_text(json.dumps(rec, indent=1))
     extra = ("" if rec["status"] == "ok" else
              f" ({rec.get('error', '')[:120]})")
     gb = (f" {rec['total_bytes'] / 1e9:9.1f} GB fits={rec['fits']}"
           if rec["status"] == "ok" else "")
-    print(f"[dryrun] {rec['arch']:22s} {rec['shape']:12s} {rec['device']} "
+    where = rec.get("mesh", rec["device"])
+    print(f"[dryrun] {rec['arch']:22s} {rec['shape']:12s} {where:8s} "
           f"{rec['status']:7s}{gb}{extra}", flush=True)
     return rec
 
@@ -241,10 +441,18 @@ def main(argv=None) -> int:
     ap.add_argument("--variant", default="auto")
     ap.add_argument("--out", default=None,
                     help=f"JSON directory (default {OUT_DIR})")
+    ap.add_argument("--mesh", default=None,
+                    help="16x16, 2x16x16 or DxM: count each device")
+    ap.add_argument("--strategy", default="tp",
+                    choices=("tp", "seq_parallel", "auto"))
+    ap.add_argument("--no-collectives", action="store_true",
+                    help="skip the train cells' collective trace")
     args = ap.parse_args(argv)
     archs = ASSIGNED_ARCHS if (args.all or not args.arch) else [args.arch]
     shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
-    results = [run_one(a, s, args.variant, out_dir=args.out)
+    results = [run_one(a, s, args.variant, out_dir=args.out, mesh=args.mesh,
+                       strategy=args.strategy,
+                       collectives=not args.no_collectives)
                for a in archs for s in shapes]
     bad = [r for r in results if r["status"] == "error"]
     print(f"[dryrun] {len(results)} combos: "

@@ -5,7 +5,10 @@
 ``serve_demo`` runs a serving loop on a reduced config: prefill a batch of
 prompts, then decode tokens greedily.  Run it as
 ``python -m repro_torch.launch.serve --arch rwkv6-3b [--device cpu]``; it
-runs on the CUDA card unless ``--device cpu`` is given.  A decode step
+runs on the CUDA card unless ``--device cpu`` is given.  Both steps take
+the reference's ``ctx``; prefill and decode across the ranks of a mesh
+(``launch.shardings.cache_shardings`` live, sequence-parallel prefill) are
+not run yet.  A decode step
 writes the cache in place (the reference donates its cache to the jitted
 step), so the loop hands each step the cache the last one returned.
 """
@@ -16,9 +19,10 @@ from repro_torch.models import decode_fn, prefill_fn
 
 # The reference's serving steps wrap the model functions for its jit and
 # donation, which the port has no counterpart for; here they are the model
-# functions themselves, kept under the serving module's public names.
-make_prefill_step = prefill_fn     # (cfg, max_len=None) -> step(params, batch)
-make_decode_step = decode_fn       # (cfg) -> step(params, tokens, cache)
+# functions themselves (with the reference's signatures), kept under the
+# serving module's public names.
+make_prefill_step = prefill_fn   # (cfg, ctx=NULL_CTX, max_len=None) -> step
+make_decode_step = decode_fn     # (cfg, ctx=NULL_CTX) -> step
 
 
 def serve_demo(argv=None, init_fn=None):

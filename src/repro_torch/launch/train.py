@@ -18,14 +18,23 @@ historical norm before the mean.
 The reference jits each step; the port runs it eagerly with the same
 per-leaf association (``acc + d / n``, the clip, the SGD update), so that
 the CPU parity holds at fp32 rounding.  The state is ``(params,
-opt_state)``; the steps take no mesh-sharding context (the reference's
-``ctx``), which one card has no counterpart for.  ``remat`` is
-``loss_fn``'s: "block" (the default) recomputes each superblock in
-backward.
+opt_state)``.  ``remat`` is ``loss_fn``'s: "block" (the default)
+recomputes each superblock in backward.
+
+``ctx`` (``models.ShardCtx``) runs a step sharded over a device mesh: the
+params, optimizer state and batch are DTensors laid out by
+``launch.shardings`` (``distribute_tree``), the loss runs under the
+context's constraints, each gradient is reduced to its parameter's
+placements, and the client-serial loop carries DTensor deltas.  Every
+rank runs the same step on its shards; the metrics are replicated 0-d
+DTensors.
 
 Run as a module for a demonstration on a reduced config, on the card
-unless ``--device cpu`` is given:
+unless ``--device cpu`` is given; ``--mesh DxM`` runs it over D * M ranks
+(NCCL, one card a rank, or gloo with ``--device cpu``) with the published
+config's training rules:
     python -m repro_torch.launch.train --arch olmo-1b --steps 4 [--device cpu]
+    python -m repro_torch.launch.train --arch rwkv6-3b --mesh 2x2 --device cpu
 """
 from __future__ import annotations
 
@@ -34,26 +43,31 @@ from typing import Tuple
 import torch
 
 from repro_torch.configs.base import FLConfig, ModelConfig, OptimizerConfig
-from repro_torch.core.tree import tree_leaves, tree_map, tree_replace_leaves
+from repro_torch.core.tree import (leaves_with_paths, tree_leaves, tree_map,
+                                   tree_replace_leaves)
 from repro_torch.core.unlearning import tree_norm
-from repro_torch.models import loss_fn
+from repro_torch.models import NULL_CTX, ShardCtx, loss_fn
 from repro_torch.optim import make_optimizer
+from repro_torch.optim.optimizers import like_params
 
 LOCAL_LR = 1e-2   # clients' local SGD step (FedAvg inner loop)
 
 
-def _value_and_grad(lf, params, batch):
+def _value_and_grad(lf, params, batch, ctx: ShardCtx = NULL_CTX):
     """(loss, metrics, grads) of ``lf`` at ``params``: the gradient tree
-    has the params' keys, a zero leaf where the loss does not reach."""
+    has the params' keys, a zero leaf where the loss does not reach, each
+    leaf laid out as its parameter is."""
     q = tree_map(lambda v: v.detach().requires_grad_(True), params)
-    loss, mets = lf(q, batch)
-    grads = torch.autograd.grad(loss, tree_leaves(q), allow_unused=True,
-                                materialize_grads=True)
+    with ctx.scope():
+        loss, mets = lf(q, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(q), allow_unused=True,
+                                    materialize_grads=True)
     return (loss.detach(), {k: v.detach() for k, v in mets.items()},
-            tree_replace_leaves(params, list(grads)))
+            like_params(params, tree_replace_leaves(params, list(grads))))
 
 
-def _client_round(lf, params, cbatch, local_steps: int):
+def _client_round(lf, params, cbatch, local_steps: int,
+                  ctx: ShardCtx = NULL_CTX):
     """One client: ``local_steps`` (at least one) SGD steps from
     ``params`` on its batch.  Returns (delta = new - params in the param
     dtype, the mean loss)."""
@@ -62,7 +76,7 @@ def _client_round(lf, params, cbatch, local_steps: int):
                          f"least one step")
     p, losses = params, []
     for _ in range(local_steps):
-        loss, _m, grads = _value_and_grad(lf, p, cbatch)
+        loss, _m, grads = _value_and_grad(lf, p, cbatch, ctx)
         gs = [g.float() for g in tree_leaves(grads)]
         del grads
         torch._foreach_mul_(gs, LOCAL_LR)
@@ -76,19 +90,28 @@ def _client_round(lf, params, cbatch, local_steps: int):
     return delta, torch.stack(losses).mean()
 
 
+def _in_scope(step, ctx: ShardCtx):
+    """``step`` run under ``ctx.scope()`` (plain tensors such as the
+    stored norms meet the DTensors as replicated values)."""
+    def run(*args):
+        with ctx.scope():
+            return step(*args)
+    return run
+
+
 def _client_batch(batch, c: int):
     return {k: v[c] for k, v in batch.items()}
 
 
 def make_fedavg_step(cfg: ModelConfig, fl: FLConfig, opt: OptimizerConfig,
-                     remat: str = "block"):
+                     ctx: ShardCtx = NULL_CTX, remat: str = "block"):
     """Returns step(state, batch) -> (state, metrics).
 
     batch: {"tokens": (n_clients, bpc, S), ...}, the client-serial layout
     (``launch.inputs.train_batch_specs``); state: (params, opt_state);
     metrics: {"loss", "delta_norm"} (0-d tensors).
     """
-    lf = loss_fn(cfg, remat=remat)
+    lf = loss_fn(cfg, remat=remat, ctx=ctx)
     _, opt_update = make_optimizer(opt, stacked=False)
     n_clients = fl.fl_clients_per_step
     local_steps = fl.fl_local_steps
@@ -99,7 +122,7 @@ def make_fedavg_step(cfg: ModelConfig, fl: FLConfig, opt: OptimizerConfig,
         losses = []
         for c in range(n_clients):
             delta, loss = _client_round(lf, params, _client_batch(batch, c),
-                                        local_steps)
+                                        local_steps, ctx)
             for a, d in zip(tree_leaves(acc), tree_leaves(delta)):
                 a.add_(d.to(a.dtype).div_(n_clients))
             del delta
@@ -112,28 +135,28 @@ def make_fedavg_step(cfg: ModelConfig, fl: FLConfig, opt: OptimizerConfig,
         new_params, new_opt = opt_update(params, pseudo_grad, opt_state)
         return (new_params, new_opt), metrics
 
-    return step
+    return _in_scope(step, ctx)
 
 
 def make_central_step(cfg: ModelConfig, opt: OptimizerConfig,
-                      remat: str = "block"):
+                      ctx: ShardCtx = NULL_CTX, remat: str = "block"):
     """Plain training step (FR baseline / pretraining).  batch: {"tokens":
     (B, S), ...}; returns step(state, batch) -> (state, loss_fn's
     metrics)."""
-    lf = loss_fn(cfg, remat=remat)
+    lf = loss_fn(cfg, remat=remat, ctx=ctx)
     _, opt_update = make_optimizer(opt, stacked=False)
 
     def step(state, batch):
         params, opt_state = state
-        _loss, mets, grads = _value_and_grad(lf, params, batch)
+        _loss, mets, grads = _value_and_grad(lf, params, batch, ctx)
         new_params, new_opt = opt_update(params, grads, opt_state)
         return (new_params, new_opt), mets
 
-    return step
+    return _in_scope(step, ctx)
 
 
 def make_calibration_step(cfg: ModelConfig, fl: FLConfig,
-                          remat: str = "block"):
+                          ctx: ShardCtx = NULL_CTX, remat: str = "block"):
     """One production-scale calibrated retraining round (paper eq. 3).
 
     step(params, batch, stored_norms) -> (params, {"loss"}).  batch is
@@ -142,7 +165,7 @@ def make_calibration_step(cfg: ModelConfig, fl: FLConfig,
     steps; each client's delta is rescaled to its historical norm, then
     averaged, and the mean is added to the parameters.
     """
-    lf = loss_fn(cfg, remat=remat)
+    lf = loss_fn(cfg, remat=remat, ctx=ctx)
     n_clients = fl.fl_clients_per_step
     local_steps = max(int(fl.fl_local_steps / fl.retrain_ratio), 1)
 
@@ -151,7 +174,7 @@ def make_calibration_step(cfg: ModelConfig, fl: FLConfig,
         losses = []
         for c in range(n_clients):
             delta, loss = _client_round(lf, params, _client_batch(batch, c),
-                                        local_steps)
+                                        local_steps, ctx)
             ratio = stored_norms[c].float() / torch.clamp_min(
                 tree_norm(delta), 1e-12)
             for a, d in zip(tree_leaves(acc), tree_leaves(delta)):
@@ -161,7 +184,7 @@ def make_calibration_step(cfg: ModelConfig, fl: FLConfig,
         new_params = tree_map(lambda p, a: p + a.to(p.dtype), params, acc)
         return new_params, {"loss": torch.stack(losses).mean()}
 
-    return step
+    return _in_scope(step, ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -189,10 +212,15 @@ def demo_batch(cfg: ModelConfig, rng, n_clients: int, bpc: int, seq: int,
 
 def _demo(argv=None, init_fn=None) -> Tuple[list, list]:
     """The reference's demo with its flags, plus ``--device`` (the card by
-    default).  ``init_fn(cfg)``, when given, returns the initial parameter
-    tree (moved to the device), e.g. the reference's weights through
-    ``from_numpy_params``; else ``init_params(cfg, 0)``.  Returns each
-    round's (loss, delta_norm) as floats."""
+    default) and ``--mesh DxM``.  ``init_fn(cfg)``, when given, returns the
+    initial parameter tree (moved to the device), e.g. the reference's
+    weights through ``from_numpy_params``; else ``init_params(cfg, 0)``.
+    With ``--mesh``, the step runs over a (data, model) mesh of D * M
+    ranks under the published config's training rules (``param_rules``
+    with its FSDP choice, ``act_rules``): inside a running world of that
+    size, or else in D * M processes started here (``launch.mesh.spawn``;
+    ``init_fn`` must then pickle).  Returns each round's (loss,
+    delta_norm) as floats."""
     import argparse
 
     import numpy as np
@@ -209,27 +237,143 @@ def _demo(argv=None, init_fn=None) -> Tuple[list, list]:
     ap.add_argument("--local-steps", type=int, default=2)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM: run over a (data, model) mesh of D*M ranks")
     args = ap.parse_args(argv)
 
-    cfg = reduce_for_smoke(get_config(args.arch))
     dev = resolve_device(args.device)
+    if args.mesh and not torch.distributed.is_initialized():
+        from repro_torch.launch.mesh import BACKENDS, parse_mesh, spawn
+        ms = parse_mesh(args.mesh)
+        return spawn(_demo_rank, int(np.prod(ms.shape)), BACKENDS[dev.type],
+                     argv, init_fn)
+
+    cfg = reduce_for_smoke(get_config(args.arch))
     fl = FLConfig(fl_clients_per_step=args.clients,
                   fl_local_steps=args.local_steps)
     opt = OptimizerConfig(name="adamw", lr=1e-3)
     params = (tree_map(lambda v: v.to(dev), init_fn(cfg)) if init_fn
               else init_params(cfg, 0, device=dev))
     state = (params, init_optimizer(opt, params))
-    step = make_fedavg_step(cfg, fl, opt)
+    ctx, place = NULL_CTX, None
+    if args.mesh:
+        ctx, place = mesh_context(get_config(args.arch), args.mesh, dev)
+        state = place(state, cfg)
+    step = make_fedavg_step(cfg, fl, opt, ctx)
     rng = np.random.default_rng(0)
     losses, norms = [], []
     for i in range(args.steps):
         batch = demo_batch(cfg, rng, args.clients, 2, 64, dev)
+        if place:
+            batch = place(batch, cfg, batch=True)
         state, mets = step(state, batch)
-        losses.append(float(mets["loss"]))
-        norms.append(float(mets["delta_norm"]))
-        print(f"fedavg round {i}: loss={losses[-1]:.4f} "
-              f"delta={norms[-1]:.4f}")
+        losses.append(float(_whole(mets["loss"])))
+        norms.append(float(_whole(mets["delta_norm"])))
+        if not torch.distributed.is_initialized() or \
+                torch.distributed.get_rank() == 0:
+            print(f"fedavg round {i}: loss={losses[-1]:.4f} "
+                  f"delta={norms[-1]:.4f}")
     return losses, norms
+
+
+def _whole(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _demo_rank(rank, world_size, argv, init_fn):
+    return _demo(argv, init_fn)
+
+
+def mesh_context(published: ModelConfig, mesh_spec: str, device):
+    """(ctx, place) for a training step over a (data, model) mesh
+    ``mesh_spec`` ("DxM") of the running world: ``ctx`` the activation
+    rules of ``published`` (the config as the reference ships it, which
+    decides FSDP), ``place(tree, cfg, batch=False)`` a (params,
+    opt_state) pair or a client-serial batch laid out by the same policy
+    on a config ``cfg`` (the published one, or cut to size); a batch
+    without the client axis takes ``client_leading=False``."""
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import make_debug_mesh, parse_mesh
+    from repro_torch.optim import OptState
+    d, m = parse_mesh(mesh_spec).shape
+    mesh = make_debug_mesh(d, m, device_type=torch.device(device).type)
+    prules = sh.param_rules(published, "train", False)
+    arules = sh.act_rules(published, "train", False)
+    ctx = ShardCtx(mesh, arules)
+
+    def place(tree, cfg, batch=False, client_leading=True):
+        if batch:
+            return sh.distribute_tree(tree, sh.batch_shardings(
+                tree, mesh, arules, client_leading=client_leading), mesh)
+        params, opt_state = tree
+        psh = sh.param_shardings(cfg, mesh, prules)
+        osh = sh.opt_state_shardings(opt_state, psh, mesh)
+        moments = [None if t is None else sh.distribute_tree(t, s, mesh)
+                   for t, s in ((opt_state.mu, osh.mu),
+                                (opt_state.nu, osh.nu))]
+        return (sh.distribute_tree(params, psh, mesh),
+                OptState(opt_state.step, *moments))
+    return ctx, place
+
+
+def steps_on_mesh(rank: int, world_size: int, arch: str, mesh_spec: str,
+                  weights, batch, stored_norms, fl: FLConfig,
+                  fedavg_opt: OptimizerConfig, central_opt: OptimizerConfig,
+                  device: str = "cpu") -> dict:
+    """The three steps run sharded on this rank of a (data, model) mesh
+    ``mesh_spec``, for checks against the unsharded steps: the config is
+    ``reduce_for_smoke(get_config(arch))`` under the published config's
+    training rules (``mesh_context``), ``weights`` and ``batch`` numpy
+    trees (the batch client-serial; the central step takes client 0's),
+    ``stored_norms`` the calibration's (n_clients,) norms.  Returns, as
+    numpy on every rank: per step its new params (gathered), moments and
+    metrics, and ``spec`` (each param leaf's mesh dims, "/"-joined path ->
+    list of dim names it shards over).  Run it through
+    ``launch.mesh.spawn``."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import from_numpy_params, to_numpy_params
+    from repro_torch.optim import init_optimizer
+
+    cfg = reduce_for_smoke(get_config(arch))
+    ctx, place = mesh_context(get_config(arch), mesh_spec, device)
+    mesh = ctx.mesh
+    tb = {k: torch.from_numpy(np.asarray(v)).to(device)
+          for k, v in batch.items()}
+    sb = place(tb, cfg, batch=True)
+
+    def params():
+        return from_numpy_params(weights, device=device)
+
+    def moments(st):
+        return {k: None if t is None else to_numpy_params(t)
+                for k, t in (("mu", st.mu), ("nu", st.nu))}
+
+    def mets(m):
+        return {k: float(_whole(v)) for k, v in m.items()}
+
+    out = {}
+    p0 = params()
+    state = place((p0, init_optimizer(fedavg_opt, p0)), cfg)
+    names = mesh.mesh_dim_names
+    out["spec"] = {"/".join(path): sorted({names[i] for i, pl in
+                                           enumerate(t.placements)
+                                           if pl.is_shard()})
+                   for path, t in leaves_with_paths(state[0])}
+    (new, st), m = make_fedavg_step(cfg, fl, fedavg_opt, ctx)(state, sb)
+    out["fedavg"] = (to_numpy_params(new), moments(st), mets(m))
+    p0 = params()
+    state = place((p0, init_optimizer(central_opt, p0)), cfg)
+    cb = place({k: v[0] for k, v in tb.items()}, cfg, batch=True,
+               client_leading=False)
+    (new, st), m = make_central_step(cfg, central_opt, ctx)(state, cb)
+    out["central"] = (to_numpy_params(new), moments(st), mets(m))
+    pp, _ = place((params(), init_optimizer(central_opt, params())), cfg)
+    norms = torch.from_numpy(np.asarray(stored_norms)).to(device)
+    new, m = make_calibration_step(cfg, fl, ctx)(pp, sb, norms)
+    out["calibration"] = (to_numpy_params(new), {}, mets(m))
+    return out
 
 
 if __name__ == "__main__":

@@ -13,6 +13,14 @@ card, as the reference's Pallas kernel is a drop-in for it.
 ``project_qkv`` and ``project_out`` are the projections of a layer of K
 models (leaves (K, d, heads, hd)); ``attention_layer`` is the whole layer
 with the k and v it computed, ``attention_block`` its output alone.
+
+Under a ``ShardCtx`` with a mesh, ``attention_layer`` lays the queries out
+as (batch, seq, heads, head_dim), the reference's constraint, and runs the
+attention (the window kernel or the blockwise forms) on each rank's local
+shards (``sharded_attention``): batch over ``data``, heads over ``model``.
+A rank whose query heads are split while the kv heads are not (kv heads
+that do not divide the mesh dim) reads the kv heads of its own query
+groups.
 """
 from __future__ import annotations
 
@@ -23,8 +31,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.window_attn.ops import window_attention
 from repro_torch.models.layers import apply_rope, matmul
+from repro_torch.models.params import NULL_CTX, param, reshape
 
 NEG_INF = -1e30
+Q_KERNEL_AXES = ("batch", None, "heads", None)      # the window kernel's
+KV_KERNEL_AXES = ("batch", None, "kv_heads", None)  # layout on a mesh
 
 
 def init_attention(fac, cfg: ModelConfig):
@@ -32,10 +43,11 @@ def init_attention(fac, cfg: ModelConfig):
     shapes, kept under the block's ``xattn`` key."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     return {
-        "wq": fac.param((d, h, hd)),
-        "wk": fac.param((d, kv, hd)),
-        "wv": fac.param((d, kv, hd)),
-        "wo": fac.param((h, hd, d), in_dims=2),
+        "wq": param(fac, (d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": param(fac, (d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": param(fac, (d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": param(fac, (h, hd, d), ("heads", "head_dim", "embed"),
+                    in_dims=2),
     }
 
 
@@ -84,9 +96,9 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
     q, k, v = _pad_seq(q, 0, pq), _pad_seq(k, 0, pkv), _pad_seq(v, 0, pkv)
 
     nq, nk = (sq + pq) // bq, (skv + pkv) // bkv
-    qb = q.reshape(b, nq, bq, nkv, g, hd).float()
-    kb = k.reshape(b, nk, bkv, nkv, hd).float()
-    vb = v.reshape(b, nk, bkv, nkv, hd).float()
+    qb = reshape(q, b, nq, bq, nkv, g, hd).float()
+    kb = reshape(k, b, nk, bkv, nkv, hd).float()
+    vb = reshape(v, b, nk, bkv, nkv, hd).float()
     outs = []
     for i in range(nq):
         qcur, qp = qb[:, i], q_pos[i * bq:(i + 1) * bq]
@@ -106,7 +118,7 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
             m = m_new
         out = acc / torch.clamp(l[..., None], min=1e-30)      # (B,KV,G,bq,hd)
         outs.append(out.permute(0, 3, 1, 2, 4))               # (B,bq,KV,G,hd)
-    out = torch.cat(outs, dim=1).reshape(b, nq * bq, h, hd)
+    out = reshape(torch.cat(outs, dim=1), b, nq * bq, h, hd)
     return out[:, :sq].to(q.dtype)
 
 
@@ -131,7 +143,7 @@ def local_blockwise_attention(q, k, v, *, window: int, q_offset: int = 0,
     kv_pos_pad = torch.cat([
         torch.full((span,), -1, dtype=torch.int32, device=dev),
         torch.arange(s + pq, dtype=torch.int32, device=dev)])
-    qb = q.reshape(b, nq, bq, nkv, g, hd).float()
+    qb = reshape(q, b, nq, bq, nkv, g, hd).float()
     outs = []
     for i in range(nq):
         start = i * bq           # kv span [start - span, start + bq)
@@ -146,7 +158,7 @@ def local_blockwise_attention(q, k, v, *, window: int, q_offset: int = 0,
         s_ = s_ + torch.where(ok, 0.0, NEG_INF).float()
         p = torch.softmax(s_, dim=-1)
         outs.append(torch.einsum("bkgqs,bskd->bqkgd", p, vcur))
-    out = torch.cat(outs, dim=1).reshape(b, nq * bq, h, hd)
+    out = reshape(torch.cat(outs, dim=1), b, nq * bq, h, hd)
     return out[:, :s].to(q.dtype)
 
 
@@ -181,7 +193,7 @@ def decode_attention(q, k_cache, v_cache, kv_positions, *,
     in q's dtype."""
     b, sq, h, hd = q.shape
     nkv = k_cache.shape[2]
-    qg = q.reshape(b, sq, nkv, h // nkv, hd)
+    qg = reshape(q, b, sq, nkv, h // nkv, hd)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
                      k_cache.float()) * hd ** -0.5
     if kv_positions.dim() == 1:
@@ -189,14 +201,15 @@ def decode_attention(q, k_cache, v_cache, kv_positions, *,
     bias = torch.where(kv_positions >= 0, 0.0, NEG_INF)     # (B, S)
     p = torch.softmax(s + bias[:, None, None, None, :], dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.float())
-    return out.reshape(b, sq, h, hd).to(q.dtype)
+    return reshape(out, b, sq, h, hd).to(q.dtype)
 
 
 def project(x, w) -> torch.Tensor:
     """x (K, bs, S, d) @ w (K, d, heads, hd) -> (K*bs, S, heads, hd): the
     model axis folded into the batch."""
     km, bs, s, d = x.shape
-    return matmul(x, w.reshape(km, d, -1)).reshape(km * bs, s, *w.shape[2:])
+    return reshape(matmul(x, reshape(w, km, d, -1)), km * bs, s,
+                   *w.shape[2:])
 
 
 def project_qkv(p, x, cfg: ModelConfig, positions):
@@ -210,13 +223,42 @@ def project_qkv(p, x, cfg: ModelConfig, positions):
 def project_out(p, o, km: int) -> torch.Tensor:
     """o (K*bs, S, H, hd) @ wo (K, H, hd, d) -> (K, bs, S, d)."""
     kb, s, h, hd = o.shape
-    return matmul(o.reshape(km, kb // km * s, h * hd),
-                  p["wo"].reshape(km, h * hd, -1)).reshape(
+    return reshape(matmul(reshape(o, km, kb // km * s, h * hd),
+                          reshape(p["wo"], km, h * hd, -1)),
                       km, kb // km, s, -1)
 
 
+def sharded_attention(fn, q, k, v, ctx=NULL_CTX):
+    """``fn(q, k, v)`` (an attention over (B, S, H, hd) queries and (B, S',
+    KV, hd) keys and values, independent per sequence and head) under
+    ``ctx``: batch and heads laid out by the context's rules (sequence and
+    head_dim whole), ``fn`` on each rank's shards.  Query head h reads kv
+    head h // (H // KV); where q's heads are split over the mesh and k's
+    are not, each rank slices the kv heads of its own groups, and their
+    gradient is a partial sum over the ranks that split q."""
+    if ctx.mesh is None:
+        return fn(q, k, v)
+    q = ctx.constrain(q, Q_KERNEL_AXES)
+    k = ctx.constrain(k, KV_KERNEL_AXES)
+    h, kvh = q.shape[2], k.shape[2]
+    hl, kl = q.to_local().shape[2], k.to_local().shape[2]
+    lo, n = 0, kl
+    if kl * h != kvh * hl:            # q's heads split, k's not
+        g = h // kvh
+        if hl % g and g % hl:
+            raise ValueError(f"{hl} local query heads straddle GQA groups "
+                             f"of {g}")
+        lo, n = ctx.shard_offset(q, 2) // g, max(hl // g, 1)
+
+    def local(ql, kl_, vl):
+        return fn(ql, kl_[:, :, lo:lo + n], vl[:, :, lo:lo + n])
+    return ctx.run_local(local, (q, k, v),
+                         (Q_KERNEL_AXES, KV_KERNEL_AXES, KV_KERNEL_AXES),
+                         outs=(0,))
+
+
 def attention_layer(p, x, cfg: ModelConfig, kind: str, *, q_offset: int = 0,
-                    positions: Optional[torch.Tensor] = None):
+                    positions: Optional[torch.Tensor] = None, ctx=NULL_CTX):
     """A whole attention layer for train / prefill on a stack of K models
     (q/k/v projections, RoPE, attention, output projection): x (K, bs, S,
     d) -> (out (K, bs, S, d), k, v), k and v (K*bs, S, KV, hd) as the cache
@@ -230,18 +272,21 @@ def attention_layer(p, x, cfg: ModelConfig, kind: str, *, q_offset: int = 0,
         positions = q_offset + torch.arange(s, dtype=torch.int32,
                                             device=x.device)[None]
     q, k, v = project_qkv(p, x, cfg, positions)
+    q = ctx.constrain(q, ("batch", "seq", "heads", "head_dim"))
     win = cfg.sliding_window if kind == "local" else 0
     if win and s > win and not q_offset:
-        o = window_attention(q.float(), k.float(), v.float(),
-                             win).to(q.dtype)
+        o = sharded_attention(lambda a, b, c: window_attention(a, b, c, win),
+                              q.float(), k.float(), v.float(), ctx).to(q.dtype)
     elif win and s > win:
-        o = local_blockwise_attention(q, k, v, window=win, q_offset=q_offset)
+        o = sharded_attention(lambda a, b, c: local_blockwise_attention(
+            a, b, c, window=win, q_offset=q_offset), q, k, v, ctx)
     elif cfg.attn_block_skip and not q_offset:
-        o = causal_skip_attention(q, k, v, window=win)
+        o = sharded_attention(lambda a, b, c: causal_skip_attention(
+            a, b, c, window=win), q, k, v, ctx)
     else:
-        o = blockwise_attention(q, k, v, causal=True, window=win,
-                                q_offset=q_offset,
-                                block_q=cfg.attn_block_q or s)
+        o = sharded_attention(lambda a, b, c: blockwise_attention(
+            a, b, c, causal=True, window=win, q_offset=q_offset,
+            block_q=cfg.attn_block_q or s), q, k, v, ctx)
     return project_out(p, o, km), k, v
 
 

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.params import NULL_CTX, param, reshape
 
 ACTS = {
     "silu": F.silu,
@@ -35,8 +36,8 @@ def per_model(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(K, ..., a) @ (K, a, b) -> (K, ..., b): one batched product."""
     k = x.shape[0]
-    out = torch.bmm(x.reshape(k, -1, x.shape[-1]), w)
-    return out.reshape(*x.shape[:-1], w.shape[-1])
+    out = torch.bmm(reshape(x, k, -1, x.shape[-1]), w)
+    return reshape(out, *x.shape[:-1], w.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -46,7 +47,8 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def init_norm(fac, cfg: ModelConfig):
     if cfg.norm_type == "nonparametric":
         return {}
-    return {"scale": fac.param((cfg.d_model,), init="ones")}
+    return {"scale": param(fac, (cfg.d_model,), ("embed",),
+                           init="ones")}
 
 
 def apply_norm(p, x: torch.Tensor, cfg: ModelConfig,
@@ -72,9 +74,9 @@ def apply_norm(p, x: torch.Tensor, cfg: ModelConfig,
 def init_mlp(fac, cfg: ModelConfig, d_ff: Optional[int] = None):
     d_ff = d_ff or cfg.d_ff
     return {
-        "wi_gate": fac.param((cfg.d_model, d_ff)),
-        "wi_up": fac.param((cfg.d_model, d_ff)),
-        "wo": fac.param((d_ff, cfg.d_model)),
+        "wi_gate": param(fac, (cfg.d_model, d_ff), ("embed", "mlp")),
+        "wi_up": param(fac, (cfg.d_model, d_ff), ("embed", "mlp")),
+        "wo": param(fac, (d_ff, cfg.d_model), ("mlp", "embed")),
     }
 
 
@@ -89,19 +91,23 @@ def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def init_embed(fac, cfg: ModelConfig):
     v = pad_vocab(cfg.vocab_size)
-    p = {"table": fac.param((v, cfg.d_model), scale=1.0)}
+    p = {"table": param(fac, (v, cfg.d_model), ("vocab", "embed"),
+                        scale=1.0)}
     if not cfg.tie_embeddings:
-        p["unembed"] = fac.param((cfg.d_model, v))
+        p["unembed"] = param(fac, (cfg.d_model, v), ("embed", "vocab"))
     return p
 
 
-def apply_embed(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """tokens (K, ...) int -> (K, ..., d): model k's table rows."""
-    table = p["table"]
+def apply_embed(p, tokens: torch.Tensor, cfg: ModelConfig,
+                ctx=NULL_CTX) -> torch.Tensor:
+    """tokens (K, ...) int -> (K, ..., d): model k's table rows.  Under a
+    mesh the table is gathered whole first (a row lookup along a sharded
+    vocab is not one that DTensor shards)."""
+    table = ctx.constrain(p["table"], (None, None, "embed"))
     k, v = table.shape[:2]
     base = torch.arange(k, device=tokens.device) * v
     idx = tokens.long() + base.reshape(k, *(1,) * (tokens.dim() - 1))
-    return F.embedding(idx, table.reshape(k * v, table.shape[-1]))
+    return F.embedding(idx, reshape(table, k * v, table.shape[-1]))
 
 
 def apply_unembed(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -10,6 +10,10 @@ ported.  Prefill carries the final conv and scan states out
 (``mamba_block``, the scan's h0 in and h_last out); decode
 (``mamba_decode_step``) is one recurrence step in plain PyTorch, as the
 reference's is plain jnp outside any kernel.
+
+Under a ``ShardCtx`` with a mesh, the scan runs on each rank's local
+shards: sequences over ``data``, channels (``mlp``) over ``model``; the
+recurrence is per channel, so no collective runs inside it.
 """
 from __future__ import annotations
 
@@ -19,6 +23,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
 from repro_torch.models.layers import matmul, per_model
+from repro_torch.models.params import NULL_CTX, param, reshape
+
+# the scan's operands: dt, B, C, x (K*bs, S, .), a (K, di, n), h0
+SCAN_AXES = (("batch", None, "mlp"), ("batch", None, None),
+             ("batch", None, None), ("batch", None, "mlp"),
+             (None, "mlp", None), ("batch", "mlp", None))
 
 
 def d_inner(cfg: ModelConfig) -> int:
@@ -33,16 +43,18 @@ def init_mamba(fac, cfg: ModelConfig):
     d, di, n = cfg.d_model, d_inner(cfg), cfg.ssm_state_dim
     r, w = dt_rank(cfg), cfg.ssm_conv_width
     return {
-        "in_proj": fac.param((d, 2 * di)),
-        "conv_w": fac.param((w, di), scale=0.5),
-        "conv_b": fac.param((di,), init="zeros"),
-        "x_proj": fac.param((di, r + 2 * n)),
-        "dt_proj": fac.param((r, di)),
-        "dt_bias": fac.param((di,), init="constant", scale=-2.0),
+        "in_proj": param(fac, (d, 2 * di), ("embed", "mlp")),
+        "conv_w": param(fac, (w, di), (None, "mlp"), scale=0.5),
+        "conv_b": param(fac, (di,), ("mlp",), init="zeros"),
+        "x_proj": param(fac, (di, r + 2 * n), ("mlp", None)),
+        "dt_proj": param(fac, (r, di), (None, "mlp")),
+        "dt_bias": param(fac, (di,), ("mlp",), init="constant",
+                         scale=-2.0),
         # log(-A): A = -exp(a_log)
-        "a_log": fac.param((di, n), init="uniform", scale=1.5),
-        "d_skip": fac.param((di,), init="ones"),
-        "out_proj": fac.param((di, d)),
+        "a_log": param(fac, (di, n), ("mlp", None), init="uniform",
+                       scale=1.5),
+        "d_skip": param(fac, (di,), ("mlp",), init="ones"),
+        "out_proj": param(fac, (di, d), ("mlp", "embed")),
     }
 
 
@@ -69,7 +81,11 @@ def _ssm_params(p, x, cfg: ModelConfig):
     return dt, b_, c_
 
 
-def mamba_scan(p, x, cfg: ModelConfig, h0=None):
+def _scan_local(dt, b_, c_, x, a, h0):
+    return ssm_scan(*(t.contiguous() for t in (dt, b_, c_, x, a, h0)))
+
+
+def mamba_scan(p, x, cfg: ModelConfig, h0=None, ctx=NULL_CTX):
     """Selective scan over post-conv activations x (K, bs, S, di).
     Returns (y (K, bs, S, di), h_last (K, bs, di, n))."""
     if cfg.ssm_chunk_dtype != "float32":
@@ -84,25 +100,26 @@ def mamba_scan(p, x, cfg: ModelConfig, h0=None):
         h0 = torch.zeros((k * bs, di, n), dtype=torch.float32,
                          device=x.device)
     else:
-        h0 = h0.reshape(k * bs, di, n).float().contiguous()
+        h0 = reshape(h0, k * bs, di, n).float().contiguous()
 
     def seqs(t):
-        return t.float().reshape(k * bs, s, t.shape[-1]).contiguous()
-    y, h_last = ssm_scan(seqs(dt), seqs(b_), seqs(c_), seqs(x),
-                         a.contiguous(), h0)
-    y = y.reshape(k, bs, s, di) + x.float() * per_model(
+        return reshape(t.float(), k * bs, s, t.shape[-1]).contiguous()
+    y, h_last = ctx.run_local(_scan_local, (seqs(dt), seqs(b_), seqs(c_),
+                                            seqs(x), a, h0),
+                              SCAN_AXES, outs=(0, 5))
+    y = reshape(y, k, bs, s, di) + x.float() * per_model(
         p["d_skip"].float(), x)
-    return y.to(x.dtype), h_last.reshape(k, bs, di, n)
+    return y.to(x.dtype), reshape(h_last, k, bs, di, n)
 
 
-def mamba_block(p, x, cfg: ModelConfig, state=None):
+def mamba_block(p, x, cfg: ModelConfig, state=None, ctx=NULL_CTX):
     """Full block (training and prefill form). x: (K, bs, S, d).  state =
     (conv_state (K, bs, w-1, di), h (K, bs, di, n)) or None (zeros).
     Returns (y, (conv_state, h_last))."""
     conv_state, h0 = state if state is not None else (None, None)
     xin, z = torch.chunk(matmul(x, p["in_proj"]), 2, dim=-1)
     xc, new_conv = _conv1d_causal(xin, p["conv_w"], p["conv_b"], conv_state)
-    y, h_last = mamba_scan(p, F.silu(xc), cfg, h0=h0)
+    y, h_last = mamba_scan(p, F.silu(xc), cfg, h0=h0, ctx=ctx)
     y = y * F.silu(z)
     return matmul(y, p["out_proj"]), (new_conv, h_last)
 

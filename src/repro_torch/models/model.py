@@ -4,21 +4,24 @@ and the LMs (``repro.models.model``).
 ``init_params(cfg, seed, device)``   -> parameter tree (real tensors)
 ``abstract_params(cfg, dtype)``      -> the same tree on the ``meta``
                                         device (shapes, no memory)
-``loss_fn(cfg, remat)(params, batch)`` -> (loss, metrics) for one model
+``param_axes(cfg)``                  -> the same tree of logical-axis
+                                        tuples (LM families)
+``loss_fn(cfg, remat, ctx)(params, batch)`` -> (loss, metrics) for one
+                                        model
 ``stacked_loss_fn(cfg)(params, b)``  -> (K,) losses of a stack of K models
 ``predict_fn(cfg)(params, batch)``   -> logits of one model
 ``stacked_predict_fn(cfg)``          -> logits of a stack of K models
-``prefill_fn(cfg, max_len)``, ``decode_fn(cfg)``, ``init_cache`` for
-serving one model.
+``prefill_fn(cfg, ctx, max_len)``, ``decode_fn(cfg, ctx)``,
+``init_cache`` for serving one model.
 
 An LM batch is ``{"tokens": (.., bs, S), "labels": (.., bs, S)}`` with -100
 labels ignored, plus ``patches`` (vlm) or ``frames`` (audio) embeddings.
 ``loss_fn`` checkpoints each superblock by default (``remat="block"``, the
 reference's default); ``stacked_loss_fn``, which the federated simulator's
 small stacks train through, and ``predict_fn`` keep every activation
-(``remat="none"``).  The reference's mesh-sharding context (``ctx``) and
-its logical-axis tree (``param_axes``) have no counterpart: both only lay
-out a TPU pod's sharding.
+(``remat="none"``).  ``ctx`` (``transformer.ShardCtx``) lays a one-model
+step out on a device mesh; its params and batch are then DTensors
+(``launch.shardings``), and the loss runs under ``ctx.scope()``.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.kernels import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.cnn import cnn_forward, cnn_forward_stacked, init_cnn
-from repro_torch.models.params import Device, RealInit, ShapeOnly
+from repro_torch.models.params import (NULL_CTX, AxesOnly, Device, RealInit,
+                                       ShapeOnly)
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -67,6 +71,16 @@ def abstract_params(cfg: ModelConfig, dtype=None):
                                               device="meta"),
                         init_cnn(cfg, gen))
     return tfm.init_lm(ShapeOnly(dtype), cfg)
+
+
+def param_axes(cfg: ModelConfig):
+    """The parameter tree's logical-axis tuples, in the reference's keys
+    (``repro.models.param_axes``).  The CNN (the paper's simulator model,
+    never laid out on a mesh) has none here."""
+    if cfg.family == "cnn":
+        raise ValueError("param_axes covers the LM families")
+    tfm.check_kinds(cfg)
+    return tfm.init_lm(AxesOnly(), cfg)
 
 
 def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -113,9 +127,10 @@ def _one(params, batch):
             {k: v.unsqueeze(0) for k, v in batch.items()})
 
 
-def loss_fn(cfg: ModelConfig, remat: str = "block"):
+def loss_fn(cfg: ModelConfig, remat: str = "block", ctx=NULL_CTX):
     """Returns fn(params, batch) -> (loss, metrics) for one model;
-    ``remat`` as ``transformer.forward_train`` takes it."""
+    ``remat`` as ``transformer.forward_train`` takes it, ``ctx`` its
+    sharding context (the LM families)."""
     _check_family(cfg)
     if cfg.family == "cnn":
         def cnn_loss(params, batch):
@@ -127,9 +142,13 @@ def loss_fn(cfg: ModelConfig, remat: str = "block"):
         return cnn_loss
 
     def lm_loss(params, batch):
-        p1, b1 = _one(params, batch)
-        logits, aux = tfm.forward_train(p1, cfg, b1, remat=remat)
-        loss = _xent(logits, b1["labels"])[0] + aux[0]
+        with ctx.scope():
+            p1, b1 = _one(params, batch)
+            logits, aux = tfm.forward_train(p1, cfg, b1, remat=remat,
+                                            ctx=ctx)
+            # the gold logit is gathered along the vocab: whole on a rank
+            logits = ctx.constrain(logits, (None, "batch", "seq", None))
+            loss = _xent(logits, b1["labels"])[0] + aux[0]
         return loss, {"loss": loss, "aux": aux[0]}
     return lm_loss
 
@@ -175,24 +194,28 @@ def _drop_model_axis(cache):
                for k in ("stack", "rem")}}
 
 
-def prefill_fn(cfg: ModelConfig, max_len: Optional[int] = None):
+def prefill_fn(cfg: ModelConfig, ctx=NULL_CTX,
+               max_len: Optional[int] = None):
     """fn(params, batch) -> (last-token logits (B, 1, V), cache) of one
     model; the cache holds ``max(max_len, prompt)`` positions."""
     def prefill(params, batch):
-        p1, b1 = _one(params, batch)
-        logits, cache = tfm.forward_prefill(p1, cfg, b1, max_len=max_len)
+        with ctx.scope():
+            p1, b1 = _one(params, batch)
+            logits, cache = tfm.forward_prefill(p1, cfg, b1, ctx,
+                                                max_len=max_len)
         return logits[0], _drop_model_axis(cache)
     return prefill
 
 
-def decode_fn(cfg: ModelConfig):
+def decode_fn(cfg: ModelConfig, ctx=NULL_CTX):
     """fn(params, tokens (B, 1), cache) -> (logits (B, 1, V), cache): the
     cache's tensors are written in place (the reference donates its cache
     to the jitted step) and returned with the next ``pos``."""
     def step(params, tokens, cache):
-        logits, new = tfm.forward_decode(
-            tree_map(lambda v: v.unsqueeze(0), params), cfg,
-            tokens.unsqueeze(0), _lift_cache(cache))
+        with ctx.scope():
+            logits, new = tfm.forward_decode(
+                tree_map(lambda v: v.unsqueeze(0), params), cfg,
+                tokens.unsqueeze(0), _lift_cache(cache), ctx)
         return logits[0], _drop_model_axis(new)
     return step
 

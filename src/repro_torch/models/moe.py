@@ -17,6 +17,10 @@ products (E, C, N, d) x (E, d, f) are batched over K and E.
 On CUDA, ``gather``'s backward (``scatter_add``) adds in an order that may
 change between runs, so its gradients match the ``einsum`` form's within
 rounding, not bit for bit.
+
+Under a ``ShardCtx`` with a mesh the token groups (``moe_group``) and the
+experts' buffers (``expert``, ``moe_group``) are laid out at the
+reference's six constraint points.
 """
 from __future__ import annotations
 
@@ -25,6 +29,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ACTS, matmul
+from repro_torch.models.params import NULL_CTX, param, reshape
+
+GROUP_AXES = (None, "moe_group", None, None)           # (K, N, ., d)
+BUF_AXES = (None, "expert", None, "moe_group", None)   # (K, E, C, N, d)
+EXPERT_W_AXES = (None, "expert", None, None)           # (K, E, ., .)
 
 
 def init_moe(fac, cfg: ModelConfig):
@@ -33,10 +42,12 @@ def init_moe(fac, cfg: ModelConfig):
     ``fan_in`` arguments."""
     d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
     return {
-        "router": fac.param((d, e)),
-        "wi_gate": fac.param((e, d, f), fan_in=d),
-        "wi_up": fac.param((e, d, f), fan_in=d),
-        "wo": fac.param((e, f, d), fan_in=f),
+        "router": param(fac, (d, e), ("embed", "expert_router")),
+        "wi_gate": param(fac, (e, d, f), ("expert", "embed", "mlp"),
+                         fan_in=d),
+        "wi_up": param(fac, (e, d, f), ("expert", "embed", "mlp"),
+                       fan_in=d),
+        "wo": param(fac, (e, f, d), ("expert", "mlp", "embed"), fan_in=f),
     }
 
 
@@ -60,8 +71,8 @@ def _route(p, xg, cfg: ModelConfig, cap: int):
     gate_vals, expert_idx = srt[..., :k], order[..., :k]      # (K,N,T,k)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
     onehot = F.one_hot(expert_idx, e).float()                 # (K,N,T,k,E)
-    flat = onehot.reshape(km, n, g * k, e)                    # token-major
-    pos = (torch.cumsum(flat, dim=2) - 1.0).reshape(km, n, g, k, e)
+    flat = reshape(onehot, km, n, g * k, e)                    # token-major
+    pos = reshape(torch.cumsum(flat, dim=2) - 1.0, km, n, g, k, e)
     pos_in_expert = (pos * onehot).sum(-1).to(torch.int32)    # (K,N,T,k)
     keep = pos_in_expert < cap
     me = probs.mean(dim=(1, 2))                               # (K,E)
@@ -70,15 +81,24 @@ def _route(p, xg, cfg: ModelConfig, cap: int):
     return gate_vals, expert_idx, pos_in_expert, keep, onehot, aux
 
 
-def _experts(p, expert_in, cfg: ModelConfig):
-    """The experts' gated MLPs: (K, E, C, N, d) -> (K, E, C, N, d)."""
+def _experts(p, expert_in, cfg: ModelConfig, ctx=NULL_CTX):
+    """The experts' gated MLPs: (K, E, C, N, d) -> (K, E, C, N, d).  On a
+    mesh they run on each rank's shards (``ctx.run_local``): its experts
+    (``expert``) and token groups (``moe_group``), with those experts'
+    weights whole (FSDP's shards of d and any split of f gathered, as
+    FSDP gathers at use); an expert's MLP is per group, so nothing is
+    communicated inside."""
     act = ACTS[cfg.act]
-    h = act(torch.einsum("mecnd,medf->mecnf", expert_in, p["wi_gate"])) * \
-        torch.einsum("mecnd,medf->mecnf", expert_in, p["wi_up"])
-    return torch.einsum("mecnf,mefd->mecnd", h, p["wo"])
+
+    def mlp(xin, wi_gate, wi_up, wo):
+        h = act(torch.einsum("mecnd,medf->mecnf", xin, wi_gate)) * \
+            torch.einsum("mecnd,medf->mecnf", xin, wi_up)
+        return torch.einsum("mecnf,mefd->mecnd", h, wo)
+    return ctx.run_local(mlp, (expert_in, p["wi_gate"], p["wi_up"], p["wo"]),
+                         (BUF_AXES,) + (EXPERT_W_AXES,) * 3, outs=(0,))
 
 
-def _moe_einsum(p, xg, cfg: ModelConfig, cap: int):
+def _moe_einsum(p, xg, cfg: ModelConfig, cap: int, ctx=NULL_CTX):
     """One-hot dispatch: (K, N, T, E, C) dispatch and combine tensors, the
     choice axis contracted inside the einsums."""
     cdt = getattr(torch, cfg.compute_dtype)
@@ -93,12 +113,13 @@ def _moe_einsum(p, xg, cfg: ModelConfig, cap: int):
                              gate_vals.to(cdt))
     expert_in = torch.einsum("mntec,mntd->mecnd", dispatch_t,
                              xg.to(cdt))                      # (K,E,C,N,d)
-    expert_out = _experts(p, expert_in, cfg)
+    expert_in = ctx.constrain(expert_in, BUF_AXES)
+    expert_out = ctx.constrain(_experts(p, expert_in, cfg, ctx), BUF_AXES)
     yg = torch.einsum("mntec,mecnd->mntd", combine_t, expert_out)
     return yg, aux
 
 
-def _moe_gather(p, xg, cfg: ModelConfig, cap: int):
+def _moe_gather(p, xg, cfg: ModelConfig, cap: int, ctx=NULL_CTX):
     """Index dispatch: each buffer slot gathers its token, each (token,
     choice) gathers its slot's output.  Routing is ``_route``'s."""
     e, k = cfg.num_experts, cfg.experts_per_token
@@ -114,25 +135,31 @@ def _moe_gather(p, xg, cfg: ModelConfig, cap: int):
     # writes the pad column E*C (in any order): it is cut off, never read.
     src = torch.full((km, n, e * cap + 1), g, dtype=torch.long,
                      device=xg.device)
-    src.scatter_(2, slot.reshape(km, n, g * k), tok_ids.reshape(km, n, g * k))
+    src.scatter_(2, reshape(slot, km, n, g * k),
+                 reshape(tok_ids, km, n, g * k))
     buf_tok = src[..., :e * cap]                              # (K,N,E*C)
     xg_pad = torch.cat([xg.to(cdt), xg.new_zeros((km, n, 1, d), dtype=cdt)],
                        dim=2)
     expert_in = torch.gather(xg_pad, 2,
                              buf_tok[..., None].expand(km, n, e * cap, d))
-    expert_in = expert_in.reshape(km, n, e, cap, d).permute(0, 2, 3, 1, 4)
-    expert_out = _experts(p, expert_in, cfg)                  # (K,E,C,N,d)
-    flat_out = expert_out.permute(0, 3, 1, 2, 4).reshape(km, n, e * cap, d)
+    expert_in = reshape(expert_in, km, n, e, cap, d).permute(0, 2, 3, 1, 4)
+    expert_in = ctx.constrain(expert_in, BUF_AXES)
+    expert_out = ctx.constrain(_experts(p, expert_in, cfg, ctx),
+                               BUF_AXES)                      # (K,E,C,N,d)
+    flat_out = reshape(expert_out.permute(0, 3, 1, 2, 4), km, n, e * cap, d)
+    flat_out = ctx.constrain(flat_out, GROUP_AXES)
     flat_out = torch.cat([flat_out, flat_out.new_zeros((km, n, 1, d))],
                          dim=2)
-    picked = torch.gather(flat_out, 2, slot.reshape(km, n, g * k)[..., None]
-                          .expand(km, n, g * k, d)).reshape(km, n, g, k, d)
+    picked = reshape(torch.gather(
+        flat_out, 2, reshape(slot, km, n, g * k)[..., None].expand(
+            km, n, g * k, d)), km, n, g, k, d)
     yg = torch.einsum("mntj,mntjd->mntd",
                       gate_vals.to(cdt) * keep.to(cdt), picked)
     return yg, aux
 
 
-def apply_moe(p, x, cfg: ModelConfig, *, group_size: int = 512):
+def apply_moe(p, x, cfg: ModelConfig, *, group_size: int = 512,
+              ctx=NULL_CTX):
     """x (K, bs, S, d) -> (y (K, bs, S, d), aux (K,))."""
     km, b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
@@ -140,9 +167,9 @@ def apply_moe(p, x, cfg: ModelConfig, *, group_size: int = 512):
     pad = (-s) % g
     xp = F.pad(x, (0, 0, 0, pad)) if pad else x
     ng = (s + pad) // g
-    xg = xp.reshape(km, b * ng, g, d)                         # (K,N,T,d)
+    xg = ctx.constrain(reshape(xp, km, b * ng, g, d), GROUP_AXES)  # (K,N,T,d)
     cap = max(int(g * k / e * cfg.moe_capacity_factor), 4)
     impl = _moe_gather if cfg.moe_impl == "gather" else _moe_einsum
-    yg, aux = impl(p, xg, cfg, cap)
-    y = yg.reshape(km, b, s + pad, d)[:, :, :s].to(x.dtype)
+    yg, aux = impl(p, xg, cfg, cap, ctx)
+    y = reshape(yg, km, b, s + pad, d)[:, :, :s].to(x.dtype)
     return y, aux

@@ -11,6 +11,10 @@ final state out.  The reference's chunk-parallel XLA form (``wkv_scan``)
 is not ported.  Decode (``time_mix_step``, which ``rwkv_block`` picks for
 a one-token sequence, as the reference's does) is the O(N^2) single-step
 recurrence in plain PyTorch, as the reference's is plain jnp.
+
+Under a ``ShardCtx`` with a mesh, the recurrence runs on each rank's
+local shards: sequences over ``data``, heads over ``model``; it is per
+head, so no collective runs inside it.
 """
 from __future__ import annotations
 
@@ -20,8 +24,17 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.wkv.ops import wkv
 from repro_torch.models.layers import matmul, per_model
+from repro_torch.models.params import NULL_CTX, param, reshape
 
 LORA_DIM = 64
+SEQ_AXES = ("batch", None, "heads", None)        # r, k, v, lw (B, S, H, N)
+# the recurrence's operands: r, k, v, lw, u (K, H, N), h0 (B, H, N, N)
+WKV_AXES = (SEQ_AXES,) * 4 + ((None, "heads", None),
+                              ("batch", "heads", None, None))
+
+
+def _wkv_local(r, k, v, lw, u, h0):
+    return wkv(*(t.contiguous() for t in (r, k, v, lw, u, h0)))
 
 
 def rwkv_heads(cfg: ModelConfig):
@@ -34,24 +47,28 @@ def init_rwkv(fac, cfg: ModelConfig):
     d, f = cfg.d_model, cfg.d_ff
     return {
         # time-mix
-        "mu": fac.param((5, d), init="uniform", scale=1.0),
-        "w_base": fac.param((d,), init="constant", scale=0.5),
-        "w_lora_a": fac.param((d, LORA_DIM), scale=0.1),
-        "w_lora_b": fac.param((LORA_DIM, d), scale=0.1),
-        "u": fac.param((d,), init="uniform", scale=0.5),
-        "wr": fac.param((d, d)),
-        "wk": fac.param((d, d)),
-        "wv": fac.param((d, d)),
-        "wg": fac.param((d, d)),
-        "wo": fac.param((d, d)),
-        "ln_x_scale": fac.param((d,), init="ones"),
-        "ln_x_bias": fac.param((d,), init="zeros"),
+        "mu": param(fac, (5, d), (None, "embed"), init="uniform",
+                    scale=1.0),
+        "w_base": param(fac, (d,), ("embed",), init="constant",
+                        scale=0.5),
+        "w_lora_a": param(fac, (d, LORA_DIM), ("embed", None), scale=0.1),
+        "w_lora_b": param(fac, (LORA_DIM, d), (None, "embed"), scale=0.1),
+        "u": param(fac, (d,), ("embed",), init="uniform", scale=0.5),
+        "wr": param(fac, (d, d), ("embed", "heads_flat")),
+        "wk": param(fac, (d, d), ("embed", "heads_flat")),
+        "wv": param(fac, (d, d), ("embed", "heads_flat")),
+        "wg": param(fac, (d, d), ("embed", "heads_flat")),
+        "wo": param(fac, (d, d), ("heads_flat", "embed")),
+        "ln_x_scale": param(fac, (d,), ("embed",), init="ones"),
+        "ln_x_bias": param(fac, (d,), ("embed",), init="zeros"),
         # channel-mix
-        "mu_ck": fac.param((d,), init="uniform", scale=1.0),
-        "mu_cr": fac.param((d,), init="uniform", scale=1.0),
-        "ck": fac.param((d, f)),
-        "cv": fac.param((f, d)),
-        "cr": fac.param((d, d)),
+        "mu_ck": param(fac, (d,), ("embed",), init="uniform",
+                       scale=1.0),
+        "mu_cr": param(fac, (d,), ("embed",), init="uniform",
+                       scale=1.0),
+        "ck": param(fac, (d, f), ("embed", "mlp")),
+        "cv": param(fac, (f, d), ("mlp", "embed")),
+        "cr": param(fac, (d, d), ("embed", "heads_flat")),
     }
 
 
@@ -79,12 +96,13 @@ def _headnorm(p, y, cfg: ModelConfig):
     y32 = y.float()
     mu = y32.mean(-1, keepdim=True)
     var = torch.square(y32 - mu).mean(-1, keepdim=True)
-    yn = ((y32 - mu) * torch.rsqrt(var + 1e-5)).flatten(-2)
+    yn = (y32 - mu) * torch.rsqrt(var + 1e-5)
+    yn = reshape(yn, *yn.shape[:-2], -1)
     return yn * per_model(p["ln_x_scale"].float(), yn) \
         + per_model(p["ln_x_bias"].float(), yn)
 
 
-def time_mix(p, x, cfg: ModelConfig, state):
+def time_mix(p, x, cfg: ModelConfig, state, ctx=NULL_CTX):
     """x: (K, bs, S, d).  state = (shift_prev (K, bs, d), h (K, bs, H, N,
     N)).  Returns (y, (x[..., -1, :], h_last))."""
     h, n = rwkv_heads(cfg)
@@ -95,18 +113,19 @@ def time_mix(p, x, cfg: ModelConfig, state):
     xr, xk, xv, xg, xw = (_mix(x, xs, m) for m in mu)
 
     def heads(t):
-        return t.float().reshape(km * bs, s, h, n).contiguous()
+        return reshape(t.float(), km * bs, s, h, n).contiguous()
     r = heads(matmul(xr, p["wr"]))
     k = heads(matmul(xk, p["wk"])) * (n ** -0.5)
     v = heads(matmul(xv, p["wv"]))
     g = F.silu(matmul(xg, p["wg"]))
     lw = heads(_log_decay(p, xw))
-    u = p["u"].float().reshape(km, h, n).contiguous()
-    h0 = hstate.float().reshape(km * bs, h, n, n).contiguous()
-    y, h_new = wkv(r, k, v, lw, u, h0)
-    y = _headnorm(p, y.reshape(km, bs, s, h, n), cfg).to(x.dtype) * g
+    u = reshape(p["u"].float(), km, h, n).contiguous()
+    h0 = reshape(hstate.float(), km * bs, h, n, n).contiguous()
+    y, h_new = ctx.run_local(_wkv_local, (r, k, v, lw, u, h0), WKV_AXES,
+                             outs=(0, 5))
+    y = _headnorm(p, reshape(y, km, bs, s, h, n), cfg).to(x.dtype) * g
     return matmul(y, p["wo"]), (x[..., -1, :],
-                                h_new.reshape(km, bs, h, n, n))
+                                reshape(h_new, km, bs, h, n, n))
 
 
 def time_mix_step(p, x, cfg: ModelConfig, state):
@@ -144,13 +163,17 @@ def channel_mix(p, x, cfg: ModelConfig, prev):
         x[..., -1, :]
 
 
-def rwkv_block(p, x, cfg: ModelConfig, state, norm_fn):
+def rwkv_block(p, x, cfg: ModelConfig, state, norm_fn, ctx=NULL_CTX):
     """Full RWKV layer: ln -> time-mix -> residual -> ln -> channel-mix;
     a one-token x takes the decode step.  state = (tm_prev, h, cm_prev);
     ``norm_fn(i, x)`` applies the stack's i-th pre-norm."""
     tm_prev, hstate, cm_prev = state
-    mix = time_mix_step if x.shape[-2] == 1 else time_mix
-    a, (tm_prev2, h2) = mix(p, norm_fn(0, x), cfg, (tm_prev, hstate))
+    if x.shape[-2] == 1:
+        a, (tm_prev2, h2) = time_mix_step(p, norm_fn(0, x), cfg,
+                                          (tm_prev, hstate))
+    else:
+        a, (tm_prev2, h2) = time_mix(p, norm_fn(0, x), cfg,
+                                     (tm_prev, hstate), ctx)
     x = x + a
     bmix, cm_prev2 = channel_mix(p, norm_fn(1, x), cfg, cm_prev)
     x = x + bmix

@@ -19,8 +19,18 @@ runs with grad enabled, so the ``ssm_scan``, ``wkv`` and
 ``window_attention`` wrappers launch their training forwards (the
 recurrences with checkpoints of the state) twice a step, once in the
 forward and once in the recompute, and ``kernels.LAUNCHES`` counts both.
-Remat changes no number: the recompute is the same arithmetic.  The
-reference's mesh-sharding context has no counterpart here.
+Remat changes no number: the recompute is the same arithmetic.
+
+``ctx`` (``ShardCtx``, defined in ``models.params``; ``NULL_CTX`` does
+nothing) lays the activations out on a device mesh at the reference's
+constraint points: the stack's input and each layer's output (batch, seq,
+embed), the queries (batch, seq, heads, head_dim), the logits (batch,
+seq, vocab), each encoder layer's output, and a decode step's keys and
+values (batch, kvseq, kv_heads, head_dim); the model axis K leads as an
+unconstrained dim.  The weights are DTensors laid out by
+``launch.shardings.param_shardings``; the forward and backward then run
+on DTensors under ``ctx.scope()``, and the kernels on each rank's local
+shards (``ctx.run_local``).
 
 Layer kinds: ``global`` and ``local`` (sliding-window) attention and
 ``mamba``, each with a dense or an MoE FFN (``cfg.ffn_is_moe``), and
@@ -69,6 +79,9 @@ from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.models.layers import (apply_embed, apply_mlp, apply_norm,
                                        apply_unembed, init_embed, init_mlp,
                                        init_norm, matmul)
+from repro_torch.models.params import NULL_CTX, ShardCtx, param  # noqa: F401
+
+X_AXES = (None, "batch", "seq", "embed")      # (K, bs, S, d) activations
 
 KINDS = ("global", "local", "mamba", "rwkv")
 REMAT = ("none", "block", "full")     # block and full: one checkpoint a
@@ -94,19 +107,23 @@ def pattern_info(cfg: ModelConfig) -> Tuple[int, int, int]:
 
 
 class _Stacked:
-    """Wraps a factory, prepending a (n,) 'layers' dim to every param.  A
-    normal leaf's fan_in comes from the unstacked shape, as the
-    reference's ``_Stacked`` computes it."""
+    """Wraps a factory, prepending a (n,) 'layers' dim (logical axis
+    ``layers``) to every param.  A normal leaf's fan_in comes from the
+    unstacked shape, as the reference's ``_Stacked`` computes it."""
+
+    reads_axes = True
 
     def __init__(self, fac, n: int):
         self.fac, self.n = fac, n
 
-    def param(self, shape, init="normal", scale=1.0, in_dims=1, fan_in=None):
+    def param(self, shape, axes, init="normal", scale=1.0, in_dims=1,
+              fan_in=None):
         if fan_in is None and init == "normal":
             fan_in = (int(np.prod(shape[:in_dims])) if len(shape) > 1
                       else max(shape[-1], 1))
-        return self.fac.param((self.n,) + tuple(shape), init=init,
-                              scale=scale, fan_in=fan_in)
+        return param(self.fac, (self.n,) + tuple(shape),
+                     ("layers",) + tuple(axes), init=init, scale=scale,
+                     fan_in=fan_in)
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +157,8 @@ def init_lm(fac, cfg: ModelConfig):
     cross = cfg.family == "audio"
     params: Dict[str, Any] = {"embed": init_embed(fac, cfg)}
     if cfg.frontend:
-        params["frontend_proj"] = fac.param((cfg.d_model, cfg.d_model))
+        params["frontend_proj"] = param(fac, (cfg.d_model, cfg.d_model),
+                                        ("embed", "mlp"))
     stack: Dict[str, Any] = {}
     if n_full:
         sfac = _Stacked(fac, n_full)
@@ -240,21 +258,25 @@ def _full_positions(cache_slots: int, pos):
 # Block application
 # ---------------------------------------------------------------------------
 
-def _apply_ffn(p, x, cfg: ModelConfig, is_moe: bool):
+def _apply_ffn(p, x, cfg: ModelConfig, is_moe: bool, ctx=NULL_CTX):
     """The dense or MoE FFN: x (K, bs, S, d) -> (y, aux (K,))."""
     if is_moe:
-        y, aux = apply_moe(p, x, cfg)
+        y, aux = apply_moe(p, x, cfg, ctx=ctx)
         return y, aux.float()
     return apply_mlp(p, x, cfg), x.new_zeros((x.shape[0],),
                                              dtype=torch.float32)
 
 
-def _cross_attention(p, h, memory, cfg: ModelConfig):
+def _unmasked(q, k, v):
+    return attn.blockwise_attention(q, k, v, causal=False)
+
+
+def _cross_attention(p, h, memory, cfg: ModelConfig, ctx=NULL_CTX):
     """The audio decoder's attention over the encoder's memory (K, bs, F,
     d), unmasked, without RoPE."""
-    o = attn.blockwise_attention(attn.project(h, p["wq"]),
-                                 attn.project(memory, p["wk"]),
-                                 attn.project(memory, p["wv"]), causal=False)
+    o = attn.sharded_attention(_unmasked, attn.project(h, p["wq"]),
+                               attn.project(memory, p["wk"]),
+                               attn.project(memory, p["wv"]), ctx)
     return attn.project_out(p, o, h.shape[0])
 
 
@@ -267,7 +289,8 @@ def _rwkv_norms(p, cfg: ModelConfig):
 
 
 def apply_block_train(p, x, cfg: ModelConfig, kind: str, pat_idx: int,
-                      memory=None, positions=None, want_kv: bool = False):
+                      ctx=NULL_CTX, memory=None, positions=None,
+                      want_kv: bool = False):
     """One layer in train or prefill mode: x (K, bs, S, d) -> (x, aux (K,),
     kv).  ``memory``: the encoder's output, read by cross-attention;
     ``positions``: RoPE positions (default 0..S-1).  With ``want_kv``, kv is
@@ -282,41 +305,41 @@ def apply_block_train(p, x, cfg: ModelConfig, kind: str, pat_idx: int,
         h0 = torch.zeros((km, bs, hh, nn, nn), dtype=torch.float32,
                          device=x.device)
         x, state = rw.rwkv_block(p["rwkv"], x, cfg, (prev, h0, prev),
-                                 _rwkv_norms(p, cfg))
+                                 _rwkv_norms(p, cfg), ctx=ctx)
         if want_kv:
             kv = dict(zip(_RWKV_STATE, state))
-        return x, aux, kv
+        return ctx.constrain(x, X_AXES), aux, kv
     h = apply_norm(p["ln1"], x, cfg)
     if kind in ("global", "local"):
         o, k, v = attn.attention_layer(p["attn"], h, cfg, kind,
-                                         positions=positions)
+                                       positions=positions, ctx=ctx)
         x = x + o
         if want_kv:
             kv = (k, v)
         if memory is not None:
             x = x + _cross_attention(p["xattn"], apply_norm(p["lnx"], x, cfg),
-                                     memory, cfg)
+                                     memory, cfg, ctx)
     elif kind == "mamba":
-        y, (conv, h_last) = mb.mamba_block(p["mamba"], h, cfg)
+        y, (conv, h_last) = mb.mamba_block(p["mamba"], h, cfg, ctx=ctx)
         x = x + y
         if want_kv:           # prefill: the final (conv, ssm) states
             kv = {"conv": conv, "h": h_last}
     else:                     # check_kinds has refused the others
         raise ValueError(kind)
     y, aux = _apply_ffn(p["ffn"], apply_norm(p["ln2"], x, cfg), cfg,
-                        cfg.ffn_is_moe(pat_idx))
-    return x + y, aux, kv
+                        cfg.ffn_is_moe(pat_idx), ctx)
+    return ctx.constrain(x + y, X_AXES), aux, kv
 
 
 def apply_block_decode(p, x, cfg: ModelConfig, kind: str, pat_idx: int,
-                       cache, pos):
+                       cache, pos, ctx=NULL_CTX):
     """One-token decode of one layer: x (K, B, 1, d); ``cache`` this layer's
     leaves (K, B, ...), written in place; ``pos`` the 0-d position of the
     token.  Returns (x, cache)."""
     if kind == "rwkv":        # one token: rwkv_block takes time_mix_step
         x, state = rw.rwkv_block(p["rwkv"], x, cfg,
                                  tuple(cache[n] for n in _RWKV_STATE),
-                                 _rwkv_norms(p, cfg))
+                                 _rwkv_norms(p, cfg), ctx=ctx)
         for name, val in zip(_RWKV_STATE, state):
             cache[name].copy_(val)
         return x, cache
@@ -335,6 +358,8 @@ def apply_block_decode(p, x, cfg: ModelConfig, kind: str, pat_idx: int,
         for name, val in (("k", k), ("v", v)):
             cache[name].index_copy_(2, slot, val.reshape(
                 km, bs, *val.shape[1:]).to(cache[name].dtype))
+            cache[name] = ctx.constrain(cache[name], (
+                None, "batch", "kvseq", "kv_heads", "head_dim"))
         o = attn.decode_attention(
             q, cache["k"].flatten(0, 1), cache["v"].flatten(0, 1), kv_pos,
             window=cfg.sliding_window if kind == "local" else 0)
@@ -355,7 +380,7 @@ def apply_block_decode(p, x, cfg: ModelConfig, kind: str, pat_idx: int,
     else:                     # check_kinds has refused the others
         raise ValueError(kind)
     y, _aux = _apply_ffn(p["ffn"], apply_norm(p["ln2"], x, cfg), cfg,
-                         cfg.ffn_is_moe(pat_idx))
+                         cfg.ffn_is_moe(pat_idx), ctx)
     return x + y, cache
 
 
@@ -397,7 +422,7 @@ def _frontend_prefix(params, cfg: ModelConfig, batch):
     return None
 
 
-def encode_audio(params, cfg: ModelConfig, frames):
+def encode_audio(params, cfg: ModelConfig, frames, ctx=NULL_CTX):
     """Bidirectional encoder over the (stub) post-conv frame embeddings:
     frames (K, B, F, d) -> memory (K, B, F, d)."""
     x = matmul(frames, params["frontend_proj"])
@@ -406,39 +431,44 @@ def encode_audio(params, cfg: ModelConfig, frames):
         p = params["encoder"][f"e{j}"]
         h = apply_norm(p["ln1"], x, cfg)
         pa = p["attn"]
-        o = attn.blockwise_attention(attn.project(h, pa["wq"]),
-                                     attn.project(h, pa["wk"]),
-                                     attn.project(h, pa["wv"]), causal=False)
+        o = attn.sharded_attention(_unmasked, attn.project(h, pa["wq"]),
+                                   attn.project(h, pa["wk"]),
+                                   attn.project(h, pa["wv"]), ctx)
         x = x + attn.project_out(pa, o, km)
         x = x + apply_mlp(p["ffn"], apply_norm(p["ln2"], x, cfg), cfg)
+        x = ctx.constrain(x, X_AXES)
     return apply_norm(params["enc_ln"], x, cfg)
 
 
-def _inputs(params, cfg: ModelConfig, batch):
+def _inputs(params, cfg: ModelConfig, batch, ctx=NULL_CTX):
     """The stack's input: (x (K, B, S', d) with any patch prefix in front,
-    the encoder's memory or None, the prefix's length)."""
-    x = apply_embed(params["embed"], batch["tokens"], cfg).to(
+    laid out by ``ctx``, the encoder's memory or None, the prefix's
+    length)."""
+    x = apply_embed(params["embed"], batch["tokens"], cfg, ctx).to(
         getattr(torch, cfg.compute_dtype))
     memory = None
     if cfg.family == "audio":
-        memory = encode_audio(params, cfg, batch["frames"].to(x.dtype))
+        memory = encode_audio(params, cfg, batch["frames"].to(x.dtype), ctx)
     prefix = _frontend_prefix(params, cfg, batch)
     if prefix is None:
-        return x, memory, 0
-    return torch.cat([prefix.to(x.dtype), x], dim=2), memory, prefix.shape[2]
+        return ctx.constrain(x, X_AXES), memory, 0
+    x = torch.cat([prefix.to(x.dtype), x], dim=2)
+    return ctx.constrain(x, X_AXES), memory, prefix.shape[2]
 
 
-def _superblock(x, blocks, cfg: ModelConfig, memory, positions):
+def _superblock(x, blocks, cfg: ModelConfig, memory, positions,
+                ctx=NULL_CTX):
     """The layers of one superblock in turn: (x, their aux summed (K,))."""
     aux_sb = x.new_zeros((x.shape[0],), dtype=torch.float32)
     for p, kind, pidx in blocks:
-        x, aux, _ = apply_block_train(p, x, cfg, kind, pidx, memory=memory,
-                                      positions=positions)
+        x, aux, _ = apply_block_train(p, x, cfg, kind, pidx, ctx,
+                                      memory=memory, positions=positions)
         aux_sb = aux_sb + aux
     return x, aux_sb
 
 
-def forward_train(params, cfg: ModelConfig, batch, remat: str = "none"):
+def forward_train(params, cfg: ModelConfig, batch, remat: str = "none",
+                  ctx=NULL_CTX):
     """Returns (logits (K, bs, S, V), aux_loss (K,)).  batch: tokens
     (K, bs, S) [+ patches (K, bs, P, d) | frames (K, bs, F, d)].
     ``remat`` "block" or "full" recomputes each superblock in backward
@@ -446,7 +476,7 @@ def forward_train(params, cfg: ModelConfig, batch, remat: str = "none"):
     check_kinds(cfg)
     if remat not in REMAT:
         raise ValueError(f"remat {remat!r}; expected one of {REMAT}")
-    x, memory, n_prefix = _inputs(params, cfg, batch)
+    x, memory, n_prefix = _inputs(params, cfg, batch, ctx)
     positions = torch.arange(x.shape[2], dtype=torch.int32,
                              device=x.device)[None]
     aux_total = x.new_zeros((x.shape[0],), dtype=torch.float32)
@@ -457,24 +487,25 @@ def forward_train(params, cfg: ModelConfig, batch, remat: str = "none"):
         blocks = [(p, kind, pidx) for p, kind, pidx, _key, _l in group]
         if layer is None:
             for block in blocks:
-                x, aux = _superblock(x, [block], cfg, memory, positions)
+                x, aux = _superblock(x, [block], cfg, memory, positions, ctx)
                 aux_total = aux_total + aux
             continue
         if remat != "none":       # the forward draws no random numbers
             x, aux = checkpoint(_superblock, x, blocks, cfg, memory,
-                                positions, use_reentrant=False,
+                                positions, ctx, use_reentrant=False,
                                 preserve_rng_state=False)
         else:
-            x, aux = _superblock(x, blocks, cfg, memory, positions)
+            x, aux = _superblock(x, blocks, cfg, memory, positions, ctx)
         aux_total = aux_total + aux
     x = apply_norm(params["final_ln"], x, cfg)
     if n_prefix:
         x = x[:, :, n_prefix:]
-    return apply_unembed(params["embed"], x, cfg), aux_total
+    logits = apply_unembed(params["embed"], x, cfg)
+    return ctx.constrain(logits, (None, "batch", "seq", "vocab")), aux_total
 
 
 @torch.no_grad()
-def forward_prefill(params, cfg: ModelConfig, batch,
+def forward_prefill(params, cfg: ModelConfig, batch, ctx=NULL_CTX,
                     max_len: Optional[int] = None):
     """Prefill: the full forward that also fills the decode cache.  Returns
     (last-token logits (K, B, 1, V), cache).  ``max_len`` sets the cache's
@@ -482,7 +513,7 @@ def forward_prefill(params, cfg: ModelConfig, batch,
     Local layers keep the last window of their keys and values as a ring;
     mamba and rwkv layers store their final states."""
     check_kinds(cfg)
-    x, memory, _n_prefix = _inputs(params, cfg, batch)
+    x, memory, _n_prefix = _inputs(params, cfg, batch, ctx)
     km, bsz, total, _ = x.shape
     positions = torch.arange(total, dtype=torch.int32, device=x.device)[None]
     cache = init_cache(cfg, bsz, max(max_len or total, total), x.dtype,
@@ -490,8 +521,9 @@ def forward_prefill(params, cfg: ModelConfig, batch,
                        x.device)
     cache["pos"].fill_(total)
     for p, kind, pidx, key, layer in _layers(params, cfg):
-        x, _aux, kv = apply_block_train(p, x, cfg, kind, pidx, memory=memory,
-                                        positions=positions, want_kv=True)
+        x, _aux, kv = apply_block_train(p, x, cfg, kind, pidx, ctx,
+                                        memory=memory, positions=positions,
+                                        want_kv=True)
         lc = _layer_cache(cache, key, layer)
         if isinstance(kv, dict):       # mamba / rwkv final states
             for name, val in kv.items():
@@ -514,15 +546,15 @@ def forward_prefill(params, cfg: ModelConfig, batch,
 
 
 @torch.no_grad()
-def forward_decode(params, cfg: ModelConfig, tokens, cache):
+def forward_decode(params, cfg: ModelConfig, tokens, cache, ctx=NULL_CTX):
     """One decode step.  tokens: (K, B, 1).  Returns (logits (K, B, 1, V),
     cache): the cache's tensors written in place, with the next ``pos``."""
     pos = cache["pos"]
-    x = apply_embed(params["embed"], tokens, cfg).to(
-        getattr(torch, cfg.compute_dtype))
+    x = ctx.constrain(apply_embed(params["embed"], tokens, cfg, ctx).to(
+        getattr(torch, cfg.compute_dtype)), X_AXES)
     for p, kind, pidx, key, layer in _layers(params, cfg):
         x, _ = apply_block_decode(p, x, cfg, kind, pidx,
-                                  _layer_cache(cache, key, layer), pos)
+                                  _layer_cache(cache, key, layer), pos, ctx)
     x = apply_norm(params["final_ln"], x, cfg)
     return apply_unembed(params["embed"], x, cfg), {
         "pos": pos + 1, "stack": cache["stack"], "rem": cache["rem"]}

@@ -9,12 +9,18 @@ sgd, sgdm, adamw (fp32 moments) and adamw_bf16 (bf16 moments, rounded to
 nearest even as ``jnp.bfloat16`` is).  Parameters may be a stack of B models
 (the clients a shard trains together); gradient clipping then takes each
 model's own global norm, as the reference's per-client vmap does.
+
+Parameters may be DTensors on a device mesh (``launch.shardings``): each
+gradient is first laid out as its parameter is (a ``Partial`` sum reduced
+to the parameter's shards), the multi-tensor updates then run shard by
+shard, and the clip's global norm sums every shard.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import OptimizerConfig
 from repro_torch.core.tree import (tree_leaves, tree_map,
@@ -25,6 +31,17 @@ class OptState(NamedTuple):
     step: int
     mu: Any          # first moment (or momentum); None for sgd
     nu: Any = None   # second moment; None for sgd / sgdm
+
+
+def like_params(params, grads):
+    """Each DTensor gradient redistributed to its parameter's placements
+    (plain gradients as they are)."""
+    def one(p, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != tuple(
+                p.placements):
+            return g.redistribute(p.device_mesh, p.placements)
+        return g
+    return tree_map(one, params, grads)
 
 
 def _clip_by_global_norm(grads, max_norm: float, stacked: bool):
@@ -64,7 +81,8 @@ def make_optimizer(cfg: OptimizerConfig, stacked: bool = True
         return OptState(0, zeros(), zeros())
 
     def update_fn(params, grads, state: OptState):
-        grads = _clip_by_global_norm(grads, cfg.grad_clip, stacked)
+        grads = _clip_by_global_norm(like_params(params, grads),
+                                     cfg.grad_clip, stacked)
         step = state.step + 1
         if name in ("adamw", "adamw_bf16"):
             return _adamw(cfg, params, grads, state, step)

@@ -12,13 +12,22 @@ bf16 and fp16 on the tensor cores.  The reference's
 compiled, partitioned HLO (loop-aware FLOPs, bytes and collectives of a
 TPU pod); eager PyTorch compiles no such artefact, so their place is taken
 by ``step_bytes``, an analytic count of the bytes a step must move, and
-``step_terms``.  One card has no collective term.
+``step_terms``; a step sharded over a mesh adds a collective term, counted
+from the collectives it issues (below).
 
 The federated stage's training FLOPs are counted here too
 (``train_step_flops``: every matrix product of one client's SGD step, and
 the arithmetic inside the port's recurrence and window kernels, whose
 formulas ``ssm_work``, ``wkv_work`` and ``window_work`` also give
 ``chip_smoke.py`` its kernels' bounds).
+
+The collective term of a step sharded over a mesh is counted from what the
+step issues: ``CollectiveTrace`` (a ``CommDebugMode`` that also records
+each collective's result bytes and group size) watches one step, and
+``collectives_of`` converts each record to the bytes that cross links
+with the reference's ring formulas (``collective_link_bytes``, those of
+``parse_collectives``), times the groups that run it at once; the same
+trace counts the FLOPs each device runs on its local shards.
 
 The card: NVIDIA H100 80GB HBM3 (SXM), power limit 700.00 W, as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gave them
@@ -28,6 +37,10 @@ at that limit.  A card set below 700 W runs slower under load.
 from __future__ import annotations
 
 from typing import Dict, Sequence
+
+import torch
+from torch.distributed.tensor.debug import CommDebugMode
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.models import mamba as mb
 from repro_torch.models import rwkv6 as rw
@@ -41,6 +54,7 @@ PEAK_FLOPS_TF32X3 = 495e12 / 3  # fp32-accurate products on the tensor
 PEAK_FLOPS_BF16 = 989e12        # bf16 / fp16 on the tensor cores, dense
 HBM_BW = 3.35e12                # bytes/s
 HBM_BYTES = 80e9                # the card's memory, as the dry run budgets it
+NVLINK_BW = 450e9               # bytes/s one way a card (NVLink 4, 18 links)
 
 def peak_flops(compute_dtype: str) -> float:
     """The card's peak for a config's GEMMs in ``compute_dtype``."""
@@ -301,3 +315,92 @@ def train_step_flops(cfg, batch: int, example_shape: Sequence[int]
     kernels = sum(p["kernels"] for p in parts)
     return {"products": products, "kernels": kernels,
             "total": products + kernels}
+
+
+# ---------------------------------------------------------------------------
+# Collectives of a sharded step
+# ---------------------------------------------------------------------------
+
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
+                    "all-to-all", "permute")
+
+
+def collective_link_bytes(kind: str, nbytes: float, n: int) -> float:
+    """Bytes crossing links for one collective over ``n`` participants,
+    ``nbytes`` its per-device result (ring algorithms, the reference's
+    ``parse_collectives``): all-reduce 2 (n-1) b (reduce-scatter then
+    all-gather), all-gather (n-1) b, reduce-scatter (n-1) n b (the result
+    is 1/n of the reduced input), all-to-all (n-1) b, permute n b."""
+    if kind == "all-reduce":
+        return 2 * (n - 1) * nbytes
+    if kind in ("all-gather", "all-to-all"):
+        return (n - 1) * nbytes
+    if kind == "reduce-scatter":
+        return (n - 1) * nbytes * n
+    if kind == "permute":
+        return n * nbytes
+    raise ValueError(f"collective kind {kind!r}")
+
+
+_FUNCOL_KIND = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+
+
+def _group_size(args, kwargs) -> int:
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    name = kwargs.get("group_name", args[-1] if args else None)
+    return _resolve_process_group(name).size()
+
+
+class CollectiveTrace(CommDebugMode):
+    """``CommDebugMode`` that also records, for each functional collective
+    DTensor issues, (kind, result bytes a device, group size) in
+    ``records``, and counts the FLOPs of the ops this rank runs on its
+    local shards in ``flops`` (``FlopCounterMode``'s formulas: matrix
+    products, convolutions, attention; elementwise ops count 0)."""
+
+    def __init__(self):
+        super().__init__()
+        self.records = []
+        self.flops = 0
+        self._counter = FlopCounterMode(display=False)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if out is NotImplemented or not hasattr(func, "_overloadpacket"):
+            return out
+        packet = func._overloadpacket
+        if packet in self._counter.flop_registry:
+            self.flops += int(self._counter.flop_registry[packet](
+                *args, **(kwargs or {}), out_val=out))
+        kind = _FUNCOL_KIND.get(packet.__name__)
+        if kind is not None:
+            outs = out if isinstance(out, (list, tuple)) else [out]
+            nbytes = sum(t.numel() * t.element_size() for t in outs
+                         if isinstance(t, torch.Tensor))
+            self.records.append((kind, nbytes,
+                                 _group_size(args, kwargs or {})))
+        return out
+
+
+def collectives_of(trace: CollectiveTrace, num_devices: int) -> Dict:
+    """The reference's collective record (``parse_collectives``' keys)
+    from a trace of one rank's step: each record's link bytes times the
+    ``num_devices // n`` groups that run it at once."""
+    per_kind = {k: 0.0 for k in COLLECTIVE_KINDS}
+    counts = {k: 0 for k in COLLECTIVE_KINDS}
+    for kind, nbytes, n in trace.records:
+        groups = max(num_devices // max(n, 1), 1)
+        per_kind[kind] += float(collective_link_bytes(kind, nbytes, n)
+                                * groups)
+        counts[kind] += 1
+    return {"collective_bytes_total": sum(per_kind.values()),
+            "collective_bytes_by_kind": per_kind,
+            "collective_op_counts": counts,
+            "flops_per_device": trace.flops}

@@ -7,8 +7,9 @@
 and the dominant one; ``dryrun_table`` its bytes against the card's 80 GB.
 The reference's ``multipod_status`` and ``delta_table`` compare the
 single-pod against the two-pod lowering, and the baseline against the
-optimized profile of that lowering; one card has neither, so they have
-no counterpart.
+optimized profile of that lowering; the port's records of a mesh
+(``--mesh``) carry their own counts, and these two tables are not
+ported.
 """
 from __future__ import annotations
 
