@@ -316,7 +316,25 @@ Phases (any failed check raises, and the script exits non-zero):
    step's launches (zeroed just
    before it, read just after; wkv and wkv_bwd must have launched: by_path
    "mesh"), and the dry run's per-card bytes of rwkv6-3b train_4k at full
-   depth on 1x1, 1x4, 2x2 and 4x1.
+   depth on 1x1, 1x4, 2x2 and 4x1.  Then, on the same world, the serve
+   part (``mesh_serve_path``): (a) rwkv6-3b with the phase's own weights
+   serves a batch of 4 with 512-token prompts and 8 greedy decode steps,
+   (b) gemma3-27b at its published width in fp32, depth cut to one local
+   and one global layer, 1,536-token prompts past its 1,024-token window
+   (the local layer runs ``window_attention``, the ring wraps), and
+   jamba-1.5-large-398b at its width, cut as phase 7 cuts it (global,
+   mamba: ``ssm_scan``), 512-token prompts, a batch of 2 and 8 steps
+   each; each twice, plainly and
+   through ``launch.serve.MeshServer`` (prefill under the published
+   config's serving strategy, the cache handed to decode's
+   ``cache_shardings``, decode with slot-sharded caches: on a 1x1 mesh
+   nothing is split), after a warm-up of each.  Logits and every cache
+   leaf must be bit-identical; prefill ms, decode ms a token and one
+   traced serve of each (busy ms, idle share) are printed, and the
+   sharded serves' launches (zeroed just before each, read just after;
+   window_attention, wkv and ssm_scan must have launched; each call's
+   operand shapes and ms between CUDA events around it are printed) join
+   ``by_path`` as "mesh_serve", with the part's seconds.
 9. examples — each port example (``examples/<name>_torch.py``:
    quickstart, coded_storage, unlearn_generation, serve_unlearning,
    serve_batched) through its ``main`` on the card at the reference
@@ -4178,7 +4196,8 @@ def mesh_path(torch, K):
     ``MESH_CUT``, once through ``ShardCtx`` and DTensors (the published
     config's rules, ``launch.train.mesh_context``) and once unsharded, on
     the same weights and batch; then the dry run's per-card bytes on
-    ``MESH_DRYRUN``.  Returns the sharded step's launches."""
+    ``MESH_DRYRUN``; then the serve part (``mesh_serve_path``).  Returns
+    (the sharded step's launches, the sharded serves' launches)."""
     import tempfile
 
     import torch.distributed as dist
@@ -4244,6 +4263,8 @@ def mesh_path(torch, K):
                       for name, step, st, b in runs}
             new_s, mu_s = gather_tree(new_s), gather_tree(opt_s.mu)
             mets_s = {k: float(v.full_tensor()) for k, v in mets_s.items()}
+            serve_launches = mesh_serve_path(torch, K, cfg, params,
+                                             ctx.mesh)
         finally:
             dist.destroy_process_group()
     mets_p = {k: float(v) for k, v in mets_p.items()}
@@ -4275,7 +4296,215 @@ def mesh_path(torch, K):
         raise AssertionError(f"mesh: sharded step off the plain one "
                              f"(metrics {metric_gap}, {gaps})")
     log("mesh_phase", seconds=time.perf_counter() - t_phase)
+    return launches, serve_launches
+
+
+# phase 8b's serve part: (a) MESH_ARCH at MESH_CUT, the phase's own
+# weights; (b) published widths cut in depth whose prefill runs the other
+# two kernels: (arch, changes to the published config, batch, prompt,
+# what was cut); every case runs in fp32
+MESH_SERVE_BATCH, MESH_SERVE_PROMPT, MESH_SERVE_STEPS = 4, 512, 8
+MESH_SERVE_WIDE = (
+    ("gemma3-27b", dict(num_layers=2, layer_pattern=("local", "global")),
+     2, 1536, "depth 62 -> 2 (one local and one global layer); the prompt "
+     "longer than the 1,024-token window, so the ring wraps"),
+    ("jamba-1.5-large-398b", dict(num_layers=2,
+                                  layer_pattern=("global", "mamba"),
+                                  num_experts=0, experts_per_token=0),
+     2, 512, "depth 72 -> 2 (global, mamba); experts off: the dense FFN "
+     "at d_ff 24576, as phase serve cuts it"))
+MESH_SERVE_KERNELS = ("window_attention", "wkv", "ssm_scan")
+
+
+def _greedy_serve(torch, prefill, decode, whole, batch, steps: int) -> dict:
+    """Prefill, then ``steps`` greedy decode steps (each fed the argmax of
+    the last logits, on the device): the logits (steps + 1, B, V), the
+    last cache, prefill ms and decode ms a token (host clock to a
+    sync).  ``whole`` gives a step's logits whole."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = [whole(logits[:, -1:])[:, 0]]
+    for _ in range(steps):
+        tok = out[-1].argmax(-1, keepdim=True).to(torch.int32)
+        logits, cache = decode(tok, cache)
+        out.append(whole(logits[:, -1:])[:, 0])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"logits": torch.stack(out), "cache": cache,
+            "prefill_ms": (t1 - t0) * 1e3,
+            "decode_ms_per_token": (t2 - t1) * 1e3 / steps}
+
+
+@contextlib.contextmanager
+def kernel_calls():
+    """Records every ``window_attention``, ``ssm_scan`` and ``wkv`` call
+    the models make inside (under ``local_map``: on each rank's local
+    tensors), by kernel: the shapes of its first two operands and CUDA
+    events around the call.  Read it with ``kernel_call_times`` after the
+    card is synchronized."""
+    import torch
+    from repro_torch.models import attention, mamba, rwkv6
+    sites = ((attention, "window_attention"), (mamba, "ssm_scan"),
+             (rwkv6, "wkv"))
+    reals = [getattr(mod, name) for mod, name in sites]
+    seen = {}
+
+    def spy(name, real):
+        def call(*args, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = real(*args, **kw)
+            ev[1].record()
+            seen.setdefault(name, []).append(
+                (tuple(tuple(a.shape) for a in args[:2]), ev))
+            return out
+        return call
+    for (mod, name), real in zip(sites, reals):
+        setattr(mod, name, spy(name, real))
+    try:
+        yield seen
+    finally:
+        for (mod, name), real in zip(sites, reals):
+            setattr(mod, name, real)
+
+
+def kernel_call_times(seen: dict) -> dict:
+    """``kernel_calls``' record as {kernel: {"shapes", "ms"}}: each call's
+    ms between its events (the wrapper's launch and its kernel)."""
+    return {k: {"shapes": sorted({shape for shape, _ in calls}),
+                "ms": [ev[0].elapsed_time(ev[1]) for _, ev in calls]}
+            for k, calls in seen.items()}
+
+
+def mesh_serve_case(torch, K, published, cfg, params, mesh, bsz: int,
+                    prompt: int, steps: int, seed: int,
+                    cut: str = "") -> dict:
+    """``cfg`` served greedily twice on the card from the same weights and
+    prompts: plainly (``make_prefill_step`` / ``make_decode_step``) and
+    through ``launch.serve.MeshServer`` on ``mesh`` under ``published``'s
+    serving rules (``serve_on_mesh``'s path).  After one warm-up serve of
+    each, one timed serve of each (the sharded one's launches zeroed just
+    before it and read just after, with each kernel call's operand shapes
+    and ms, ``kernel_calls``) and
+    one traced serve of each (``device_busy``).  Fails unless the logits
+    and every cache leaf are bit-identical."""
+    from repro_torch.core.tree import leaves_with_paths
+    from repro_torch.launch.serve import (MeshServer, make_decode_step,
+                                          make_prefill_step)
+    from repro_torch.launch.shardings import gather_tree
+    batch = {k: v.to(CARD) for k, v in serve_inputs(
+        torch, cfg, bsz, prompt, seed).items()}
+    max_len = prompt + steps
+    prefill = make_prefill_step(cfg, max_len=max_len)
+    decode = make_decode_step(cfg)
+    server = MeshServer(published, cfg, mesh, CARD, max_len=max_len)
+    pparams, dparams = server.place(params)
+    sides = {
+        "plain": (lambda b: prefill(params, b),
+                  lambda t, c: decode(params, t, c), lambda x: x),
+        "sharded": (lambda b: server.prefill(pparams, b),
+                    lambda t, c: server.decode(dparams, t, c),
+                    lambda x: x.full_tensor())}
+    runs, traced = {}, {}
+    for name, fns in sides.items():            # warm-up, not timed
+        _greedy_serve(torch, *fns, batch, steps)
+    for name, fns in sides.items():
+        if name == "sharded":
+            with kernel_calls() as calls:
+                K.reset_launches()
+                runs[name] = _greedy_serve(torch, *fns, batch, steps)
+                launches = dict(K.LAUNCHES)
+        else:
+            runs[name] = _greedy_serve(torch, *fns, batch, steps)
+    for name, fns in sides.items():
+        tr = device_busy(lambda: _greedy_serve(torch, *fns, batch, steps))
+        traced[name] = {"wall_ms": tr["wall_s"] * 1e3,
+                        "busy_ms": tr["busy_ms"],
+                        "idle_share": 1.0 - tr["busy_ms"]
+                        / (tr["wall_s"] * 1e3), "records": tr["records"]}
+    plain, sharded = runs["plain"], runs["sharded"]
+    whole = dict(leaves_with_paths(gather_tree(sharded["cache"])))
+    leaves = dict(leaves_with_paths(plain["cache"]))
+    differ = sorted("/".join(p) for p, t in leaves.items()
+                    if not torch.equal(t, whole[p]))
+    same_logits = torch.equal(plain["logits"], sharded["logits"])
+    row = {"arch": cfg.name, "d_model": cfg.d_model,
+           "layers": cfg.num_layers, "batch": bsz, "prompt": prompt,
+           "steps": steps, "cut": cut, "strategy": server.strategy,
+           "logits_bit_identical": same_logits, "cache_leaves": len(leaves),
+           "cache_leaves_differing": differ,
+           "max_abs_logit_gap": float((plain["logits"]
+                                       - sharded["logits"]).abs().max()),
+           **{f"{k}_{name}": runs[name][k] for name in runs
+              for k in ("prefill_ms", "decode_ms_per_token")},
+           "traced": traced,
+           "launches": {k: v for k, v in launches.items() if v},
+           "kernel_calls": kernel_call_times(calls)}
+    log("mesh_serve", **row)
+    if not same_logits or differ:
+        raise AssertionError(f"mesh serve {cfg.name}: sharded serving is "
+                             f"not bit-identical to plain ({row})")
     return launches
+
+
+class CardInit:
+    """``models.params.RealInit``'s draws under ``draw``'s rules, made on
+    the card from a CUDA generator seeded ``seed``: billions of values in
+    well under a second, where the CPU's generator takes about ten
+    seconds a billion (phase 7's ``init_s``)."""
+
+    def __init__(self, torch, seed: int):
+        self.torch = torch
+        self.gen = torch.Generator(device=CARD).manual_seed(seed)
+
+    def param(self, shape, init: str = "normal", scale: float = 1.0,
+              in_dims: int = 1, fan_in=None):
+        from repro_torch.models.params import draw
+        torch, shape = self.torch, tuple(shape)
+        if init == "normal":
+            if fan_in is None:
+                fan_in = (math.prod(shape[:in_dims]) if len(shape) > 1
+                          else max(shape[-1], 1))
+            return torch.randn(shape, generator=self.gen, device=CARD) \
+                * (scale / math.sqrt(fan_in))
+        if init == "uniform":
+            return torch.rand(shape, generator=self.gen, device=CARD) * scale
+        return draw(None, shape, init, scale).to(CARD)
+
+
+def mesh_serve_path(torch, K, cfg, params, mesh) -> dict:
+    """Phase 8b's serve part (see the module docstring), on the phase's
+    1x1 world: (a) ``MESH_ARCH`` at ``MESH_CUT`` with the phase's own
+    weights, (b) the ``MESH_SERVE_WIDE`` cases at their published widths
+    (weights drawn on the card, ``CardInit``, freed after each); each
+    through ``mesh_serve_case``.  Returns the sharded serves' launches summed;
+    fails when a kernel of ``MESH_SERVE_KERNELS`` never launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_lm
+    t_part = time.perf_counter()
+    total = mesh_serve_case(torch, K, get_config(MESH_ARCH), cfg, params,
+                            mesh, MESH_SERVE_BATCH, MESH_SERVE_PROMPT,
+                            MESH_SERVE_STEPS, 23,
+                            f"depth {get_config(MESH_ARCH).num_layers} -> "
+                            f"{cfg.num_layers}")
+    for arch, changes, bsz, prompt, cut in MESH_SERVE_WIDE:
+        wide = dataclasses.replace(get_config(arch), param_dtype="float32",
+                                   compute_dtype="float32", **changes)
+        got = mesh_serve_case(torch, K, get_config(arch), wide,
+                              init_lm(CardInit(torch, 0), wide), mesh, bsz,
+                              prompt, MESH_SERVE_STEPS, 29, cut)
+        total = {k: total[k] + got[k] for k in total}
+        torch.cuda.empty_cache()
+    missing = [k for k in MESH_SERVE_KERNELS if not total[k]]
+    log("mesh_serve_part", seconds=time.perf_counter() - t_part,
+        launches={k: v for k, v in total.items() if v})
+    if missing:
+        raise AssertionError(f"mesh serve: {missing} never launched on the "
+                             f"sharded serve path ({total})")
+    return total
 
 
 # phase 9: each port example's main on the card at the reference's sizes,
@@ -4465,7 +4694,7 @@ def main() -> int:
     full_width_granite(torch, K)
     launches["serve"] = serve_path(torch, K)
     launches["train"] = train_path(torch, K)
-    launches["mesh"] = mesh_path(torch, K)
+    launches["mesh"], launches["mesh_serve"] = mesh_path(torch, K)
     launches["examples"] = examples_path(torch, K)
 
     # one row per kernel, its numbers from the path it was ported for; the

@@ -27,11 +27,15 @@ cache at its shard's shape under the reference's policy
 (``launch.shardings``; ``resolve_strategy`` picks tensor- or
 sequence-parallel prefill as the reference's does), read from the
 placements' specs, with no process group; the activations are divided
-over the batch's shards.  For a train cell, one FedAvg step at a reduced
-depth (``TRACE_SUPERBLOCKS`` superblocks) is then run on ``meta``
-DTensors in a ``fake_world`` of the mesh's size, the kernels swapped for
-elementwise stand-ins of their shapes, and ``CommDebugMode``
-(``roofline.analysis.CollectiveTrace``) counts its collectives: their
+over the batch's shards.  The cell's step at a reduced depth
+(``TRACE_SUPERBLOCKS`` superblocks) is then run on ``meta`` DTensors in a
+``fake_world`` of the mesh's size, the kernels swapped for elementwise
+stand-ins of their shapes: one FedAvg step for a train cell, prefill of
+the cell's batch under prefill's strategy for a prefill cell, one decode
+step against the cell's cache in decode's ``cache_shardings`` for a
+decode cell (the reference's ``build_lowered`` branches); and
+``CommDebugMode`` (``roofline.analysis.CollectiveTrace``) counts its
+collectives: their
 link bytes by kind, the reference's ``parse_collectives`` record, and a
 collective term over NVLink.  The record's ``mesh`` names the mesh as the
 reference's does.  The reference lowers and compiles each step and reads
@@ -58,6 +62,8 @@ from repro_torch.core.tree import leaves_with_paths, tree_leaves
 from repro_torch.launch import inputs as inp
 from repro_torch.launch import shardings as sh
 from repro_torch.launch.mesh import mesh_name, parse_mesh
+from repro_torch.launch.shardings import (  # noqa: F401
+    SEQPAR_MAX_PARAMS, resolve_strategy)
 from repro_torch.models import abstract_params, init_cache, num_params
 from repro_torch.models.params import local_shape
 from repro_torch.optim import make_optimizer
@@ -106,24 +112,7 @@ def optimizer_for(cfg) -> OptimizerConfig:
     return OptimizerConfig(name=name, lr=3e-4)
 
 
-SEQPAR_MAX_PARAMS = 8e9
 TRACE_SUPERBLOCKS = 1     # the collective trace's depth, in superblocks
-
-
-def resolve_strategy(cfg, shape_kind: str, strategy: str) -> str:
-    """'auto': sequence-parallel prefill for attention-only models whose
-    head counts don't divide the model dim (tensor parallelism there
-    degenerates into per-block all-reduces) and that fit replicated;
-    tensor parallelism otherwise.  Recurrent stacks (rwkv / mamba) are
-    excluded: their time scans cannot shard over seq."""
-    if strategy != "auto":
-        return strategy
-    attention_only = all(k in ("global", "local") for k in cfg.layer_kinds)
-    if (shape_kind == "prefill" and attention_only
-            and (cfg.num_heads % 16 or cfg.num_kv_heads % 16)
-            and cfg.param_count() < SEQPAR_MAX_PARAMS):
-        return "seq_parallel"
-    return "tp"
 
 
 def tree_bytes(tree, specs=None, mesh=None) -> int:
@@ -279,7 +268,7 @@ def max_depth_fit(cfg, shape, fl, opt, layout=None) -> int:
 
 
 # ---------------------------------------------------------------------------
-# The collectives of one sharded FedAvg step
+# The collectives of one sharded step
 # ---------------------------------------------------------------------------
 
 def _ssm_shape(dt, b, c, x, a, h0):
@@ -312,35 +301,62 @@ def _shape_kernels():
         mamba.ssm_scan, rwkv6.wkv, attention.window_attention = saved
 
 
-def trace_collectives(cfg, published, shape, fl: FLConfig, opt,
-                      mesh_shape, strategy: str = "tp") -> dict:
-    """One FedAvg step of ``cfg`` on ``meta`` DTensors laid out on a mesh
-    of ``mesh_shape`` in a ``fake_world`` of its size, under
-    ``published``'s rules; its collectives (``roofline.analysis``)."""
-    from repro_torch.launch.mesh import fake_world, make_mesh
+def _traced_step(cfg, shape, fl: FLConfig, opt, mesh, prules, arules):
+    """The cell's step on ``meta`` DTensors laid out on ``mesh`` by the
+    rules, as a thunk: one FedAvg step (train), prefill of the cell's
+    batch (prefill), or one decode step against a cache of the cell's
+    length in decode's ``cache_shardings`` (decode)."""
     from repro_torch.launch.train import make_fedavg_step
-    from repro_torch.models import ShardCtx
+    from repro_torch.models import ShardCtx, decode_fn, prefill_fn
     from repro_torch.optim import OptState
-    n_dev = int(np.prod(mesh_shape.shape))
-    multi = "pod" in mesh_shape.mesh_dim_names
-    with fake_world(n_dev), _shape_kernels():
-        mesh = make_mesh(mesh_shape.shape, mesh_shape.mesh_dim_names, "cpu")
-        prules = sh.param_rules(published, "train", multi, strategy)
-        arules = sh.act_rules(published, "train", multi, strategy)
-        params = abstract_params(cfg)
+    ctx = ShardCtx(mesh, arules)
+    params = abstract_params(cfg)
+    psh = sh.param_shardings(cfg, mesh, prules, abstract=params)
+    dp = sh.distribute_tree(params, psh, mesh)
+    if shape.kind == "train":
         state = make_optimizer(opt, stacked=False)[0](params)
-        psh = sh.param_shardings(cfg, mesh, prules, abstract=params)
         osh = sh.opt_state_shardings(state, psh, mesh)
-        dp = sh.distribute_tree(params, psh, mesh)
         moments = [None if t is None else sh.distribute_tree(t, o, mesh)
                    for t, o in ((state.mu, osh.mu), (state.nu, osh.nu))]
         b = inp.train_batch_specs(cfg, shape, fl)
         db = sh.distribute_tree(b, sh.batch_shardings(
             b, mesh, arules, client_leading=True), mesh)
-        step = make_fedavg_step(cfg, fl, opt, ShardCtx(mesh, arules))
+        step = make_fedavg_step(cfg, fl, opt, ctx)
+        return lambda: step((dp, OptState(0, *moments)), db)
+    if shape.kind == "prefill":
+        b = inp.prefill_batch_specs(cfg, shape)
+        db = sh.distribute_tree(b, sh.batch_shardings(b, mesh, arules), mesh)
+        return lambda: prefill_fn(cfg, ctx)(dp, db)
+    cache_len, enc_len = inp.cache_len_for(cfg, shape)
+    cache = init_cache(cfg, shape.global_batch, cache_len, enc_len=enc_len,
+                       device="meta")
+    dc = sh.distribute_tree(cache, sh.cache_shardings(cache, mesh, arules),
+                            mesh)
+    tok = {"tokens": inp.decode_token_specs(shape)}
+    dt = sh.distribute_tree(tok, sh.batch_shardings(tok, mesh, arules),
+                            mesh)["tokens"]
+    return lambda: decode_fn(cfg, ctx)(dp, dt, dc)
+
+
+def trace_collectives(cfg, published, shape, fl: FLConfig, opt,
+                      mesh_shape, strategy: str = "tp") -> dict:
+    """The cell's step (``_traced_step``: a FedAvg step, prefill or one
+    decode step) of ``cfg`` on ``meta`` DTensors laid out on a mesh of
+    ``mesh_shape`` in a ``fake_world`` of its size, under ``published``'s
+    rules for the cell's kind and ``strategy``; its collectives
+    (``roofline.analysis``)."""
+    from repro_torch.launch.mesh import fake_world, make_mesh
+    n_dev = int(np.prod(mesh_shape.shape))
+    multi = "pod" in mesh_shape.mesh_dim_names
+    with fake_world(n_dev), _shape_kernels():
+        mesh = make_mesh(mesh_shape.shape, mesh_shape.mesh_dim_names, "cpu")
+        step = _traced_step(
+            cfg, shape, fl, opt, mesh,
+            sh.param_rules(published, shape.kind, multi, strategy),
+            sh.act_rules(published, shape.kind, multi, strategy))
         trace = rl.CollectiveTrace()
         with trace:
-            step((dp, OptState(0, *moments)), db)
+            step()
     return rl.collectives_of(trace, n_dev)
 
 
@@ -348,12 +364,14 @@ def run_one(arch: str, shape_name: str, variant: str = "auto",
             save: bool = True, out_dir: Optional[Path] = None,
             fl: Optional[FLConfig] = None, changes: Optional[dict] = None,
             global_batch: Optional[int] = None, mesh: Optional[str] = None,
-            strategy: str = "tp", collectives: bool = True) -> dict:
+            strategy: str = "tp", collectives: bool = True,
+            seq_len: Optional[int] = None) -> dict:
     """One cell's record (and its JSON file when ``save``).  ``changes``
-    (e.g. a cut depth) and ``global_batch`` resize the cell; ``mesh``
-    ("16x16", "2x16x16", "DxM") counts each device of that mesh under the
-    reference's policy and ``strategy`` ("tp", "seq_parallel" or "auto");
-    ``collectives`` traces a train cell's collectives there."""
+    (e.g. a cut depth), ``global_batch`` and ``seq_len`` resize the cell;
+    ``mesh`` ("16x16", "2x16x16", "DxM") counts each device of that mesh
+    under the reference's policy and ``strategy`` ("tp", "seq_parallel"
+    or "auto"); ``collectives`` traces the cell's step there (a FedAvg
+    step, prefill or one decode step)."""
     t0 = time.perf_counter()
     fl = fl or FLConfig(fl_clients_per_step=4, fl_local_steps=1)
     rec = {"arch": arch, "shape": shape_name, "device": DEVICE,
@@ -383,6 +401,8 @@ def run_one(arch: str, shape_name: str, variant: str = "auto",
             cfg = dataclasses.replace(cfg, **changes)
         if global_batch:
             shape = dataclasses.replace(shape, global_batch=global_batch)
+        if seq_len:
+            shape = dataclasses.replace(shape, seq_len=seq_len)
         opt = optimizer_for(cfg) if shape.kind == "train" else None
         rec.update(kind=shape.kind, num_layers=cfg.num_layers,
                    global_batch=shape.global_batch, seq_len=shape.seq_len,
@@ -394,7 +414,7 @@ def run_one(arch: str, shape_name: str, variant: str = "auto",
         rec.update(count(cfg, shape, fl, opt, layout))
         rec["max_depth_fit"] = (cfg.num_layers if rec["fits"] else
                                 max_depth_fit(cfg, shape, fl, opt, layout))
-        if layout is not None and shape.kind == "train" and collectives:
+        if layout is not None and collectives:
             depth = TRACE_SUPERBLOCKS * len(cfg.layer_pattern)
             rec["collective_trace_layers"] = depth
             rec.update(trace_collectives(
@@ -446,7 +466,7 @@ def main(argv=None) -> int:
     ap.add_argument("--strategy", default="tp",
                     choices=("tp", "seq_parallel", "auto"))
     ap.add_argument("--no-collectives", action="store_true",
-                    help="skip the train cells' collective trace")
+                    help="skip the cells' collective trace")
     args = ap.parse_args(argv)
     archs = ASSIGNED_ARCHS if (args.all or not args.arch) else [args.arch]
     shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]

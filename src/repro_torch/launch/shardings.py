@@ -29,6 +29,7 @@ from repro_torch.models import abstract_params, param_axes
 from repro_torch.models.params import (  # noqa: F401
     MeshShape, Replicate, distribute_tree, gather_tree, spec_for,
     spec_to_placements, tree_shardings)
+from repro_torch.models.transformer import CACHE_AXES, STATE_H_AXES
 from repro_torch.optim.optimizers import OptState
 
 FSDP_TRAIN_THRESHOLD = 2e9
@@ -106,6 +107,25 @@ def act_rules(cfg: ModelConfig, shape_kind: str, multi_pod: bool,
     }
 
 
+SEQPAR_MAX_PARAMS = 8e9
+
+
+def resolve_strategy(cfg, shape_kind: str, strategy: str) -> str:
+    """'auto': sequence-parallel prefill for attention-only models whose
+    head counts don't divide the model dim (tensor parallelism there
+    degenerates into per-block all-reduces) and that fit replicated;
+    tensor parallelism otherwise.  Recurrent stacks (rwkv / mamba) are
+    excluded: their time scans cannot shard over seq."""
+    if strategy != "auto":
+        return strategy
+    attention_only = all(k in ("global", "local") for k in cfg.layer_kinds)
+    if (shape_kind == "prefill" and attention_only
+            and (cfg.num_heads % 16 or cfg.num_kv_heads % 16)
+            and cfg.param_count() < SEQPAR_MAX_PARAMS):
+        return "seq_parallel"
+    return "tp"
+
+
 # ---------------------------------------------------------------------------
 # Param shardings
 # ---------------------------------------------------------------------------
@@ -126,20 +146,7 @@ def param_shardings(cfg: ModelConfig, mesh, rules: Dict, abstract=None):
 # Cache shardings (leaf-name driven)
 # ---------------------------------------------------------------------------
 
-_CACHE_AXES = {
-    # attention KV (possibly with a leading stacked-layers dim)
-    "k": ("batch", "kvseq", "kv_heads", "head_dim"),
-    "v": ("batch", "kvseq", "kv_heads", "head_dim"),
-    "xk": ("batch", "kvseq", "kv_heads", "head_dim"),
-    "xv": ("batch", "kvseq", "kv_heads", "head_dim"),
-    # mamba
-    "conv": ("batch", None, "mlp"),
-    "h": None,  # by rank below (mamba (B, di, n) vs rwkv (B, H, N, N))
-    # rwkv
-    "tm_prev": ("batch", "embed"),
-    "cm_prev": ("batch", "embed"),
-    "pos": (),
-}
+_CACHE_AXES = {**CACHE_AXES, "pos": ()}   # "h" by rank, below
 
 
 def _cache_leaf_axes(path: Tuple[str, ...], leaf) -> Tuple:
@@ -153,9 +160,9 @@ def _cache_leaf_axes(path: Tuple[str, ...], leaf) -> Tuple:
         # di == n, impossible for the assigned configs); rwkv h:
         # (B, H, N, N) rank 4 square tail / (L, B, H, N, N) rank 5
         if rank == 3 or (rank == 4 and shape[-1] != shape[-2]):
-            base = ("batch", "mlp", None)
+            base = STATE_H_AXES["mamba"]
         else:
-            base = ("batch", "heads", None, None)
+            base = STATE_H_AXES["rwkv"]
     else:
         base = _CACHE_AXES.get(name, ())
     extra = rank - len(base)                 # the leading stacked dim

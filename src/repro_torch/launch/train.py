@@ -284,29 +284,39 @@ def _demo_rank(rank, world_size, argv, init_fn):
     return _demo(argv, init_fn)
 
 
-def mesh_context(published: ModelConfig, mesh_spec: str, device):
-    """(ctx, place) for a training step over a (data, model) mesh
-    ``mesh_spec`` ("DxM") of the running world: ``ctx`` the activation
-    rules of ``published`` (the config as the reference ships it, which
-    decides FSDP), ``place(tree, cfg, batch=False)`` a (params,
-    opt_state) pair or a client-serial batch laid out by the same policy
-    on a config ``cfg`` (the published one, or cut to size); a batch
-    without the client axis takes ``client_leading=False``."""
+def mesh_context(published: ModelConfig, mesh_spec, device,
+                 kind: str = "train", strategy: str = "tp"):
+    """(ctx, place) for a step of ``kind`` ("train", "prefill" or
+    "decode") under ``strategy`` ("tp" or "seq_parallel") over a (data,
+    model) mesh: ``mesh_spec`` "DxM" of the running world, or a
+    ``DeviceMesh`` already made.  ``ctx`` carries the activation rules of
+    ``published`` (the config as the reference ships it, which decides
+    FSDP), ``place(tree, cfg, batch=False)`` lays out, by the same policy
+    on a config ``cfg`` (the published one, or cut to size), a (params,
+    opt_state) pair, a params tree alone (a dict), or with ``batch`` a
+    batch (client-serial unless ``client_leading=False``)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
     from repro_torch.launch import shardings as sh
     from repro_torch.launch.mesh import make_debug_mesh, parse_mesh
     from repro_torch.optim import OptState
-    d, m = parse_mesh(mesh_spec).shape
-    mesh = make_debug_mesh(d, m, device_type=torch.device(device).type)
-    prules = sh.param_rules(published, "train", False)
-    arules = sh.act_rules(published, "train", False)
+    if isinstance(mesh_spec, DeviceMesh):
+        mesh = mesh_spec
+    else:
+        d, m = parse_mesh(mesh_spec).shape
+        mesh = make_debug_mesh(d, m, device_type=torch.device(device).type)
+    prules = sh.param_rules(published, kind, False, strategy)
+    arules = sh.act_rules(published, kind, False, strategy)
     ctx = ShardCtx(mesh, arules)
 
     def place(tree, cfg, batch=False, client_leading=True):
         if batch:
             return sh.distribute_tree(tree, sh.batch_shardings(
                 tree, mesh, arules, client_leading=client_leading), mesh)
-        params, opt_state = tree
         psh = sh.param_shardings(cfg, mesh, prules)
+        if isinstance(tree, dict):
+            return sh.distribute_tree(tree, psh, mesh)
+        params, opt_state = tree
         osh = sh.opt_state_shardings(opt_state, psh, mesh)
         moments = [None if t is None else sh.distribute_tree(t, s, mesh)
                    for t, s in ((opt_state.mu, osh.mu),
@@ -319,7 +329,7 @@ def mesh_context(published: ModelConfig, mesh_spec: str, device):
 def steps_on_mesh(rank: int, world_size: int, arch: str, mesh_spec: str,
                   weights, batch, stored_norms, fl: FLConfig,
                   fedavg_opt: OptimizerConfig, central_opt: OptimizerConfig,
-                  device: str = "cpu") -> dict:
+                  device=None) -> dict:
     """The three steps run sharded on this rank of a (data, model) mesh
     ``mesh_spec``, for checks against the unsharded steps: the config is
     ``reduce_for_smoke(get_config(arch))`` under the published config's
@@ -328,14 +338,16 @@ def steps_on_mesh(rank: int, world_size: int, arch: str, mesh_spec: str,
     ``stored_norms`` the calibration's (n_clients,) norms.  Returns, as
     numpy on every rank: per step its new params (gathered), moments and
     metrics, and ``spec`` (each param leaf's mesh dims, "/"-joined path ->
-    list of dim names it shards over).  Run it through
-    ``launch.mesh.spawn``."""
+    list of dim names it shards over).  ``device`` is the card unless the
+    caller passes ``"cpu"``.  Run it through ``launch.mesh.spawn``."""
     import numpy as np
 
     from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.kernels import resolve_device
     from repro_torch.models import from_numpy_params, to_numpy_params
     from repro_torch.optim import init_optimizer
 
+    device = resolve_device(device)
     cfg = reduce_for_smoke(get_config(arch))
     ctx, place = mesh_context(get_config(arch), mesh_spec, device)
     mesh = ctx.mesh

@@ -20,7 +20,12 @@ attention (the window kernel or the blockwise forms) on each rank's local
 shards (``sharded_attention``): batch over ``data``, heads over ``model``.
 A rank whose query heads are split while the kv heads are not (kv heads
 that do not divide the mesh dim) reads the kv heads of its own query
-groups.
+groups.  Where the rules split the sequence (sequence-parallel prefill)
+each rank attends with its own query rows, at their offset, against the
+keys and values gathered along the sequence.  ``cached_attention`` is a
+decode step's attention against a layer's cache as it lies on the mesh:
+where the slots are split, each rank's partial softmax over its own
+slots, merged over the mesh dims that split them.
 """
 from __future__ import annotations
 
@@ -31,11 +36,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.window_attn.ops import window_attention
 from repro_torch.models.layers import apply_rope, matmul
-from repro_torch.models.params import NULL_CTX, param, reshape
+from repro_torch.models.params import (NULL_CTX, DTensor, Replicate, Shard,
+                                       local, local_map, param, reshape)
 
 NEG_INF = -1e30
-Q_KERNEL_AXES = ("batch", None, "heads", None)      # the window kernel's
-KV_KERNEL_AXES = ("batch", None, "kv_heads", None)  # layout on a mesh
+KV_KERNEL_AXES = ("batch", None, "kv_heads", None)  # K and V on a mesh
+Q_ROW_AXES = ("batch", "seq", "heads", None)        # sequence-parallel rows
 
 
 def init_attention(fac, cfg: ModelConfig):
@@ -204,6 +210,83 @@ def decode_attention(q, k_cache, v_cache, kv_positions, *,
     return reshape(out, b, sq, h, hd).to(q.dtype)
 
 
+def _decode_merged(q, k, v, kv_positions, groups) -> torch.Tensor:
+    """``decode_attention`` of q against this rank's slots of a cache
+    whose slots are split over the mesh dims ``groups`` ((mesh, dim)
+    pairs): each rank's scores, their maximum all-reduced, then each
+    rank's sum of exponentials and its weighted values, all-reduced
+    together, and the quotient.  An empty slot scores ``NEG_INF``, a
+    finite number, so a rank whose slots are all empty adds exp(NEG_INF -
+    m) = 0 to both sums (or, when no slot anywhere is filled, the
+    uniform weights ``softmax`` gives)."""
+    from torch.distributed import _functional_collectives as funcol
+    b, sq, h, hd = q.shape
+    nkv = k.shape[2]
+    qg = q.reshape(b, sq, nkv, h // nkv, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * hd ** -0.5
+    if kv_positions.dim() == 1:
+        kv_positions = kv_positions[None].expand(b, -1)
+    s = s + torch.where(kv_positions >= 0, 0.0, NEG_INF)[:, None, None,
+                                                          None, :]
+    m = s.amax(-1, keepdim=True)
+    for g in groups:
+        m = funcol.all_reduce(m, "max", g)
+    p = torch.exp(s - m)
+    lo = torch.cat([p.sum(-1, keepdim=True),
+                    torch.einsum("bkgqs,bskd->bkgqd", p, v.float())], -1)
+    for g in groups:
+        lo = funcol.all_reduce(lo, "sum", g)
+    out = lo[..., 1:] / lo[..., :1]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+
+
+def cached_attention(q, k_cache, v_cache, kv_positions, ctx=NULL_CTX, *,
+                     window: int = 0) -> torch.Tensor:
+    """A decode step's attention of q (K*B, 1, H, hd) against a layer's
+    cache leaves (K, B, S, KV, hd).  Off a mesh, or on one whose cache
+    leaves are plain tensors, ``decode_attention`` of the flattened cache.
+    On a mesh each rank reads its own shard of the cache as it lies:
+    batch and kv heads as the cache splits them (q laid out to match:
+    its heads replicated where the cache's slots take the mesh dim), and
+    its own slots, with ``kv_positions`` (S,) or (K*B, S) sliced to them.
+    Where the slots are split, ``_decode_merged`` combines the ranks'
+    partial softmaxes over the mesh dims that split them; where they are
+    not, each rank runs ``decode_attention`` itself.  A head_dim split of
+    the cache is gathered for the product."""
+    if not isinstance(k_cache, DTensor):
+        return decode_attention(q, k_cache.flatten(0, 1),
+                                v_cache.flatten(0, 1), kv_positions,
+                                window=window)
+    mesh = ctx.mesh
+    km, b, s_all, _, hd = k_cache.shape
+    h = q.shape[2]
+    cpl = tuple(Replicate() if isinstance(p, Shard) and p.dim == 4 else p
+                for p in k_cache.placements)
+    k, v = ctx.place(k_cache, cpl), ctx.place(v_cache, cpl)
+    # cache dims (K, B, S, KV, hd) -> q5's (K, B, 1, H, hd): batch and heads
+    qpl = tuple(p if isinstance(p, Shard) and p.dim in (1, 3)
+                else Replicate() for p in cpl)
+    q5 = ctx.place(reshape(q, km, b, 1, h, hd), qpl)
+    groups = [(mesh, i) for i, p in enumerate(cpl)
+              if isinstance(p, Shard) and p.dim == 2]
+    kl = k.to_local()
+    s0, b0 = ctx.shard_offset(k, 2), ctx.shard_offset(k, 1)
+    pos = local(kv_positions)
+    if pos.dim() == 2:            # per row: this rank's rows
+        pos = pos.reshape(km, b, s_all)[:, b0:b0 + kl.shape[1]].flatten(0, 1)
+    pos = pos[..., s0:s0 + kl.shape[2]]
+
+    def attend(ql, kl_, vl):
+        qf, kf, vf = ql.flatten(0, 1), kl_.flatten(0, 1), vl.flatten(0, 1)
+        o = (_decode_merged(qf, kf, vf, pos, groups) if groups else
+             decode_attention(qf, kf, vf, pos, window=window))
+        return o.reshape(ql.shape)
+    o5 = local_map(attend, out_placements=(qpl,),
+                   in_placements=(qpl, cpl, cpl),
+                   device_mesh=mesh)(q5, k, v)
+    return reshape(o5, km * b, 1, h, hd)
+
+
 def project(x, w) -> torch.Tensor:
     """x (K, bs, S, d) @ w (K, d, heads, hd) -> (K*bs, S, heads, hd): the
     model axis folded into the batch."""
@@ -228,18 +311,29 @@ def project_out(p, o, km: int) -> torch.Tensor:
                       km, kb // km, s, -1)
 
 
-def sharded_attention(fn, q, k, v, ctx=NULL_CTX):
+def sharded_attention(fn, q, k, v, ctx=NULL_CTX, rows_fn=None):
     """``fn(q, k, v)`` (an attention over (B, S, H, hd) queries and (B, S',
     KV, hd) keys and values, independent per sequence and head) under
-    ``ctx``: batch and heads laid out by the context's rules (sequence and
-    head_dim whole), ``fn`` on each rank's shards.  Query head h reads kv
-    head h // (H // KV); where q's heads are split over the mesh and k's
-    are not, each rank slices the kv heads of its own groups, and their
-    gradient is a partial sum over the ranks that split q."""
+    ``ctx``: batch and heads laid out by the context's rules (head_dim
+    whole), ``fn`` on each rank's shards.  Query head h reads kv head h //
+    (H // KV); where q's heads are split over the mesh and k's are not,
+    each rank slices the kv heads of its own groups, and their gradient
+    is a partial sum over the ranks that split q.
+
+    Where the rules split the sequence (sequence-parallel prefill), the
+    queries stay split: each rank gathers the keys and values along the
+    sequence and runs ``rows_fn(q, k, v, q_offset)`` on its own query
+    rows, ``q_offset`` the global position of its first (the blockwise
+    forms' argument); a call whose sequence the rules split needs
+    ``rows_fn``."""
     if ctx.mesh is None:
         return fn(q, k, v)
-    q = ctx.constrain(q, Q_KERNEL_AXES)
+    q = ctx.constrain(q, Q_ROW_AXES)
     k = ctx.constrain(k, KV_KERNEL_AXES)
+    rows = any(isinstance(p, Shard) and p.dim == 1 for p in q.placements)
+    if rows and rows_fn is None:
+        raise ValueError("the rules split the sequence: pass rows_fn")
+    q_off = ctx.shard_offset(q, 1) if rows else 0
     h, kvh = q.shape[2], k.shape[2]
     hl, kl = q.to_local().shape[2], k.to_local().shape[2]
     lo, n = 0, kl
@@ -250,10 +344,11 @@ def sharded_attention(fn, q, k, v, ctx=NULL_CTX):
                              f"of {g}")
         lo, n = ctx.shard_offset(q, 2) // g, max(hl // g, 1)
 
-    def local(ql, kl_, vl):
-        return fn(ql, kl_[:, :, lo:lo + n], vl[:, :, lo:lo + n])
-    return ctx.run_local(local, (q, k, v),
-                         (Q_KERNEL_AXES, KV_KERNEL_AXES, KV_KERNEL_AXES),
+    def local_fn(ql, kl_, vl):
+        kl_, vl = kl_[:, :, lo:lo + n], vl[:, :, lo:lo + n]
+        return rows_fn(ql, kl_, vl, q_off) if rows else fn(ql, kl_, vl)
+    return ctx.run_local(local_fn, (q, k, v),
+                         (Q_ROW_AXES, KV_KERNEL_AXES, KV_KERNEL_AXES),
                          outs=(0,))
 
 
@@ -274,19 +369,24 @@ def attention_layer(p, x, cfg: ModelConfig, kind: str, *, q_offset: int = 0,
     q, k, v = project_qkv(p, x, cfg, positions)
     q = ctx.constrain(q, ("batch", "seq", "heads", "head_dim"))
     win = cfg.sliding_window if kind == "local" else 0
+
+    def rows(a, b, c, off):       # query rows from ``off`` on: masked full
+        return blockwise_attention(a, b, c, causal=True, window=win,
+                                   q_offset=q_offset + off,
+                                   block_q=cfg.attn_block_q or s)
     if win and s > win and not q_offset:
         o = sharded_attention(lambda a, b, c: window_attention(a, b, c, win),
-                              q.float(), k.float(), v.float(), ctx).to(q.dtype)
+                              q.float(), k.float(), v.float(), ctx,
+                              rows).to(q.dtype)
     elif win and s > win:
         o = sharded_attention(lambda a, b, c: local_blockwise_attention(
-            a, b, c, window=win, q_offset=q_offset), q, k, v, ctx)
+            a, b, c, window=win, q_offset=q_offset), q, k, v, ctx, rows)
     elif cfg.attn_block_skip and not q_offset:
         o = sharded_attention(lambda a, b, c: causal_skip_attention(
-            a, b, c, window=win), q, k, v, ctx)
+            a, b, c, window=win), q, k, v, ctx, rows)
     else:
-        o = sharded_attention(lambda a, b, c: blockwise_attention(
-            a, b, c, causal=True, window=win, q_offset=q_offset,
-            block_q=cfg.attn_block_q or s), q, k, v, ctx)
+        o = sharded_attention(lambda a, b, c: rows(a, b, c, 0), q, k, v, ctx,
+                              rows)
     return project_out(p, o, km), k, v
 
 

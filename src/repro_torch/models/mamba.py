@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssm_scan.ops import ssm_scan
 from repro_torch.models.layers import matmul, per_model
-from repro_torch.models.params import NULL_CTX, param, reshape
+from repro_torch.models.params import NULL_CTX, param, reshape, zero_pad
 
 # the scan's operands: dt, B, C, x (K*bs, S, .), a (K, di, n), h0
 SCAN_AXES = (("batch", None, "mlp"), ("batch", None, None),
@@ -65,7 +65,7 @@ def _conv1d_causal(x, conv_w, conv_b, conv_state=None):
     the w taps.  Returns (y, the last w-1 inputs)."""
     taps = conv_w.unbind(1)
     w, s = len(taps), x.shape[-2]
-    xp = (F.pad(x, (0, 0, w - 1, 0)) if conv_state is None
+    xp = (zero_pad(x, -2, before=w - 1) if conv_state is None
           else torch.cat([conv_state, x], dim=-2))
     y = sum(xp[..., i:i + s, :] * per_model(taps[i], x) for i in range(w))
     return y + per_model(conv_b, x), xp[..., s:, :]

@@ -182,7 +182,8 @@ def stacked_predict_fn(cfg: ModelConfig):
 
 def _lift_cache(cache):
     """The public cache (no model axis) as the stack's: views, so the
-    stack's in-place writes land in the caller's tensors."""
+    stack's in-place writes land in the caller's tensors (a DTensor's
+    new leading model axis unsharded)."""
     return {"pos": cache["pos"],
             **{k: tree_map(lambda v: v.unsqueeze(0), cache[k])
                for k in ("stack", "rem")}}
@@ -197,7 +198,9 @@ def _drop_model_axis(cache):
 def prefill_fn(cfg: ModelConfig, ctx=NULL_CTX,
                max_len: Optional[int] = None):
     """fn(params, batch) -> (last-token logits (B, 1, V), cache) of one
-    model; the cache holds ``max(max_len, prompt)`` positions."""
+    model; the cache holds ``max(max_len, prompt)`` positions.  Under a
+    ``ctx`` with a mesh the cache's leaves are DTensors in the cache
+    layout of the context's rules."""
     def prefill(params, batch):
         with ctx.scope():
             p1, b1 = _one(params, batch)
@@ -210,7 +213,8 @@ def prefill_fn(cfg: ModelConfig, ctx=NULL_CTX,
 def decode_fn(cfg: ModelConfig, ctx=NULL_CTX):
     """fn(params, tokens (B, 1), cache) -> (logits (B, 1, V), cache): the
     cache's tensors are written in place (the reference donates its cache
-    to the jitted step) and returned with the next ``pos``."""
+    to the jitted step) and returned with the next ``pos``; a DTensor
+    cache keeps its leaves' placements."""
     def step(params, tokens, cache):
         with ctx.scope():
             logits, new = tfm.forward_decode(

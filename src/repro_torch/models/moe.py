@@ -29,10 +29,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ACTS, matmul
-from repro_torch.models.params import NULL_CTX, param, reshape
+from repro_torch.models.params import (NULL_CTX, Partial, Replicate, Shard,
+                                       local_map, param, reshape, zero_pad)
 
 GROUP_AXES = (None, "moe_group", None, None)           # (K, N, ., d)
 BUF_AXES = (None, "expert", None, "moe_group", None)   # (K, E, C, N, d)
+COMBINE_AXES = (None, "moe_group", None, "expert", None)  # (K, N, T, E, C)
 EXPERT_W_AXES = (None, "expert", None, None)           # (K, E, ., .)
 
 
@@ -98,6 +100,28 @@ def _experts(p, expert_in, cfg: ModelConfig, ctx=NULL_CTX):
                          (BUF_AXES,) + (EXPERT_W_AXES,) * 3, outs=(0,))
 
 
+def _combine(combine_t, expert_out, ctx=NULL_CTX):
+    """combine_t (K, N, T, E, C) x expert_out (K, E, C, N, d) summed over
+    the experts and their slots -> (K, N, T, d).  On a mesh each rank
+    contracts its own token groups and experts (``local_map``), and the
+    partial sums over a split of the experts are all-reduced: DTensor's
+    own einsum flattens the split expert dim with the slots' (torch 2.11),
+    which its view rule refuses."""
+    def fn(a, b):
+        return torch.einsum("mntec,mecnd->mntd", a, b)
+    if ctx.mesh is None:
+        return fn(combine_t, expert_out)
+    a = ctx.constrain(combine_t, COMBINE_AXES)
+    b = ctx.constrain(expert_out, BUF_AXES)
+    out = tuple(Partial() if isinstance(q, Shard) and q.dim == 3 else q
+                for q in a.placements)
+    y = local_map(fn, out_placements=(out,),
+                  in_placements=(tuple(a.placements), tuple(b.placements)),
+                  device_mesh=ctx.mesh)(a, b)
+    return y.redistribute(ctx.mesh, [Replicate() if q.is_partial() else q
+                                     for q in out])
+
+
 def _moe_einsum(p, xg, cfg: ModelConfig, cap: int, ctx=NULL_CTX):
     """One-hot dispatch: (K, N, T, E, C) dispatch and combine tensors, the
     choice axis contracted inside the einsums."""
@@ -115,8 +139,7 @@ def _moe_einsum(p, xg, cfg: ModelConfig, cap: int, ctx=NULL_CTX):
                              xg.to(cdt))                      # (K,E,C,N,d)
     expert_in = ctx.constrain(expert_in, BUF_AXES)
     expert_out = ctx.constrain(_experts(p, expert_in, cfg, ctx), BUF_AXES)
-    yg = torch.einsum("mntec,mecnd->mntd", combine_t, expert_out)
-    return yg, aux
+    return _combine(combine_t, expert_out, ctx), aux
 
 
 def _moe_gather(p, xg, cfg: ModelConfig, cap: int, ctx=NULL_CTX):
@@ -165,7 +188,7 @@ def apply_moe(p, x, cfg: ModelConfig, *, group_size: int = 512,
     e, k = cfg.num_experts, cfg.experts_per_token
     g = min(group_size, s)
     pad = (-s) % g
-    xp = F.pad(x, (0, 0, 0, pad)) if pad else x
+    xp = zero_pad(x, 2, after=pad)
     ng = (s + pad) // g
     xg = ctx.constrain(reshape(xp, km, b * ng, g, d), GROUP_AXES)  # (K,N,T,d)
     cap = max(int(g * k / e * cfg.moe_capacity_factor), 4)

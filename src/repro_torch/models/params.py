@@ -266,6 +266,11 @@ class ShardCtx:
             return x
         return _placed(x, self.mesh, self.placements(x.shape, axes))
 
+    def place(self, x, placements):
+        """x on the context's mesh with ``placements`` (``constrain`` with
+        the placements given, not derived from axes)."""
+        return _placed(x, self.mesh, placements)
+
     def scope(self):
         """The context a sharded forward and backward run in: plain
         tensors made inside the model (positions, masks, zero states) meet
@@ -310,6 +315,11 @@ class ShardCtx:
 
 
 NULL_CTX = ShardCtx()
+
+
+def local(x):
+    """This rank's shard of a DTensor; a plain tensor as it is."""
+    return x.to_local() if isinstance(x, DTensor) else x
 
 
 def _view_groups(old: Sequence[int], new: Sequence[int]):
@@ -390,6 +400,27 @@ def reshape(x, *shape):
     return _safe_view(x, tuple(new))
 
 
+def zero_pad(x, dim: int, before: int = 0, after: int = 0):
+    """x with ``before`` and ``after`` zeros along ``dim``: ``F.pad``'s
+    constant 0, and on a DTensor the same values as a concatenation,
+    which DTensor lays out as x, where its ``constant_pad_nd`` rule
+    returns a spec of one placement on a 2-d mesh in torch 2.11."""
+    if not (before or after):
+        return x
+    dim = dim % x.dim()
+    if not isinstance(x, DTensor):
+        return torch.nn.functional.pad(
+            x, (0, 0) * (x.dim() - 1 - dim) + (before, after))
+
+    def zeros(n):
+        shape = list(x.shape)
+        shape[dim] = n
+        return torch.zeros(shape, dtype=x.dtype, device=x.device)
+    parts = ([zeros(before)] if before else []) + [x] + \
+        ([zeros(after)] if after else [])
+    return torch.cat(parts, dim=dim)
+
+
 # ---------------------------------------------------------------------------
 # Trees on a mesh, and the bridge to the reference's weights
 # ---------------------------------------------------------------------------
@@ -414,12 +445,17 @@ def from_numpy_params(tree, device: Optional[Device] = None, mesh=None,
     """A tree of numpy arrays (e.g. the reference's ``init_params`` pulled
     to the host) as a tree of tensors on ``device``, bit for bit: the CUDA
     card unless the caller passes ``"cpu"``.  With ``mesh`` and
-    ``shardings``, each leaf is laid out on the mesh (``distribute_tree``;
-    ``device`` must be the mesh's device type)."""
+    ``shardings``, each leaf is laid out on the mesh as it is made
+    (``distribute_tree``; ``device`` must be the mesh's device type), so
+    the device never holds more than one leaf whole."""
     dev = resolve_device(device)
-    out = tree_map(lambda a: torch.from_numpy(np.array(a, copy=True)).to(
-        dev), tree)
-    return out if mesh is None else distribute_tree(out, shardings, mesh)
+
+    def lay(a, placements=None):
+        t = torch.from_numpy(np.array(a, copy=True)).to(dev)
+        return t if mesh is None else _placed(t, mesh, placements)
+    if mesh is None:
+        return tree_map(lay, tree)
+    return tree_map(lay, tree, shardings)
 
 
 def to_numpy_params(tree):

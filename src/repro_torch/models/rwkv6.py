@@ -37,6 +37,24 @@ def _wkv_local(r, k, v, lw, u, h0):
     return wkv(*(t.contiguous() for t in (r, k, v, lw, u, h0)))
 
 
+# decode's operands: r, k, v, w, u (K, B, H, N) (u's B is 1), state (K, B,
+# H, N, N)
+STEP_AXES = ((None, "batch", "heads", None),) * 5 + (
+    (None, "batch", "heads", None, None),)
+
+
+def _step_local(r, k, v, w, u, hstate):
+    """One token of the recurrence: y = r (S + diag(u) k^T v), and the
+    state decayed by w plus k^T v.  Independent per sequence and head, so
+    on a mesh it runs on each rank's shards (DTensor's einsum would flatten
+    the split batch and head dims together, which torch 2.11's view rule
+    refuses)."""
+    y = torch.einsum("kbhn,kbhnm->kbhm", r, hstate) \
+        + (r * u * k).sum(-1, keepdim=True) * v
+    h_new = w[..., None] * hstate + torch.einsum("kbhn,kbhm->kbhnm", k, v)
+    return y, h_new
+
+
 def rwkv_heads(cfg: ModelConfig):
     n = cfg.rwkv_head_dim
     assert cfg.d_model % n == 0
@@ -128,9 +146,10 @@ def time_mix(p, x, cfg: ModelConfig, state, ctx=NULL_CTX):
                                 reshape(h_new, km, bs, h, n, n))
 
 
-def time_mix_step(p, x, cfg: ModelConfig, state):
+def time_mix_step(p, x, cfg: ModelConfig, state, ctx=NULL_CTX):
     """Decode: x (K, bs, 1, d).  state = (shift_prev (K, bs, d), h (K, bs,
-    H, N, N)).  Returns (y, (x[..., 0, :], h_new))."""
+    H, N, N)).  Returns (y, (x[..., 0, :], h_new)); on a mesh h_new keeps
+    h's placements."""
     h, n = rwkv_heads(cfg)
     km, bs = x.shape[:2]
     prev, hstate = state
@@ -138,17 +157,15 @@ def time_mix_step(p, x, cfg: ModelConfig, state):
     xr, xk, xv, xg, xw = (_mix(x, xs, m) for m in p["mu"].unbind(1))
 
     def heads(t):
-        return t.float().reshape(km, bs, h, n)
+        return reshape(t.float(), km, bs, h, n)
     r = heads(matmul(xr, p["wr"]))
     k = heads(matmul(xk, p["wk"])) * (n ** -0.5)
     v = heads(matmul(xv, p["wv"]))
     g = F.silu(matmul(xg, p["wg"]))
     w = heads(torch.exp(_log_decay(p, xw)))
-    u = p["u"].float().reshape(km, 1, h, n)
-    # y = r (S + diag(u) k^T v)
-    y = torch.einsum("kbhn,kbhnm->kbhm", r, hstate) \
-        + (r * u * k).sum(-1, keepdim=True) * v
-    h_new = w[..., None] * hstate + torch.einsum("kbhn,kbhm->kbhnm", k, v)
+    u = reshape(p["u"].float(), km, 1, h, n)
+    y, h_new = ctx.run_local(_step_local, (r, k, v, w, u, hstate),
+                             STEP_AXES, outs=(0, 5))
     y = _headnorm(p, y.unsqueeze(2), cfg).to(x.dtype) * g
     return matmul(y, p["wo"]), (x[..., 0, :], h_new)
 
@@ -170,7 +187,7 @@ def rwkv_block(p, x, cfg: ModelConfig, state, norm_fn, ctx=NULL_CTX):
     tm_prev, hstate, cm_prev = state
     if x.shape[-2] == 1:
         a, (tm_prev2, h2) = time_mix_step(p, norm_fn(0, x), cfg,
-                                          (tm_prev, hstate))
+                                          (tm_prev, hstate), ctx)
     else:
         a, (tm_prev2, h2) = time_mix(p, norm_fn(0, x), cfg,
                                      (tm_prev, hstate), ctx)

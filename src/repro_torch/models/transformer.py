@@ -59,6 +59,16 @@ tensors in place, as the reference donates the cache to its jitted step,
 and returns them with the next ``pos``: a caller that needs the cache as
 it was clones it first.  Decode keeps ``pos`` on the device (slots are
 written by ``index_copy_``), so a step never waits for the card.
+
+On a mesh the cache is a tree of DTensors (``pos`` replicated): prefill
+makes it in the cache layout of its own rules (``CACHE_AXES``; each rank
+allocates its shard) and every write lands in the writing rank's own
+shards (``_fill_slots``, ``_write_slot``, ``_assign``): a ring's roll and
+the headroom past the prompt included, a decode step's new key and value
+on the rank holding its slot.  A decode step's attention reads each
+rank's own slots (``attention.cached_attention``), and every leaf keeps
+the placements it came with, the counterpart of the reference's pinned
+``out_shardings``.
 """
 from __future__ import annotations
 
@@ -79,7 +89,9 @@ from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.models.layers import (apply_embed, apply_mlp, apply_norm,
                                        apply_unembed, init_embed, init_mlp,
                                        init_norm, matmul)
-from repro_torch.models.params import NULL_CTX, ShardCtx, param  # noqa: F401
+from repro_torch.models.params import (  # noqa: F401
+    NULL_CTX, DTensor, Replicate, Shard, ShardCtx, local, local_shape, param,
+    reshape, spec_for, spec_to_placements)
 
 X_AXES = (None, "batch", "seq", "embed")      # (K, bs, S, d) activations
 
@@ -191,51 +203,83 @@ def _attn_cache_len(cfg: ModelConfig, kind: str, cache_len: int) -> int:
     return cache_len
 
 
+# each cache leaf's logical axes, after its leading (K, n_full) or (K,)
+# dims; ``h`` by the layer's kind (``launch.shardings`` reads the table)
+KV_CACHE_AXES = ("batch", "kvseq", "kv_heads", "head_dim")
+CACHE_AXES = {"k": KV_CACHE_AXES, "v": KV_CACHE_AXES, "xk": KV_CACHE_AXES,
+              "xv": KV_CACHE_AXES, "conv": ("batch", None, "mlp"),
+              "tm_prev": ("batch", "embed"), "cm_prev": ("batch", "embed")}
+STATE_H_AXES = {"mamba": ("batch", "mlp", None),
+                "rwkv": ("batch", "heads", None, None)}
+
+
+def _cache_zeros(shape, axes, dtype, device, ctx=NULL_CTX):
+    """A zero cache leaf; under ``ctx``'s mesh a DTensor laid out by
+    ``spec_for`` of ``axes`` under the context's rules, each rank
+    allocating its own shard only (the leading model axis unsharded)."""
+    if ctx.mesh is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    axes = (None,) * (len(shape) - len(axes)) + tuple(axes)
+    spec = spec_for(shape, axes, ctx.rules, ctx.mesh)
+    shard = torch.zeros(local_shape(shape, spec, ctx.mesh), dtype=dtype,
+                        device=device)
+    return DTensor.from_local(shard, ctx.mesh,
+                              spec_to_placements(spec, ctx.mesh),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int,
                      cache_len: int, dtype, lead: Tuple[int, ...] = (),
-                     device=None):
+                     device=None, ctx=NULL_CTX):
     """One layer's zero cache, its leaves ``lead + (batch, ...)``."""
     kvh, hd = cfg.num_kv_heads, cfg.head_dim
 
-    def zeros(*shape, dt=dtype):
-        return torch.zeros(lead + (batch,) + shape, dtype=dt, device=device)
+    def zeros(name, *shape, dt=dtype):
+        axes = STATE_H_AXES[kind] if name == "h" else CACHE_AXES[name]
+        return _cache_zeros(lead + (batch,) + shape, axes, dt, device, ctx)
     if kind in ("global", "local"):
         s = _attn_cache_len(cfg, kind, cache_len)
-        return {"k": zeros(s, kvh, hd), "v": zeros(s, kvh, hd)}
+        return {"k": zeros("k", s, kvh, hd), "v": zeros("v", s, kvh, hd)}
     if kind == "mamba":
         di = mb.d_inner(cfg)
-        return {"conv": zeros(cfg.ssm_conv_width - 1, di),
-                "h": zeros(di, cfg.ssm_state_dim, dt=torch.float32)}
+        return {"conv": zeros("conv", cfg.ssm_conv_width - 1, di),
+                "h": zeros("h", di, cfg.ssm_state_dim, dt=torch.float32)}
     if kind == "rwkv":
         h, n = rw.rwkv_heads(cfg)
-        return {"tm_prev": zeros(cfg.d_model),
-                "h": zeros(h, n, n, dt=torch.float32),
-                "cm_prev": zeros(cfg.d_model)}
+        return {"tm_prev": zeros("tm_prev", cfg.d_model),
+                "h": zeros("h", h, n, n, dt=torch.float32),
+                "cm_prev": zeros("cm_prev", cfg.d_model)}
     raise ValueError(kind)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, enc_len: int = 0, models: int = 1,
-               device=None):
+               device=None, ctx=NULL_CTX):
     """Decode cache for the whole stack of ``models`` models, on ``device``
-    (the CUDA card unless the caller passes ``"cpu"``)."""
+    (the CUDA card unless the caller passes ``"cpu"``); under ``ctx``'s
+    mesh its leaves are DTensors in the cache layout of the context's
+    rules, ``pos`` replicated."""
     dev = resolve_device(device)
     plen, n_full, rem = pattern_info(cfg)
 
     def layer(kind, lead):
-        lc = init_layer_cache(cfg, kind, batch, cache_len, dtype, lead, dev)
+        lc = init_layer_cache(cfg, kind, batch, cache_len, dtype, lead, dev,
+                              ctx)
         if cfg.family == "audio":
-            lc["xk"] = torch.zeros(lead + (batch, enc_len, cfg.num_kv_heads,
-                                           cfg.head_dim), dtype=dtype,
-                                   device=dev)
-            lc["xv"] = torch.zeros_like(lc["xk"])
+            for name in ("xk", "xv"):
+                lc[name] = _cache_zeros(lead + (batch, enc_len,
+                                                cfg.num_kv_heads,
+                                                cfg.head_dim),
+                                        KV_CACHE_AXES, dtype, dev, ctx)
         return lc
     stack = ({f"p{pidx}": layer(kind, (models, n_full))
               for pidx, kind in enumerate(cfg.layer_pattern)}
              if n_full else {})
     remc = {f"r{j}": layer(cfg.layer_kinds[n_full * plen + j], (models,))
             for j in range(rem)}
-    return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
+    return {"pos": _cache_zeros((), (), torch.int32, dev, ctx),
             "stack": stack, "rem": remc}
 
 
@@ -252,6 +296,76 @@ def _ring_positions(cache_slots: int, pos, window: int):
 def _full_positions(cache_slots: int, pos):
     idx = torch.arange(cache_slots, dtype=torch.int32, device=pos.device)
     return torch.where(idx < pos, idx, -1)
+
+
+# ---------------------------------------------------------------------------
+# Cache writes: each rank writes its own shards
+# ---------------------------------------------------------------------------
+
+SLOT_DIM = 2          # of a layer's k / v / xk / xv leaf (K, B, slots, ..)
+
+
+def _slots_whole(val, dst, ctx=NULL_CTX):
+    """This rank's part of ``val`` (K, B, T, ...) in the layout of cache
+    leaf ``dst`` with the slot dim whole: ``val`` itself off a mesh."""
+    if not isinstance(dst, DTensor):
+        return val
+    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == SLOT_DIM
+               else p for p in dst.placements)
+    return ctx.place(val, pl).to_local()
+
+
+def _own_slots(dst, ctx=NULL_CTX):
+    """(the local shard of cache leaf ``dst``, the global index of its
+    first slot)."""
+    if not isinstance(dst, DTensor):
+        return dst, 0
+    return dst.to_local(), ctx.shard_offset(dst, SLOT_DIM)
+
+
+def _fill_slots(dst, val, slots: int, ctx=NULL_CTX):
+    """Prefill's write of a layer's keys or values ``val`` (K, B, T, KV,
+    hd) into cache leaf ``dst`` (K, B, slots, KV, hd): a local ring
+    (slots < T) keeps the last ``slots`` positions, position p in slot
+    p % slots; past T the slots stay zero (decode's headroom).  Each rank
+    writes only the slots it holds."""
+    total = val.shape[SLOT_DIM]
+    v = _slots_whole(val, dst, ctx)
+    if slots < total:
+        v = torch.roll(v[:, :, -slots:], total % slots, SLOT_DIM)
+    d, off = _own_slots(dst, ctx)
+    hi = min(off + d.shape[SLOT_DIM], v.shape[SLOT_DIM])
+    if hi > off:
+        d[:, :, :hi - off].copy_(v[:, :, off:hi])
+
+
+def _write_slot(dst, val, slot, ctx=NULL_CTX):
+    """Decode's write of one token's keys or values ``val`` (K, B, 1, KV,
+    hd) into slot ``slot`` (a 0-d device tensor) of cache leaf ``dst``.
+    On a mesh only the rank holding the slot changes it: the others write
+    their own first slot back as it was, so no rank waits for the card to
+    learn where the slot lies, and nothing is communicated beyond laying
+    ``val`` out like ``dst``."""
+    slot = slot.reshape(1).long()
+    if not isinstance(dst, DTensor):
+        dst.index_copy_(SLOT_DIM, slot, val.to(dst.dtype))
+        return
+    v = _slots_whole(val, dst, ctx).to(dst.dtype)
+    d, off = _own_slots(dst, ctx)
+    i = slot - off
+    own = (i >= 0) & (i < d.shape[SLOT_DIM])
+    i = torch.where(own, i, torch.zeros_like(i))
+    d.index_copy_(SLOT_DIM, i, torch.where(own, v,
+                                           d.index_select(SLOT_DIM, i)))
+
+
+def _assign(dst, val, ctx=NULL_CTX):
+    """dst[...] = val in place: a DTensor leaf keeps its placements, each
+    rank copying its shard of ``val`` laid out like ``dst``."""
+    if isinstance(dst, DTensor):
+        dst.to_local().copy_(ctx.place(val, dst.placements).to_local())
+    else:
+        dst.copy_(val)
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +390,8 @@ def _cross_attention(p, h, memory, cfg: ModelConfig, ctx=NULL_CTX):
     d), unmasked, without RoPE."""
     o = attn.sharded_attention(_unmasked, attn.project(h, p["wq"]),
                                attn.project(memory, p["wk"]),
-                               attn.project(memory, p["wv"]), ctx)
+                               attn.project(memory, p["wv"]), ctx,
+                               lambda q, k, v, off: _unmasked(q, k, v))
     return attn.project_out(p, o, h.shape[0])
 
 
@@ -334,14 +449,15 @@ def apply_block_train(p, x, cfg: ModelConfig, kind: str, pat_idx: int,
 def apply_block_decode(p, x, cfg: ModelConfig, kind: str, pat_idx: int,
                        cache, pos, ctx=NULL_CTX):
     """One-token decode of one layer: x (K, B, 1, d); ``cache`` this layer's
-    leaves (K, B, ...), written in place; ``pos`` the 0-d position of the
-    token.  Returns (x, cache)."""
+    leaves (K, B, ...), written in place (on a mesh, each rank its own
+    shards: the leaves keep their placements); ``pos`` the 0-d position of
+    the token, a plain tensor on every rank.  Returns (x, cache)."""
     if kind == "rwkv":        # one token: rwkv_block takes time_mix_step
         x, state = rw.rwkv_block(p["rwkv"], x, cfg,
                                  tuple(cache[n] for n in _RWKV_STATE),
                                  _rwkv_norms(p, cfg), ctx=ctx)
         for name, val in zip(_RWKV_STATE, state):
-            cache[name].copy_(val)
+            _assign(cache[name], val, ctx)
         return x, cache
     h = apply_norm(p["ln1"], x, cfg)
     if kind in ("global", "local"):
@@ -354,28 +470,25 @@ def apply_block_decode(p, x, cfg: ModelConfig, kind: str, pat_idx: int,
         else:
             slot = torch.clamp(pos, max=slots - 1)
             kv_pos = _full_positions(slots, pos + 1)
-        slot = slot.reshape(1).long()
         for name, val in (("k", k), ("v", v)):
-            cache[name].index_copy_(2, slot, val.reshape(
-                km, bs, *val.shape[1:]).to(cache[name].dtype))
-            cache[name] = ctx.constrain(cache[name], (
-                None, "batch", "kvseq", "kv_heads", "head_dim"))
-        o = attn.decode_attention(
-            q, cache["k"].flatten(0, 1), cache["v"].flatten(0, 1), kv_pos,
+            _write_slot(cache[name], reshape(val, km, bs, *val.shape[1:]),
+                        slot, ctx)
+        o = attn.cached_attention(
+            q, cache["k"], cache["v"], kv_pos, ctx,
             window=cfg.sliding_window if kind == "local" else 0)
         x = x + attn.project_out(p["attn"], o, km)
         if "xk" in cache:     # cross-attention against the cached memory
             qx = attn.project(apply_norm(p["lnx"], x, cfg), p["xattn"]["wq"])
             enc_pos = torch.arange(cache["xk"].shape[2], dtype=torch.int32,
                                    device=x.device)
-            ox = attn.decode_attention(qx, cache["xk"].flatten(0, 1),
-                                       cache["xv"].flatten(0, 1), enc_pos)
+            ox = attn.cached_attention(qx, cache["xk"], cache["xv"], enc_pos,
+                                       ctx)
             x = x + attn.project_out(p["xattn"], ox, km)
     elif kind == "mamba":
         y, (conv, h_new) = mb.mamba_decode_step(p["mamba"], h, cfg,
                                                 (cache["conv"], cache["h"]))
-        cache["conv"].copy_(conv)
-        cache["h"].copy_(h_new)
+        _assign(cache["conv"], conv, ctx)
+        _assign(cache["h"], h_new, ctx)
         x = x + y
     else:                     # check_kinds has refused the others
         raise ValueError(kind)
@@ -433,7 +546,8 @@ def encode_audio(params, cfg: ModelConfig, frames, ctx=NULL_CTX):
         pa = p["attn"]
         o = attn.sharded_attention(_unmasked, attn.project(h, pa["wq"]),
                                    attn.project(h, pa["wk"]),
-                                   attn.project(h, pa["wv"]), ctx)
+                                   attn.project(h, pa["wv"]), ctx,
+                                   lambda q, k, v, off: _unmasked(q, k, v))
         x = x + attn.project_out(pa, o, km)
         x = x + apply_mlp(p["ffn"], apply_norm(p["ln2"], x, cfg), cfg)
         x = ctx.constrain(x, X_AXES)
@@ -518,8 +632,8 @@ def forward_prefill(params, cfg: ModelConfig, batch, ctx=NULL_CTX,
     positions = torch.arange(total, dtype=torch.int32, device=x.device)[None]
     cache = init_cache(cfg, bsz, max(max_len or total, total), x.dtype,
                        memory.shape[2] if memory is not None else 0, km,
-                       x.device)
-    cache["pos"].fill_(total)
+                       x.device, ctx)
+    local(cache["pos"]).fill_(total)
     for p, kind, pidx, key, layer in _layers(params, cfg):
         x, _aux, kv = apply_block_train(p, x, cfg, kind, pidx, ctx,
                                         memory=memory, positions=positions,
@@ -527,20 +641,16 @@ def forward_prefill(params, cfg: ModelConfig, batch, ctx=NULL_CTX,
         lc = _layer_cache(cache, key, layer)
         if isinstance(kv, dict):       # mamba / rwkv final states
             for name, val in kv.items():
-                lc[name].copy_(val)
+                _assign(lc[name], val, ctx)
         else:
             slots = lc["k"].shape[2]
             for name, val in zip(("k", "v"), kv):
-                val = val.reshape(km, bsz, total, *val.shape[2:])
-                if slots < total:      # a local ring: the last slots entries,
-                    # position p in slot p % slots
-                    val = torch.roll(val[:, :, -slots:], total % slots, 2)
-                # past the prompt: headroom, left zero
-                lc[name][:, :, :val.shape[2]].copy_(val)
+                _fill_slots(lc[name], reshape(val, km, bsz, total,
+                                              *val.shape[2:]), slots, ctx)
             if memory is not None:
                 for name, w in (("xk", "wk"), ("xv", "wv")):
-                    lc[name].copy_(attn.project(memory, p["xattn"][w])
-                                   .reshape(lc[name].shape))
+                    _assign(lc[name], reshape(attn.project(
+                        memory, p["xattn"][w]), lc[name].shape), ctx)
     x = apply_norm(params["final_ln"], x, cfg)
     return apply_unembed(params["embed"], x[:, :, -1:], cfg), cache
 
@@ -554,7 +664,8 @@ def forward_decode(params, cfg: ModelConfig, tokens, cache, ctx=NULL_CTX):
         getattr(torch, cfg.compute_dtype)), X_AXES)
     for p, kind, pidx, key, layer in _layers(params, cfg):
         x, _ = apply_block_decode(p, x, cfg, kind, pidx,
-                                  _layer_cache(cache, key, layer), pos, ctx)
+                                  _layer_cache(cache, key, layer),
+                                  local(pos), ctx)
     x = apply_norm(params["final_ln"], x, cfg)
     return apply_unembed(params["embed"], x, cfg), {
         "pos": pos + 1, "stack": cache["stack"], "rem": cache["rem"]}

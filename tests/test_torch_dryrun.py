@@ -10,6 +10,7 @@ import json
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -23,6 +24,7 @@ from repro_torch.configs import ASSIGNED_ARCHS, SHAPES, get_config
 from repro_torch.core.tree import leaves_with_paths
 from repro_torch.launch import dryrun
 from repro_torch.launch import inputs as inp
+from repro_torch.launch.mesh import parse_mesh
 from repro_torch.models import abstract_params, init_cache
 from repro_torch.roofline import analysis as rl
 from repro_torch.roofline import report
@@ -166,3 +168,41 @@ def test_abstract_params_allocate_nothing():
     n = sum(t.numel() for t in leaves)
     assert n > 390e9
     assert all(t.dtype == torch.bfloat16 for t in leaves)
+
+
+# serving cells traced on a small fake world: (arch, shape, strategy,
+# mesh); prefill at 2048 tokens (the meta trace walks the blockwise
+# attention's tiles one by one), past gemma3's local window of 1024;
+# rwkv6-3b's 40 heads do not divide a model dim of 16 (the decode step's
+# head views)
+SERVE_TRACE = [("gemma3-27b", "prefill_32k", "tp", "2x2"),
+               ("llama3.2-3b", "prefill_32k", "auto", "2x2"),
+               ("gemma3-27b", "decode_32k", "tp", "2x2"),
+               ("gemma3-27b", "long_500k", "tp", "2x2"),
+               ("whisper-tiny", "long_500k", "auto", "2x2"),
+               ("rwkv6-3b", "decode_32k", "tp", "2x16")]
+
+
+@pytest.mark.parametrize("arch,shape,strategy,mesh", SERVE_TRACE)
+def test_serving_cells_trace_their_collectives(arch, shape, strategy, mesh):
+    """Prefill and decode cells on a small ``fake_world``: each step's
+    collectives traced (link bytes above 0; llama3.2-3b's prefill
+    sequence-parallel under auto), and a cell the reference skips stays
+    skipped, untraced."""
+    resolve, _ = _reference_resolve_config()
+    kind = SHAPES[shape].kind
+    rec = dryrun.run_one(arch, shape, save=False, mesh=mesh,
+                         strategy=strategy,
+                         seq_len=2048 if kind == "prefill" else None)
+    if resolve(arch, shape)[0] is None:
+        assert rec["status"] == "skipped"
+        assert "collective_bytes_total" not in rec
+        return
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["kind"] == kind
+    assert rec["num_devices"] == int(np.prod(parse_mesh(mesh).shape))
+    assert rec["collective_bytes_total"] > 0
+    assert rec["collective_s"] > 0
+    assert sum(rec["collective_op_counts"].values()) > 0
+    want = "seq_parallel" if arch == "llama3.2-3b" else "tp"
+    assert rec["strategy"] == want

@@ -55,7 +55,7 @@ def port_results(arch):
     return spawn(steps_on_mesh, 4, "gloo", arch, "2x2",
                  reference_weights(jcfg), client_batch(jcfg), HIST,
                  FLConfig(**FL), OptimizerConfig(**FEDAVG_OPT),
-                 OptimizerConfig(**CENTRAL_OPT), timeout=400)
+                 OptimizerConfig(**CENTRAL_OPT), "cpu", timeout=400)
 
 
 def _close(port_tree, ref_tree, atol, what):

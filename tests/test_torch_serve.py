@@ -98,20 +98,35 @@ def _np(tree):
     return tree_map(lambda t: t.numpy().copy(), tree)
 
 
+def cache_len(cfg, prompt, headroom=True):
+    """The ``max_len`` a case serves with: room for the GEN steps (and a
+    vlm's patch prefix), or None (the prompt's own length)."""
+    if not headroom:
+        return None
+    return prompt + GEN + (cfg.vision_tokens if cfg.family == "vlm" else 0)
+
+
+def reference_serve(jcfg, w, batch, nxt, max_len):
+    """The reference's jitted prefill and its decode steps fed ``nxt``'s
+    columns: a list of (logits, cache) in numpy, after prefill and after
+    each step."""
+    jp = jax.tree.map(jnp.asarray, w)
+    ref = [jax.jit(jprefill(jcfg, max_len=max_len))(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})]
+    jd = jax.jit(jdecode(jcfg))
+    for i in range(nxt.shape[1]):
+        ref.append(jd(jp, jnp.asarray(nxt[:, i:i + 1]), ref[-1][1]))
+    return [(np.asarray(lg), jax.tree.map(np.asarray, c)) for lg, c in ref]
+
+
 def run_both(jcfg, tcfg, prompt, headroom=True):
     """The reference's and the port's prefill and GEN decode steps on the
     same weights and tokens: {"ref": [...], "port": [...]}, each a list of
     (logits, cache) in numpy, after prefill and after each step."""
     w = reference_weights(jcfg)
     batch, nxt = serve_batch(jcfg, prompt)
-    max_len = None
-    if headroom:
-        max_len = prompt + GEN + (jcfg.vision_tokens
-                                  if jcfg.family == "vlm" else 0)
-    jp = jax.tree.map(jnp.asarray, w)
-    ref = [jax.jit(jprefill(jcfg, max_len=max_len))(
-        jp, {k: jnp.asarray(v) for k, v in batch.items()})]
-    jd = jax.jit(jdecode(jcfg))
+    max_len = cache_len(jcfg, prompt, headroom)
+    ref = reference_serve(jcfg, w, batch, nxt, max_len)
     tp = from_numpy_params(w, device="cpu")
     logits, cache = prefill_fn(tcfg, max_len=max_len)(
         tp, {k: torch.from_numpy(v) for k, v in batch.items()})
@@ -119,11 +134,9 @@ def run_both(jcfg, tcfg, prompt, headroom=True):
     step = decode_fn(tcfg)
     for i in range(GEN):
         tok = nxt[:, i:i + 1]
-        ref.append(jd(jp, jnp.asarray(tok), ref[-1][1]))
         # the step writes the cache in place: keep a copy of each
         logits, cache = step(tp, torch.from_numpy(tok), cache)
         port.append((logits.numpy(), _np(cache)))
-    ref = [(np.asarray(lg), jax.tree.map(np.asarray, c)) for lg, c in ref]
     return {"ref": ref, "port": port}
 
 
