@@ -32,7 +32,8 @@ Phases (any failed check raises, and the script exits non-zero):
    plain or library time under the bytes bound lost records, and the trace
    is taken again, up to 3 times, before an event time is used; a plain or
    library call of a millisecond or more is timed by events, back to back,
-   and not traced; each event time is printed beside its reading)
+   and not traced, one of 100 ms or more by one call after a warm-up;
+   each event time is printed beside its reading)
    beside the kernel's bound at the
    H100 SXM data-sheet peaks:
    3.35 TB/s, 67 TFLOP/s fp32 on the CUDA cores, 495 / 3 TFLOP/s for
@@ -70,6 +71,25 @@ Phases (any failed check raises, and the script exits non-zero):
    in another order; a gradient that is zero in exact arithmetic, window
    1's dq and dk, within 1e-4 of the case's largest gradient entry); both
    directions' two launches bit-identical.
+3e. bf16   — the bf16 routes, as the TPU kernels take bf16 operands
+   (``check_bf16_routes``): the coding kernels with bf16 coefficients and
+   w (and fp32 coefficients with bf16 w) at the CNN path's shapes, past
+   the register tile and ragged; ``ssm_scan`` with bf16 dt, b, c, x at the
+   jamba serve's prefill, the mamba path's stage and ragged n and D;
+   ``wkv`` with bf16 r, k, v, lw at rwkv6-3b's serve prefill (4, 512, 40
+   heads of 64; the row in the ``kernels`` line) and train client step
+   (1, 4,096, 40 of 64), the rwkv6 path's stage and N = 27; each against
+   its plain version at the
+   fp32 case's tolerance and bit for bit against the fp32 kernel on the
+   widened operands (widening in the load is exact), one case's backward
+   (the fp32 kernels on the widened saved operands, gradients cast);
+   ``window_attention``'s bf16 route (bf16 ``mma.sync.m16n8k16``, P
+   rounded to bf16) at gemma3-27b's layer, the local model's shape, window
+   1, hd 27 and hd 128 with window >= S against its plain version's bf16
+   arithmetic within 2^-8 (max|v| + |r|), two launches bit-identical,
+   timed beside its bound at the bf16 tensor-core rate (989 TFLOP/s) and
+   F.scaled_dot_product_attention at bf16.  These rows join the
+   ``kernels`` line as ``<kernel>_bf16``.
 4. small   — tiny scenarios on the card and on the CPU (plain versions):
    classification (2 shards, on the fused and on the ``legacy`` engine,
    whose coded store encodes per-client trees a round at a time; and 20
@@ -265,9 +285,20 @@ Phases (any failed check raises, and the script exits non-zero):
    (near the measured spread) of ``forward_train`` at that position, a row
    at a time (granite with its capacity unbound, as tests/test_arch_smoke.py
    does: the drop depends on the group size).  gemma3 serves a second time
-   (tokens and logits bit-identical), once more at its own bfloat16 (it
-   must finish, finite; its gap to the fp32 logits is printed), and one
-   traced decode step gives its device-busy time and idle share.  Every
+   (tokens and logits bit-identical), and one traced decode step gives its
+   device-busy time and idle share.  gemma3, rwkv6-3b and jamba serve once
+   more at their published numerics (``serve_bf16``: the weights cast to
+   bf16, bf16 compute, fed the fp32 run's tokens; launches counted under
+   their own path, "serve_bf16", jamba's mamba layer launching
+   ``ssm_scan_bf16``): finite, and held against the port's CPU path at
+   bf16 on the same weights and tokens at the case's first 2 rows, 32
+   prompt tokens and 4 steps (``SERVE_BF16_HELD``): each token's logits
+   row within twice its one-ulp spread (its largest L2 distance over
+   three draws of every bf16 weight moved one ulp, on the card), as the
+   CPU tests hold the port to the reference.  Reported beside: the gap to
+   the fp32 run and the argmax share equal to its tokens, and a witness
+   of that gap on the cut input (the fp32 run on the weights rounded to
+   bf16: the weights' rounding alone).  Every
    ``reduce_for_smoke`` config of ``ASSIGNED_ARCHS`` and a gemma3 with
    window 16 < prompt 40 serve on the card and on the CPU, fed the same
    tokens: logits within 1e-4 + 1e-4|r| (tests/test_torch_serve.py's
@@ -293,6 +324,13 @@ Phases (any failed check raises, and the script exits non-zero):
    the measured peak.  ``make_central_step`` at remat "none" and "block"
    (one 2,048-token sequence, sgd at lr 1 and no clip, so each new leaf is
    p - g): loss and every leaf bit-identical, each one's peak memory.
+   Then the bf16 case (``train_bf16``): the same steps' config at its
+   published numerics (bf16 params and compute; ``TRAIN_BF16_CUT``:
+   depth 8 only), 4 clients of 4,096 tokens, ``optimizer_for``'s choice;
+   one warm-up and 2 timed fedavg steps, their launches counted under
+   their own path, "train_bf16": step wall, tokens/s, peak memory against the dry run's bf16
+   count, ``mfu`` against the bf16 peak (989 TFLOP/s), and one traced
+   step's GEMM, port-kernel and other shares and its idle share.
    Then ``make_fedavg_step`` (sgd server) and ``make_calibration_step`` at
    ``reduce_for_smoke`` configs of rwkv6-3b, jamba-1.5-large-398b (global
    and mamba) and gemma3-27b (128 tokens past its window of 64) on the
@@ -533,6 +571,19 @@ def batch_ms(fn, iters: int) -> float:
 
 
 BATCH_CHECK_MS = 0.2  # a kernel call this long back to back is device-bound
+SLOW_CALL_MS = 100.0  # a plain or library call this long is timed once
+
+
+def one_call_ms(fn) -> float:
+    """One call of ``fn`` between two CUDA events, synchronized."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
 
 
 def timed(fn, iters: int, floor_ms: float = 0.0,
@@ -548,7 +599,16 @@ def timed(fn, iters: int, floor_ms: float = 0.0,
     millisecond or more is timed back to back and not traced: either the
     card is busy throughout, or the host is and the call's time is its
     elapsed time (a trace of a plain loop's thousands of launches is what
-    CUPTI loses records of)."""
+    CUPTI loses records of).  A plain or library call whose first (warm-up)
+    call takes ``SLOW_CALL_MS`` or more is timed by one more call alone:
+    the plain loops at full width take 0.1-3 s a call, and are no
+    yardstick of speed."""
+    if not batch:
+        first = one_call_ms(fn)
+        if first >= SLOW_CALL_MS:
+            ms = one_call_ms(fn)
+            return {"ms": ms, "timer": "events, one call after a warm-up",
+                    "event_ms": ms}
     ev = time_ms(fn, iters)
     if not batch and ev >= 1.0:
         return {"ms": min(batch_ms(fn, iters), ev),
@@ -819,7 +879,11 @@ def check_kernels(torch, K, path: str, model_cfg, ragged: bool):
                       50),
                      ("s50_c100", 50, 100, "random", p_client, 50),
                      ("s100_c200", 100, 200, "random", p_client, 20),
-                     ("s130_c140", 130, 140, "random", 4099, 20)]
+                     ("s130_c140", 130, 140, "random", 4099, 20),
+                     # benchmarks/kernels_bench.py's round trip (C 100, S
+                     # 4, P 500,000; its round-trip error printed, not held:
+                     # the tolerances above are for C <= 40)
+                     ("bench_c100_s4", 4, 100, None, 500_000, 20)]
     for label, s, c, ids, p, iters in ed_cases:
         w = randn(s, p)
         if ids == "random":
@@ -835,7 +899,9 @@ def check_kernels(torch, K, path: str, model_cfg, ragged: bool):
                                  f"launches differ")
         err = compare(got, coded_encode_decode_ref(enc, dec, w),
                       f"encode_decode/{path}/{label}")
-        if ids != "random":
+        if label.startswith("bench"):
+            err["round_trip_max_abs_err"] = float((got - w).abs().max())
+        elif ids != "random":
             tol = 1e-3 if ids is None else 2e-3
             err["round_trip_max_abs_err"] = compare(
                 got, w, f"encode_decode/{path}/{label}/round_trip", tol,
@@ -1259,6 +1325,300 @@ def check_window(torch, K):
         heads[label]["window_attention_bwd"] = row
         del q, k, v, lq, lk, lv, o, lse, do, mask
         torch.cuda.empty_cache()
+    return heads
+
+
+# phase 3e: the bf16 routes (the TPU kernels take bf16 operands)
+BF16_FLOPS_PER_S = 989e12      # H100 SXM, bf16 on the tensor cores, dense
+
+
+def _widened(torch, args):
+    return [a.float() if a.dtype == torch.bfloat16 else a for a in args]
+
+
+def _same(torch, a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def bf16_coding(torch, K) -> dict:
+    """Phase 3a's bf16 cases, at the CNN path's shapes: the coding kernels
+    with bf16 coefficients and w (and fp32 coefficients with bf16 w),
+    against their plain versions (fp32 outputs: 1e-5 + 1e-5|r|; bf16: one
+    ulp) and bit for bit against the fp32 kernels on the widened operands
+    (widening is exact, and the kernels widen as they load); calibrate
+    with bf16 operands (widened in its wrapper) too.  Times beside the
+    bytes bound at 2 bytes a bf16 element.  Returns the routes' rows."""
+    from repro_torch.kernels.calibrate.ops import calibrate_update
+    from repro_torch.kernels.calibrate.ref import calibrate_update_ref
+    from repro_torch.kernels.coded_matmul.ops import (coded_encode_decode,
+                                                      coded_matmul,
+                                                      coded_matmul_rounds)
+    from repro_torch.kernels.coded_matmul.ref import (coded_encode_decode_ref,
+                                                      coded_matmul_ref,
+                                                      coded_matmul_rounds_ref)
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(7)
+    p_client, g_rounds = PATHS["cnn"]["p_client"], PATHS["cnn"]["rounds"]
+    p_shard = CLIENTS_PER_SHARD * p_client
+    heads = {}
+
+    def randn(*shape, dtype=bf):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def nb(t):
+        return t.numel() * t.element_size()
+
+    # label, fn, plain, operands, kwargs, flops, iters, head key
+    f32 = torch.float32
+    cases = []
+    c, s, p = 20, 4, g_rounds * p_shard
+    cases.append(("encode_bf16_in", coded_matmul, coded_matmul_ref,
+                  [randn(c, s), randn(s, p)], {}, 2 * c * s * p, 20,
+                  "coded_matmul_bf16"))
+    cases.append(("encode_w_bf16_out_bf16", coded_matmul, coded_matmul_ref,
+                  [randn(c, s, dtype=f32), randn(s, p)],
+                  {"out_dtype": bf}, 2 * c * s * p, 20, None))
+    cases.append(("s20_encode_bf16_in", coded_matmul, coded_matmul_ref,
+                  [randn(40, 20), randn(20, 2 * p_client)], {},
+                  2 * 40 * 20 * 2 * p_client, 20, None))
+    cases.append(("ragged_c33_s16_bf16_in", coded_matmul, coded_matmul_ref,
+                  [randn(33, 16), randn(16, 4099)], {}, 2 * 33 * 16 * 4099,
+                  20, None))
+    cases.append(("stage_encode_bf16_in", coded_matmul_rounds,
+                  coded_matmul_rounds_ref,
+                  [randn(c, s), randn(g_rounds, s, p_shard)], {},
+                  2 * g_rounds * c * s * p_shard, 20,
+                  "coded_matmul_rounds_bf16"))
+    cases.append(("ragged_bf16_in", coded_matmul_rounds,
+                  coded_matmul_rounds_ref, [randn(3, 2), randn(2, 2, 5)], {},
+                  2 * 2 * 3 * 2 * 5, 20, None))
+    for label, s_, c_, p_, dt, head in (
+            ("all_clients_w_bf16", 4, 20, p_client, f32,
+             "encode_decode_bf16"),
+            ("all_clients_bf16", 4, 20, p_client, bf, None),
+            ("s50_c100_bf16", 50, 100, p_client, bf, None),
+            ("s130_c140_bf16_ragged", 130, 140, 4099, bf, None)):
+        cases.append((label, coded_encode_decode, coded_encode_decode_ref,
+                      [randn(c_, s_, dtype=dt) * s_ ** -0.5,
+                       randn(s_, c_, dtype=dt) * c_ ** -0.5,
+                       randn(s_, p_)], {}, 4 * c_ * s_ * p_, 20, head))
+    cases.append(("se_round_bf16", calibrate_update, calibrate_update_ref,
+                  [randn(p_client), randn(4, p_client), randn(4)], {},
+                  2 * 4 * p_client, 50, None))
+    for label, fn, plain, args, kw, flops, iters, head in cases:
+        name = fn.__name__.replace("coded_encode_decode", "encode_decode")
+        name = name.replace("calibrate_update", "calibrate")
+        got = fn(*args, **kw)
+        err = compare(got, plain(*args, **kw), f"{name}/{label}")
+        wide = fn(*_widened(torch, args), **kw)
+        if not torch.equal(got, wide) or not torch.equal(got,
+                                                         fn(*args, **kw)):
+            raise AssertionError(f"{name}/{label}: the bf16 route differs "
+                                 f"from the fp32 kernel on the widened "
+                                 f"operands, or two launches differ")
+        bnd = bound(sum(nb(a) for a in args) + nb(got), flops)
+        row = times(lambda: fn(*args, **kw), lambda: plain(*args, **kw),
+                    None, iters, bnd)
+        row.update(kernel=name + ("" if name == "calibrate" else "_bf16"),
+                   case=label, shape=[list(a.shape) for a in args],
+                   dtypes=[str(a.dtype) for a in args],
+                   out_dtype=str(got.dtype),
+                   bit_identical_to_widened_fp32=True, **err)
+        share(row, bnd)
+        log("kernel", **row)
+        if head:
+            heads[head] = row
+        del got, wide
+    del cases
+    torch.cuda.empty_cache()
+    return heads
+
+
+def bf16_recurrence(torch, K, name: str) -> dict:
+    """Phases 3b / 3c's bf16 cases: ``ssm_scan`` or ``wkv`` with bf16
+    inputs (the scan's dt, b, c, x; the WKV's r, k, v, lw), at the path
+    shapes and at ragged ones (scalar loads), against the plain loop
+    (the fp32 cases' tolerance) and bit for bit against the fp32 kernel on
+    the widened inputs, y, h_last and the training checkpoints; one
+    case's backward through autograd (bf16 gradients: the fp32 backward
+    kernel on the widened operands, cast).  Returns the path row."""
+    from repro_torch.roofline import analysis as rl
+    if name == "ssm_scan":
+        from repro_torch.kernels.ssm_scan import ops
+        from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref as ref
+        inputs, work, tol, seed = ssm_inputs, rl.ssm_work, 2e-4, 8
+        # the jamba serve's prefill (the bf16 serve launches it there), the
+        # mamba path's stage, ragged n and D
+        cases = [("serve_jamba_bf16", 4, 512, 16384, 16, 1, 3),
+                 ("fused_stage_bf16", 50, 64, 64, 8, 5, 20),
+                 ("ragged_n5_bf16", 2, 9, 300, 5, 1, 20),
+                 ("ragged_d130_n16_bf16", 3, 75, 130, 16, 1, 20)]
+    else:
+        from repro_torch.kernels.wkv import ops
+        from repro_torch.kernels.wkv.ref import wkv_ref as ref
+        inputs, work, tol, seed = wkv_inputs, rl.wkv_work, 5e-4, 9
+        # rwkv6-3b's serve prefill and train client-step shapes (no model
+        # path hands wkv bf16), the rwkv6 path's stage, ragged N
+        cases = [("serve_rwkv6_bf16", 4, 512, 40, 64, 1, 3),
+                 ("train_rwkv6_bf16", 1, 4096, 40, 64, 1, 3),
+                 ("fused_stage_bf16", 50, 64, 2, 16, 5, 20),
+                 ("ragged_n27_bf16", 2, 90, 2, 27, 1, 20)]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    fwd, head = getattr(ops, name), None
+    for label, bsz, s, d, n, g, iters in cases:
+        args = inputs(torch, gen, bsz, s, d, n, g)
+        args[:4] = [t.to(torch.bfloat16) for t in args[:4]]
+        wide = _widened(torch, args)
+        with torch.no_grad():
+            yk, hk = fwd(*args)
+            yr, hr = ref(*args)
+            err = compare(yk, yr, f"{name}/{label}/y", tol, tol)
+            compare(hk, hr, f"{name}/{label}/h_last", tol, tol)
+            del yr, hr
+            gg = ops._check(*args)
+            got = ops._fwd(*args, gg, keep=True)
+            if not (_same(torch, got, ops._fwd(*wide, gg, keep=True))
+                    and _same(torch, (yk, hk), got[:2])):
+                raise AssertionError(f"{name}/{label}: the bf16 route "
+                                     f"differs from the fp32 kernel on the "
+                                     f"widened inputs")
+            del yk, hk, got
+            bnd = bound(*work(bsz, s, d, n, g, False, in_bytes=2))
+            row = times(lambda: fwd(*args), lambda: ref(*args), None, iters,
+                        bnd)
+        row.update(kernel=name + "_bf16", case=label,
+                   shape=[bsz, s, d, n, g], bit_identical_to_widened_fp32=True,
+                   **err)
+        share(row, bnd)
+        if label == "fused_stage_bf16":
+            # autograd through the bf16 route: each gradient is the fp32
+            # backward kernel's on the widened operands, in its dtype
+            leaves = [t.detach().clone().requires_grad_(True) for t in args]
+            y, hl = fwd(*leaves)
+            gy = torch.randn(y.shape, generator=gen, device="cuda")
+            ghl = torch.randn(hl.shape, generator=gen, device="cuda")
+            grads = torch.autograd.grad((y, hl), leaves, (gy, ghl))
+            _, _, ckpt = ops._fwd(*wide, gg, keep=True)
+            want = ops._bwd(*wide[:5], ckpt, gy, ghl, gg)
+            want = [w.reshape(t.shape).to(t.dtype)
+                    for w, t in zip(want, args)]
+            if not _same(torch, grads, want):
+                raise AssertionError(f"{name}/{label}: bf16 gradients are "
+                                     f"not the fp32 backward's, cast")
+            row.update(backward_dtypes=[str(t.dtype) for t in grads],
+                       backward_bit_identical=True)
+            del leaves, y, hl, grads, want, ckpt
+        log("kernel", **row)
+        if head is None:
+            head = row
+        del args, wide
+        torch.cuda.empty_cache()
+    return head
+
+
+def bf16_window(torch, K) -> dict:
+    """Phase 3d's bf16 cases: ``window_attention``'s bf16 route (one-pass
+    bf16 mma.sync with fp32 accumulation, P rounded to bf16 before P V,
+    output in bf16) against the plain version's bf16 arithmetic (P rounded
+    at the row's max, not the running max): |k - r| <= 2^-8 (max|v| +
+    |r|), the bound of two roundings of P to bf16 (2^-9 each, relative)
+    and of O (half an ulp each); two launches bit-identical; at
+    gemma3-27b's layer, the local model's shape, window 1, hd 27 (element
+    loads) and hd 128 with window >= S; timed beside its bound at the bf16
+    tensor-core rate and F.scaled_dot_product_attention at bf16 (boolean
+    window mask, kv heads expanded).  One case's backward (the fp32
+    kernels on the widened saved tensors, gradients cast).  Returns the
+    gemma3 row."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.window_attn import ops
+    from repro_torch.kernels.window_attn.ref import window_attention_ref
+    from repro_torch.roofline.analysis import window_work
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    bf, head = torch.bfloat16, None
+    cases = [("gemma3_full_width_bf16", 2, 4096, 32, 16, 128, 1024, 5),
+             ("local_small_bf16", 4, 64, 4, 2, 16, 16, 50),
+             ("window1_bf16", 2, 100, 4, 2, 64, 1, 20),
+             ("ragged_hd27_bf16", 1, 130, 6, 3, 27, 70, 20),
+             ("hd128_window_ge_s_bf16", 1, 300, 4, 4, 128, 512, 20)]
+    for label, b, s, h, kv, hd, window, iters in cases:
+        q, k, v = (torch.randn(b, s, n, hd, generator=gen,
+                               device="cuda").to(bf) for n in (h, kv, kv))
+        pos = torch.arange(s, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] >
+                                                 pos[:, None] - window)
+        lq, lk, lv = (t.transpose(1, 2).repeat_interleave(h // t.shape[2], 1)
+                      for t in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask)
+        with torch.no_grad():
+            got, again = ops._fwd(q, k, v, window), ops._fwd(q, k, v, window)
+            if not _same(torch, got, again) or got[0].dtype != bf:
+                raise AssertionError(f"window_attention_bf16/{label}: two "
+                                     f"runs differ, or O is not bf16")
+            want = window_attention_ref(q, k, v, window)
+            diff = (got[0].float() - want.float()).abs()
+            tol = 2.0 ** -8 * (float(v.float().abs().max())
+                               + want.float().abs())
+            if not bool((diff <= tol).all()):
+                raise AssertionError(f"window_attention_bf16/{label}: "
+                                     f"{float(diff.max())} from the plain "
+                                     f"version, past 2^-8 (max|v| + |r|)")
+            err = {"max_abs_err": float(diff.max()),
+                   "tol": "2^-8 (max|v| + |r|)"}
+            exact = window_attention_ref(q.float(), k.float(), v.float(),
+                                         window)
+            err.update(kernel_vs_fp32_max_abs=float(
+                (got[0].float() - exact).abs().max()),
+                plain_vs_fp32_max_abs=float((want.float() - exact).abs()
+                                            .max()),
+                library_vs_fp32_max_abs=float(
+                    (library().transpose(1, 2).float() - exact).abs().max()))
+            del got, again, want, diff, tol, exact
+            bnd = bound(*window_work(b, s, h, kv, hd, window, False,
+                                     in_bytes=2),
+                        flops_per_s=BF16_FLOPS_PER_S)
+            row = times(lambda: ops._fwd(q, k, v, window),
+                        lambda: window_attention_ref(q, k, v, window),
+                        library, iters, bnd)
+        row.update(kernel="window_attention_bf16", case=label,
+                   shape=[b, s, h, kv, hd, window], bit_identical=True, **err)
+        share(row, bnd)
+        if label == "local_small_bf16":
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v)]
+            out = ops.window_attention(*leaves, window)
+            do = torch.randn(out.shape, generator=gen, device="cuda").to(bf)
+            grads = torch.autograd.grad(out, leaves, do)
+            o, lse = ops._fwd(q, k, v, window)
+            want = ops._bwd(q.float(), k.float(), v.float(), o.float(), lse,
+                            do.float(), window)
+            if not _same(torch, grads, [w.to(bf) for w in want]):
+                raise AssertionError(f"window_attention_bf16/{label}: bf16 "
+                                     f"gradients are not the fp32 "
+                                     f"backward's, cast")
+            row.update(backward_dtypes=[str(t.dtype) for t in grads],
+                       backward_bit_identical=True)
+            del leaves, out, do, grads, o, lse, want
+        log("kernel", **row)
+        if head is None:
+            head = row
+        del q, k, v, lq, lk, lv, mask
+        torch.cuda.empty_cache()
+    return head
+
+
+def check_bf16_routes(torch, K) -> dict:
+    """Phase 3e: every bf16 route against its plain version (phases 3a-3d's
+    bf16 cases, ``bf16_coding``, ``bf16_recurrence``, ``bf16_window``).
+    Returns {route: row}, the rows of the ``kernels`` line."""
+    t0 = time.perf_counter()
+    heads = bf16_coding(torch, K)
+    heads["ssm_scan_bf16"] = bf16_recurrence(torch, K, "ssm_scan")
+    heads["wkv_bf16"] = bf16_recurrence(torch, K, "wkv")
+    heads["window_attention_bf16"] = bf16_window(torch, K)
+    log("bf16_routes", seconds=time.perf_counter() - t0,
+        routes=sorted(heads))
     return heads
 
 
@@ -3620,6 +3980,18 @@ SERVE_TOL = 5e-3       # tests/test_arch_smoke.py's decode-vs-forward
 # rwkv6-3b, H100 80GB HBM3 at 700 W), which a cache or ring fault that
 # shifts logits by a few 1e-3 breaks where the reference's bound does not
 SERVE_SPREAD_TOL = 1e-3
+# the archs that also serve at their published numerics (bf16 params and
+# compute), fed the fp32 run's tokens (jamba's mamba layer hands ssm_scan
+# bf16 dt, b, c, x: ``ssm_scan_bf16``).  Each is held against the port's
+# CPU path at bf16 on the same weights and fed tokens, at an input the CPU
+# affords (SERVE_BF16_HELD: the first rows, prompt and steps of the case),
+# as tests/test_torch_bf16.py holds the port against the reference: each
+# token's logits row (prefill's last, each step's) within twice its
+# one-ulp spread, the largest L2 distance of the card's row over draws
+# (SERVE_BF16_DRAWS) of every nonzero bf16 weight moved one ulp up or down.
+SERVE_BF16 = ("gemma3-27b", "rwkv6-3b", "jamba-1.5-large-398b")
+SERVE_BF16_HELD = dict(rows=2, prompt=32, steps=4)
+SERVE_BF16_DRAWS = (9, 10, 11)
 
 
 def serve_inputs(torch, cfg, bsz: int, prompt: int, seed: int,
@@ -3757,6 +4129,7 @@ def serve_path(torch, K):
     from repro_torch.models import init_params
     t_phase = time.perf_counter()
     total = {k: 0 for k in K.LAUNCHES}
+    total16 = dict(total)
     for arch, changes, bsz, prompt, steps, cut in SERVE_CASES:
         cfg = dataclasses.replace(get_config(arch), param_dtype="float32",
                                   compute_dtype="float32", **changes)
@@ -3806,51 +4179,177 @@ def serve_path(torch, K):
             row["patch_tokens"] = cfg.vision_tokens
         if arch == "gemma3-27b":
             row.update(gemma3_extras(torch, K, cfg, params, batch, run))
+        if arch in SERVE_BF16:
+            row["bf16"], bf16_launches = serve_bf16(torch, K, cfg, params,
+                                                    batch, run)
+            for k, v in bf16_launches.items():
+                total16[k] += v
         log("serve", **row)
         del params, batch, run, check
         torch.cuda.empty_cache()
-    missing = [k for k in SERVE_KERNELS if not total[k]]
+    missing = [k for k in SERVE_KERNELS if not total[k]] + \
+        [k for k in ("ssm_scan_bf16",) if not total16[k]]
     if missing:
-        raise AssertionError(f"serve: {missing} never launched ({total})")
+        raise AssertionError(f"serve: {missing} never launched ({total}, "
+                             f"bf16 {total16})")
     log("serve_card_vs_cpu", max_abs=serve_card_vs_cpu(torch),
         tol="1e-4 + 1e-4*|ref|")
     log("serve_phase", seconds=time.perf_counter() - t_phase,
-        launches={k: v for k, v in total.items() if v})
-    return total
+        launches={k: v for k, v in total.items() if v},
+        bf16_launches={k: v for k, v in total16.items() if v})
+    return total, total16
+
+
+def serve_bf16(torch, K, cfg, params, batch, run):
+    """The case at its published numerics: the fp32 weights cast to bf16,
+    bf16 compute, fed the fp32 run's greedy tokens (so every step's logits
+    compare), after a warm-up; its launches counted (zeroed just before,
+    read just after).  Held: finite, ``serve_bf16_held`` (the card against
+    the CPU at bf16, within twice the one-ulp spread), and the bf16 route
+    of ssm_scan launched on a mamba layer.  Reported beside: the gap to
+    the fp32 run and the share of argmax equal to its tokens, and
+    ``serve_bf16_witness``.  Returns (its row, its launches)."""
+    from repro_torch.core.tree import tree_map
+    steps = run["fed"].shape[1]
+    cfg16 = dataclasses.replace(cfg, param_dtype="bfloat16",
+                                compute_dtype="bfloat16")
+    p16 = tree_map(lambda v: v.to(torch.bfloat16), params)
+    serve_run(torch, cfg16, p16, batch, 2, run["fed"][:, :2])   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    r16 = serve_run(torch, cfg16, p16, batch, steps, run["fed"])
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    lg16, lg32 = r16["logits"].float(), run["logits"]
+    gap = (lg16 - lg32).abs()
+    # the token each step's logits pick, against the fp32 run's
+    agree = float((lg16[:-1].argmax(-1).t() == run["fed"]).float().mean())
+    finite = bool(torch.isfinite(lg16).all())
+    row = {"prefill_ms": r16["prefill_ms"],
+           "decode_ms_per_token": statistics.median(r16["step_ms"]),
+           "tokens_per_s": run["fed"].numel() / r16["decode_wall_s"],
+           "peak_mem_bytes": peak,
+           "logits_max_abs_gap_to_fp32": float(gap.max()),
+           "gap_over_1_plus_r_max": float((gap / (1 + lg32.abs())).max()),
+           "prefill_logits_max_abs_gap_to_fp32": float(gap[0].max()),
+           "fp32_logit_max_abs": float(lg32.abs().max()),
+           "greedy_tokens_equal_share": agree,
+           "launches": {k: v for k, v in launches.items() if v}}
+    del r16, lg16, gap
+    held = serve_bf16_held(torch, cfg16, p16, batch, run["fed"])
+    del p16
+    torch.cuda.empty_cache()
+    row["held"] = held
+    row["witness"] = serve_bf16_witness(torch, cfg, params, batch,
+                                        run["fed"], held.pop("card"))
+    if (not finite or not held["ok"]
+            or (cfg.family == "hybrid" and not launches["ssm_scan_bf16"])):
+        raise AssertionError(f"serve {cfg.name} bf16: {row}")
+    return row, launches
+
+
+def ulp_moved(torch, tree, seed: int):
+    """A copy of a bf16 tree with every nonzero entry moved one bf16 ulp,
+    up or down by a generator seeded with ``seed`` (on the tree's
+    device)."""
+    from repro_torch.core.tree import tree_map
+    gen = None
+
+    def moved(v):
+        nonlocal gen
+        if gen is None:
+            gen = torch.Generator(device=v.device).manual_seed(seed)
+        bits = v.view(torch.int16)
+        # +1 or -1 on the bits (the magnitude's), 0 at zeros; int16 all
+        # through, so that a 1.4 G-entry embedding moves in a few GB
+        step = torch.randint(0, 2, v.shape, generator=gen, device=v.device,
+                             dtype=torch.int16).mul_(2).sub_(1)
+        step.mul_((bits & 0x7fff) != 0)
+        return (bits + step).view(torch.bfloat16)
+    return tree_map(moved, tree)
+
+
+def _held_input(batch, fed):
+    """The bf16 hold's cut of a serve case: its first rows, prompt and
+    steps (``SERVE_BF16_HELD``)."""
+    n, prompt, steps = (SERVE_BF16_HELD[k] for k in ("rows", "prompt",
+                                                     "steps"))
+    small = {k: v[:n] for k, v in batch.items()}
+    small["tokens"] = small["tokens"][:, :prompt]
+    return small, fed[:n, :steps]
+
+
+def serve_bf16_held(torch, cfg16, p16, batch, fed) -> dict:
+    """The bf16 serve's hold, on ``_held_input``: the card's logits
+    against the port's CPU path (the kernels' plain versions, the CPU's
+    bf16 GEMMs) on the same bf16 weights and tokens, each token's row's
+    L2 distance within twice its one-ulp spread, the largest distance of
+    the card's row over ``SERVE_BF16_DRAWS`` draws of the weights moved
+    one ulp (``ulp_moved``).  Returns its row, "ok" and the card's logits
+    (under "card")."""
+    from repro_torch.core.tree import tree_map
+    small, feed = _held_input(batch, fed)
+    steps = feed.shape[1]
+
+    def logits(p, b, f):
+        return serve_run(torch, cfg16, p, b, steps, f)["logits"].float()
+    card = logits(p16, small, feed)
+    t0 = time.perf_counter()
+    cpu = logits(tree_map(lambda v: v.cpu(), p16),
+                 {k: v.cpu() for k, v in small.items()}, feed.cpu()).cuda()
+    cpu_s = time.perf_counter() - t0
+    spread = torch.zeros_like(card[..., 0])
+    spread_rel = 0.0
+    for seed in SERVE_BF16_DRAWS:
+        moved = logits(ulp_moved(torch, p16, seed), small, feed)
+        spread = torch.maximum(spread, (moved - card).norm(dim=-1))
+        spread_rel = max(spread_rel, float(((moved - card).abs()
+                                            / (1 + card.abs())).max()))
+        del moved
+    gap = (card - cpu).norm(dim=-1)
+    ratio = gap / spread
+    return {"input": {"rows": small["tokens"].shape[0],
+                      "prompt": small["tokens"].shape[1], "steps": steps},
+            "cpu_s": cpu_s, "draws": list(SERVE_BF16_DRAWS),
+            "row_spread_l2": [round(float(x), 5) for x in spread.flatten()],
+            "row_gap_l2": [round(float(x), 5) for x in gap.flatten()],
+            "gap_over_spread_max": float(ratio.max()),
+            "card_vs_cpu_gap_over_1_plus_r_max": float(
+                ((card - cpu).abs() / (1 + cpu.abs())).max()),
+            "spread_over_1_plus_r_max": spread_rel,
+            "tol": "each row's L2 distance <= 2 x its one-ulp spread",
+            "ok": bool((gap <= 2 * spread).all()), "card": card}
+
+
+def serve_bf16_witness(torch, cfg, params, batch, fed, card) -> dict:
+    """Where the bf16 serve's gap to fp32 comes from, on ``_held_input``
+    (max |d| / (1 + |r|) against the fp32 run): the bf16 run's; the fp32
+    run's on the weights rounded to bf16 (fp32 compute: the weights'
+    rounding alone)."""
+    from repro_torch.core.tree import tree_map
+    small, feed = _held_input(batch, fed)
+    steps = feed.shape[1]
+    f32 = serve_run(torch, cfg, params, small, steps, feed)["logits"]
+    rounded = tree_map(lambda v: v.to(torch.bfloat16).float(), params)
+    rw = serve_run(torch, cfg, rounded, small, steps, feed)["logits"]
+    del rounded
+
+    def rel(a):
+        return float(((a - f32).abs() / (1 + f32.abs())).max())
+    return {"bf16_gap_over_1_plus_r": rel(card),
+            "bf16_weights_fp32_compute_gap_over_1_plus_r": rel(rw)}
 
 
 def gemma3_extras(torch, K, cfg, params, batch, run) -> dict:
-    """gemma3's second fp32 serve (bit for bit the first), its bf16 serve
-    (finite; gap to the fp32 logits, greedy tokens in common; the window
-    kernel fed fp32), then one traced decode step's device-busy time."""
-    from repro_torch.core.tree import tree_map
+    """gemma3's second fp32 serve (bit for bit the first), then one traced
+    decode step's device-busy time."""
     steps = run["fed"].shape[1]
     again = serve_run(torch, cfg, params, batch, steps)
     if not (torch.equal(again["logits"], run["logits"])
             and torch.equal(again["fed"], run["fed"])):
         raise AssertionError("serve gemma3: two runs differ")
     del again
-    cfg16 = dataclasses.replace(cfg, param_dtype="bfloat16",
-                                compute_dtype="bfloat16")
-    p16 = tree_map(lambda v: v.to(torch.bfloat16), params)
-    K.reset_launches()
-    r16 = serve_run(torch, cfg16, p16, batch, steps)
-    wa16 = K.LAUNCHES["window_attention"]
-    del p16
-    lg16 = r16["logits"].float()
-    if not bool(torch.isfinite(lg16).all()) or not wa16:
-        raise AssertionError(f"serve gemma3 bf16: finite "
-                             f"{bool(torch.isfinite(lg16).all())}, "
-                             f"window launches {wa16}")
-    bf16 = {"prefill_ms": r16["prefill_ms"],
-            "decode_ms_per_token": statistics.median(r16["step_ms"]),
-            "prefill_logits_max_abs_gap_to_fp32":
-                float((lg16[0] - run["logits"][0]).abs().max()),
-            "fp32_logit_max_abs": float(run["logits"][0].abs().max()),
-            "greedy_tokens_equal_share":
-                float((r16["fed"] == run["fed"]).float().mean()),
-            "window_attention_launches": wa16}
-    del r16, lg16
     tok = run["logits"][-1].argmax(-1, keepdim=True).to(torch.int32)
     cache, decode = run["cache"], run["decode"]
     d = device_busy(lambda: decode(params, tok, cache))
@@ -3863,8 +4362,7 @@ def gemma3_extras(torch, K, cfg, params, batch, run) -> dict:
               "untraced_step_ms": step_ms,
               "idle_share_of_untraced_step": 1.0 - d["busy_ms"] / step_ms,
               "top": sorted(d["by_name"].items(), key=lambda kv: -kv[1])[:6]}
-    return {"repeat_bit_identical": True, "bf16": bf16,
-            "traced_decode_step": traced}
+    return {"repeat_bit_identical": True, "traced_decode_step": traced}
 
 
 # phase 8: the production training steps (``launch/train.py``) at
@@ -3873,6 +4371,10 @@ def gemma3_extras(torch, K, cfg, params, batch, run) -> dict:
 # client
 TRAIN_ARCH = "rwkv6-3b"
 TRAIN_CUT = dict(num_layers=8, param_dtype="float32", compute_dtype="float32")
+# the bf16 case: TRAIN_CUT without the dtype overrides (the published bf16
+# params and compute)
+TRAIN_BF16_CUT = dict(num_layers=8)
+TRAIN_BF16_TIMED = 2
 TRAIN_CLIENTS, TRAIN_SEQ = 4, 4096
 TRAIN_TIMED = 3
 TRAIN_REMAT_SEQ = 2048     # remat "none" against "block": both fit here
@@ -3905,7 +4407,8 @@ def train_batch(torch, cfg, n_clients: int, bpc: int, seq: int, seed: int,
 def gemm_kernel_split(by_name: dict) -> dict:
     """A traced step's device ms by kind: the port's own kernels (wkv,
     ssm, window attention; each by name too), the GEMMs (cuBLAS / CUTLASS
-    names), the rest (elementwise, reductions, copies)."""
+    names, cuBLAS's ``nvjet`` kernels among them), the rest (elementwise,
+    reductions, copies)."""
     out = {"port_kernels_ms": 0.0, "gemm_ms": 0.0, "other_ms": 0.0,
            "port_kernels": {}}
     for name, ms in by_name.items():
@@ -3913,11 +4416,30 @@ def gemm_kernel_split(by_name: dict) -> dict:
         if any(k in low for k in ("wkv", "ssm_", "wattn")):
             out["port_kernels_ms"] += ms
             out["port_kernels"][name[:80]] = ms
-        elif "gemm" in low or "cutlass" in low or "xmma" in low:
+        elif any(k in low for k in ("gemm", "cutlass", "xmma", "nvjet")):
             out["gemm_ms"] += ms
         else:
             out["other_ms"] += ms
     return out
+
+
+def traced_step(fn, untraced_ms: float) -> dict:
+    """One traced call of a training step ``fn``: device-busy against its
+    traced wall and against ``untraced_ms`` (the idle shares), and the
+    GEMMs', the port's kernels' and the other work's ms and shares of the
+    device time (``gemm_kernel_split``)."""
+    trace = device_busy(fn)
+    split = gemm_kernel_split(trace["by_name"])
+    busy, total = trace["busy_ms"], trace["sum_ms"]
+    return {"wall_ms": trace["wall_s"] * 1e3, "busy_ms": busy,
+            "sum_ms": total, "records": trace["records"],
+            "idle_share": 1.0 - busy / (trace["wall_s"] * 1e3),
+            "untraced_step_ms": untraced_ms,
+            "idle_share_of_untraced_step": 1.0 - busy / untraced_ms,
+            **{f"{k}_share": split[f"{k}_ms"] / total
+               for k in ("gemm", "port_kernels", "other")}, **split,
+            "top": sorted(trace["by_name"].items(),
+                          key=lambda kv: -kv[1])[:8]}
 
 
 def train_step_row(torch, step, state, batch, tokens: int, flops: float,
@@ -4001,19 +4523,8 @@ def train_path(torch, K):
         raise AssertionError(f"train: {missing} never launched ({launches})")
     # one traced fedavg step: device-busy against idle, GEMMs against the
     # port's kernels
-    trace = device_busy(lambda: fedavg(state, batch))
-    split = gemm_kernel_split(trace["by_name"])
-    walls = [r["wall_ms"] for r in rows]
-    median = statistics.median(walls)
-    traced = {"wall_ms": trace["wall_s"] * 1e3, "busy_ms": trace["busy_ms"],
-              "sum_ms": trace["sum_ms"], "records": trace["records"],
-              "idle_share": 1.0 - trace["busy_ms"] / (trace["wall_s"] * 1e3),
-              "untraced_step_ms": median,
-              "idle_share_of_untraced_step":
-                  1.0 - trace["busy_ms"] / median,
-              **split,
-              "top": sorted(trace["by_name"].items(),
-                            key=lambda kv: -kv[1])[:8]}
+    median = statistics.median(r["wall_ms"] for r in rows)
+    traced = traced_step(lambda: fedavg(state, batch), median)
     remat = train_remat(torch, cfg, state[0], opt)
     del state, batch
     torch.cuda.empty_cache()
@@ -4047,13 +4558,93 @@ def train_path(torch, K):
                       "forward launches twice a local step (forward and "
                       "recompute), wkv_bwd once",
         traced_fedavg_step=traced, remat_check=remat)
+    bf16_launches = train_bf16(torch, K)
     small, small_launches = train_card_vs_cpu(torch, K)
     log("train_card_vs_cpu", cases=small, tol=TRAIN_SMALL_TOL,
         launches={k: v for k, v in small_launches.items() if v})
     total = {k: launches[k] + small_launches[k] for k in launches}
     log("train_phase", seconds=time.perf_counter() - t_phase,
-        launches={k: v for k, v in total.items() if v})
-    return total
+        launches={k: v for k, v in total.items() if v},
+        bf16_launches={k: v for k, v in bf16_launches.items() if v})
+    return total, bf16_launches
+
+
+def train_bf16(torch, K) -> dict:
+    """Phase 8's bf16 case: rwkv6-3b at its published width and numerics
+    (bf16 params and compute; the steps' local updates in fp32 arithmetic,
+    cast back), depth 8, 4 clients of one 4,096-token sequence, the
+    optimizer ``dryrun.optimizer_for`` picks: ``make_fedavg_step`` once to
+    warm up, then launches zeroed, ``TRAIN_BF16_TIMED`` timed steps and
+    launches read; step wall, tokens/s, peak memory against the dry run's
+    bf16 count, ``mfu`` against the bf16 peak; one traced step's GEMM,
+    port-kernel and other ms and its idle share.  Returns the launches."""
+    from repro_torch.configs import FLConfig, ShapeConfig, get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import make_fedavg_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_optimizer
+    from repro_torch.roofline import analysis as rl
+
+    t_case = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), **TRAIN_BF16_CUT)
+    fl = FLConfig(fl_clients_per_step=TRAIN_CLIENTS, fl_local_steps=1)
+    opt = dryrun.optimizer_for(cfg)
+    shape = ShapeConfig("train_case", TRAIN_SEQ, TRAIN_CLIENTS, "train")
+    flops = rl.model_flops(cfg, shape)
+    peak_flops = rl.peak_flops(cfg.compute_dtype)
+    tokens = TRAIN_CLIENTS * TRAIN_SEQ
+    predicted = dryrun.run_one(TRAIN_ARCH, "train_4k", save=False, fl=fl,
+                               changes=TRAIN_BF16_CUT,
+                               global_batch=TRAIN_CLIENTS)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = init_params(cfg, 0, device=CARD)
+    dtypes = sorted({str(v.dtype) for v in tree_leaves(params)})
+    state = (params, init_optimizer(opt, params))
+    del params
+    batch = train_batch(torch, cfg, TRAIN_CLIENTS, 1, TRAIN_SEQ, 11, CARD)
+    fedavg = make_fedavg_step(cfg, fl, opt)
+    state, _m, warm = train_step_row(torch, fedavg, state, batch, tokens,
+                                     flops, peak_flops)
+    K.reset_launches()
+    rows = []
+    for _ in range(TRAIN_BF16_TIMED):
+        state, _m, row = train_step_row(torch, fedavg, state, batch, tokens,
+                                        flops, peak_flops)
+        rows.append(row)
+    launches = dict(K.LAUNCHES)
+    missing = [k for k in TRAIN_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"train bf16: {missing} never launched "
+                             f"({launches})")
+    median = statistics.median(r["wall_ms"] for r in rows)
+    traced = traced_step(lambda: fedavg(state, batch), median)
+    peak = max(r["peak_mem_bytes"] for r in rows)
+    del state, batch
+    torch.cuda.empty_cache()
+    log("train_bf16", case=TRAIN_ARCH, param_dtype=cfg.param_dtype,
+        compute_dtype=cfg.compute_dtype, param_leaf_dtypes=dtypes,
+        layers=cfg.num_layers, optimizer=opt.name, clients=TRAIN_CLIENTS,
+        seq_len=TRAIN_SEQ, remat="block",
+        reduced={"depth": f"{get_config(TRAIN_ARCH).num_layers} -> "
+                          f"{cfg.num_layers}",
+                 "global_batch": "train_4k's 256 cut to 4 (one sequence a "
+                                 "client)"},
+        model_flops_per_step=flops, peak_flops=peak_flops, warmup=warm,
+        fedavg=rows, fedavg_wall_ms_median=median,
+        fedavg_tokens_per_s_median=tokens / (median / 1e3),
+        fedavg_mfu_median=flops / (median / 1e3) / peak_flops,
+        peak_mem_bytes=peak, case_peak_bytes=peak - base,
+        dryrun_predicted_bytes=predicted["total_bytes"],
+        dryrun_parts={k: predicted[k] for k in (
+            "param_bytes", "opt_state_bytes", "fedavg_buffer_bytes",
+            "grad_bytes", "activation_bytes_estimate", "local_step_bytes",
+            "server_update_bytes")},
+        launches={k: v for k, v in launches.items() if v},
+        traced_fedavg_step=traced,
+        seconds=time.perf_counter() - t_case)
+    return launches
 
 
 def train_remat(torch, cfg, params, opt) -> dict:
@@ -4358,8 +4949,12 @@ def kernel_calls():
             ev[0].record()
             out = real(*args, **kw)
             ev[1].record()
+            # the call's work (``call_bound``): the operands' shapes, the
+            # window, the operand element size
             seen.setdefault(name, []).append(
-                (tuple(tuple(a.shape) for a in args[:2]), ev))
+                (tuple(tuple(a.shape) for a in args[:2]), ev,
+                 (args[4].shape if name != "window_attention" else args[3],
+                  args[0].element_size())))
             return out
         return call
     for (mod, name), real in zip(sites, reals):
@@ -4371,12 +4966,38 @@ def kernel_calls():
             setattr(mod, name, real)
 
 
+def call_bound(name: str, shapes, extra):
+    """The bound (as ``bound`` returns it) of one inference call that
+    ``kernel_calls`` recorded, at its own (local) shapes: the scan and the
+    WKV at fp32 rates, window attention at the 3xTF32 rate (fp32) or the
+    bf16 tensor-core rate."""
+    from repro_torch.roofline import analysis as rl
+    (s0, s1), (ex, size) = shapes, extra
+    if name == "ssm_scan":          # dt (B, S, D), b (B, S, n), a (G?, D, n)
+        g = ex[0] if len(ex) == 3 else 1
+        return bound(*rl.ssm_work(*s0, s1[2], g, False, in_bytes=size))
+    if name == "wkv":               # r (B, S, H, N), u (G?, H, N)
+        g = ex[0] if len(ex) == 3 else 1
+        return bound(*rl.wkv_work(*s0, g, False, in_bytes=size))
+    b, s, h, hd = s0                # q (B, S, H, hd), k (B, S, KV, hd)
+    return bound(*rl.window_work(b, s, h, s1[2], hd, int(ex), False,
+                                 in_bytes=size),
+                 flops_per_s=BF16_FLOPS_PER_S if size == 2
+                 else TF32X3_FLOPS_PER_S)
+
+
 def kernel_call_times(seen: dict) -> dict:
-    """``kernel_calls``' record as {kernel: {"shapes", "ms"}}: each call's
-    ms between its events (the wrapper's launch and its kernel)."""
-    return {k: {"shapes": sorted({shape for shape, _ in calls}),
-                "ms": [ev[0].elapsed_time(ev[1]) for _, ev in calls]}
-            for k, calls in seen.items()}
+    """``kernel_calls``' record as {kernel: {"shapes", "ms", "bound_ms",
+    "bound_by"}}: each call's ms between its events (the wrapper's launch
+    and its kernel) and its bound at its own shapes (``call_bound``)."""
+    out = {}
+    for k, calls in seen.items():
+        bnds = [call_bound(k, shape, extra) for shape, _, extra in calls]
+        out[k] = {"shapes": sorted({shape for shape, _, _ in calls}),
+                  "ms": [ev[0].elapsed_time(ev[1]) for _, ev, _ in calls],
+                  "bound_ms": [b[0] for b in bnds],
+                  "bound_by": sorted({b[1] for b in bnds})}
+    return out
 
 
 def mesh_serve_case(torch, K, published, cfg, params, mesh, bsz: int,
@@ -4665,6 +5286,7 @@ def main() -> int:
                                    ragged=False)
     ssm, wkv = check_ssm(torch, K), check_wkv(torch, K)
     window = check_window(torch, K)
+    heads["bf16"] = check_bf16_routes(torch, K)
     # the serve path's rows: each kernel's inference forward at its shape
     heads["serve"] = {"ssm_scan": ssm.pop("serve"), "wkv": wkv.pop("serve"),
                       **window["serve_gemma3"]}
@@ -4692,8 +5314,8 @@ def main() -> int:
     full_width_rwkv(torch, K)
     launches["gemma3"] = full_width_gemma(torch, K)
     full_width_granite(torch, K)
-    launches["serve"] = serve_path(torch, K)
-    launches["train"] = train_path(torch, K)
+    launches["serve"], launches["serve_bf16"] = serve_path(torch, K)
+    launches["train"], launches["train_bf16"] = train_path(torch, K)
     launches["mesh"], launches["mesh_serve"] = mesh_path(torch, K)
     launches["examples"] = examples_path(torch, K)
 
@@ -4702,6 +5324,22 @@ def main() -> int:
     cu = "src/repro_torch/kernels/csrc/"
     coded = "src/repro/kernels/coded_matmul/kernel.py"
     window_tpu = "src/repro/kernels/window_attn/kernel.py:66"
+    # the bf16 routes: on no path but the jamba bf16 serve's ssm_scan; their
+    # numbers from phase 3e.  The bf16 serves and training step count under
+    # their own paths, "serve_bf16" and "train_bf16"
+    bf16 = {"coded_matmul_bf16": (cu + "coded_matmul.cu", coded + ":47",
+                                  None),
+            "coded_matmul_rounds_bf16": (cu + "coded_matmul.cu",
+                                         coded + ":82", None),
+            "encode_decode_bf16": (cu + "coded_matmul.cu", coded + ":119",
+                                   None),
+            "ssm_scan_bf16": (cu + "ssm_scan.cu",
+                              "src/repro/kernels/ssm_scan/kernel.py:59",
+                              "serve_bf16"),
+            "wkv_bf16": (cu + "wkv.cu", "src/repro/kernels/wkv/kernel.py:55",
+                         None),
+            "window_attention_bf16": (cu + "window_attn.cu", window_tpu,
+                                      None)}
     sources = {"coded_matmul": (cu + "coded_matmul.cu", coded + ":47", "cnn"),
                "coded_matmul_rounds": (cu + "coded_matmul.cu", coded + ":82",
                                        "cnn"),
@@ -4731,21 +5369,25 @@ def main() -> int:
             "library_ms", "plain_event_ms", "library_event_ms")
     train_keys = ("train_ms", "train_bound_ms")      # the recurrence forwards
     rows = []
-    for name, (source, replaces, path) in sources.items():
+    for name, (source, replaces, path) in {**sources, **bf16}.items():
         by_path = {p: {"launches": launches[p][name],
                        **{k: heads[p][name][k] for k in keys + train_keys
                           if k in heads.get(p, {}).get(name, {})}}
                    for p in launches}
-        head = heads[path or "cnn"][name]
+        head = heads["bf16" if name in bf16 else path or "cnn"][name]
+        note = None
+        if name in bf16 and path is None:
+            note = ("bf16 operands; no model path hands it bf16 (phase 3e's "
+                    "numbers)")
+        elif path is None:
+            note = "runs on no path in either package (slice verification " \
+                   "only)"
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "path": path,
                      "launches": launches[path][name] if path else 0,
                      **{k: head[k] for k in keys},
                      **{k: head[k] for k in train_keys if k in head},
-                     "by_path": by_path,
-                     **({} if path else {"note": "runs on no path in either "
-                                                 "package (slice "
-                                                 "verification only)"})})
+                     "by_path": by_path, **({"note": note} if note else {})})
     log("done", total_s=time.perf_counter() - T_START)
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -52,7 +52,11 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     attn_block_skip: bool = False   # triangle-only causal blocks
     attn_block_q: int = 512         # q tile; 0 = whole seq
-    ssm_chunk_dtype: str = "float32"  # the port's scan runs in float32 only
+    # the reference's option shrinks its chunked XLA path's (B, c, di, n)
+    # chunk tensors in HBM; the port's ssm_scan kernel never writes those
+    # tensors, so it accepts "bfloat16" and keeps its state in fp32
+    # registers either way
+    ssm_chunk_dtype: str = "float32"
     mamba_impl: str = "chunked"       # both values run the ssm_scan kernel
 
     # --- ssm / rwkv ---

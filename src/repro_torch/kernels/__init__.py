@@ -18,6 +18,14 @@ window_attention_bwd — its backward (FlashAttention-2 form: one kernel
                       over query tiles for dQ, one over key tiles for dK
                       and dV).
 
+bf16 operands, as the TPU kernels take them: the coding kernels read bf16
+coefficients and w through widening loads; ``calibrate`` widens in its
+wrapper; the two recurrence forwards widen bf16 inputs as they load them;
+``window_attention`` has a bf16 route of its own (bf16 tensor-core
+products, P rounded to bf16, output in bf16).  A launch with bf16
+operands counts under the kernel's name with ``_bf16`` appended
+(``BF16_ROUTES``); the backward kernels stay fp32 and count as before.
+
 The sources live in ``csrc/``.  ``load_library`` compiles them with ``nvcc``
 (one process per source, started together) into one shared library with a
 plain C interface under ``build/repro_torch/<hash of the sources>/`` at the
@@ -51,10 +59,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel name -> launches since the last ``reset_launches``
+BF16_ROUTES = ("coded_matmul", "coded_matmul_rounds", "encode_decode",
+               "ssm_scan", "wkv", "window_attention")
 LAUNCHES = {"coded_matmul": 0, "coded_matmul_rounds": 0, "calibrate": 0,
             "ssm_scan": 0, "ssm_scan_bwd": 0, "wkv": 0, "wkv_bwd": 0,
             "encode_decode": 0, "window_attention": 0,
-            "window_attention_bwd": 0}
+            "window_attention_bwd": 0,
+            **{f"{k}_bf16": 0 for k in BF16_ROUTES}}
 
 # last build's wall time and compiler output (``-Xptxas -v``)
 BUILD_INFO: dict = {}
@@ -70,11 +81,38 @@ def reset_launches() -> None:
             LAUNCHES[k] = 0
 
 
-def count_launch(name: str) -> None:
-    """Add one to ``LAUNCHES[name]``: the one place a wrapper counts the
-    launch of its kernel (a bare ``+=`` from several threads loses counts)."""
+def count_launch(name: str, bf16: bool = False) -> None:
+    """Add one to ``LAUNCHES[name]`` (``name + "_bf16"`` for a launch of
+    the kernel's bf16 route): the one place a wrapper counts the launch of
+    its kernel (a bare ``+=`` from several threads loses counts)."""
     with _LAUNCH_LOCK:
-        LAUNCHES[name] += 1
+        LAUNCHES[name + "_bf16" if bf16 else name] += 1
+
+
+OPERAND_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def operand_dtype(**tensors: torch.Tensor) -> torch.dtype:
+    """The one dtype, float32 or bfloat16, that the named operands share;
+    raises TypeError on any other dtype or on a mix."""
+    kinds = {t.dtype for t in tensors.values()}
+    bad = {n: t.dtype for n, t in tensors.items()
+           if t.dtype not in OPERAND_DTYPES}
+    if bad:
+        raise TypeError(f"operands must be float32 or bfloat16, got {bad}")
+    if len(kinds) != 1:
+        raise TypeError(f"operands must share one dtype, got "
+                        f"{ {n: t.dtype for n, t in tensors.items()} }")
+    return kinds.pop()
+
+
+def is_bf16(t: torch.Tensor) -> int:
+    """1 for a bfloat16 operand, 0 for float32 (the C launchers' flags);
+    raises TypeError on any other dtype."""
+    if t.dtype not in OPERAND_DTYPES:
+        raise TypeError(f"operand must be float32 or bfloat16, got "
+                        f"{t.dtype}")
+    return int(t.dtype == torch.bfloat16)
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -191,13 +229,14 @@ def _build_and_load() -> ctypes.CDLL:
     ptr, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                           ctypes.c_float)
     lib.repro_coded_matmul.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64,
-                                       i32, i32, ptr]
+                                       i32, i32, i32, i32, ptr]
     lib.repro_coded_matmul.restype = i32
-    lib.repro_encode_decode.argtypes = [ptr] * 4 + [i64] * 3 + [i32, ptr]
+    lib.repro_encode_decode.argtypes = [ptr] * 4 + [i64] * 3 + [i32] * 4 \
+        + [ptr]
     lib.repro_encode_decode.restype = i32
     lib.repro_calibrate.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32, ptr]
     lib.repro_calibrate.restype = i32
-    lib.repro_ssm_scan_fwd.argtypes = [ptr] * 9 + [i64] * 5 + [ptr]
+    lib.repro_ssm_scan_fwd.argtypes = [ptr] * 9 + [i64] * 5 + [i32, ptr]
     lib.repro_ssm_scan_fwd.restype = i32
     lib.repro_ssm_scan_bwd.argtypes = [ptr] * 15 + [i64] * 5 + [ptr]
     lib.repro_ssm_scan_bwd.restype = i32
@@ -205,7 +244,7 @@ def _build_and_load() -> ctypes.CDLL:
     lib.repro_ssm_scan_bwd_workspace.restype = i64
     lib.repro_ssm_scan_ckpt_steps.argtypes = []
     lib.repro_ssm_scan_ckpt_steps.restype = i32
-    lib.repro_wkv_fwd.argtypes = [ptr] * 9 + [i64] * 5 + [ptr]
+    lib.repro_wkv_fwd.argtypes = [ptr] * 9 + [i64] * 5 + [i32, ptr]
     lib.repro_wkv_fwd.restype = i32
     lib.repro_wkv_bwd.argtypes = [ptr] * 15 + [i64] * 5 + [ptr]
     lib.repro_wkv_bwd.restype = i32
@@ -214,6 +253,9 @@ def _build_and_load() -> ctypes.CDLL:
     lib.repro_window_attn_fwd.argtypes = ([ptr] * 5 + [i64] * 6 + [f32]
                                           + [i64] * 9 + [ptr])
     lib.repro_window_attn_fwd.restype = i32
+    lib.repro_window_attn_fwd_bf16.argtypes = \
+        lib.repro_window_attn_fwd.argtypes
+    lib.repro_window_attn_fwd_bf16.restype = i32
     lib.repro_window_attn_bwd.argtypes = ([ptr] * 10 + [i64] * 6 + [f32]
                                           + [i64] * 9 + [ptr])
     lib.repro_window_attn_bwd.restype = i32

@@ -31,9 +31,14 @@ def _sms(index: int) -> int:
 
 def calibrate_update(w: torch.Tensor, deltas: torch.Tensor,
                      coeffs: torch.Tensor) -> torch.Tensor:
-    """w: (P,), deltas: (M,P), coeffs: (M,) -> (P,) = w + coeffs @ deltas."""
+    """w: (P,), deltas: (M,P), coeffs: (M,) -> (P,) float32 = w + coeffs @
+    deltas.  Each operand float32 or bfloat16: bf16 ones are widened here,
+    as the TPU kernel's wrapper widens them (``.astype(jnp.float32)``)."""
     if not K.on_cuda(w, deltas, coeffs):
         return calibrate_update_ref(w, deltas, coeffs)
+    for t in (w, deltas, coeffs):
+        K.is_bf16(t)                     # float32 or bfloat16, else raise
+    w, deltas, coeffs = w.float(), deltas.float(), coeffs.float()
     if w.dim() != 1 or deltas.dim() != 2 or coeffs.dim() != 1:
         raise ValueError("calibrate_update takes w (P,), deltas (M,P), "
                          "coeffs (M,)")

@@ -2,7 +2,12 @@
 ``csrc/coded_matmul.cu``, CPU tensors run the plain version in ``ref.py``.
 
 The JAX wrappers padded to (8, 128) multiples for the TPU's tiling; the CUDA
-kernel masks ragged edges itself, so nothing is padded here."""
+kernel masks ragged edges itself, so nothing is padded here.
+
+Each operand may be float32 or bfloat16, as the TPU kernels take them: the
+CUDA kernels widen bf16 coefficients and w as they read them (no fp32 copy
+in device memory) and accumulate in fp32; the plain versions widen first,
+which gives the same products."""
 from __future__ import annotations
 
 from typing import Optional
@@ -26,8 +31,6 @@ def _launch(coeff: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"coeff {tuple(coeff.shape)} does not match w "
                          f"{tuple(w.shape)}")
     for name, t in (("coeff", coeff), ("w", w)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if out_dtype not in _OUT_DTYPES:
@@ -36,9 +39,14 @@ def _launch(coeff: torch.Tensor, w: torch.Tensor,
     vec = p % 4 == 0 and K.aligned16(w, out)
     err = K.load_library().repro_coded_matmul(
         coeff.data_ptr(), w.data_ptr(), out.data_ptr(), g, c, s, p,
-        int(out_dtype == torch.bfloat16), int(vec), K.stream_of(w))
+        int(out_dtype == torch.bfloat16), int(vec), K.is_bf16(coeff),
+        K.is_bf16(w), K.stream_of(w))
     K.check_launch(err, "coded_matmul")
     return out
+
+
+def _bf16(*operands: torch.Tensor) -> bool:
+    return any(t.dtype == torch.bfloat16 for t in operands)
 
 
 def coded_matmul(coeff: torch.Tensor, w: torch.Tensor,
@@ -50,7 +58,7 @@ def coded_matmul(coeff: torch.Tensor, w: torch.Tensor,
     if w.dim() != 2 or coeff.dim() != 2:
         raise ValueError("coded_matmul takes coeff (C,S) and w (S,P)")
     out = _launch(coeff, w.unsqueeze(0), out_dtype or torch.float32)[0]
-    K.count_launch("coded_matmul")
+    K.count_launch("coded_matmul", _bf16(coeff, w))
     return out
 
 
@@ -65,14 +73,15 @@ def coded_matmul_rounds(coeff: torch.Tensor, w: torch.Tensor,
         raise ValueError("coded_matmul_rounds takes coeff (C,S) and "
                          "w (G,S,P)")
     out = _launch(coeff, w, out_dtype or torch.float32)
-    K.count_launch("coded_matmul_rounds")
+    K.count_launch("coded_matmul_rounds", _bf16(coeff, w))
     return out
 
 
 def coded_encode_decode(enc: torch.Tensor, dec: torch.Tensor,
                         w: torch.Tensor) -> torch.Tensor:
     """The fused round trip dec (S,C) @ (enc (C,S) @ w (S,P)) -> (S,P), fp32,
-    with the (C,P) coded intermediate never in device memory."""
+    with the (C,P) coded intermediate never in device memory; each operand
+    float32 or bfloat16."""
     if not K.on_cuda(enc, dec, w):
         return coded_encode_decode_ref(enc, dec, w)
     if enc.dim() != 2 or dec.dim() != 2 or w.dim() != 2:
@@ -83,16 +92,15 @@ def coded_encode_decode(enc: torch.Tensor, dec: torch.Tensor,
         raise ValueError(f"enc {tuple(enc.shape)}, dec {tuple(dec.shape)} "
                          f"and w {tuple(w.shape)} do not agree")
     for name, t in (("enc", enc), ("dec", dec), ("w", w)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     p = w.shape[1]
-    out = torch.empty_like(w)
+    out = torch.empty(w.shape, dtype=torch.float32, device=w.device)
     vec = p % 4 == 0 and K.aligned16(w, out)
     err = K.load_library().repro_encode_decode(
         enc.data_ptr(), dec.data_ptr(), w.data_ptr(), out.data_ptr(), c, s, p,
-        int(vec), K.stream_of(w))
+        int(vec), K.is_bf16(enc), K.is_bf16(dec), K.is_bf16(w),
+        K.stream_of(w))
     K.check_launch(err, "encode_decode")
-    K.count_launch("encode_decode")
+    K.count_launch("encode_decode", _bf16(enc, dec, w))
     return out

@@ -60,7 +60,19 @@
 //     memory, coalesced.  The sums run over s and over c in ascending
 //     order, fp32 FMAs from 0, as in encode_decode_kernel: the two kernels
 //     give the same bits.
+//
+// bf16 operands.  The TPU kernels take coeff and w in any float dtype and
+// widen them to fp32 before the MXU's fp32 products (kernel.py's
+// ``.astype(jnp.float32)``).  Here w's type is a template parameter (WT,
+// float or __nv_bfloat16) of every kernel, read through one widening load
+// (wload1 / wload2 / wload4: 2, 4 or 8 bytes of bf16 where fp32 reads 4,
+// 8 or 16), and the coefficient tables (coeff, enc, dec), which are copied
+// into shared memory once a block, are read through tab(), which widens
+// where the caller says the table is bf16.  Nothing is copied to fp32 in
+// device memory; a bf16 operand halves w's bytes, and widening is exact,
+// so a bf16 call gives the bits of the fp32 call on the widened operands.
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -74,6 +86,33 @@ constexpr int kMaxS = 16;                   // largest S of the register tile
 constexpr int kMaxCS = 4096;                // largest C*S of the shared tables
 constexpr int kDeepCols = 2;                // columns per thread, S > 16
 constexpr int kDeepTileP = kThreads * kDeepCols;
+
+// w's widening loads: 1, 2 or 4 consecutive elements as fp32
+__device__ __forceinline__ float wload1(const float* p) { return *p; }
+__device__ __forceinline__ float wload1(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ float2 wload2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 wload2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void wload4(const float* p, float* x) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+}
+__device__ __forceinline__ void wload4(const __nv_bfloat16* p, float* x) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
+}
+// entry i of a coefficient table, fp32 or (``bf16``) bfloat16, as fp32
+__device__ __forceinline__ float tab(const void* p, int64_t i, bool bf16) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+              : static_cast<const float*>(p)[i];
+}
 
 __device__ __forceinline__ void store1(float* o, float v) { *o = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* o, float v) {
@@ -91,20 +130,21 @@ __device__ __forceinline__ void store4(__nv_bfloat16* o, const float* a) {
   *reinterpret_cast<uint2*>(o) = u;
 }
 
-template <typename OutT, bool kVec>
+template <typename OutT, typename WT, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-coded_matmul_kernel(const float* __restrict__ coeff,
-                    const float* __restrict__ w, OutT* __restrict__ out,
+coded_matmul_kernel(const void* __restrict__ coeff, bool coeff_bf16,
+                    const WT* __restrict__ w, OutT* __restrict__ out,
                     int64_t C, int S, int64_t P) {
   __shared__ float sc[kBlockC * kMaxS];
   const int64_t g = blockIdx.z;
   const int64_t c0 = static_cast<int64_t>(blockIdx.y) * kBlockC;
   const int nc = static_cast<int>(C - c0 < kBlockC ? C - c0 : kBlockC);
   // rows c0 .. c0+nc of the row-major (C, S) matrix are contiguous
-  for (int i = threadIdx.x; i < nc * S; i += kThreads) sc[i] = coeff[c0 * S + i];
+  for (int i = threadIdx.x; i < nc * S; i += kThreads)
+    sc[i] = tab(coeff, c0 * S + i, coeff_bf16);
   __syncthreads();
 
-  const float* wg = w + g * S * P;
+  const WT* wg = w + g * S * P;
   OutT* og = out + g * C * P;
   const int64_t tile = static_cast<int64_t>(blockIdx.x) * kTileP;
   float x[kMaxS][kCols];
@@ -115,10 +155,7 @@ coded_matmul_kernel(const float* __restrict__ coeff,
     if (p >= P) return;
 #pragma unroll
     for (int s = 0; s < kMaxS; ++s) {
-      if (s < S) {
-        const float4 v = *reinterpret_cast<const float4*>(wg + s * P + p);
-        x[s][0] = v.x; x[s][1] = v.y; x[s][2] = v.z; x[s][3] = v.w;
-      }
+      if (s < S) wload4(wg + s * P + p, x[s]);
     }
     for (int c = 0; c < nc; ++c) {
       float acc[kCols] = {0.f, 0.f, 0.f, 0.f};
@@ -140,7 +177,7 @@ coded_matmul_kernel(const float* __restrict__ coeff,
 #pragma unroll
         for (int j = 0; j < kCols; ++j) {
           const int64_t p = tile + threadIdx.x + j * kThreads;
-          x[s][j] = p < P ? wg[s * P + p] : 0.f;
+          x[s][j] = p < P ? wload1(wg + s * P + p) : 0.f;
         }
       }
     }
@@ -177,16 +214,16 @@ __device__ __forceinline__ void store2(__nv_bfloat16* o, const float* a) {
 // rows of its columns (float2 when kVec) before the FMAs, so 16 loads are
 // in flight; the chunk's coefficients sit in shared memory as [c][s] and
 // are read as float4 broadcasts.  The sum over s runs in ascending order.
-template <typename OutT, bool kVec>
+template <typename OutT, typename WT, bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
-coded_matmul_deep_kernel(const float* __restrict__ coeff,
-                         const float* __restrict__ w, OutT* __restrict__ out,
+coded_matmul_deep_kernel(const void* __restrict__ coeff, bool coeff_bf16,
+                         const WT* __restrict__ w, OutT* __restrict__ out,
                          int64_t C, int S, int64_t P) {
   __shared__ __align__(16) float sc[kBlockC][kMaxS];
   const int64_t g = blockIdx.z;
   const int64_t c0 = static_cast<int64_t>(blockIdx.y) * kBlockC;
   const int nc = static_cast<int>(C - c0 < kBlockC ? C - c0 : kBlockC);
-  const float* wg = w + g * S * P;
+  const WT* wg = w + g * S * P;
   OutT* og = out + g * C * P;
   const int64_t tile = static_cast<int64_t>(blockIdx.x) * kDeepTileP;
   int64_t col[kDeepCols];
@@ -204,22 +241,22 @@ coded_matmul_deep_kernel(const float* __restrict__ coeff,
     __syncthreads();                  // the last chunk's coefficients are read
     for (int i = threadIdx.x; i < kBlockC * kMaxS; i += kThreads) {
       const int c = i / kMaxS, s = i % kMaxS;
-      sc[c][s] = (c < nc && s < ns) ? coeff[(c0 + c) * S + s0 + s] : 0.f;
+      sc[c][s] = (c < nc && s < ns) ? tab(coeff, (c0 + c) * S + s0 + s, coeff_bf16)
+                                    : 0.f;
     }
     __syncthreads();
     float x[kMaxS][kDeepCols];
 #pragma unroll
     for (int s = 0; s < kMaxS; ++s) {
-      const float* row = wg + static_cast<int64_t>(s0 + s) * P;
+      const WT* row = wg + static_cast<int64_t>(s0 + s) * P;
       if (kVec) {
-        const float2 v = s < ns && col[0] < P
-                             ? *reinterpret_cast<const float2*>(row + col[0])
-                             : make_float2(0.f, 0.f);
+        const float2 v = s < ns && col[0] < P ? wload2(row + col[0])
+                                              : make_float2(0.f, 0.f);
         x[s][0] = v.x; x[s][1] = v.y;
       } else {
 #pragma unroll
         for (int j = 0; j < kDeepCols; ++j)
-          x[s][j] = s < ns && col[j] < P ? row[col[j]] : 0.f;
+          x[s][j] = s < ns && col[j] < P ? wload1(row + col[j]) : 0.f;
       }
     }
 #pragma unroll
@@ -253,8 +290,8 @@ coded_matmul_deep_kernel(const float* __restrict__ coeff,
   }
 }
 
-template <typename OutT>
-void launch(const float* coeff, const float* w, void* out, int64_t G,
+template <typename OutT, typename WT>
+void launch(const void* coeff, bool cb, const WT* w, void* out, int64_t G,
             int64_t C, int S, int64_t P, bool vec, cudaStream_t st) {
   OutT* o = static_cast<OutT*>(out);
   if (S > kMaxS) {
@@ -262,31 +299,33 @@ void launch(const float* coeff, const float* w, void* out, int64_t G,
                     static_cast<unsigned>((C + kBlockC - 1) / kBlockC),
                     static_cast<unsigned>(G));
     if (vec)
-      coded_matmul_deep_kernel<OutT, true><<<grid, kThreads, 0, st>>>(
-          coeff, w, o, C, S, P);
+      coded_matmul_deep_kernel<OutT, WT, true><<<grid, kThreads, 0, st>>>(
+          coeff, cb, w, o, C, S, P);
     else
-      coded_matmul_deep_kernel<OutT, false><<<grid, kThreads, 0, st>>>(
-          coeff, w, o, C, S, P);
+      coded_matmul_deep_kernel<OutT, WT, false><<<grid, kThreads, 0, st>>>(
+          coeff, cb, w, o, C, S, P);
     return;
   }
   const dim3 grid(static_cast<unsigned>((P + kTileP - 1) / kTileP),
                   static_cast<unsigned>((C + kBlockC - 1) / kBlockC),
                   static_cast<unsigned>(G));
   if (vec)
-    coded_matmul_kernel<OutT, true><<<grid, kThreads, 0, st>>>(coeff, w, o, C, S, P);
+    coded_matmul_kernel<OutT, WT, true><<<grid, kThreads, 0, st>>>(coeff, cb, w, o,
+                                                                   C, S, P);
   else
-    coded_matmul_kernel<OutT, false><<<grid, kThreads, 0, st>>>(coeff, w, o, C, S, P);
+    coded_matmul_kernel<OutT, WT, false><<<grid, kThreads, 0, st>>>(coeff, cb, w, o,
+                                                                    C, S, P);
 }
 
-template <int SMAX, bool kVec>
+template <int SMAX, typename WT, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-encode_decode_kernel(const float* __restrict__ enc, const float* __restrict__ dec,
-                     const float* __restrict__ w, float* __restrict__ out,
-                     int C, int S, int64_t P) {
+encode_decode_kernel(const void* __restrict__ enc, const void* __restrict__ dec,
+                     bool enc_bf16, bool dec_bf16, const WT* __restrict__ w,
+                     float* __restrict__ out, int C, int S, int64_t P) {
   __shared__ float se[kMaxCS], sd[kMaxCS];
   for (int i = threadIdx.x; i < C * S; i += kThreads) {
-    se[i] = enc[i];               // (C, S) row-major
-    sd[i] = dec[i];               // (S, C) row-major
+    se[i] = tab(enc, i, enc_bf16);    // (C, S) row-major
+    sd[i] = tab(dec, i, dec_bf16);    // (S, C) row-major
   }
   __syncthreads();
   const int64_t tile = static_cast<int64_t>(blockIdx.x) * kTileP;
@@ -303,11 +342,11 @@ encode_decode_kernel(const float* __restrict__ enc, const float* __restrict__ de
     for (int j = 0; j < kCols; ++j) acc[s][j] = 0.f;
     if (s < S) {
       if (kVec) {
-        const float4 v = *reinterpret_cast<const float4*>(w + s * P + col[0]);
-        x[s][0] = v.x; x[s][1] = v.y; x[s][2] = v.z; x[s][3] = v.w;
+        wload4(w + s * P + col[0], x[s]);
       } else {
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) x[s][j] = col[j] < P ? w[s * P + col[j]] : 0.f;
+        for (int j = 0; j < kCols; ++j)
+          x[s][j] = col[j] < P ? wload1(w + s * P + col[j]) : 0.f;
       }
     } else {
 #pragma unroll
@@ -389,6 +428,15 @@ __device__ __forceinline__ void ed_cp_async4(float* dst, const float* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(src), "r"(valid ? 4 : 0));
 }
+// entry i of a table into shared memory: by cp.async for fp32, widened by
+// a load for bf16; zero when ``valid`` is false
+__device__ __forceinline__ void ed_table(float* dst, const void* src,
+                                         int64_t i, bool valid, bool bf16) {
+  if (bf16)
+    *dst = valid ? tab(src, i, true) : 0.f;
+  else
+    ed_cp_async4(dst, static_cast<const float*>(src) + (valid ? i : 0), valid);
+}
 __device__ __forceinline__ void ed_cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
 }
@@ -455,12 +503,13 @@ __device__ __forceinline__ void ed_decode(float* coded, const float* decp,
 // kEdSB rows of w, its chunk of w (else w is copied once, with step 0's
 // tables).  RT = row groups per pass: the template keeps the accumulators
 // as few as S allows.
-template <int RT>
+template <int RT, typename WT>
 __global__ void __launch_bounds__(kEdThreads)
-encode_decode_tiled_kernel(const float* __restrict__ enc,
-                           const float* __restrict__ dec,
-                           const float* __restrict__ w, float* __restrict__ out,
-                           int C, int S, int64_t P, bool vec) {
+encode_decode_tiled_kernel(const void* __restrict__ enc,
+                           const void* __restrict__ dec, bool enc_bf16,
+                           bool dec_bf16, const WT* __restrict__ w,
+                           float* __restrict__ out, int C, int S, int64_t P,
+                           bool vec) {
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int q = lane % 4, g = lane / 4;
@@ -477,9 +526,24 @@ encode_decode_tiled_kernel(const float* __restrict__ enc,
   const int nch = (C + kEdCB - 1) / kEdCB;           // chunks of clients
   const int steps = (S + kEdSO - 1) / kEdSO * nch * nsc;
 
-  // rows s0 .. s0+ns of the warp's 32 columns of w into ws (0 past P)
+  // rows s0 .. s0+ns of the warp's 32 columns of w into ws (0 past P): by
+  // cp.async for fp32, by widening loads for bf16
   auto copy_w = [&](int s0, int ns) {
-    if (vec) {    // P % 4 == 0: a float4 is all in range or all out
+    if constexpr (!std::is_same<WT, float>::value) {
+      for (int i = lane; i < ns * 8; i += 32) {
+        const int s = i / 8, j = 4 * (i % 8);
+        float* dst = ws + s * 32 + j;
+        const WT* src = w + static_cast<int64_t>(s0 + s) * P + wcol + j;
+        if (vec) {
+          if (wcol + j < P) wload4(src, dst);
+          else *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dst[e] = wcol + j + e < P ? wload1(src + e) : 0.f;
+        }
+      }
+    } else if (vec) {    // P % 4 == 0: a float4 is all in range or all out
       for (int i = lane; i < ns * 8; i += 32) {
         const int s = i / 8, j = 4 * (i % 8);
         float* dst = ws + s * 32 + j;
@@ -521,15 +585,14 @@ encode_decode_tiled_kernel(const float* __restrict__ enc,
     // c0 .. c0+kEdCB; zeros past C and S
     for (int cc = warp; cc < 8 * ct; cc += kEdWarps)
       for (int s = lane; s < ns; s += 32)
-        ed_cp_async4(encp + cc * es + s,
-                     enc + static_cast<int64_t>(c0 + cc) * S + s0 + s,
-                     cc < nc);
+        ed_table(encp + cc * es + s, enc,
+                 static_cast<int64_t>(c0 + cc) * S + s0 + s, cc < nc, enc_bf16);
     if (sc == nsc - 1)
       for (int rr = warp; rr < 8 * RT; rr += kEdWarps)
         for (int cc = lane; cc < kEdCB; cc += 32)
-          ed_cp_async4(decp + rr * (kEdCB + 1) + cc,
-                       dec + static_cast<int64_t>(so0 + rr) * C + c0 + cc,
-                       so0 + rr < S && cc < nc);
+          ed_table(decp + rr * (kEdCB + 1) + cc, dec,
+                   static_cast<int64_t>(so0 + rr) * C + c0 + cc,
+                   so0 + rr < S && cc < nc, dec_bf16);
     ed_cp_async_wait_all();
     __syncthreads();
     switch (ct) {
@@ -584,85 +647,117 @@ encode_decode_tiled_kernel(const float* __restrict__ enc,
   }
 }
 
-template <int RT>
-void launch_ed_tiled(const float* enc, const float* dec, const float* w,
-                     float* out, int C, int S, int64_t P, bool vec,
-                     cudaStream_t st) {
+template <int RT, typename WT>
+void launch_ed_tiled(const void* enc, const void* dec, bool eb, bool db,
+                     const WT* w, float* out, int C, int S, int64_t P,
+                     bool vec, cudaStream_t st) {
   const int sb = S < kEdSB ? S : kEdSB;
   const int smem = static_cast<int>(sizeof(float)) * ed_smem_floats(sb, RT);
   if (smem > 48 * 1024)            // past 48 KB only when asked for
-    cudaFuncSetAttribute(encode_decode_tiled_kernel<RT>,
+    cudaFuncSetAttribute(encode_decode_tiled_kernel<RT, WT>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const dim3 grid(static_cast<unsigned>((P + kEdTileP - 1) / kEdTileP));
-  encode_decode_tiled_kernel<RT><<<grid, kEdThreads, smem, st>>>(
-      enc, dec, w, out, C, S, P, vec);
+  encode_decode_tiled_kernel<RT, WT><<<grid, kEdThreads, smem, st>>>(
+      enc, dec, eb, db, w, out, C, S, P, vec);
 }
 
-void launch_ed_tiled_rt(const float* enc, const float* dec, const float* w,
-                        float* out, int C, int S, int64_t P, bool vec,
-                        cudaStream_t st) {
+template <typename WT>
+void launch_ed_tiled_rt(const void* enc, const void* dec, bool eb, bool db,
+                        const WT* w, float* out, int C, int S, int64_t P,
+                        bool vec, cudaStream_t st) {
   switch ((S < kEdSO ? S + 7 : kEdSO + 7) / 8) {
-    case 1: launch_ed_tiled<1>(enc, dec, w, out, C, S, P, vec, st); break;
-    case 2: launch_ed_tiled<2>(enc, dec, w, out, C, S, P, vec, st); break;
-    case 3: launch_ed_tiled<3>(enc, dec, w, out, C, S, P, vec, st); break;
-    case 4: launch_ed_tiled<4>(enc, dec, w, out, C, S, P, vec, st); break;
-    case 5: launch_ed_tiled<5>(enc, dec, w, out, C, S, P, vec, st); break;
-    case 6: launch_ed_tiled<6>(enc, dec, w, out, C, S, P, vec, st); break;
-    case 7: launch_ed_tiled<7>(enc, dec, w, out, C, S, P, vec, st); break;
-    default: launch_ed_tiled<8>(enc, dec, w, out, C, S, P, vec, st); break;
+    case 1: launch_ed_tiled<1>(enc, dec, eb, db, w, out, C, S, P, vec, st); break;
+    case 2: launch_ed_tiled<2>(enc, dec, eb, db, w, out, C, S, P, vec, st); break;
+    case 3: launch_ed_tiled<3>(enc, dec, eb, db, w, out, C, S, P, vec, st); break;
+    case 4: launch_ed_tiled<4>(enc, dec, eb, db, w, out, C, S, P, vec, st); break;
+    case 5: launch_ed_tiled<5>(enc, dec, eb, db, w, out, C, S, P, vec, st); break;
+    case 6: launch_ed_tiled<6>(enc, dec, eb, db, w, out, C, S, P, vec, st); break;
+    case 7: launch_ed_tiled<7>(enc, dec, eb, db, w, out, C, S, P, vec, st); break;
+    default: launch_ed_tiled<8>(enc, dec, eb, db, w, out, C, S, P, vec, st); break;
   }
 }
 
-template <int SMAX>
-void launch_ed(const float* enc, const float* dec, const float* w, float* out,
-               int C, int S, int64_t P, bool vec, cudaStream_t st) {
+template <int SMAX, typename WT>
+void launch_ed(const void* enc, const void* dec, bool eb, bool db, const WT* w,
+               float* out, int C, int S, int64_t P, bool vec, cudaStream_t st) {
   const dim3 grid(static_cast<unsigned>((P + kTileP - 1) / kTileP));
   if (vec)
-    encode_decode_kernel<SMAX, true><<<grid, kThreads, 0, st>>>(enc, dec, w, out, C, S, P);
+    encode_decode_kernel<SMAX, WT, true><<<grid, kThreads, 0, st>>>(
+        enc, dec, eb, db, w, out, C, S, P);
   else
-    encode_decode_kernel<SMAX, false><<<grid, kThreads, 0, st>>>(enc, dec, w, out, C, S, P);
+    encode_decode_kernel<SMAX, WT, false><<<grid, kThreads, 0, st>>>(
+        enc, dec, eb, db, w, out, C, S, P);
+}
+
+template <typename WT>
+void encode_decode(const void* enc, const void* dec, bool eb, bool db,
+                   const WT* w, float* out, int c, int s, int64_t P, bool vec,
+                   cudaStream_t st) {
+  if (s > kMaxS || c * s > kMaxCS)
+    launch_ed_tiled_rt(enc, dec, eb, db, w, out, c, s, P, vec, st);
+  else if (s <= 4)
+    launch_ed<4>(enc, dec, eb, db, w, out, c, s, P, vec, st);
+  else if (s <= 8)
+    launch_ed<8>(enc, dec, eb, db, w, out, c, s, P, vec, st);
+  else
+    launch_ed<16>(enc, dec, eb, db, w, out, c, s, P, vec, st);
+}
+
+template <typename WT>
+void coded(const void* coeff, bool cb, const void* w, void* out, int64_t G,
+           int64_t C, int S, int64_t P, bool out_bf16, bool vec,
+           cudaStream_t st) {
+  const WT* wt = static_cast<const WT*>(w);
+  if (out_bf16)
+    launch<__nv_bfloat16>(coeff, cb, wt, out, G, C, S, P, vec, st);
+  else
+    launch<float>(coeff, cb, wt, out, G, C, S, P, vec, st);
 }
 
 }  // namespace
 
-// coeff (C,S) f32, w (G,S,P) f32, out (G,C,P) f32 or bf16; all contiguous
-// on the device.  vec = 1 only when P % 4 == 0 and w and out are 16-byte
-// aligned (coeff is read a float at a time).  Returns cudaGetLastError()
-// after the launch.
-extern "C" int repro_coded_matmul(const float* coeff, const float* w,
+// coeff (C,S), w (G,S,P), each fp32 or (coeff_bf16, w_bf16) bf16; out
+// (G,C,P) f32 or bf16; all contiguous on the device.  vec = 1 only when
+// P % 4 == 0 and w and out are 16-byte aligned (coeff is read an element at
+// a time).  Returns cudaGetLastError() after the launch.
+extern "C" int repro_coded_matmul(const void* coeff, const void* w,
                                   void* out, int64_t G, int64_t C, int64_t S,
                                   int64_t P, int out_bf16, int vec,
-                                  void* stream) {
+                                  int coeff_bf16, int w_bf16, void* stream) {
   if (G < 1 || C < 1 || S < 1 || S > 0x7fffffffLL || P < 1 || G > 65535 ||
       (C + kBlockC - 1) / kBlockC > 65535 ||
       (P + kTileP - 1) / kTileP > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (out_bf16)
-    launch<__nv_bfloat16>(coeff, w, out, G, C, static_cast<int>(S), P, vec, st);
+  const int s = static_cast<int>(S);
+  if (w_bf16)
+    coded<__nv_bfloat16>(coeff, coeff_bf16 != 0, w, out, G, C, s, P,
+                         out_bf16 != 0, vec != 0, st);
   else
-    launch<float>(coeff, w, out, G, C, static_cast<int>(S), P, vec, st);
+    coded<float>(coeff, coeff_bf16 != 0, w, out, G, C, s, P, out_bf16 != 0,
+                 vec != 0, st);
   return static_cast<int>(cudaGetLastError());
 }
 
-// enc (C,S), dec (S,C), w (S,P) and out (S,P) fp32, contiguous on the
-// device.  vec = 1 only when P % 4 == 0 and w and out are 16-byte aligned.
-// Returns cudaGetLastError() after the launch.
-extern "C" int repro_encode_decode(const float* enc, const float* dec,
-                                   const float* w, float* out, int64_t C,
-                                   int64_t S, int64_t P, int vec, void* stream) {
+// enc (C,S), dec (S,C) and w (S,P), each fp32 or (enc_bf16, dec_bf16,
+// w_bf16) bf16, and out (S,P) fp32, contiguous on the device.  vec = 1 only
+// when P % 4 == 0 and w and out are 16-byte aligned.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int repro_encode_decode(const void* enc, const void* dec,
+                                   const void* w, float* out, int64_t C,
+                                   int64_t S, int64_t P, int vec, int enc_bf16,
+                                   int dec_bf16, int w_bf16, void* stream) {
   if (C < 1 || S < 1 || C > 0x7fffffffLL || S > 0x7fffffffLL || P < 1 ||
       (P + kEdTileP - 1) / kEdTileP > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int c = static_cast<int>(C), s = static_cast<int>(S);
-  if (S > kMaxS || C * S > kMaxCS)
-    launch_ed_tiled_rt(enc, dec, w, out, c, s, P, vec != 0, st);
-  else if (S <= 4)
-    launch_ed<4>(enc, dec, w, out, c, s, P, vec, st);
-  else if (S <= 8)
-    launch_ed<8>(enc, dec, w, out, c, s, P, vec, st);
+  if (w_bf16)
+    encode_decode(enc, dec, enc_bf16 != 0, dec_bf16 != 0,
+                  static_cast<const __nv_bfloat16*>(w), out, c, s, P, vec != 0,
+                  st);
   else
-    launch_ed<16>(enc, dec, w, out, c, s, P, vec, st);
+    encode_decode(enc, dec, enc_bf16 != 0, dec_bf16 != 0,
+                  static_cast<const float*>(w), out, c, s, P, vec != 0, st);
   return static_cast<int>(cudaGetLastError());
 }

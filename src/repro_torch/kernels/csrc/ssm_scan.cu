@@ -81,7 +81,23 @@
 // No atomics, so the result is the same on every run.
 // Every offset into a (B,S,D)-sized array is 64-bit.  Ragged S, D and n are
 // masked in the kernels; nothing is padded.
+//
+// bf16 operands.  The TPU kernel widens each load of dt, b, c and x to
+// fp32 (kernel.py's ``.astype(jnp.float32)``) and writes y in fp32; the
+// reference's mamba_impl="pallas" route hands it the compute-dtype
+// operands straight.  The forward is templated on their type In: for bf16,
+// a tile's rows are copied by cp.async, 8 bytes (4 elements) a thread,
+// into a bf16 staging tile while the last tile is walked, and the thread
+// that copied a chunk widens it into the same fp32 tile the fp32 route
+// fills, once it lands (before the tile's barrier); rows that are not
+// 8-byte aligned (D or n not a multiple of 4) are loaded an element at a
+// time, synchronously.  The walk is the same code, so a bf16 call gives
+// the bits of the fp32 call on the widened operands.  a, h0, y, h_last and
+// the checkpoints stay fp32, and the backward kernel is fp32 only: the
+// wrapper widens saved bf16 operands once for it.
 #include <cstdint>
+#include <type_traits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -171,6 +187,7 @@ struct FwdGeo {
   static constexpr int kComp =
       SUBS > 1 ? kFwdThreads * 2 * kNpl + 2 * kCpb * kSt : 0;
   static constexpr int kSmemBytes = 4 * (2 * kBuf + kComp);
+  static constexpr int kStageBytes = 2 * kBuf;   // one tile in bf16
   static_assert(kCpb % 4 == 0 && kSeq >= 1, "16-byte rows, whole sub-chunks");
   static_assert(kCpb * L % 32 == 0, "a warp walks one sub-chunk");
   static_assert(SUBS == 1 || NPL == kNpl, "the split keeps 4 states a lane");
@@ -182,6 +199,26 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(ok ? 16 : 0));
+}
+
+// 8 bytes (4 bf16) into shared memory by cp.async, or zeros when ``ok`` is
+// false; 4 staged bf16 widened into an fp32 tile; and one bf16 element
+// widened into an fp32 tile by a plain load (zero when ``ok`` is false)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 8 : 0));
+}
+__device__ __forceinline__ void widen4(float* dst, const __nv_bfloat16* src) {
+  const uint2 u = *reinterpret_cast<const uint2*>(src);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  *reinterpret_cast<float4*>(dst) = make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ void widen1(float* dst, const __nv_bfloat16* src,
+                                       bool ok) {
+  *dst = ok ? __bfloat162float(*src) : 0.f;
 }
 
 // A sub-chunk's 8 steps from tile row r0: dtx = dt x and abar of each step
@@ -295,10 +332,10 @@ __device__ __forceinline__ void seq_walk(
 // each thread walks the tile's sub-chunks in turn from h.  Tiles of dt, x,
 // b, c are copied by cp.async (16 bytes where rows allow) into one of two
 // buffers while the other is walked; y is stored from registers.
-template <int L, int SUBS, int NPL>
+template <typename In, int L, int SUBS, int NPL>
 __global__ void __launch_bounds__(kFwdThreads, 2)
-ssm_fwd_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
-               const float* __restrict__ cm, const float* __restrict__ x,
+ssm_fwd_kernel(const In* __restrict__ dt, const In* __restrict__ bm,
+               const In* __restrict__ cm, const In* __restrict__ x,
                const float* __restrict__ a, const float* __restrict__ h0,
                float* __restrict__ y, float* __restrict__ h_last,
                float* __restrict__ ckpt, int S, int D, int n, int per_group,
@@ -317,8 +354,17 @@ ssm_fwd_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
   const float* ag = a + static_cast<int64_t>(bi / per_group) * D * n;
   const int nck = (S + kCkpt - 1) / kCkpt;
   const bool live = d < D;
+  // bf16 rows that are 8-byte aligned stage here, one tile, laid out as a
+  // tile's dt, x, b, c
+  constexpr bool kBf16 = !std::is_same<In, float>::value;
+  __nv_bfloat16* g_dt = reinterpret_cast<__nv_bfloat16*>(
+      smem + 2 * Geo::kBuf + Geo::kComp);
+  __nv_bfloat16* g_x = g_dt + T * CPB;
+  __nv_bfloat16* g_b = g_x + T * CPB;
+  __nv_bfloat16* g_c = g_b + T * ST;
 
-  // Issue the copies of tile ``tile`` into ``buf`` (zeros outside S, D, n).
+  // Issue the copies of tile ``tile`` into ``buf`` (zeros outside S, D, n);
+  // staged bf16 rows into the staging tile instead.
   auto issue = [&](int tile, float* buf) {
     const int t0 = tile * T;
     float* s_dt = buf;
@@ -330,16 +376,26 @@ ssm_fwd_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
         const int t = t0 + i / (CPB / 4), dd = d0 + 4 * (i % (CPB / 4));
         const bool ok = t < S && dd < D;
         const int64_t off = ok ? seq + static_cast<int64_t>(t) * D + dd : 0;
-        cp_async16(s_dt + 4 * i, dt + off, ok);
-        cp_async16(s_x + 4 * i, x + off, ok);
+        if constexpr (kBf16) {
+          cp_async8(g_dt + 4 * i, dt + off, ok);
+          cp_async8(g_x + 4 * i, x + off, ok);
+        } else {
+          cp_async16(s_dt + 4 * i, dt + off, ok);
+          cp_async16(s_x + 4 * i, x + off, ok);
+        }
       }
     } else {
       for (int i = threadIdx.x; i < T * CPB; i += kFwdThreads) {
         const int t = t0 + i / CPB, dd = d0 + i % CPB;
         const bool ok = t < S && dd < D;
         const int64_t off = ok ? seq + static_cast<int64_t>(t) * D + dd : 0;
-        cp_async4(s_dt + i, dt + off, ok);
-        cp_async4(s_x + i, x + off, ok);
+        if constexpr (kBf16) {
+          widen1(s_dt + i, dt + off, ok);
+          widen1(s_x + i, x + off, ok);
+        } else {
+          cp_async4(s_dt + i, dt + off, ok);
+          cp_async4(s_x + i, x + off, ok);
+        }
       }
     }
     if (vec_n) {
@@ -347,16 +403,26 @@ ssm_fwd_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
         const int t = t0 + i / (ST / 4), j = 4 * (i % (ST / 4));
         const bool ok = t < S && j < n;
         const int64_t off = ok ? seq_n + static_cast<int64_t>(t) * n + j : 0;
-        cp_async16(s_b + 4 * i, bm + off, ok);
-        cp_async16(s_c + 4 * i, cm + off, ok);
+        if constexpr (kBf16) {
+          cp_async8(g_b + 4 * i, bm + off, ok);
+          cp_async8(g_c + 4 * i, cm + off, ok);
+        } else {
+          cp_async16(s_b + 4 * i, bm + off, ok);
+          cp_async16(s_c + 4 * i, cm + off, ok);
+        }
       }
     } else {
       for (int i = threadIdx.x; i < T * ST; i += kFwdThreads) {
         const int t = t0 + i / ST, j = i % ST;
         const bool ok = t < S && j < n;
         const int64_t off = ok ? seq_n + static_cast<int64_t>(t) * n + j : 0;
-        cp_async4(s_b + i, bm + off, ok);
-        cp_async4(s_c + i, cm + off, ok);
+        if constexpr (kBf16) {
+          widen1(s_b + i, bm + off, ok);
+          widen1(s_c + i, cm + off, ok);
+        } else {
+          cp_async4(s_b + i, bm + off, ok);
+          cp_async4(s_c + i, cm + off, ok);
+        }
       }
     }
     cp_async_commit();
@@ -391,11 +457,24 @@ ssm_fwd_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
   const int ntile = (S + T - 1) / T;
   issue(0, smem);
   for (int tile = 0, p = 0; tile < ntile; ++tile, p ^= 1) {
-    const float* s_dt = smem + p * Geo::kBuf;
-    const float* s_x = s_dt + T * CPB;
-    const float* s_b = s_x + T * CPB;
-    const float* s_c = s_b + T * ST;
+    float* s_dt = smem + p * Geo::kBuf;
+    float* s_x = s_dt + T * CPB;
+    float* s_b = s_x + T * CPB;
+    float* s_c = s_b + T * ST;
     cp_async_wait_all();
+    // the staged chunks this thread copied, widened into the tile (the
+    // walk two tiles back, the last to read it, ended before the last
+    // barrier)
+    if (kBf16 && vec_d)
+      for (int i = threadIdx.x; i < T * CPB / 4; i += kFwdThreads) {
+        widen4(s_dt + 4 * i, g_dt + 4 * i);
+        widen4(s_x + 4 * i, g_x + 4 * i);
+      }
+    if (kBf16 && vec_n)
+      for (int i = threadIdx.x; i < T * ST / 4; i += kFwdThreads) {
+        widen4(s_b + 4 * i, g_b + 4 * i);
+        widen4(s_c + 4 * i, g_c + 4 * i);
+      }
     __syncthreads();    // this tile landed; the last tile's reads are done
     if (tile + 1 < ntile) issue(tile + 1, smem + (p ^ 1) * Geo::kBuf);
     const int t0 = tile * T;
@@ -757,18 +836,19 @@ int fwd_subs(int64_t B, int64_t S, int64_t D) {
   return subs;
 }
 
-template <int L, int SUBS, int NPL>
-int launch_fwd_subs(const float* dt, const float* b, const float* c,
-                    const float* x, const float* a, const float* h0, float* y,
+template <typename In, int L, int SUBS, int NPL>
+int launch_fwd_subs(const In* dt, const In* b, const In* c,
+                    const In* x, const float* a, const float* h0, float* y,
                     float* h_last, float* ckpt, int64_t B, int64_t S,
                     int64_t D, int64_t n, int64_t G, cudaStream_t st) {
   using Geo = FwdGeo<L, SUBS, NPL>;
+  constexpr int smem = Geo::kSmemBytes +
+                       (std::is_same<In, float>::value ? 0 : Geo::kStageBytes);
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        ssm_fwd_kernel<L, SUBS, NPL>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Geo::kSmemBytes);
+        ssm_fwd_kernel<In, L, SUBS, NPL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
@@ -780,30 +860,30 @@ int launch_fwd_subs(const float* dt, const float* b, const float* c,
                      (ckpt == nullptr || al16(ckpt));
   const dim3 grid(static_cast<unsigned>((D + Geo::kCpb - 1) / Geo::kCpb),
                   static_cast<unsigned>(B));
-  ssm_fwd_kernel<L, SUBS, NPL><<<grid, kFwdThreads, Geo::kSmemBytes, st>>>(
+  ssm_fwd_kernel<In, L, SUBS, NPL><<<grid, kFwdThreads, smem, st>>>(
       dt, b, c, x, a, h0, y, h_last, ckpt, static_cast<int>(S),
       static_cast<int>(D), static_cast<int>(n), static_cast<int>(B / G),
       vec_d, vec_n);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int L>
-int launch_fwd(const float* dt, const float* b, const float* c,
-               const float* x, const float* a, const float* h0, float* y,
+template <typename In, int L>
+int launch_fwd(const In* dt, const In* b, const In* c,
+               const In* x, const float* a, const float* h0, float* y,
                float* h_last, float* ckpt, int64_t B, int64_t S, int64_t D,
                int64_t n, int64_t G, cudaStream_t st) {
   switch (fwd_subs<L>(B, S, D)) {
     case 1:
       if (L == 4 && seq_lanes(L, B, D) == 2)
-        return launch_fwd_subs<2, 1, 2 * kNpl>(dt, b, c, x, a, h0, y, h_last,
+        return launch_fwd_subs<In, 2, 1, 2 * kNpl>(dt, b, c, x, a, h0, y, h_last,
                                                ckpt, B, S, D, n, G, st);
-      return launch_fwd_subs<L, 1, kNpl>(dt, b, c, x, a, h0, y, h_last, ckpt,
+      return launch_fwd_subs<In, L, 1, kNpl>(dt, b, c, x, a, h0, y, h_last, ckpt,
                                          B, S, D, n, G, st);
-    case 2: return launch_fwd_subs<L, 2, kNpl>(dt, b, c, x, a, h0, y, h_last,
+    case 2: return launch_fwd_subs<In, L, 2, kNpl>(dt, b, c, x, a, h0, y, h_last,
                                                ckpt, B, S, D, n, G, st);
-    case 4: return launch_fwd_subs<L, 4, kNpl>(dt, b, c, x, a, h0, y, h_last,
+    case 4: return launch_fwd_subs<In, L, 4, kNpl>(dt, b, c, x, a, h0, y, h_last,
                                                ckpt, B, S, D, n, G, st);
-    default: return launch_fwd_subs<L, 8, kNpl>(dt, b, c, x, a, h0, y,
+    default: return launch_fwd_subs<In, L, 8, kNpl>(dt, b, c, x, a, h0, y,
                                                 h_last, ckpt, B, S, D, n, G,
                                                 st);
   }
@@ -849,24 +929,40 @@ extern "C" int64_t repro_ssm_scan_bwd_workspace(int64_t B, int64_t S,
   return (nblk > 1 ? 2 * B * nblk * S * n : 0) + B * D * n;
 }
 
-// Forward.  ckpt may be null (no backward will follow).  Returns
+template <typename In>
+static int fwd(const void* dt, const void* b, const void* c, const void* x,
+        const float* a, const float* h0, float* y, float* h_last, float* ckpt,
+        int64_t B, int64_t S, int64_t D, int64_t n, int64_t G,
+        cudaStream_t st) {
+  const In* dt_ = static_cast<const In*>(dt);
+  const In* b_ = static_cast<const In*>(b);
+  const In* c_ = static_cast<const In*>(c);
+  const In* x_ = static_cast<const In*>(x);
+  switch (lanes_for(n)) {
+    case 1: return launch_fwd<In, 1>(dt_, b_, c_, x_, a, h0, y, h_last, ckpt, B,
+                                    S, D, n, G, st);
+    case 2: return launch_fwd<In, 2>(dt_, b_, c_, x_, a, h0, y, h_last, ckpt, B,
+                                    S, D, n, G, st);
+    default: return launch_fwd<In, 4>(dt_, b_, c_, x_, a, h0, y, h_last, ckpt,
+                                     B, S, D, n, G, st);
+  }
+}
+
+// Forward.  dt, b, c, x fp32, or bf16 when ``in_bf16``; a, h0 and the
+// outputs fp32.  ckpt may be null (no backward will follow).  Returns
 // cudaGetLastError() after the launch.
-extern "C" int repro_ssm_scan_fwd(const float* dt, const float* b,
-                                  const float* c, const float* x,
+extern "C" int repro_ssm_scan_fwd(const void* dt, const void* b,
+                                  const void* c, const void* x,
                                   const float* a, const float* h0, float* y,
                                   float* h_last, float* ckpt, int64_t B,
                                   int64_t S, int64_t D, int64_t n, int64_t G,
-                                  void* stream) {
+                                  int in_bf16, void* stream) {
   if (bad_shape(B, S, D, n, G)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (lanes_for(n)) {
-    case 1: return launch_fwd<1>(dt, b, c, x, a, h0, y, h_last, ckpt, B, S, D,
-                                 n, G, st);
-    case 2: return launch_fwd<2>(dt, b, c, x, a, h0, y, h_last, ckpt, B, S, D,
-                                 n, G, st);
-    default: return launch_fwd<4>(dt, b, c, x, a, h0, y, h_last, ckpt, B, S,
-                                  D, n, G, st);
-  }
+  if (in_bf16)
+    return fwd<__nv_bfloat16>(dt, b, c, x, a, h0, y, h_last, ckpt, B, S, D, n,
+                              G, st);
+  return fwd<float>(dt, b, c, x, a, h0, y, h_last, ckpt, B, S, D, n, G, st);
 }
 
 // Backward: the walk kernel, then the reduce kernel, on one stream.  With

@@ -92,8 +92,27 @@
 //  * Shared memory at hd 128: 213,504 bytes (dQ) and 230,400 (dK/dV), one
 //    block of 8 warps per SM; the MMAs' issue rate and the operand splits
 //    on the CUDA cores bound it, not memory.
+//
+// Forward for bf16 operands (wattn_fwd_bf16_kernel), the TPU kernel's own
+// arithmetic at bf16: Q K^T as one-pass bf16 products with fp32
+// accumulation, P = exp(s - m) rounded to bf16 before P V (again bf16
+// products, fp32 accumulation), the online softmax's max and sum and the
+// log-sum-exp in fp32 (the sum over the unrounded P, as the TPU kernel's
+// l), O written in bf16 (the TPU wrapper's cast to q.dtype).  A simple
+// route first: a block of 4 warps owns one 64-query tile of one head; its
+// Q, K and V tiles stage in shared memory as bf16 ([64][HDP + 8]: rows
+// padded by 16 bytes, so the 32-bit fragment loads of 8 rows x 4 columns
+// fall in 32 banks), half the fp32 route's bytes; K and V are
+// double-buffered by cp.async as there (V_j lands while S_j computes, K_j+1
+// while P_j V_j does).  Every product is mma.sync.m16n8k16 bf16 -> fp32.  A
+// warp keeps its Q fragments in registers for the whole walk; P's A
+// fragments are the score accumulators of two n-tiles, packed to bf16 in
+// registers; V's B fragments come from ldmatrix.trans.  wgmma and TMA are
+// later work.  The backward takes bf16 inputs through the fp32 kernels:
+// the wrapper widens the saved operands (the TPU kernel had no backward).
 #include <cstdint>
 #include <initializer_list>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -567,6 +586,228 @@ wattn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // independent accumulator chains: s1 += A1 B1^T and s2 += A2 B2^T over the
 // first ``ks`` k steps, A rows ``ra`` .. +15 and B rows ``rb`` .. +31 of
 // [64][HDP] tiles with k along the row.
+// ---- forward for bf16 operands, one-pass bf16 mma.sync ---------------------
+//
+// m16n8k16 bf16 fragments, lane (gq, tq): A a0 = (row gq, columns 2 tq,
+// 2 tq + 1), a1 = (row gq + 8, the same), a2 and a3 the same at columns
+// + 8; B b0 = (rows 2 tq, 2 tq + 1, column gq), b1 at rows + 8; C as for
+// m16n8k8.  Two 16-bit values a register, the lower column in the low half.
+
+constexpr int kBfPad = 8;          // bf16 elements padding a staged row
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (lo, hi) rounded to bf16 (to nearest even) in one register
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Four 8 x 8 bf16 tiles, transposed: lane l gives the address of row l % 8
+// of tile l / 8 and receives, of tile i, rows 2 tq and 2 tq + 1 of
+// column gq in r[i] (a B fragment half of an [k][n] tile).
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// Rows t0 .. t0+63 of one head's bf16 (S, hd) slice (row stride ``ss``)
+// into dst[64][HDP + kBfPad] by a block of 128 threads, zero outside S and
+// hd: 16-byte cp.async where ``vec`` (hd % 8 == 0, 16-byte aligned rows),
+// else a plain load and store an element.
+template <int HDP>
+__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* __restrict__ src,
+                                           int64_t ss, int t0, int S, int hd,
+                                           bool vec) {
+  constexpr int LD = HDP + kBfPad;
+  if (vec) {
+    constexpr int kG = HDP / 8;
+#pragma unroll 4
+    for (int idx = threadIdx.x; idx < kTile * kG; idx += 128) {
+      const int r = idx / kG, c = (idx % kG) * 8, t = t0 + r;
+      const bool ok = t < S && c < hd;
+      cp_async16(reinterpret_cast<float*>(dst + r * LD + c),
+                 reinterpret_cast<const float*>(
+                     ok ? src + static_cast<int64_t>(t) * ss + c : src),
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < kTile * HDP; idx += 128) {
+      const int r = idx / HDP, c = idx % HDP, t = t0 + r;
+      dst[r * LD + c] = t < S && c < hd ? src[static_cast<int64_t>(t) * ss + c]
+                                        : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+template <int HDP>
+constexpr int fwd_bf16_smem() { return 3 * kTile * (HDP + kBfPad) * 2; }
+
+// O (bf16) and lse of one 64-query tile of query head blockIdx.y % H: warp
+// w computes rows 16 w .. +15 against all 64 keys of each key tile its
+// windows reach.  The walk, masks and skips are wattn_fwd_kernel's.
+template <int HDP>
+__global__ void __launch_bounds__(128)
+wattn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                      Geom g, Strides sq, Strides sk, Strides sv, bool vec) {
+  constexpr int LD = HDP + kBfPad, KS = HDP / 16, NT = HDP / 8;
+  extern __shared__ __align__(16) float smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);   // [64][LD]
+  __nv_bfloat16* sK = sQ + kTile * LD;                          // [64][LD]
+  __nv_bfloat16* sV = sK + kTile * LD;                          // [64][LD]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int b = blockIdx.y / g.H, h = blockIdx.y % g.H;
+  const int q0 = blockIdx.x * kTile;
+  const int kvh = h / (g.H / g.KV);
+  const __nv_bfloat16* kb = k + b * sk.b + kvh * sk.h;
+  const __nv_bfloat16* vb = v + b * sv.b + kvh * sv.h;
+  const int k_lo = max(0, q0 - g.window + 1) / kTile * kTile;
+  const int k_hi = min(g.S, q0 + kTile);
+  stage_bf16<HDP>(sQ, q + b * sq.b + h * sq.h, sq.s, q0, g.S, g.hd, vec);
+  stage_bf16<HDP>(sK, kb, sk.s, k_lo, g.S, g.hd, vec);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();             // Q and K_0 landed
+
+  const float c2 = g.scale * kLog2e;
+  const int qw = q0 + 16 * warp;             // the warp's first row
+  const int qa = qw + gq;                    // this lane's rows: qa, qa + 8
+  const int kw_lo = qw - g.window + 1, kw_hi = min(qw + 15, g.S - 1);
+  // the warp's Q fragments, held for the whole walk
+  uint32_t qf[KS][4];
+  {
+    const __nv_bfloat16* qr = sQ + (16 * warp + gq) * LD + 2 * tq;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      qf[kk][0] = ld_u32(qr + 16 * kk);
+      qf[kk][1] = ld_u32(qr + 8 * LD + 16 * kk);
+      qf[kk][2] = ld_u32(qr + 16 * kk + 8);
+      qf[kk][3] = ld_u32(qr + 8 * LD + 16 * kk + 8);
+    }
+  }
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[NT][4] = {};
+  for (int k0 = k_lo; k0 < k_hi; k0 += kTile) {
+    cp_async_wait_all();
+    __syncthreads();           // K_j landed; every warp's P V of j - 1 done
+    stage_bf16<HDP>(sV, vb, sv.s, k0, g.S, g.hd, vec);
+    cp_async_commit();
+    const bool sees = qw < g.S && kw_lo <= k0 + kTile - 1 && kw_hi >= k0;
+    const bool full = k0 + kTile - 1 <= q0 && k0 + g.window > q0 + kTile - 1;
+    float s[8][4] = {};
+    if (sees) {
+      const __nv_bfloat16* kr = sK + gq * LD + 2 * tq;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          mma_bf16(s[j], qf[kk], ld_u32(kr + 8 * j * LD + 16 * kk),
+                   ld_u32(kr + 8 * j * LD + 16 * kk + 8));
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (!full &&
+              !in_window(qa + 8 * (e >> 1), k0 + 8 * j + 2 * tq + (e & 1), g))
+            s[j][e] = -INFINITY;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+      float corr[2];
+      bool none[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(kFull, mx[hr], 1));
+        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(kFull, mx[hr], 2));
+        const float mn = fmaxf(m[hr], mx[hr] * c2);
+        none[hr] = mn == -INFINITY;          // no key of this row yet
+        corr[hr] = none[hr] ? 1.f : ex2(m[hr] - mn);
+        m[hr] = mn;
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hr = e >> 1;
+          s[j][e] = none[hr] ? 0.f : ex2(fmaf(s[j][e], c2, -m[hr]));
+          rs[hr] += s[j][e];
+        }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        rs[hr] += __shfl_xor_sync(kFull, rs[hr], 1);
+        rs[hr] += __shfl_xor_sync(kFull, rs[hr], 2);
+        l[hr] = fmaf(l[hr], corr[hr], rs[hr]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] *= corr[e >> 1];
+    }
+    cp_async_wait_all();
+    __syncthreads();           // V_j landed; every warp's Q K_j^T is done
+    if (k0 + kTile < k_hi) {
+      stage_bf16<HDP>(sK, kb, sk.s, k0 + kTile, g.S, g.hd, vec);
+      cp_async_commit();
+    }
+    if (sees) {
+      // k step kk (keys 16 kk .. +15): P's A fragment is score n-tiles 2 kk
+      // and 2 kk + 1, rounded to bf16
+      const __nv_bfloat16* vr =
+          sV + (8 * ((lane >> 3) & 1) + (lane & 7)) * LD + 8 * (lane >> 4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int nt = 0; nt < NT; nt += 2) {
+          uint32_t bv[4];
+          ldsm_x4_trans(bv, vr + 16 * kk * LD + 8 * nt);
+          mma_bf16(acc[nt], pa, bv[0], bv[1]);
+          mma_bf16(acc[nt + 1], pa, bv[2], bv[3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int qi = qa + 8 * hr;
+    if (qi >= g.S) continue;
+    const float inv = 1.f / l[hr];
+    __nv_bfloat16* orow =
+        o + ((static_cast<int64_t>(b) * g.S + qi) * g.H + h) * g.hd;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * nt + 2 * tq + e;
+        if (d < g.hd) orow[d] = __float2bfloat16_rn(acc[nt][2 * hr + e] * inv);
+      }
+    if (tq == 0)
+      lse[(static_cast<int64_t>(b) * g.H + h) * g.S + qi] =
+          (m[hr] + log2f(l[hr])) * kLn2;
+  }
+}
+
 template <int HDP>
 __device__ __forceinline__ void scores(float (&s1)[4][4], float (&s2)[4][4],
                                        const float* A1, const float* B1,
@@ -919,6 +1160,32 @@ int fwd(const float* q, const float* k, const float* v, float* o, float* lse,
     return fwd_launch<HDP, 1, false>(q, k, v, o, lse, B, g, sq, sk, sv, st);
 }
 
+// 16-byte cp.async of bf16 rows: hd % 8 == 0, every row 16-byte aligned
+bool vec_ok_bf16(const Geom& g, std::initializer_list<const void*> ptrs,
+                 std::initializer_list<Strides> strides) {
+  bool vec = g.hd % 8 == 0;
+  for (const void* p : ptrs)
+    vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  for (const Strides& s : strides)
+    vec = vec && s.b % 8 == 0 && s.s % 8 == 0 && s.h % 8 == 0;
+  return vec;
+}
+
+template <int HDP>
+int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+             int64_t B, Geom g, Strides sq, Strides sk, Strides sv,
+             cudaStream_t st) {
+  const int smem = fwd_bf16_smem<HDP>();
+  cudaError_t err = allow_smem(wattn_fwd_bf16_kernel<HDP>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((g.S + kTile - 1) / kTile, static_cast<unsigned>(B * g.H));
+  wattn_fwd_bf16_kernel<HDP><<<grid, 128, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+      g, sq, sk, sv, vec_ok_bf16(g, {q, k, v}, {sq, sk, sv}));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int HDP>
 int bwd(const float* q, const float* k, const float* v, const float* dout,
         const float* lse, const float* delta, float* dq, float* dk, float* dv,
@@ -964,6 +1231,28 @@ extern "C" int repro_window_attn_fwd(
                                                 sv, st)
          : hd <= 64 ? fwd<64>(q, k, v, o, lse, B, g, sq, sk, sv, st)
                     : fwd<128>(q, k, v, o, lse, B, g, sq, sk, sv, st);
+}
+
+// Forward of bf16 q, k, v (strides and layout as for the fp32 forward); o
+// (B,S,H,hd) bf16 and lse (B,H,S) fp32, contiguous.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int repro_window_attn_fwd_bf16(
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int64_t B, int64_t S, int64_t H, int64_t KV, int64_t hd, int64_t window,
+    float scale, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
+    int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
+    void* stream) {
+  if (S > 0x7fffffffLL || window > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Geom g = {static_cast<int>(S), static_cast<int>(H), static_cast<int>(KV),
+                  static_cast<int>(hd), static_cast<int>(window), scale};
+  if (bad_geom(B, g)) return static_cast<int>(cudaErrorInvalidValue);
+  const Strides sq = {q_sb, q_ss, q_sh}, sk = {k_sb, k_ss, k_sh},
+                sv = {v_sb, v_ss, v_sh};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return hd <= 32   ? fwd_bf16<32>(q, k, v, o, lse, B, g, sq, sk, sv, st)
+         : hd <= 64 ? fwd_bf16<64>(q, k, v, o, lse, B, g, sq, sk, sv, st)
+                    : fwd_bf16<128>(q, k, v, o, lse, B, g, sq, sk, sv, st);
 }
 
 // Backward.  q, k, v as for the forward; o, dout and dq (B,S,H,hd), dk and

@@ -109,8 +109,22 @@
 // the same result.
 // Every offset into a (B, S, H, N)-sized array is 64-bit.  Ragged S and N
 // are masked in the kernels; nothing is padded.
+//
+// bf16 operands.  The TPU kernel widens each load of r, k, v and lw to
+// fp32 (kernel.py's ``.astype(jnp.float32)``) and writes f32.  The forward
+// is templated on their type In: for bf16 a thread copies its chunks of 4
+// elements (8 bytes) by cp.async into a bf16 staging tile while the last
+// tile is walked, and widens them into the same fp32 tile that cp.async
+// fills for fp32 once they land, before its exp and r u k pass; rows that
+// are not 8-byte aligned (N not a multiple of 4) are loaded an element at
+// a time, synchronously.  The walk is the same code, so a bf16 call gives
+// the bits of the fp32 call on the widened operands.  u, h0, y, h_last and
+// the checkpoints stay fp32; the backward is fp32 only, and the wrapper
+// widens saved bf16 operands once for it.
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -217,6 +231,26 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                "l"(src), "r"(ok ? 16 : 0));
 }
 
+// 8 bytes (4 bf16) into shared memory by cp.async, or zeros when ``ok`` is
+// false; 4 staged bf16 widened into an fp32 tile; and one bf16 element
+// widened into an fp32 tile by a plain load (zero when ``ok`` is false)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 8 : 0));
+}
+__device__ __forceinline__ void widen4(float* dst, const __nv_bfloat16* src) {
+  const uint2 u = *reinterpret_cast<const uint2*>(src);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  *reinterpret_cast<float4*>(dst) = make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ void widen1(float* dst, const __nv_bfloat16* src,
+                                       bool ok) {
+  *dst = ok ? __bfloat162float(*src) : 0.f;
+}
+
 // Issue the copies of steps t0 .. t0+R-1 of one head's (S, N) rows (stride
 // ``stride`` between steps) into sh[R][NP], zeros outside [0, S) and N: 16
 // bytes a copy where ``vec`` (N % 4 == 0 and 16-byte aligned arrays), else
@@ -267,6 +301,8 @@ struct FwdGeo {
   // r, k, lw (then w), v; sum_i r_i u_i k_i of each row group and step
   static constexpr int kBuf = 3 * kT * NP + kT * kNpc + kT * kRg;
   static constexpr int kSmemBytes = 4 * (2 * kBuf + NP);    // and u
+  // a tile's r, k, lw rows and v columns in bf16 (the bf16 route's staging)
+  static constexpr int kStageBytes = 2 * (3 * kT * NP + kT * kNpc);
   static_assert(kThreads % 32 == 0 && 8 % kRss == 0 && kNpc % kCpt == 0 &&
                     kCkpt % kT == 0 && kT % 8 == 0,
                 "whole warps, whole tiles a checkpoint, whole step groups");
@@ -291,11 +327,11 @@ struct FwdGeo {
 // w = 1 leave S alone); every RSS steps the RSS x CPT = RG partial sums of
 // y are reduce-scattered over the RG row groups, each lane storing one.
 // The checkpoint is written between groups, every kCkpt steps.
-template <int NP, int CG>
+template <typename In, int NP, int CG>
 __global__ void __launch_bounds__(FwdGeo<NP, CG>::kThreads,
                                   640 / FwdGeo<NP, CG>::kThreads)
-wkv_fwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ lw,
+wkv_fwd_kernel(const In* __restrict__ r, const In* __restrict__ k,
+               const In* __restrict__ v, const In* __restrict__ lw,
                const float* __restrict__ u, const float* __restrict__ h0,
                float* __restrict__ y, float* __restrict__ h_last,
                float* __restrict__ ckpt, int S, int H, int N, int per_group,
@@ -315,21 +351,33 @@ wkv_fwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
   const int64_t st = static_cast<int64_t>(bh) * N * N;
   const float* ug = u + (static_cast<int64_t>(b / per_group) * H + h) * N;
   const int nck = (S + kCkpt - 1) / kCkpt;
+  // bf16 rows that are 8-byte aligned stage here, laid out as a tile's
+  // first 3 T NP + T NPC floats (r, k, lw, v)
+  constexpr bool kBf16 = !std::is_same<In, float>::value;
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(
+      smem + 2 * Geo::kBuf + NP);
 
   // Copy chunk x (step x / (W/4), floats 4 (x % (W/4)) .. + 3 of a row of
-  // W) of steps t0 .. t0+T-1 of ``src`` into sh; zeros past S and ``cols``.
-  auto copy = [&](float* sh, const float* __restrict__ src, int W, int x,
-                  int t0, int cols) {
+  // W) of steps t0 .. t0+T-1 of ``src`` to offset ``off`` of ``buf`` (or
+  // of the staging tile); zeros past S and ``cols``.
+  auto copy = [&](float* buf, int off, const In* __restrict__ src, int W,
+                  int x, int t0, int cols) {
     const int t = t0 + x / (W / 4), i = 4 * (x % (W / 4));
-    const float* p = src + static_cast<int64_t>(t) * stride + i;
+    const In* p = src + static_cast<int64_t>(t) * stride + i;
     if (vec) {
       const bool ok = t < S && i < cols;
-      cp_async16(sh + 4 * x, ok ? p : src, ok);
+      if constexpr (kBf16)
+        cp_async8(stage + off + 4 * x, ok ? p : src, ok);
+      else
+        cp_async16(buf + off + 4 * x, ok ? p : src, ok);
     } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool ok = t < S && i + e < cols;
-        cp_async4(sh + 4 * x + e, ok ? p + e : src, ok);
+        if constexpr (kBf16)
+          widen1(buf + off + 4 * x + e, ok ? p + e : src, ok);
+        else
+          cp_async4(buf + off + 4 * x + e, ok ? p + e : src, ok);
       }
     }
   };
@@ -339,13 +387,13 @@ wkv_fwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
 #pragma unroll
     for (int q = 0; q < RC; ++q) {
       const int x = threadIdx.x + q * NT;
-      copy(buf, r + seq, NP, x, t0, N);
-      copy(buf + T * NP, k + seq, NP, x, t0, N);
-      copy(buf + 2 * T * NP, lw + seq, NP, x, t0, N);
+      copy(buf, 0, r + seq, NP, x, t0, N);
+      copy(buf, T * NP, k + seq, NP, x, t0, N);
+      copy(buf, 2 * T * NP, lw + seq, NP, x, t0, N);
     }
 #pragma unroll
     for (int q = 0; q < CC; ++q)
-      copy(buf + 3 * T * NP, v + seq + c0, NPC, threadIdx.x + q * NT, t0,
+      copy(buf, 3 * T * NP, v + seq + c0, NPC, threadIdx.x + q * NT, t0,
            N - c0);
     cp_async_commit();
   };
@@ -371,6 +419,20 @@ wkv_fwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
     const float* s_v = buf + 3 * T * NP;
     float* s_ruk = buf + 3 * T * NP + T * NPC;     // [T][RG]
     cp_async_wait_all();
+    if (kBf16 && vec) {   // the staged chunks this thread copied, widened
+#pragma unroll
+      for (int q = 0; q < RC; ++q) {
+        const int x = threadIdx.x + q * NT;
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+          widen4(buf + a * T * NP + 4 * x, stage + a * T * NP + 4 * x);
+      }
+#pragma unroll
+      for (int q = 0; q < CC; ++q) {
+        const int x = threadIdx.x + q * NT;
+        widen4(buf + 3 * T * NP + 4 * x, stage + 3 * T * NP + 4 * x);
+      }
+    }
     // the chunks this thread copied: w = exp(lw) (zeros, past S and N,
     // give w = 1) and the chunk's sum of r u k
 #pragma unroll
@@ -908,40 +970,42 @@ int fwd_cg(int64_t BH) {
   return BH > sms ? 2 : 1;
 }
 
-template <int NP, int CG>
-int launch_fwd_cg(const float* r, const float* k, const float* v,
-                  const float* lw, const float* u, const float* h0, float* y,
+template <typename In, int NP, int CG>
+int launch_fwd_cg(const In* r, const In* k, const In* v,
+                  const In* lw, const float* u, const float* h0, float* y,
                   float* h_last, float* ckpt, int64_t B, int64_t S, int64_t H,
                   int64_t N, int64_t G, bool vec, cudaStream_t st) {
   using Geo = FwdGeo<NP, CG>;
+  constexpr int smem = Geo::kSmemBytes +
+                       (std::is_same<In, float>::value ? 0 : Geo::kStageBytes);
   static bool done = false;
-  const int err = allow_smem(wkv_fwd_kernel<NP, CG>, Geo::kSmemBytes, done);
+  const int err = allow_smem(wkv_fwd_kernel<In, NP, CG>, smem, done);
   if (err != 0) return err;
-  wkv_fwd_kernel<NP, CG><<<static_cast<unsigned>(B * H * CG), Geo::kThreads,
-                           Geo::kSmemBytes, st>>>(
+  wkv_fwd_kernel<In, NP, CG><<<static_cast<unsigned>(B * H * CG), Geo::kThreads,
+                           smem, st>>>(
       r, k, v, lw, u, h0, y, h_last, ckpt, static_cast<int>(S),
       static_cast<int>(H), static_cast<int>(N), static_cast<int>(B / G), vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NP>
-int launch_fwd(const float* r, const float* k, const float* v,
-               const float* lw, const float* u, const float* h0, float* y,
+template <typename In, int NP>
+int launch_fwd(const In* r, const In* k, const In* v,
+               const In* lw, const float* u, const float* h0, float* y,
                float* h_last, float* ckpt, int64_t B, int64_t S, int64_t H,
                int64_t N, int64_t G, cudaStream_t st) {
   bool vec = N % 4 == 0;
-  for (const float* p : {r, k, v, lw})
+  for (const In* p : {r, k, v, lw})
     vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
   if constexpr (NP < 64) {
-    return launch_fwd_cg<NP, 1>(r, k, v, lw, u, h0, y, h_last, ckpt, B, S, H,
+    return launch_fwd_cg<In, NP, 1>(r, k, v, lw, u, h0, y, h_last, ckpt, B, S, H,
                                 N, G, vec, st);
   } else {
     switch (fwd_cg<NP>(B * H)) {
-      case 1: return launch_fwd_cg<NP, 1>(r, k, v, lw, u, h0, y, h_last,
+      case 1: return launch_fwd_cg<In, NP, 1>(r, k, v, lw, u, h0, y, h_last,
                                           ckpt, B, S, H, N, G, vec, st);
-      case 2: return launch_fwd_cg<NP, 2>(r, k, v, lw, u, h0, y, h_last,
+      case 2: return launch_fwd_cg<In, NP, 2>(r, k, v, lw, u, h0, y, h_last,
                                           ckpt, B, S, H, N, G, vec, st);
-      default: return launch_fwd_cg<NP, 4>(r, k, v, lw, u, h0, y, h_last,
+      default: return launch_fwd_cg<In, NP, 4>(r, k, v, lw, u, h0, y, h_last,
                                            ckpt, B, S, H, N, G, vec, st);
     }
   }
@@ -992,23 +1056,39 @@ int launch_bwd(const float* r, const float* k, const float* v,
 // (B, H, ceil(S / steps), N, N) floats).
 extern "C" int repro_wkv_ckpt_steps() { return kCkpt; }
 
-// Forward.  ckpt may be null (no backward will follow).  Returns
+// Forward.  r, k, v, lw fp32, or bf16 when ``in_bf16``; u, h0 and the
+// outputs fp32.  ckpt may be null (no backward will follow).  Returns
 // cudaGetLastError() after the launch.
-extern "C" int repro_wkv_fwd(const float* r, const float* k, const float* v,
-                             const float* lw, const float* u,
+template <typename In>
+static int fwd(const void* r, const void* k, const void* v, const void* lw,
+               const float* u, const float* h0, float* y, float* h_last,
+               float* ckpt, int64_t B, int64_t S, int64_t H, int64_t N,
+               int64_t G, cudaStream_t st) {
+  const In* r_ = static_cast<const In*>(r);
+  const In* k_ = static_cast<const In*>(k);
+  const In* v_ = static_cast<const In*>(v);
+  const In* lw_ = static_cast<const In*>(lw);
+  switch (padded(N)) {
+    case 16: return launch_fwd<In, 16>(r_, k_, v_, lw_, u, h0, y, h_last, ckpt,
+                                      B, S, H, N, G, st);
+    case 32: return launch_fwd<In, 32>(r_, k_, v_, lw_, u, h0, y, h_last, ckpt,
+                                      B, S, H, N, G, st);
+    default: return launch_fwd<In, 64>(r_, k_, v_, lw_, u, h0, y, h_last, ckpt,
+                                      B, S, H, N, G, st);
+  }
+}
+
+extern "C" int repro_wkv_fwd(const void* r, const void* k, const void* v,
+                             const void* lw, const float* u,
                              const float* h0, float* y, float* h_last,
                              float* ckpt, int64_t B, int64_t S, int64_t H,
-                             int64_t N, int64_t G, void* stream) {
+                             int64_t N, int64_t G, int in_bf16, void* stream) {
   if (bad_shape(B, S, H, N, G)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (padded(N)) {
-    case 16: return launch_fwd<16>(r, k, v, lw, u, h0, y, h_last, ckpt, B, S,
-                                   H, N, G, st);
-    case 32: return launch_fwd<32>(r, k, v, lw, u, h0, y, h_last, ckpt, B, S,
-                                   H, N, G, st);
-    default: return launch_fwd<64>(r, k, v, lw, u, h0, y, h_last, ckpt, B, S,
-                                   H, N, G, st);
-  }
+  if (in_bf16)
+    return fwd<__nv_bfloat16>(r, k, v, lw, u, h0, y, h_last, ckpt, B, S, H, N,
+                              G, st);
+  return fwd<float>(r, k, v, lw, u, h0, y, h_last, ckpt, B, S, H, N, G, st);
 }
 
 // Backward: the walk kernel, then the du reduce kernel, on one stream.

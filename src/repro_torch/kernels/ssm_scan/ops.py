@@ -8,6 +8,14 @@ TPU's tiling; the CUDA kernels mask ragged S, D and n themselves, so
 nothing is padded here.  ``a`` may carry one matrix per group of sequences
 ((G, D, n), B % G == 0), which is how a stack of G client models, each with
 its own ``a_log``, runs in one launch; its gradient is returned per group.
+
+dt, b, c and x may be bfloat16 (all four alike), as the reference's
+``mamba_impl="pallas"`` route hands the TPU kernel its compute-dtype
+operands: the forward kernel widens them as it loads them and writes y in
+float32, so the result is bit for bit the float32 call's on the widened
+operands.  a and h0 are float32 (a bf16 one is widened here).  The
+backward kernel is float32: bf16 operands saved for it are widened once,
+and each gradient is returned in its operand's dtype.
 """
 from __future__ import annotations
 
@@ -40,10 +48,12 @@ def _check(dt, b, c, x, a, h0) -> int:
         raise ValueError(f"B={bsz} sequences do not split into G={g} groups")
     if h0.shape != (bsz, d, n):
         raise ValueError(f"h0 {tuple(h0.shape)} must be ({bsz}, {d}, {n})")
-    for name, t in (("dt", dt), ("b", b), ("c", c), ("x", x), ("a", a),
-                    ("h0", h0)):
+    K.operand_dtype(dt=dt, b=b, c=c, x=x)
+    for name, t in (("a", a), ("h0", h0)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
+    for name, t in (("dt", dt), ("b", b), ("c", c), ("x", x), ("a", a),
+                    ("h0", h0)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     return g
@@ -53,7 +63,8 @@ def _fwd(dt, b, c, x, a, h0, g: int, keep: bool):
     bsz, s, d = dt.shape
     n = b.shape[2]
     lib = K.load_library()
-    y = torch.empty_like(dt)
+    bf16 = dt.dtype == torch.bfloat16
+    y = torch.empty(dt.shape, dtype=torch.float32, device=dt.device)
     h_last = torch.empty_like(h0)
     ckpt = None
     if keep:
@@ -64,9 +75,9 @@ def _fwd(dt, b, c, x, a, h0, g: int, keep: bool):
         dt.data_ptr(), b.data_ptr(), c.data_ptr(), x.data_ptr(), a.data_ptr(),
         h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
         ckpt.data_ptr() if keep else None,
-        bsz, s, d, n, g, K.stream_of(dt))
+        bsz, s, d, n, g, int(bf16), K.stream_of(dt))
     K.check_launch(err, "ssm_scan")
-    K.count_launch("ssm_scan")
+    K.count_launch("ssm_scan", bf16)
     return y, h_last, ckpt
 
 
@@ -103,7 +114,11 @@ class _SsmScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, ghl):
-        dt, b, c, x, a, ckpt = ctx.saved_tensors
+        saved = ctx.saved_tensors
+        dtypes = [t.dtype for t in saved[:4]]
+        # the backward kernel is float32: widen bf16 operands once
+        dt, b, c, x = (t.float() for t in saved[:4])
+        a, ckpt = saved[4:]
         if ckpt is None:
             raise RuntimeError("ssm_scan backward without the forward's "
                                "checkpoints")
@@ -113,15 +128,19 @@ class _SsmScan(torch.autograd.Function):
                            device=dt.device)
                if ghl is None else ghl.contiguous())
         ddt, db, dc, dx, da, dh0 = _bwd(dt, b, c, x, a, ckpt, gy, ghl, ctx.g)
+        ddt, db, dc, dx = (grad.to(dtype) for grad, dtype in
+                           zip((ddt, db, dc, dx), dtypes))
         return ddt, db, dc, dx, da.reshape(a.shape), dh0, None, None
 
 
 def ssm_scan(dt, b, c, x, a, h0):
     """Fused selective-SSM scan, differentiable.  dt, x: (B,S,D); b, c:
-    (B,S,n) with n <= 16; a: (D,n) or (G,D,n) with B % G == 0; h0:
-    (B,D,n); all float32.  Returns (y (B,S,D), h_last (B,D,n))."""
+    (B,S,n) with n <= 16, these four float32 or all bfloat16; a: (D,n) or
+    (G,D,n) with B % G == 0; h0: (B,D,n).  Returns (y (B,S,D), h_last
+    (B,D,n)), float32."""
     if not K.on_cuda(dt, b, c, x, a, h0):
         return ssm_scan_ref(dt, b, c, x, a, h0)
+    a, h0 = (t.float() if t.dtype == torch.bfloat16 else t for t in (a, h0))
     g = _check(dt, b, c, x, a, h0)
     keep = torch.is_grad_enabled() and any(
         t.requires_grad for t in (dt, b, c, x, a, h0))

@@ -8,6 +8,14 @@ The JAX wrapper expanded the GQA heads with ``repeat``, transposed to
 the CUDA kernels read q, k and v in the model's (B, S, heads, hd) layout
 through their strides, map query head h to kv head h // (H // KV) and mask
 ragged S and hd themselves, so nothing is copied or padded here.
+
+q, k and v may be bfloat16 (all three alike), as the TPU kernel takes
+them: bf16 operands take the forward's bf16 route, which computes what the
+TPU kernel computes at bf16 (bf16 products with fp32 accumulation, P
+rounded to bf16 before P V, the softmax in fp32) and returns bf16.  The
+backward for bf16 operands widens the saved q, k, v, O and dO and runs the
+float32 kernels (the TPU kernel had no backward); each gradient comes back
+in its operand's dtype.
 """
 from __future__ import annotations
 
@@ -35,9 +43,8 @@ def _check(q, k, v, window: int) -> None:
         raise ValueError(f"head dim hd={hd} outside [1, {MAX_HD}]")
     if int(window) < 1:
         raise ValueError(f"window={window} must be at least 1")
+    K.operand_dtype(q=q, k=k, v=v)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.stride(3) != 1:
             raise ValueError(f"{name}'s head dim must be contiguous")
 
@@ -48,14 +55,18 @@ def _strides(*ts):
 
 def _fwd(q, k, v, window: int):
     bsz, s, h, hd = q.shape
-    o = torch.empty((bsz, s, h, hd), dtype=torch.float32, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    o = torch.empty((bsz, s, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((bsz, h, s), dtype=torch.float32, device=q.device)
-    err = K.load_library().repro_window_attn_fwd(
+    lib = K.load_library()
+    launch = lib.repro_window_attn_fwd_bf16 if bf16 else \
+        lib.repro_window_attn_fwd
+    err = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), bsz, s, h, k.shape[2], hd, window, hd ** -0.5,
         *_strides(q, k, v), K.stream_of(q))
     K.check_launch(err, "window_attention")
-    K.count_launch("window_attention")
+    K.count_launch("window_attention", bf16)
     return o, lse
 
 
@@ -90,15 +101,18 @@ class _WindowAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
+        dtypes = [t.dtype for t in (q, k, v)]
+        # the backward kernels are float32: widen bf16 operands once
+        q, k, v, o, do = (t.float() for t in (q, k, v, o, do))
         dq, dk, dv = _bwd(q, k, v, o, lse, do.contiguous(), ctx.window)
-        return dq, dk, dv, None
+        return (*(g.to(dt) for g, dt in zip((dq, dk, dv), dtypes)), None)
 
 
 def window_attention(q, k, v, window: int):
     """Causal sliding-window attention, differentiable.  q: (B, S, H, hd),
-    k, v: (B, S, KV, hd) with H % KV == 0 and hd <= 128, float32, head dim
-    contiguous.  Query i attends keys j with i - window < j <= i.  Returns
-    (B, S, H, hd) float32."""
+    k, v: (B, S, KV, hd) with H % KV == 0 and hd <= 128, all float32 or all
+    bfloat16, head dim contiguous.  Query i attends keys j with i - window
+    < j <= i.  Returns (B, S, H, hd) in q's dtype."""
     if not K.on_cuda(q, k, v):
         return window_attention_ref(q, k, v, window)
     _check(q, k, v, window)

@@ -9,6 +9,14 @@ nothing is copied or padded here.  ``u`` may carry one vector per group of
 sequences ((G, H, N), B % G == 0), which is how a stack of G client models,
 each with its own ``u``, runs in one launch; its gradient is returned per
 group.
+
+r, k, v and lw may be bfloat16 (all four alike), as the TPU kernel takes
+them: the forward kernel widens them as it loads them and writes y in
+float32, so the result is bit for bit the float32 call's on the widened
+operands.  u and h0 are float32 (a bf16 one is widened here).  The
+backward kernel is float32: bf16 operands saved for it are widened once,
+and each gradient is returned in its operand's dtype.  (The rwkv6 model
+hands the kernel float32, as the reference's model does.)
 """
 from __future__ import annotations
 
@@ -39,10 +47,12 @@ def _check(r, k, v, lw, u, h0) -> int:
     if h0.shape != (bsz, h, n, n):
         raise ValueError(f"h0 {tuple(h0.shape)} must be ({bsz}, {h}, {n}, "
                          f"{n})")
-    for name, t in (("r", r), ("k", k), ("v", v), ("lw", lw), ("u", u),
-                    ("h0", h0)):
+    K.operand_dtype(r=r, k=k, v=v, lw=lw)
+    for name, t in (("u", u), ("h0", h0)):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
+    for name, t in (("r", r), ("k", k), ("v", v), ("lw", lw), ("u", u),
+                    ("h0", h0)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     return g
@@ -51,7 +61,8 @@ def _check(r, k, v, lw, u, h0) -> int:
 def _fwd(r, k, v, lw, u, h0, g: int, keep: bool):
     bsz, s, h, n = r.shape
     lib = K.load_library()
-    y = torch.empty_like(r)
+    bf16 = r.dtype == torch.bfloat16
+    y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     h_last = torch.empty_like(h0)
     ckpt = None
     if keep:
@@ -61,10 +72,10 @@ def _fwd(r, k, v, lw, u, h0, g: int, keep: bool):
     err = lib.repro_wkv_fwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
         u.data_ptr(), h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-        ckpt.data_ptr() if keep else None, bsz, s, h, n, g,
+        ckpt.data_ptr() if keep else None, bsz, s, h, n, g, int(bf16),
         K.stream_of(r))
     K.check_launch(err, "wkv")
-    K.count_launch("wkv")
+    K.count_launch("wkv", bf16)
     return y, h_last, ckpt
 
 
@@ -100,7 +111,11 @@ class _Wkv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, ghl):
-        r, k, v, lw, u, ckpt = ctx.saved_tensors
+        saved = ctx.saved_tensors
+        dtypes = [t.dtype for t in saved[:4]]
+        # the backward kernel is float32: widen bf16 operands once
+        r, k, v, lw = (t.float() for t in saved[:4])
+        u, ckpt = saved[4:]
         if ckpt is None:
             raise RuntimeError("wkv backward without the forward's "
                                "checkpoints")
@@ -110,15 +125,19 @@ class _Wkv(torch.autograd.Function):
                            device=r.device)
                if ghl is None else ghl.contiguous())
         dr, dk, dv, dlw, du, dh0 = _bwd(r, k, v, lw, u, ckpt, gy, ghl, ctx.g)
+        dr, dk, dv, dlw = (grad.to(dtype) for grad, dtype in
+                           zip((dr, dk, dv, dlw), dtypes))
         return dr, dk, dv, dlw, du.reshape(u.shape), dh0, None, None
 
 
 def wkv(r, k, v, lw, u, h0):
     """Fused RWKV-6 WKV recurrence, differentiable.  r, k, v, lw:
-    (B,S,H,N) with N <= 64; u: (H,N) or (G,H,N) with B % G == 0; h0:
-    (B,H,N,N); all float32.  Returns (y (B,S,H,N), h_last (B,H,N,N))."""
+    (B,S,H,N) with N <= 64, float32 or all bfloat16; u: (H,N) or (G,H,N)
+    with B % G == 0; h0: (B,H,N,N).  Returns (y (B,S,H,N), h_last
+    (B,H,N,N)), float32."""
     if not K.on_cuda(r, k, v, lw, u, h0):
         return wkv_ref(r, k, v, lw, u, h0)
+    u, h0 = (t.float() if t.dtype == torch.bfloat16 else t for t in (u, h0))
     g = _check(r, k, v, lw, u, h0)
     keep = torch.is_grad_enabled() and any(
         t.requires_grad for t in (r, k, v, lw, u, h0))

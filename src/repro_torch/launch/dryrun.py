@@ -6,6 +6,7 @@ allocated, drawn or run.
     python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k
     python -m repro_torch.launch.dryrun --all [--out DIR]
     python -m repro_torch.launch.dryrun --all --mesh 16x16 [--strategy auto]
+    python -m repro_torch.launch.dryrun --all --both-meshes --profile optimized
 
 Per cell (``run_one``): the config with the reference's long-context
 policy (``resolve_config``: pure full-attention archs run ``long_500k``
@@ -41,6 +42,13 @@ collective term over NVLink.  The record's ``mesh`` names the mesh as the
 reference's does.  The reference lowers and compiles each step and reads
 XLA's memory and cost analyses; eager PyTorch compiles no such artefact,
 so the counts here are analytic (``roofline.analysis``).
+
+``--profile`` picks the reference's ``PROFILES``: "baseline" (the
+published configs, tensor-parallel prefill) or "optimized" (triangle block
+skipping and bf16 ssm chunks as config overrides, the "auto" strategy),
+the records of the latter written with the reference's ``_opt`` suffix.
+The reference's ``--multi-pod`` is ``--mesh 2x16x16`` here and
+``--both-meshes`` runs 16x16 and 2x16x16.
 """
 from __future__ import annotations
 
@@ -360,29 +368,47 @@ def trace_collectives(cfg, published, shape, fl: FLConfig, opt,
     return rl.collectives_of(trace, n_dev)
 
 
+# the reference's profiles (``repro.launch.dryrun.PROFILES``)
+PROFILES = {
+    # paper-faithful: masked-full attention blocks, f32 scan internals, TP
+    "baseline": {"overrides": {}, "strategy": "tp"},
+    # beyond-paper: triangle block skipping, bf16 ssm chunks, auto
+    # sequence-parallel prefill
+    "optimized": {"overrides": {"attn_block_skip": True,
+                                "ssm_chunk_dtype": "bfloat16"},
+                  "strategy": "auto"},
+}
+
+
 def run_one(arch: str, shape_name: str, variant: str = "auto",
             save: bool = True, out_dir: Optional[Path] = None,
             fl: Optional[FLConfig] = None, changes: Optional[dict] = None,
             global_batch: Optional[int] = None, mesh: Optional[str] = None,
             strategy: str = "tp", collectives: bool = True,
-            seq_len: Optional[int] = None) -> dict:
-    """One cell's record (and its JSON file when ``save``).  ``changes``
-    (e.g. a cut depth), ``global_batch`` and ``seq_len`` resize the cell;
-    ``mesh`` ("16x16", "2x16x16", "DxM") counts each device of that mesh
-    under the reference's policy and ``strategy`` ("tp", "seq_parallel"
-    or "auto"); ``collectives`` traces the cell's step there (a FedAvg
-    step, prefill or one decode step)."""
+            seq_len: Optional[int] = None, overrides: Optional[dict] = None,
+            tag: str = "") -> dict:
+    """One cell's record (and its JSON file when ``save``, its name ending
+    in ``tag``).  ``overrides`` change the published config (a profile's,
+    ``PROFILES``); ``changes`` (e.g. a cut depth), ``global_batch`` and
+    ``seq_len`` resize the cell; ``mesh`` ("16x16", "2x16x16", "DxM")
+    counts each device of that mesh under the reference's policy and
+    ``strategy`` ("tp", "seq_parallel" or "auto"); ``collectives`` traces
+    the cell's step there (a FedAvg step, prefill or one decode step)."""
     t0 = time.perf_counter()
     fl = fl or FLConfig(fl_clients_per_step=4, fl_local_steps=1)
     rec = {"arch": arch, "shape": shape_name, "device": DEVICE,
            "status": "ok", "notes": []}
     if mesh:
         rec.update(mesh=mesh_name(parse_mesh(mesh)), strategy=strategy)
+    if overrides:
+        rec["overrides"] = dict(overrides)
     try:
         cfg, rec["notes"] = resolve_config(arch, shape_name, variant)
         if cfg is None:
             rec["status"] = "skipped"
-            return _finish(rec, t0, save, out_dir)
+            return _finish(rec, t0, save, out_dir, tag)
+        if overrides:
+            cfg = dataclasses.replace(cfg, **overrides)
         shape = SHAPES[shape_name]
         layout = None
         if mesh:
@@ -432,16 +458,16 @@ def run_one(arch: str, shape_name: str, variant: str = "auto",
         rec["status"] = "error"
         rec["error"] = f"{type(e).__name__}: {e}"
         rec["traceback"] = traceback.format_exc()[-2000:]
-    return _finish(rec, t0, save, out_dir)
+    return _finish(rec, t0, save, out_dir, tag)
 
 
-def _finish(rec, t0, save, out_dir):
+def _finish(rec, t0, save, out_dir, tag: str = ""):
     rec["wall_s"] = round(time.perf_counter() - t0, 3)
     if save:
         d = Path(out_dir or OUT_DIR)
         d.mkdir(parents=True, exist_ok=True)
         where = rec.get("mesh", rec["device"])
-        name = f"{rec['arch']}_{rec['shape']}_{where}.json"
+        name = f"{rec['arch']}_{rec['shape']}_{where}{tag}.json"
         (d / name).write_text(json.dumps(rec, indent=1))
     extra = ("" if rec["status"] == "ok" else
              f" ({rec.get('error', '')[:120]})")
@@ -463,17 +489,28 @@ def main(argv=None) -> int:
                     help=f"JSON directory (default {OUT_DIR})")
     ap.add_argument("--mesh", default=None,
                     help="16x16, 2x16x16 or DxM: count each device")
-    ap.add_argument("--strategy", default="tp",
-                    choices=("tp", "seq_parallel", "auto"))
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the reference's flag: --mesh 2x16x16")
+    ap.add_argument("--both-meshes", action="store_true",
+                    help="the reference's flag: 16x16 and 2x16x16")
+    ap.add_argument("--profile", default="baseline", choices=list(PROFILES))
+    ap.add_argument("--strategy", default=None,
+                    choices=("tp", "seq_parallel", "auto"),
+                    help="default: the profile's")
     ap.add_argument("--no-collectives", action="store_true",
                     help="skip the cells' collective trace")
     args = ap.parse_args(argv)
+    prof = PROFILES[args.profile]
+    tag = "" if args.profile == "baseline" else "_opt"
     archs = ASSIGNED_ARCHS if (args.all or not args.arch) else [args.arch]
     shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
-    results = [run_one(a, s, args.variant, out_dir=args.out, mesh=args.mesh,
-                       strategy=args.strategy,
-                       collectives=not args.no_collectives)
-               for a in archs for s in shapes]
+    meshes = (["16x16", "2x16x16"] if args.both_meshes
+              else ["2x16x16"] if args.multi_pod else [args.mesh])
+    results = [run_one(a, s, args.variant, out_dir=args.out, mesh=m,
+                       strategy=args.strategy or prof["strategy"],
+                       collectives=not args.no_collectives,
+                       overrides=prof["overrides"], tag=tag)
+               for a in archs for s in shapes for m in meshes]
     bad = [r for r in results if r["status"] == "error"]
     print(f"[dryrun] {len(results)} combos: "
           f"{sum(r['status'] == 'ok' for r in results)} ok, "

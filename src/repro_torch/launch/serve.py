@@ -131,6 +131,14 @@ def placements_of(tree) -> dict:
             for p, t in leaves_with_paths(tree) if hasattr(t, "placements")}
 
 
+def _host(logits):
+    """A DTensor's gathered logits as numpy (bf16 widened to float32,
+    exactly)."""
+    import torch
+    t = logits.full_tensor().detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def serve_on_mesh(rank: int, world_size: int, cases, mesh_spec: str,
                   device=None) -> list:
     """Each case served sharded (``MeshServer``) on this rank of a (data,
@@ -140,7 +148,8 @@ def serve_on_mesh(rank: int, world_size: int, cases, mesh_spec: str,
     default), ``weights`` and ``batch`` (numpy trees), ``feed`` (B, N)
     the tokens of N teacher-forced decode steps, ``max_len`` the cache's
     length (None: the prompt's).  Returns, as numpy on every rank, a dict
-    a case: ``logits`` (prefill's, then each step's, gathered),
+    a case: ``logits`` (prefill's, then each step's, gathered; bf16 ones
+    widened to float32),
     ``caches`` (gathered: prefill's, then after each step),
     ``placements`` (each cache leaf's: prefill's own, then decode's
     after the handover and after each step), ``strategy`` (prefill's)
@@ -177,7 +186,7 @@ def serve_on_mesh(rank: int, world_size: int, cases, mesh_spec: str,
         logits, cache = server.prefill(
             pparams, batch, keep=lambda c: placements.append(
                 placements_of(c)))
-        res = {"logits": [logits.full_tensor().numpy()],
+        res = {"logits": [_host(logits)],
                "caches": [snap(cache)],
                "placements": placements, "strategy": server.strategy,
                "shared_weights": pparams is dparams}
@@ -187,7 +196,7 @@ def serve_on_mesh(rank: int, world_size: int, cases, mesh_spec: str,
             logits, cache = server.decode(
                 dparams, torch.from_numpy(feed[:, i:i + 1]).to(device),
                 cache)
-            res["logits"].append(logits.full_tensor().numpy())
+            res["logits"].append(_host(logits))
             res["caches"].append(snap(cache))
             placements.append(placements_of(cache))
         out.append(res)

@@ -38,7 +38,8 @@ config's training rules:
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
@@ -329,7 +330,7 @@ def mesh_context(published: ModelConfig, mesh_spec, device,
 def steps_on_mesh(rank: int, world_size: int, arch: str, mesh_spec: str,
                   weights, batch, stored_norms, fl: FLConfig,
                   fedavg_opt: OptimizerConfig, central_opt: OptimizerConfig,
-                  device=None) -> dict:
+                  device=None, changes: Optional[dict] = None) -> dict:
     """The three steps run sharded on this rank of a (data, model) mesh
     ``mesh_spec``, for checks against the unsharded steps: the config is
     ``reduce_for_smoke(get_config(arch))`` under the published config's
@@ -339,7 +340,9 @@ def steps_on_mesh(rank: int, world_size: int, arch: str, mesh_spec: str,
     numpy on every rank: per step its new params (gathered), moments and
     metrics, and ``spec`` (each param leaf's mesh dims, "/"-joined path ->
     list of dim names it shards over).  ``device`` is the card unless the
-    caller passes ``"cpu"``.  Run it through ``launch.mesh.spawn``."""
+    caller passes ``"cpu"``; ``changes`` change the reduced config (e.g.
+    its numerics back to the published bf16, with bf16 ``weights``).  Run
+    it through ``launch.mesh.spawn``."""
     import numpy as np
 
     from repro_torch.configs import get_config, reduce_for_smoke
@@ -348,7 +351,8 @@ def steps_on_mesh(rank: int, world_size: int, arch: str, mesh_spec: str,
     from repro_torch.optim import init_optimizer
 
     device = resolve_device(device)
-    cfg = reduce_for_smoke(get_config(arch))
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(arch)),
+                              **(changes or {}))
     ctx, place = mesh_context(get_config(arch), mesh_spec, device)
     mesh = ctx.mesh
     tb = {k: torch.from_numpy(np.asarray(v)).to(device)

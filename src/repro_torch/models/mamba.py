@@ -4,10 +4,16 @@ models (``repro.models.mamba``).
 The recurrence runs through the ``ssm_scan`` kernel for both
 ``mamba_impl`` values: the K models' sequences go into one launch, with
 each model's own ``a = -exp(a_log)`` as one group of the kernel's grouped
-``a``.  The scan keeps its state in fp32; ``ssm_chunk_dtype`` other than
-float32 is the reference's bf16 chunk option for its XLA path and is not
-ported.  Prefill carries the final conv and scan states out
-(``mamba_block``, the scan's h0 in and h_last out); decode
+``a``.  The kernel gets dt, B, C and x in the compute dtype (bf16 on a bf16
+config), as the reference's ``mamba_impl="pallas"`` route hands its TPU
+kernel, and widens them as it loads them.  The scan keeps its state in
+fp32.  ``ssm_chunk_dtype="bfloat16"`` is the reference's option to store
+its chunked XLA path's (B, c, di, n) chunk tensors in bf16, to halve their
+HBM traffic; the kernel never writes those tensors to device memory, so
+the port accepts the option and keeps its fp32 registers (the result is
+the float32 option's, within the reference's own 0.05 of it).  Prefill
+carries the final conv and scan states out (``mamba_block``, the scan's
+h0 in and h_last out); decode
 (``mamba_decode_step``) is one recurrence step in plain PyTorch, as the
 reference's is plain jnp outside any kernel.
 
@@ -88,10 +94,9 @@ def _scan_local(dt, b_, c_, x, a, h0):
 def mamba_scan(p, x, cfg: ModelConfig, h0=None, ctx=NULL_CTX):
     """Selective scan over post-conv activations x (K, bs, S, di).
     Returns (y (K, bs, S, di), h_last (K, bs, di, n))."""
-    if cfg.ssm_chunk_dtype != "float32":
-        raise NotImplementedError(
-            f"ssm_chunk_dtype={cfg.ssm_chunk_dtype!r}: the port's scan keeps "
-            f"its chunk internals in float32")
+    if cfg.ssm_chunk_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"ssm_chunk_dtype={cfg.ssm_chunk_dtype!r}: "
+                         f"float32 or bfloat16")
     k, bs, s, di = x.shape
     n = cfg.ssm_state_dim
     a = -torch.exp(p["a_log"].float())                       # (K, di, n)
@@ -102,8 +107,8 @@ def mamba_scan(p, x, cfg: ModelConfig, h0=None, ctx=NULL_CTX):
     else:
         h0 = reshape(h0, k * bs, di, n).float().contiguous()
 
-    def seqs(t):
-        return reshape(t.float(), k * bs, s, t.shape[-1]).contiguous()
+    def seqs(t):        # in the compute dtype: the kernel widens bf16
+        return reshape(t, k * bs, s, t.shape[-1]).contiguous()
     y, h_last = ctx.run_local(_scan_local, (seqs(dt), seqs(b_), seqs(c_),
                                             seqs(x), a, h0),
                               SCAN_AXES, outs=(0, 5))

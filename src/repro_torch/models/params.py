@@ -443,7 +443,8 @@ def gather_tree(tree):
 def from_numpy_params(tree, device: Optional[Device] = None, mesh=None,
                       shardings=None):
     """A tree of numpy arrays (e.g. the reference's ``init_params`` pulled
-    to the host) as a tree of tensors on ``device``, bit for bit: the CUDA
+    to the host, bf16 leaves included) as a tree of tensors on ``device``,
+    bit for bit: the CUDA
     card unless the caller passes ``"cpu"``.  With ``mesh`` and
     ``shardings``, each leaf is laid out on the mesh as it is made
     (``distribute_tree``; ``device`` must be the mesh's device type), so
@@ -451,7 +452,12 @@ def from_numpy_params(tree, device: Optional[Device] = None, mesh=None,
     dev = resolve_device(device)
 
     def lay(a, placements=None):
-        t = torch.from_numpy(np.array(a, copy=True)).to(dev)
+        a = np.array(a, copy=True)
+        if a.dtype.name == "bfloat16":     # ml_dtypes' bf16: the same bits
+            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
+        t = t.to(dev)
         return t if mesh is None else _placed(t, mesh, placements)
     if mesh is None:
         return tree_map(lay, tree)
@@ -459,5 +465,10 @@ def from_numpy_params(tree, device: Optional[Device] = None, mesh=None,
 
 
 def to_numpy_params(tree):
-    """The inverse of ``from_numpy_params`` (a mesh's leaves gathered)."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), gather_tree(tree))
+    """The inverse of ``from_numpy_params`` (a mesh's leaves gathered); a
+    bf16 leaf comes back widened to float32, exactly (numpy has no bf16
+    of its own)."""
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return tree_map(host, gather_tree(tree))

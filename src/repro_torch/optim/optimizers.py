@@ -90,15 +90,29 @@ def make_optimizer(cfg: OptimizerConfig, stacked: bool = True
         ps = tree_leaves(params)
         gs = [g.to(p.dtype) for p, g in zip(ps, tree_leaves(grads))]
         if name == "sgd":
-            new = torch._foreach_add(ps, gs, alpha=-cfg.lr)
+            new = torch._foreach_sub(ps, _times_lr(gs, cfg.lr))
             return tree_replace_leaves(params, new), OptState(step, None)
         mus = torch._foreach_add(
             torch._foreach_mul(tree_leaves(state.mu), cfg.momentum), gs)
-        new = torch._foreach_add(ps, mus, alpha=-cfg.lr)
+        new = torch._foreach_sub(ps, _times_lr(
+            [m.to(p.dtype) for m, p in zip(mus, ps)], cfg.lr))
         return (tree_replace_leaves(params, new),
                 OptState(step, tree_replace_leaves(state.mu, mus)))
 
     return init_fn, update_fn
+
+
+def _times_lr(ts, lr: float):
+    """lr * t for each leaf in the leaf's own dtype, as the reference's
+    ``p - lr * g.astype(p.dtype)`` computes it: the Python ``lr`` is a
+    weak-typed constant that JAX rounds to the leaf's dtype (bf16(0.01) =
+    0.0100098), the product is rounded to that dtype, and so is the
+    difference (two roundings; exact fp32 products of bf16 values)."""
+    kinds = {t.dtype for t in ts}
+    if len(kinds) == 1:
+        return torch._foreach_mul(ts, float(torch.tensor(lr,
+                                                         dtype=kinds.pop())))
+    return [t * float(torch.tensor(lr, dtype=t.dtype)) for t in ts]
 
 
 def _adamw(cfg: OptimizerConfig, params, grads, state: OptState, step: int):

@@ -130,34 +130,40 @@ WKV_BWD_FLOPS = 12    # 6 FMAs: the dr, dk, dlw and dv terms and the G
 #                       update (2)
 
 
-def ssm_work(bsz, s, d, n, g, backward: bool, train: bool = False):
+def ssm_work(bsz, s, d, n, g, backward: bool, train: bool = False,
+             in_bytes: int = 4):
     """(bytes, flops, exps) the scan's forward or backward function needs:
     each input read once and each output written once (in training mode
     the forward also writes h every 8 steps); one exp per (sequence, step,
-    channel, state)."""
+    channel, state).  ``in_bytes``: the forward's dt, x, b, c elements (2
+    for its bf16 route; y and the state stay fp32)."""
     seq, st = bsz * s * d, bsz * s * n
     small = g * d * n + 2 * bsz * d * n          # a; h0 and h_last / dh0
     if backward:          # in: dt, x, gy, b, c, a, h0, g_hlast
         nbytes = 4 * (5 * seq + 4 * st + 2 * g * d * n + 3 * bsz * d * n)
     else:                 # in: dt, x, b, c, a, h0; out: y, h_last (, ckpt)
-        nbytes = 4 * (3 * seq + 2 * st + small
-                      + (bsz * -(-s // 8) * d * n if train else 0))
+        nbytes = (in_bytes * (2 * seq + 2 * st)
+                  + 4 * (seq + small
+                         + (bsz * -(-s // 8) * d * n if train else 0)))
     work = bsz * s * d * n
     return nbytes, work * (SSM_BWD_FLOPS if backward else SSM_FWD_FLOPS), work
 
 
-def wkv_work(bsz, s, h, n, g, backward: bool, train: bool = False):
+def wkv_work(bsz, s, h, n, g, backward: bool, train: bool = False,
+             in_bytes: int = 4):
     """(bytes, flops, exps) the recurrence's forward or backward function
     needs: each input read once and each output written once (in training
     mode the forward also writes S every 64 steps); one exp per lw
-    element."""
+    element.  ``in_bytes``: the forward's r, k, v, lw elements (2 for its
+    bf16 route; y and the state stay fp32)."""
     seq, state = bsz * s * h * n, bsz * h * n * n
     if backward:    # in: r, k, v, lw, gy, u, h0, g_hlast; out: dr, dk, dv,
         #             dlw, du, dh0
         nbytes = 4 * (9 * seq + 2 * g * h * n + 3 * state)
     else:           # in: r, k, v, lw, u, h0; out: y, h_last (, ckpt)
-        nbytes = 4 * (5 * seq + g * h * n + 2 * state
-                      + (state * -(-s // 64) if train else 0))
+        nbytes = in_bytes * 4 * seq + 4 * (
+            seq + g * h * n + 2 * state
+            + (state * -(-s // 64) if train else 0))
     work = bsz * s * h * n * n
     return nbytes, work * (WKV_BWD_FLOPS if backward else WKV_FWD_FLOPS), seq
 
@@ -168,16 +174,19 @@ def window_pairs(s: int, window: int) -> int:
     return w * (w + 1) // 2 + (s - w) * w
 
 
-def window_work(b, s, h, kv, hd, window, backward: bool):
+def window_work(b, s, h, kv, hd, window, backward: bool, in_bytes: int = 4):
     """(bytes, flops, exps) the attention's forward or backward function
     needs: each input read once and each output written once; 4 hd FLOPs
     per (query, key) pair forward (q.k and p v), 10 hd backward (the
-    recomputed q.k, dO.v, dV, dQ, dK), one exp per pair."""
+    recomputed q.k, dO.v, dV, dQ, dK), one exp per pair.  ``in_bytes``:
+    the forward's q, k, v and O elements (2 for its bf16 route; the
+    log-sum-exp stays fp32)."""
     pairs = b * h * window_pairs(s, window)
     q_el, kv_el, rows = b * s * h * hd, b * s * kv * hd, b * h * s
     if backward:    # in: q, k, v, o, dO, lse; out: dq, dk, dv
         return 4 * (4 * q_el + 4 * kv_el + rows), 10 * hd * pairs, pairs
-    return 4 * (2 * q_el + 2 * kv_el + rows), 4 * hd * pairs, pairs
+    return (in_bytes * (2 * q_el + 2 * kv_el) + 4 * rows, 4 * hd * pairs,
+            pairs)
 
 
 # ---------------------------------------------------------------------------

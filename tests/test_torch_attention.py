@@ -317,3 +317,101 @@ def test_wrapper_checks_shapes_and_dtypes():
         ops._check(q.double(), k, v, 4)
     with pytest.raises(ValueError, match="contiguous"):
         ops._check(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, 4)
+
+
+# ---------------------------------------------------------------- bf16 operands
+
+def _kernel_arithmetic_bf16(q, k, v, window):
+    """The bf16 forward's arithmetic (``wattn_fwd_bf16_kernel``) on the CPU:
+    S = Q K^T of the bf16 operands with fp32 sums (each bf16 product exact
+    in fp32), the base-2 online softmax of ``_kernel_arithmetic`` over
+    64-key tiles and 16-row warps, P rounded to bf16 at the running max
+    before P V (over all 64 keys of a tile: masked keys have P = 0), the
+    sum over the unrounded P, O rounded to bf16."""
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    sp = -(-s // 64) * 64
+    pad = lambda x: torch.nn.functional.pad(x.float(),
+                                            (0, 0, 0, 0, 0, sp - s))
+    qt = pad(q).transpose(1, 2)
+    kt, vt = (pad(x).repeat_interleave(g, 2).transpose(1, 2) for x in (k, v))
+    c2 = hd ** -0.5 * 1.4426950408889634
+    pos = torch.arange(sp)
+    o = torch.zeros(b, h, sp, hd)
+    for q0 in range(0, sp, 64):
+        k_lo = max(0, q0 - window + 1) // 64 * 64
+        k_hi = min(s, q0 + 64)
+        for qw in range(q0, q0 + 64, 16):
+            rows = slice(qw, qw + 16)
+            kw_lo, kw_hi = qw - window + 1, min(qw + 15, s - 1)
+            m = torch.full((b, h, 16, 1), -torch.inf)
+            l = torch.zeros(b, h, 16, 1)
+            acc = torch.zeros(b, h, 16, hd)
+            for k0 in range(k_lo, k_hi, 64):
+                if not (qw < s and kw_lo <= k0 + 63 and kw_hi >= k0):
+                    continue
+                kj, qi = pos[k0:k0 + 64], pos[rows, None]
+                sc = qt[:, :, rows] @ kt[:, :, k0:k0 + 64].transpose(2, 3)
+                ok = (qi < s) & (kj < s) & (kj <= qi) & (kj > qi - window)
+                sc = torch.where(ok, sc, -torch.inf)
+                mn = torch.maximum(m, sc.amax(-1, keepdim=True) * c2)
+                none = mn == -torch.inf
+                corr = torch.where(none, 1.0, _ex2(m - mn))
+                p = torch.where(none, 0.0, _ex2(sc * c2 - mn))
+                l = l * corr + p.sum(-1, keepdim=True)
+                acc = acc * corr + p.bfloat16().float() @ vt[:, :, k0:k0 + 64]
+                m = mn
+            o[:, :, rows] = acc / l
+    return o[:, :, :s].transpose(1, 2).bfloat16()
+
+
+def _bf16_qkv(b, s, h, kv, hd, seed):
+    return [torch.from_numpy(a).bfloat16() for a in _qkv(b, s, h, kv, hd,
+                                                         seed)]
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,window", [
+    (2, 70, 4, 2, 64, 50), (1, 130, 6, 3, 27, 70), (2, 100, 4, 2, 64, 1),
+    (1, 200, 2, 1, 32, 100)])
+def test_window_attention_bf16_matches_reference_kernel(b, s, h, kv, hd,
+                                                        window):
+    """bf16 q, k, v: the plain version follows the TPU kernel's bf16
+    arithmetic and returns bf16, held to the reference's interpret-mode
+    Pallas kernel on the same bf16 operands at tests/test_kernels.py's bf16
+    tolerance, 2e-2 (P is rounded to bf16 at another running max: the
+    reference's 128-key blocks against the row's max).  The CUDA bf16
+    route's arithmetic, emulated, within ``chip_smoke.py``'s bound of the
+    plain version, 2^-8 (max|v| + |r|), and at 2e-2 of the reference."""
+    q, k, v = _bf16_qkv(b, s, h, kv, hd, seed=window)
+    got = window_attention(q, k, v, window)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = j_window(*(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                      for t in (q, k, v)), window, blk=128)
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
+                               atol=2e-2)
+    emu = _kernel_arithmetic_bf16(q, k, v, window).float()
+    bound = 2.0 ** -8 * (v.float().abs().max() + got.float().abs())
+    assert bool(((emu - got.float()).abs() <= bound).all())
+    np.testing.assert_allclose(emu.numpy(), want, rtol=2e-2, atol=2e-2)
+
+
+def test_window_attention_bf16_gradients_are_bf16():
+    """Autograd through the bf16 plain version gives each gradient in its
+    operand's dtype, within 2e-2 of the fp32 gradients of the widened
+    operands (the CUDA route widens the saved tensors for its fp32
+    backward kernels and casts, as ``chip_smoke.py`` checks)."""
+    q, k, v = (t.requires_grad_(True) for t in _bf16_qkv(2, 40, 4, 2, 16,
+                                                          seed=5))
+    gy = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        q.shape).astype(np.float32))
+    got = torch.autograd.grad((window_attention(q, k, v, 12).float()
+                               * gy).sum(), (q, k, v))
+    wide = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad((window_attention(*wide, 12) * gy).sum(),
+                               wide)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), w.numpy(), rtol=2e-2,
+                                   atol=2e-2)

@@ -328,3 +328,75 @@ def test_flatten_helpers_match_exactly():
     assert list(trees) == [4, 9, 2]
     np.testing.assert_array_equal(trees[9]["dense"]["b"].numpy(),
                                   tree["dense"]["b"][1])
+
+
+# ---------------------------------------------------------------- bf16 operands
+
+def _bf16(a):
+    """A numpy array rounded to bf16: (the torch tensor, the jax array)."""
+    t = torch.from_numpy(a).to(torch.bfloat16)
+    return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+@pytest.mark.parametrize("kernel", ["coded_matmul", "coded_matmul_rounds",
+                                    "encode_decode", "calibrate"])
+@pytest.mark.parametrize("mixed", [False, True])
+def test_bf16_operands_match_reference_kernels(kernel, mixed):
+    """Each coding kernel's plain version takes bf16 operands as the TPU
+    kernel does (``mixed``: fp32 coefficients, bf16 w), against the
+    reference's interpret-mode Pallas kernel on the same bf16 operands.
+    Both widen bf16 exactly before fp32 products, so 1e-5 (the fp32
+    tolerance) holds; the route gives the bits of its fp32 call on the
+    widened operands, and the output is fp32 (or ``out_dtype``)."""
+    from repro.kernels.coded_matmul.ops import coded_matmul as j_cm
+    from repro.kernels.coded_matmul.ops import \
+        coded_matmul_rounds as j_cm_rounds
+    c, s, p = 20, 4, 1003
+    coeff, w = _w((c, s), 1), _w((s, p), 2)
+    if kernel == "coded_matmul_rounds":
+        w = _w((3, s, p), 2)
+    if kernel == "encode_decode":
+        coeff = (_w((c, s), 1) * s ** -0.5, _w((s, c), 3) * c ** -0.5)
+    if kernel == "calibrate":
+        coeff, w = _w((4,), 1), (_w((p,), 4), _w((4, p), 2))
+    if isinstance(coeff, tuple):
+        tc_, jc_ = zip(*(_bf16(a) for a in coeff))
+    elif mixed:
+        tc_, jc_ = (torch.from_numpy(coeff),), (jnp.asarray(coeff),)
+    else:
+        tc_, jc_ = zip(_bf16(coeff))
+    tw, jw = zip(*(_bf16(a) for a in (w if isinstance(w, tuple) else (w,))))
+    port = {"coded_matmul": lambda: coded_matmul(*tc_, *tw),
+            "coded_matmul_rounds": lambda: coded_matmul_rounds(*tc_, *tw),
+            "encode_decode": lambda: coded_encode_decode(*tc_, *tw),
+            "calibrate": lambda: calibrate_update(tw[0], tw[1], tc_[0])}
+    ref = {"coded_matmul": lambda: j_cm(*jc_, *jw),
+           "coded_matmul_rounds": lambda: j_cm_rounds(*jc_, *jw),
+           "encode_decode": lambda: j_ed_kernel(*jc_, *jw),
+           "calibrate": lambda: j_cal_kernel(jw[0], jw[1], jc_[0])}
+    got = port[kernel]()
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref[kernel]()), **TOL)
+    tc_ = tuple(t.float() for t in tc_)
+    tw = tuple(t.float() for t in tw)
+    assert torch.equal(got, port[kernel]())
+    if kernel == "coded_matmul":
+        out16 = coded_matmul(tc_[0].bfloat16(), tw[0].bfloat16(),
+                             out_dtype=torch.bfloat16)
+        want = j_cm(jc_[0], jw[0], out_dtype=jnp.bfloat16)
+        assert out16.dtype == torch.bfloat16
+        np.testing.assert_allclose(out16.float().numpy(),
+                                   np.asarray(want.astype(jnp.float32)),
+                                   rtol=2e-2, atol=2e-2)
+
+
+def test_coding_wrappers_reject_other_dtypes():
+    """float16 is neither of the kernels' operand types: the wrapper's own
+    check raises before a launch (on the CPU the check is reached through
+    the C-interface flags)."""
+    from repro_torch import kernels as K
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K.is_bf16(torch.zeros(2, dtype=torch.float16))
+    assert K.is_bf16(torch.zeros(2, dtype=torch.bfloat16)) == 1
+    with pytest.raises(TypeError, match="share one dtype"):
+        K.operand_dtype(a=torch.zeros(2), b=torch.zeros(2).bfloat16())

@@ -219,12 +219,21 @@ def test_mamba_block_matches_reference(impl):
 
 
 def test_mamba_block_rejects_bf16_chunks():
-    cfg = dataclasses.replace(get_model_family("mamba").build(None),
-                              ssm_chunk_dtype="bfloat16")
+    """``ssm_chunk_dtype``: "bfloat16" (the reference's option for its
+    chunked XLA path's chunk tensors, which the port's scan never writes)
+    is accepted and gives the float32 option's result bit for bit; a
+    dtype the reference does not offer is rejected."""
+    cfg = get_model_family("mamba").build(None)
     p = init_params(cfg, 0, device="cpu")["stack"]["p0"]["mamba"]
-    with pytest.raises(NotImplementedError, match="float32"):
-        mamba_block(tree_map(lambda v: v[:1], p), torch.zeros(1, 1, 4, 32),
-                    cfg)
+    p = tree_map(lambda v: v[:1], p)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (1, 1, 4, 32)).astype(np.float32))
+    want = mamba_block(p, x, cfg)[0]
+    got = mamba_block(p, x, dataclasses.replace(
+        cfg, ssm_chunk_dtype="bfloat16"))[0]
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        mamba_block(p, x, dataclasses.replace(cfg, ssm_chunk_dtype="float16"))
 
 
 @pytest.fixture(scope="module")
@@ -322,3 +331,27 @@ def test_unported_layer_kinds_raise(change, match):
         assert {"enc_ln", "frontend_proj"} & set(tp)
     else:
         assert "router" in tp["stack"]["p0"]["ffn"]
+
+
+@pytest.mark.parametrize("bsz,s,d,n", [(1, 32, 128, 16), (1, 48, 200, 8)])
+def test_scan_bf16_inputs_match_reference_kernel(bsz, s, d, n):
+    """bf16 dt, b, c, x (a and h0 fp32), as the reference's
+    ``mamba_impl="pallas"`` route hands its TPU kernel: against that
+    kernel in interpret mode on the same bf16 operands at 2e-4 (both widen
+    each load; y and h_last fp32); the result equals the fp32 call on the
+    widened operands bit for bit, and the gradients come back bf16."""
+    args = _inputs(bsz, s, d, n, seed=11)
+    t = _torch(args)
+    t[:4] = [v.bfloat16() for v in t[:4]]
+    y, h = ssm_scan(*t)
+    assert y.dtype == h.dtype == torch.float32
+    jargs = [jnp.asarray(v.float().numpy()) for v in t]
+    jargs[:4] = [a.astype(jnp.bfloat16) for a in jargs[:4]]
+    yr, hr = j_ssm_scan(*jargs, chunk=16, blk_d=128)
+    _close(y, yr, 2e-4)
+    _close(h, hr, 2e-4)
+    yw, hw = ssm_scan(*[v.float() for v in t])
+    assert torch.equal(y, yw) and torch.equal(h, hw)
+    leaves = [v.clone().requires_grad_(True) for v in t]
+    grads = torch.autograd.grad(ssm_scan(*leaves)[0].sum(), leaves)
+    assert [g.dtype for g in grads] == [v.dtype for v in t]

@@ -515,3 +515,27 @@ def test_stage_and_se_match_reference(jax_run, port_runs, engine):
     for g, w in zip(tree_leaves(tres.models[1]), tree_leaves(trained)):
         assert torch.equal(g, w)
     assert tres.models[0]["rem"] == {} == tres.models[1]["rem"]
+
+
+@pytest.mark.parametrize("b,s,h,n", [(1, 32, 2, 16), (2, 20, 1, 27)])
+def test_wkv_bf16_inputs_match_reference_kernel(b, s, h, n):
+    """bf16 r, k, v, lw (u and h0 fp32), as the TPU kernel takes them:
+    against that kernel in interpret mode on the same bf16 operands at the
+    fp32 tolerance (both widen each load; y and h_last fp32); the result
+    equals the fp32 call on the widened operands bit for bit, and the
+    gradients come back bf16."""
+    args = _inputs(b, s, h, n, seed=12)
+    t = _torch(args)
+    t[:4] = [v.bfloat16() for v in t[:4]]
+    y, hl = wkv(*t)
+    assert y.dtype == hl.dtype == torch.float32
+    jargs = [jnp.asarray(v.float().numpy()) for v in t]
+    jargs[:4] = [a.astype(jnp.bfloat16) for a in jargs[:4]]
+    yr, hr = j_wkv(*jargs)
+    _close(y, yr, **WKV_TOL)
+    _close(hl, hr, **WKV_TOL)
+    yw, hw = wkv(*[v.float() for v in t])
+    assert torch.equal(y, yw) and torch.equal(hl, hw)
+    leaves = [v.clone().requires_grad_(True) for v in t]
+    grads = torch.autograd.grad(wkv(*leaves)[0].sum(), leaves)
+    assert [g.dtype for g in grads] == [v.dtype for v in t]
