@@ -24,10 +24,15 @@ Phases (any failed check raises, and the script exits non-zero):
    split) and encode_decode ((S 100, C 200): two passes of output rows;
    (S 130, C 140): w staged in chunks), and calibrate at FE's M' = 19 on
    the table1 path (``fe_round_m19``); both kernels' two launches must
-   give the same bits.  Time kernel, plain version and one library call
-   where one exists (device time from the CUPTI trace of torch.profiler,
-   checked against CUDA events: a trace that records nothing, gives a
-   kernel time under its bound or under 0.9 of the kernel's
+   give the same bits.  encode_decode also at the reference benchmark's
+   shape (C 100, S 4, P 500,000, ``bench_c100_s4``), with the kernel's
+   time over ``torch.linalg.multi_dot``'s, ``torch.matmul(dec,
+   torch.matmul(enc, w))`` (the kernel's order) and the operations bounds
+   of fp32 FMAs and of 3xTF32 (useful and padded FLOPs).  Time kernel,
+   plain version and one library call where one exists (device time from
+   the CUPTI trace of torch.profiler, checked against CUDA events: a trace
+   that records nothing, gives a kernel time under its bound or under 0.9
+   of the kernel's
    back-to-back event time (where that is 0.2 ms or more), or a
    plain or library time under the bytes bound lost records, and the trace
    is taken again, up to 3 times, before an event time is used; a plain or
@@ -89,7 +94,12 @@ Phases (any failed check raises, and the script exits non-zero):
    arithmetic within 2^-8 (max|v| + |r|), two launches bit-identical,
    timed beside its bound at the bf16 tensor-core rate (989 TFLOP/s) and
    F.scaled_dot_product_attention at bf16.  These rows join the
-   ``kernels`` line as ``<kernel>_bf16``.
+   ``kernels`` line as ``<kernel>_bf16``.  Beside them: each recurrence
+   case's bf16 and fp32 route (on the widened inputs) timed in turns in
+   the same call (``bf16_over_fp32``; at jamba's shape the scan's two
+   instantiations' registers), and ``torch.mm`` / ``torch.bmm`` with
+   ``out_dtype=float32`` on the bf16 coding operands as the library call
+   of the encode rows (or the error the card's PyTorch gives).
 4. small   — tiny scenarios on the card and on the CPU (plain versions):
    classification (2 shards, on the fused and on the ``legacy`` engine,
    whose coded store encodes per-client trees a round at a time; and 20
@@ -628,6 +638,18 @@ def timed(fn, iters: int, floor_ms: float = 0.0,
             "event_ms": ev}
 
 
+def timed_pair(a, b, iters: int, floor_ms: float) -> tuple:
+    """Two routes of one kernel in one call: ``timed`` (batch) of ``a`` and
+    of ``b`` in turns, a, b, b, a.  Returns each one's lesser reading and
+    the timers of both readings; a reading that fell back to events holds
+    host time, so the lesser of two is the one to compare."""
+    got = {0: [], 1: []}
+    for k in (0, 1, 1, 0):
+        got[k].append(timed((a, b)[k], iters, floor_ms, batch=True))
+    return tuple((min(r["ms"] for r in got[k]), [r["timer"] for r in got[k]])
+                 for k in (0, 1))
+
+
 def bound(nbytes: int, flops: int, exps: int = 0,
           flops_per_s: float = FP32_FLOPS_PER_S):
     """The least time for the work: bytes over the memory rate, or the
@@ -912,7 +934,23 @@ def check_kernels(torch, K, path: str, model_cfg, ragged: bool):
                     lambda: torch.linalg.multi_dot([dec, enc, w]), iters,
                     bnd)
         row.update(kernel="encode_decode", path=path, case=label,
-                   shape=[c, s, p], bit_identical=True, **err)
+                   shape=[c, s, p], bit_identical=True, **err,
+                   kernel_over_multi_dot=row["ms"] / row["library_ms"])
+        if label.startswith("bench"):
+            # the kernel's own order, dec @ (enc @ w), by two library calls;
+            # and the operations bounds of both product routes: fp32 FMAs
+            # (the route built) and 3xTF32 on the tensor cores, at the
+            # useful FLOPs and at the MMA's padding (S to 8 or 16 in k and
+            # n, C to a multiple of 8)
+            row["matmul_same_order_ms"] = timed(
+                lambda: torch.matmul(dec, torch.matmul(enc, w)), iters,
+                bnd[2])["ms"]
+            kn = 8 if s <= 8 else 16
+            padded = 2 * p * 2 * (-(-c // 8) * 8) * kn
+            row.update(
+                bound_fp32_ops_ms=4 * c * s * p / FP32_FLOPS_PER_S * 1e3,
+                bound_tf32x3_ops_ms=4 * c * s * p / TF32X3_FLOPS_PER_S * 1e3,
+                bound_tf32x3_padded_ms=padded / TF32X3_FLOPS_PER_S * 1e3)
         share(row, bnd)
         log("kernel", **row)
         if label == "all_clients":
@@ -1368,7 +1406,9 @@ def bf16_coding(torch, K) -> dict:
     def nb(t):
         return t.numel() * t.element_size()
 
-    # label, fn, plain, operands, kwargs, flops, iters, head key
+    # label, fn, plain, operands, kwargs, flops, iters, head key; the
+    # library call (``LIBRARY``) where one PyTorch call gives fp32 out of
+    # the bf16 operands: ``torch.mm`` / ``torch.bmm`` with ``out_dtype``
     f32 = torch.float32
     cases = []
     c, s, p = 20, 4, g_rounds * p_shard
@@ -1405,11 +1445,24 @@ def bf16_coding(torch, K) -> dict:
     cases.append(("se_round_bf16", calibrate_update, calibrate_update_ref,
                   [randn(p_client), randn(4, p_client), randn(4)], {},
                   2 * 4 * p_client, 50, None))
+    library_of = {
+        "encode_bf16_in": lambda a: torch.mm(a[0], a[1], out_dtype=f32),
+        "stage_encode_bf16_in": lambda a: torch.bmm(
+            a[0].expand(a[1].shape[0], *a[0].shape), a[1], out_dtype=f32)}
     for label, fn, plain, args, kw, flops, iters, head in cases:
         name = fn.__name__.replace("coded_encode_decode", "encode_decode")
         name = name.replace("calibrate_update", "calibrate")
         got = fn(*args, **kw)
         err = compare(got, plain(*args, **kw), f"{name}/{label}")
+        library, lib_note = None, {}
+        if label in library_of:
+            call = library_of[label]
+            try:
+                lib_note["library_vs_kernel_max_abs"] = float(
+                    (call(args) - got).abs().max())
+                library = lambda call=call, args=args: call(args)
+            except Exception as exc:          # recorded: the row quotes it
+                lib_note["library_error"] = f"{type(exc).__name__}: {exc}"
         wide = fn(*_widened(torch, args), **kw)
         if not torch.equal(got, wide) or not torch.equal(got,
                                                          fn(*args, **kw)):
@@ -1418,7 +1471,8 @@ def bf16_coding(torch, K) -> dict:
                                  f"operands, or two launches differ")
         bnd = bound(sum(nb(a) for a in args) + nb(got), flops)
         row = times(lambda: fn(*args, **kw), lambda: plain(*args, **kw),
-                    None, iters, bnd)
+                    library, iters, bnd)
+        row.update(lib_note)
         row.update(kernel=name + ("" if name == "calibrate" else "_bf16"),
                    case=label, shape=[list(a.shape) for a in args],
                    dtypes=[str(a.dtype) for a in args],
@@ -1441,7 +1495,12 @@ def bf16_recurrence(torch, K, name: str) -> dict:
     (the fp32 cases' tolerance) and bit for bit against the fp32 kernel on
     the widened inputs, y, h_last and the training checkpoints; one
     case's backward through autograd (bf16 gradients: the fp32 backward
-    kernel on the widened operands, cast).  Returns the path row."""
+    kernel on the widened operands, cast).  Each case also times the bf16
+    and the fp32 route (on the widened inputs) in turns in the same call
+    (``timed_pair``: ``bf16_pair_ms``, ``fp32_route_ms``,
+    ``bf16_over_fp32``); at jamba's serve shape the scan's two
+    instantiations' registers and spills (``ptxas_bf16``, ``ptxas_fp32``).
+    Returns the path row."""
     from repro_torch.roofline import analysis as rl
     if name == "ssm_scan":
         from repro_torch.kernels.ssm_scan import ops
@@ -1449,7 +1508,7 @@ def bf16_recurrence(torch, K, name: str) -> dict:
         inputs, work, tol, seed = ssm_inputs, rl.ssm_work, 2e-4, 8
         # the jamba serve's prefill (the bf16 serve launches it there), the
         # mamba path's stage, ragged n and D
-        cases = [("serve_jamba_bf16", 4, 512, 16384, 16, 1, 3),
+        cases = [("serve_jamba_bf16", 4, 512, 16384, 16, 1, 20),
                  ("fused_stage_bf16", 50, 64, 64, 8, 5, 20),
                  ("ragged_n5_bf16", 2, 9, 300, 5, 1, 20),
                  ("ragged_d130_n16_bf16", 3, 75, 130, 16, 1, 20)]
@@ -1486,9 +1545,22 @@ def bf16_recurrence(torch, K, name: str) -> dict:
             bnd = bound(*work(bsz, s, d, n, g, False, in_bytes=2))
             row = times(lambda: fwd(*args), lambda: ref(*args), None, iters,
                         bnd)
+            # the bf16 and the fp32 route (on the widened inputs) in the
+            # same call, in turns
+            (b16, b16_t), (f32, f32_t) = timed_pair(
+                lambda: fwd(*args), lambda: fwd(*wide), iters, bnd[0])
         row.update(kernel=name + "_bf16", case=label,
                    shape=[bsz, s, d, n, g], bit_identical_to_widened_fp32=True,
-                   **err)
+                   bf16_pair_ms=b16, bf16_pair_timers=b16_t,
+                   fp32_route_ms=f32, fp32_route_timers=f32_t,
+                   bf16_over_fp32=b16 / f32, **err)
+        if label == "serve_jamba_bf16":
+            # jamba's (4, 512, 16384, 16) takes the walk with two lanes of
+            # 8 states a channel: ssm_fwd_kernel<In, 2, 1, 8>
+            regs = {r[0].split("ssm_fwd_kernelI")[1][:2]: r[1:]
+                    for r in ptxas_summary(K.BUILD_INFO["log"])
+                    if "ssm_fwd_kernelI" in r[0] and "Li2ELi1ELi8E" in r[0]}
+            row.update(ptxas_bf16=regs.get("13"), ptxas_fp32=regs.get("fL"))
         share(row, bnd)
         if label == "fused_stage_bf16":
             # autograd through the bf16 route: each gradient is the fp32
@@ -5265,11 +5337,13 @@ def main() -> int:
     ptxas = ptxas_summary(K.BUILD_INFO["log"])
     log("build", build_s=K.BUILD_INFO["build_s"], ptxas=ptxas)
     # the kernels redesigned last (the recurrence backwards, then their
-    # forwards, then the window forward): registers and spills
+    # forwards, then the window forward, then encode_decode's register
+    # tile and the scan forward's bf16 staging): registers and spills
     redesigned = [r for r in ptxas if any(
         k in r[0] for k in ("ssm_bwd_kernel", "wkv_bwd_a_kernel",
                             "wkv_bwd_b_kernel", "ssm_fwd_kernel",
-                            "wkv_fwd_kernel", "wattn_fwd_kernel"))]
+                            "wkv_fwd_kernel", "wattn_fwd_kernel",
+                            "encode_decode_kernel"))]
     log("ptxas_redesigned", kernels=redesigned)
     spilled = [r[0] for r in redesigned
                if not r[2].startswith("0 bytes stack frame")]

@@ -45,6 +45,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -58,18 +60,12 @@ constexpr int kRowFloats = kTileP + 4;       // a staged row: 513 16-byte chunks
 constexpr int kStages = 4;                   // rows in flight per warp
 constexpr int kMaxSplits = 8;                // the portable cluster size
 
-// 16 bytes, through L2 only, with a 256-byte L2 prefetch: the rows stream
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+// common.cuh's cp_async16 with a 256-byte L2 prefetch added: the rows
+// stream
+__device__ __forceinline__ void cp_async16_l2(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16;\n" ::"r"(s),
                "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 template <bool kFew>
@@ -137,7 +133,7 @@ calibrate_kernel(const float* __restrict__ w, const float* __restrict__ d,
       for (int c = threadIdx.x; c < nchunks; c += kThreads) {
         const int64_t e = a0 + 4 * c;
         if (e >= 0 && e + 4 <= total) {
-          cp_async16(buf + 4 * c, d + e);
+          cp_async16_l2(buf + 4 * c, d + e);
         } else {
 #pragma unroll
           for (int j = 0; j < 4; ++j)

@@ -28,15 +28,19 @@
 // encode_decode_kernel (below) replaces the Pallas TPU kernel
 // encode_decode_kernel in the same kernel.py: the slice-verification round trip
 // out (S,P) = dec (S,C) @ (enc (C,S) @ w (S,P)), with the (C, P) coded
-// intermediate never written to device memory.  It reads w once and writes
-// out once (8 S bytes per column) against 4 C S FLOPs per column: bytes
-// bound it (at C = 20, S = 4 that is 10 FLOP per byte, under the fp32
-// ridge of 20).  Each thread holds 4 columns of w's S rows in registers;
-// for each client c it forms the coded value enc[c] . w (its 4 columns in
-// registers) and adds dec[:, c] times it to the S output rows, so C only
-// sets the work per column, not the registers; enc and dec sit in shared
-// memory and every read of them is a broadcast.  The template bound on S
-// (4, 8 or 16) keeps the two (S x 4) register tiles as small as S allows.
+// intermediate never written to device memory and never reassociated (no
+// dec @ enc is formed: the coded values are what the check is about).  It
+// reads w once and writes out once (8 S bytes per column) against 4 C S
+// FLOPs per column: 10 FLOP per byte at C = 20, S = 4 (bytes bound it),
+// 50 at the reference benchmark's C = 100 (operations do, past the fp32
+// ridge of 20).  Its products are fp32 FMAs on the CUDA cores: a thread
+// holds 8 columns of w's S rows and of out's S rows in registers and walks
+// the clients, reading each client's enc row and dec column from shared
+// memory as float4 broadcasts (notes at the kernel).  The tensor cores
+// were weighed and lost: 3xTF32 needs three TF32 products per fp32
+// product, and S = 4 pads the MMA's k and n of 8 to twice the work, so
+// mma.sync reaches a sixth of its TF32 rate in useful FLOPs, under the
+// CUDA cores' fp32 rate (that design's times: PERF.md section 6).
 //
 // Any code dimension.  The register tiles above hold S <= 16 (kMaxS) and
 // encode_decode's shared tables C*S <= 4096 (kMaxCS); larger shapes take
@@ -76,6 +80,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -87,27 +93,6 @@ constexpr int kMaxCS = 4096;                // largest C*S of the shared tables
 constexpr int kDeepCols = 2;                // columns per thread, S > 16
 constexpr int kDeepTileP = kThreads * kDeepCols;
 
-// w's widening loads: 1, 2 or 4 consecutive elements as fp32
-__device__ __forceinline__ float wload1(const float* p) { return *p; }
-__device__ __forceinline__ float wload1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ float2 wload2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 wload2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ void wload4(const float* p, float* x) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-}
-__device__ __forceinline__ void wload4(const __nv_bfloat16* p, float* x) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
-}
 // entry i of a coefficient table, fp32 or (``bf16``) bfloat16, as fp32
 __device__ __forceinline__ float tab(const void* p, int64_t i, bool bf16) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
@@ -317,75 +302,6 @@ void launch(const void* coeff, bool cb, const WT* w, void* out, int64_t G,
                                                                     C, S, P);
 }
 
-template <int SMAX, typename WT, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-encode_decode_kernel(const void* __restrict__ enc, const void* __restrict__ dec,
-                     bool enc_bf16, bool dec_bf16, const WT* __restrict__ w,
-                     float* __restrict__ out, int C, int S, int64_t P) {
-  __shared__ float se[kMaxCS], sd[kMaxCS];
-  for (int i = threadIdx.x; i < C * S; i += kThreads) {
-    se[i] = tab(enc, i, enc_bf16);    // (C, S) row-major
-    sd[i] = tab(dec, i, dec_bf16);    // (S, C) row-major
-  }
-  __syncthreads();
-  const int64_t tile = static_cast<int64_t>(blockIdx.x) * kTileP;
-  float x[SMAX][kCols], acc[SMAX][kCols];
-  int64_t col[kCols];
-#pragma unroll
-  for (int j = 0; j < kCols; ++j)
-    col[j] = kVec ? tile + static_cast<int64_t>(threadIdx.x) * kCols + j
-                  : tile + threadIdx.x + j * kThreads;
-  if (kVec && col[0] >= P) return;
-#pragma unroll
-  for (int s = 0; s < SMAX; ++s) {
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[s][j] = 0.f;
-    if (s < S) {
-      if (kVec) {
-        wload4(w + s * P + col[0], x[s]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kCols; ++j)
-          x[s][j] = col[j] < P ? wload1(w + s * P + col[j]) : 0.f;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) x[s][j] = 0.f;
-    }
-  }
-  for (int c = 0; c < C; ++c) {
-    float coded[kCols] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int s = 0; s < SMAX; ++s) {
-      if (s < S) {
-        const float e = se[c * S + s];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) coded[j] = fmaf(e, x[s][j], coded[j]);
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < SMAX; ++s) {
-      if (s < S) {
-        const float d = sd[s * C + c];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) acc[s][j] = fmaf(d, coded[j], acc[s][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < SMAX; ++s) {
-    if (s < S) {
-      if (kVec) {
-        store4(out + s * P + col[0], acc[s]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kCols; ++j)
-          if (col[j] < P) out[s * P + col[j]] = acc[s][j];
-      }
-    }
-  }
-}
-
 // The round trip as two register-tiled products per block of kEdTileP
 // columns, kEdThreads threads.  Thread roles: q = lane % 4 picks 8 of the
 // warp's 32 columns; g = lane / 4 is a client group in the encode (clients
@@ -416,18 +332,6 @@ __host__ __device__ constexpr int ed_smem_floats(int sb, int rt) {
          kEdWarps * kEdScratch;
 }
 
-__device__ __forceinline__ void ed_cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-// 4 bytes, or zeros when ``valid`` is false (nothing is read then)
-__device__ __forceinline__ void ed_cp_async4(float* dst, const float* src,
-                                             bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0));
-}
 // entry i of a table into shared memory: by cp.async for fp32, widened by
 // a load for bf16; zero when ``valid`` is false
 __device__ __forceinline__ void ed_table(float* dst, const void* src,
@@ -435,10 +339,7 @@ __device__ __forceinline__ void ed_table(float* dst, const void* src,
   if (bf16)
     *dst = valid ? tab(src, i, true) : 0.f;
   else
-    ed_cp_async4(dst, static_cast<const float*>(src) + (valid ? i : 0), valid);
-}
-__device__ __forceinline__ void ed_cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+    cp_async4(dst, static_cast<const float*>(src) + (valid ? i : 0), valid);
 }
 
 __device__ __forceinline__ void ld8(const float* p, float (&v)[8]) {
@@ -548,13 +449,13 @@ encode_decode_tiled_kernel(const void* __restrict__ enc,
         const int s = i / 8, j = 4 * (i % 8);
         float* dst = ws + s * 32 + j;
         if (wcol + j < P)
-          ed_cp_async16(dst, w + static_cast<int64_t>(s0 + s) * P + wcol + j);
+          cp_async16(dst, w + static_cast<int64_t>(s0 + s) * P + wcol + j);
         else
           *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
       }
     } else {
       for (int s = 0; s < ns; ++s)
-        ed_cp_async4(ws + s * 32 + lane,
+        cp_async4(ws + s * 32 + lane,
                      w + static_cast<int64_t>(s0 + s) * P + wcol + lane,
                      wcol + lane < P);
     }
@@ -593,7 +494,8 @@ encode_decode_tiled_kernel(const void* __restrict__ enc,
           ed_table(decp + rr * (kEdCB + 1) + cc, dec,
                    static_cast<int64_t>(so0 + rr) * C + c0 + cc,
                    so0 + rr < S && cc < nc, dec_bf16);
-    ed_cp_async_wait_all();
+    cp_async_commit();
+    cp_async_wait_all();
     __syncthreads();
     switch (ct) {
       case 1: ed_encode<1>(ws, encp, es, ns, q, g, cod); break;
@@ -677,16 +579,176 @@ void launch_ed_tiled_rt(const void* enc, const void* dec, bool eb, bool db,
   }
 }
 
+// ---- encode_decode's register tile (S <= 16, C*S <= 4096) ------------------
+//
+// A thread owns NC columns of P and all S rows: it holds w's S x NC tile
+// and out's S x NC accumulators in registers, and for each client c, in
+// ascending order, forms the coded values coded[j] = enc[c] . w[:, j]
+// (fp32 FMAs from 0, s ascending) and adds dec[:, c] coded[j] to its
+// accumulators.
+//  * The tables sit in shared memory as one row a client, enc[c][0 ..
+//    SMAX) then dec[0 .. SMAX)[c], zero past S, so a client's coefficients
+//    are SMAX / 2 float4 broadcasts for 2 SMAX NC FMAs (the FFMA design
+//    before read one scalar for every 4 FMAs), and the loop has no branch
+//    on S: the padded rows add exact zeros.
+//  * SMAX NC <= 32 keeps the tiles in registers; NC is the largest of 8,
+//    4, 2 that still gives every SM a block.  A lane's columns are groups
+//    of 4 (2 at NC = 2) consecutive columns, one 16-byte access each, the
+//    groups a block's width apart, so every warp access is contiguous.
+//  * w's loads are issued before the tables' fill, which they overlap.
+//    One launch runs in one wave: a thread's single tile is loaded, walked
+//    and stored (streaming several tiles a warp, with the next tile's w
+//    loaded during this one's FMAs, measured slower: PERF.md section 6).
+// Each output value is summed in the order of encode_decode_tiled_kernel,
+// so the two routes give the same bits.
+constexpr int kEfThreads = 256;
+
+template <int SMAX, int NC, typename WT, bool kVec>
+__global__ void __launch_bounds__(kEfThreads)
+encode_decode_kernel(const void* __restrict__ enc, const void* __restrict__ dec,
+                     bool enc_bf16, bool dec_bf16, const WT* __restrict__ w,
+                     float* __restrict__ out, int C, int S, int64_t P) {
+  static_assert(SMAX % 4 == 0 && SMAX * NC <= 32, "tiles in registers");
+  constexpr int GW = NC < 4 ? NC : 4;        // columns of one vector access
+  constexpr int NG = NC / GW;                // vector groups a thread
+  extern __shared__ __align__(16) float tabs[];      // [C][2 SMAX]
+  // The thread's column j.  kVec (P % 4 == 0, 16-byte aligned rows): group
+  // j / GW of GW consecutive columns, all in range or all out, the groups
+  // kEfThreads GW columns apart, so each warp access is contiguous; else
+  // columns kEfThreads apart.
+  const int64_t tile = static_cast<int64_t>(blockIdx.x) * kEfThreads * NC;
+  auto col = [&](int j) -> int64_t {
+    return kVec ? tile + static_cast<int64_t>(j / GW) * kEfThreads * GW +
+                      GW * threadIdx.x + j % GW
+                : tile + threadIdx.x + static_cast<int64_t>(j) * kEfThreads;
+  };
+  // w's loads are issued first: their latency overlaps the tables' fill
+  float x[SMAX][NC], acc[SMAX][NC];
+#pragma unroll
+  for (int s = 0; s < SMAX; ++s) {
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      x[s][j] = 0.f;
+      acc[s][j] = 0.f;
+    }
+    if (s >= S) continue;
+    const WT* row = w + s * P;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      if (kVec) {
+        const int64_t c = col(g * GW);
+        if (c >= P) continue;
+        if constexpr (GW == 4) {
+          wload4(row + c, &x[s][g * GW]);
+        } else {
+          const float2 v = wload2(row + c);
+          x[s][g * GW] = v.x;
+          x[s][g * GW + 1] = v.y;
+        }
+      } else {
+#pragma unroll
+        for (int j = g * GW; j < g * GW + GW; ++j)
+          if (col(j) < P) x[s][j] = wload1(row + col(j));
+      }
+    }
+  }
+  for (int i = threadIdx.x; i < C * 2 * SMAX; i += kEfThreads) {
+    const int c = i / (2 * SMAX), k = i % (2 * SMAX), s = k % SMAX;
+    tabs[i] = s >= S ? 0.f
+                     : (k < SMAX ? tab(enc, static_cast<int64_t>(c) * S + s,
+                                       enc_bf16)
+                                 : tab(dec, static_cast<int64_t>(s) * C + c,
+                                       dec_bf16));
+  }
+  __syncthreads();
+  if (col(0) >= P) return;                 // the thread's first column
+  const float* tp = tabs;
+#pragma unroll 2
+  for (int c = 0; c < C; ++c, tp += 2 * SMAX) {
+    float e[SMAX], d[SMAX];
+#pragma unroll
+    for (int q = 0; q < SMAX; q += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(tp + q);
+      const float4 b = *reinterpret_cast<const float4*>(tp + SMAX + q);
+      e[q] = a.x; e[q + 1] = a.y; e[q + 2] = a.z; e[q + 3] = a.w;
+      d[q] = b.x; d[q + 1] = b.y; d[q + 2] = b.z; d[q + 3] = b.w;
+    }
+    float coded[NC];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      coded[j] = 0.f;
+#pragma unroll
+      for (int s = 0; s < SMAX; ++s) coded[j] = fmaf(e[s], x[s][j], coded[j]);
+    }
+#pragma unroll
+    for (int s = 0; s < SMAX; ++s)
+#pragma unroll
+      for (int j = 0; j < NC; ++j) acc[s][j] = fmaf(d[s], coded[j], acc[s][j]);
+  }
+#pragma unroll
+  for (int s = 0; s < SMAX; ++s) {
+    if (s >= S) break;
+    float* orow = out + s * P;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      if (kVec) {
+        const int64_t c = col(g * GW);
+        if (c >= P) continue;
+        if constexpr (GW == 4)
+          store4(orow + c, &acc[s][g * GW]);
+        else
+          *reinterpret_cast<float2*>(orow + c) =
+              make_float2(acc[s][g * GW], acc[s][g * GW + 1]);
+      } else {
+#pragma unroll
+        for (int j = g * GW; j < g * GW + GW; ++j)
+          if (col(j) < P) orow[col(j)] = acc[s][j];
+      }
+    }
+  }
+}
+
+template <int SMAX, int NC, typename WT>
+void launch_ed_nc(const void* enc, const void* dec, bool eb, bool db,
+                  const WT* w, float* out, int C, int S, int64_t P, bool vec,
+                  cudaStream_t st) {
+  const int smem = C * 2 * SMAX * static_cast<int>(sizeof(float));
+  const dim3 grid(static_cast<unsigned>((P + kEfThreads * NC - 1) /
+                                        (kEfThreads * NC)));
+  if (vec) {
+    auto kern = encode_decode_kernel<SMAX, NC, WT, true>;
+    if (smem > 48 * 1024)          // past 48 KB only when asked for
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+    kern<<<grid, kEfThreads, smem, st>>>(enc, dec, eb, db, w, out, C, S, P);
+  } else {
+    auto kern = encode_decode_kernel<SMAX, NC, WT, false>;
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+    kern<<<grid, kEfThreads, smem, st>>>(enc, dec, eb, db, w, out, C, S, P);
+  }
+}
+
+// NC: the largest of 32 / SMAX columns (at most 8) whose grid still has a
+// block for every SM, and at least 2
 template <int SMAX, typename WT>
 void launch_ed(const void* enc, const void* dec, bool eb, bool db, const WT* w,
                float* out, int C, int S, int64_t P, bool vec, cudaStream_t st) {
-  const dim3 grid(static_cast<unsigned>((P + kTileP - 1) / kTileP));
-  if (vec)
-    encode_decode_kernel<SMAX, WT, true><<<grid, kThreads, 0, st>>>(
-        enc, dec, eb, db, w, out, C, S, P);
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  auto fills = [&](int nc) {
+    return (P + kEfThreads * nc - 1) / (kEfThreads * nc) >= sms;
+  };
+  if (SMAX <= 4 && fills(8))
+    launch_ed_nc<SMAX, 32 / SMAX < 8 ? 32 / SMAX : 8>(enc, dec, eb, db, w,
+                                                       out, C, S, P, vec, st);
+  else if (SMAX <= 8 && fills(4))
+    launch_ed_nc<SMAX, 32 / SMAX < 4 ? 32 / SMAX : 4>(enc, dec, eb, db, w,
+                                                       out, C, S, P, vec, st);
   else
-    encode_decode_kernel<SMAX, WT, false><<<grid, kThreads, 0, st>>>(
-        enc, dec, eb, db, w, out, C, S, P);
+    launch_ed_nc<SMAX, 2>(enc, dec, eb, db, w, out, C, S, P, vec, st);
 }
 
 template <typename WT>

@@ -85,20 +85,30 @@
 // bf16 operands.  The TPU kernel widens each load of dt, b, c and x to
 // fp32 (kernel.py's ``.astype(jnp.float32)``) and writes y in fp32; the
 // reference's mamba_impl="pallas" route hands it the compute-dtype
-// operands straight.  The forward is templated on their type In: for bf16,
-// a tile's rows are copied by cp.async, 8 bytes (4 elements) a thread,
-// into a bf16 staging tile while the last tile is walked, and the thread
-// that copied a chunk widens it into the same fp32 tile the fp32 route
-// fills, once it lands (before the tile's barrier); rows that are not
-// 8-byte aligned (D or n not a multiple of 4) are loaded an element at a
-// time, synchronously.  The walk is the same code, so a bf16 call gives
-// the bits of the fp32 call on the widened operands.  a, h0, y, h_last and
-// the checkpoints stay fp32, and the backward kernel is fp32 only: the
-// wrapper widens saved bf16 operands once for it.
+// operands straight.  The forward is templated on their type In.  For
+// bf16, dt and x stay bf16 in the tile buffers, double-buffered by
+// cp.async as the fp32 tiles are (16-byte copies of 8 elements where D %
+// 8 == 0, else of 4 in 8 bytes), so two bf16 buffers take the bytes of one
+// fp32 buffer; the walk widens each dt and x as it reads it into a
+// register (a channel's dt and x are read by its L lanes alone).  b and c
+// are (B, S, n): every channel of a block reads the same rows, so
+// widening them at each read would repeat the conversion CPB = 128 times
+// over (measured 1.12-1.16x slower: PERF.md section 6);
+// a thread loads its 4 of the next tile's b and of its c into registers
+// before the walk and widens them into the tile's fp32 b and c after it,
+// so the loads' latency hides behind the walk, with no staging tile and
+// no pass before the barrier.  Rows that are not 8-byte aligned (D or n
+// not a multiple of 4) are loaded an element at a time, synchronously.
+// The walk's arithmetic is the fp32 route's on the widened values, so a
+// bf16 call gives the bits of the fp32 call on the widened operands.  a,
+// h0, y, h_last and the checkpoints stay fp32, and the backward kernel is
+// fp32 only: the wrapper widens saved bf16 operands once for it.
 #include <cstdint>
 #include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -137,23 +147,6 @@ __device__ __forceinline__ float lane_sum(float v) {
   return v;
 }
 
-// 4 bytes into shared memory, or zeros when ``ok`` is false (nothing is
-// read then).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // One halving level of a reduce-scatter over lanes ``off`` apart: of the
 // CNT values v[0..CNT), a lane keeps the upper half if ``upper`` and the
 // lower half otherwise, summed with its partner's copy, in v[0..CNT/2).
@@ -173,7 +166,9 @@ __device__ __forceinline__ void rs_level(float (&v)[2 * kNpl], int off,
 // lanes x SUBS sub-chunks (a lane's 4 states, one sub-chunk of kCkpt
 // steps).  A tile holds T steps: SUBS sub-chunks walked at once (SUBS > 1,
 // the time split) or SEQ sub-chunks walked in turn (SUBS = 1, 2,048
-// channel-steps a tile).
+// channel-steps a tile).  A tile buffer holds dt and x (T x CPB each, of
+// the input type In) and b and c (T x kSt each, fp32: bf16 b and c are
+// widened into the tile).
 template <int L, int SUBS, int NPL>
 struct FwdGeo {
   static constexpr int kCpb = kFwdThreads / (L * SUBS);   // channels
@@ -181,41 +176,29 @@ struct FwdGeo {
       SUBS > 1 ? kCkpt * SUBS : (4096 / kCpb < 32 ? 4096 / kCpb : 32);
   static constexpr int kSeq = kT / (kCkpt * SUBS);
   static constexpr int kSt = NPL * L;                      // states held
-  static constexpr int kBuf = 2 * kT * kCpb + 2 * kT * kSt;  // dt, x; b, c
+  static constexpr int kDtx = 2 * kT * kCpb;               // dt, x
+  static constexpr int kBc = 2 * kT * kSt;                  // b, c
   // every thread's composite (P, hl: 2 float4s) and the carry into the
   // next tile (two parities); only with the time split
   static constexpr int kComp =
       SUBS > 1 ? kFwdThreads * 2 * kNpl + 2 * kCpb * kSt : 0;
-  static constexpr int kSmemBytes = 4 * (2 * kBuf + kComp);
-  static constexpr int kStageBytes = 2 * kBuf;   // one tile in bf16
-  static_assert(kCpb % 4 == 0 && kSeq >= 1, "16-byte rows, whole sub-chunks");
+  template <typename In>
+  __host__ __device__ static constexpr int buf_bytes() {
+    return kDtx * static_cast<int>(sizeof(In)) + 4 * kBc;
+  }
+  // two tile buffers and the composites
+  template <typename In>
+  __host__ __device__ static constexpr int smem_bytes() {
+    return 2 * buf_bytes<In>() + 4 * kComp;
+  }
+  static_assert(kCpb % 8 == 0 && kSeq >= 1, "16-byte rows, whole sub-chunks");
   static_assert(kCpb * L % 32 == 0, "a warp walks one sub-chunk");
   static_assert(SUBS == 1 || NPL == kNpl, "the split keeps 4 states a lane");
+  static_assert(kT * kSt / 4 <= kFwdThreads, "a thread holds one b, c chunk");
 };
 
-// 16 bytes into shared memory, or zeros when ``ok`` is false.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-// 8 bytes (4 bf16) into shared memory by cp.async, or zeros when ``ok`` is
-// false; 4 staged bf16 widened into an fp32 tile; and one bf16 element
-// widened into an fp32 tile by a plain load (zero when ``ok`` is false)
-__device__ __forceinline__ void cp_async8(void* dst, const void* src,
-                                          bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 8 : 0));
-}
-__device__ __forceinline__ void widen4(float* dst, const __nv_bfloat16* src) {
-  const uint2 u = *reinterpret_cast<const uint2*>(src);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  *reinterpret_cast<float4*>(dst) = make_float4(lo.x, lo.y, hi.x, hi.y);
-}
+// one bf16 element widened into an fp32 tile by a plain load (zero when
+// ``ok`` is false)
 __device__ __forceinline__ void widen1(float* dst, const __nv_bfloat16* src,
                                        bool ok) {
   *dst = ok ? __bfloat162float(*src) : 0.f;
@@ -224,16 +207,16 @@ __device__ __forceinline__ void widen1(float* dst, const __nv_bfloat16* src,
 // A sub-chunk's 8 steps from tile row r0: dtx = dt x and abar of each step
 // and state (one exp each), and the sub-chunk's composite: the product of
 // its abar (pr) and its h from zero (hl).
-template <int L>
+template <int L, typename DT>
 __device__ __forceinline__ void sub_prep(
-    const float* s_dt, const float* s_x, const float* s_b, int cpb, int ch,
+    const DT* s_dt, const DT* s_x, const float* s_b, int cpb, int ch,
     int lane, int r0, const float (&al)[kNpl], float (&ab)[kCkpt][kNpl],
     float (&dtx)[kCkpt], float (&pr)[kNpl], float (&hl)[kNpl]) {
 #pragma unroll
   for (int u = 0; u < kCkpt; ++u) {
     const int row = r0 + u;
-    const float dtv = s_dt[row * cpb + ch];
-    dtx[u] = dtv * s_x[row * cpb + ch];
+    const float dtv = wload1(s_dt + row * cpb + ch);
+    dtx[u] = dtv * wload1(s_x + row * cpb + ch);
 #pragma unroll
     for (int j = 0; j < kNpl; ++j) ab[u][j] = abar(dtv, al[j]);
     const float4 b4 = ld4(&s_b[row * kNpl * L + lane * kNpl]);
@@ -287,9 +270,9 @@ __device__ __forceinline__ void sub_walk(
 // step by step (one exp per state-step) and applied with advance() as the
 // backward's recompute does; y reduce-scattered and stored as in
 // sub_walk.  A lane holds NPL states.
-template <int L, int NPL>
+template <int L, int NPL, typename DT>
 __device__ __forceinline__ void seq_walk(
-    const float* s_dt, const float* s_x, const float* s_b, const float* s_c,
+    const DT* s_dt, const DT* s_x, const float* s_b, const float* s_c,
     int cpb, int ch, int lane, int r0, const float (&al)[NPL],
     float (&h)[NPL], float* __restrict__ yd, int64_t D, int tleft,
     bool live) {
@@ -298,8 +281,8 @@ __device__ __forceinline__ void seq_walk(
 #pragma unroll
   for (int u = 0; u < kCkpt; ++u) {
     const int row = r0 + u;
-    const float dtv = s_dt[row * cpb + ch];
-    const float dtx = dtv * s_x[row * cpb + ch];
+    const float dtv = wload1(s_dt + row * cpb + ch);
+    const float dtx = dtv * wload1(s_x + row * cpb + ch);
     float yp = 0.f;
 #pragma unroll
     for (int q = 0; q < NPL; q += 4) {
@@ -329,8 +312,9 @@ __device__ __forceinline__ void seq_walk(
 // composite, the composites are exchanged through shared memory, each warp
 // folds those before its own onto the tile's carry (its start, written as
 // the sub-chunk's checkpoint) and walks its 8 steps from there.  SUBS = 1:
-// each thread walks the tile's sub-chunks in turn from h.  Tiles of dt, x,
-// b, c are copied by cp.async (16 bytes where rows allow) into one of two
+// each thread walks the tile's sub-chunks in turn from h.  The next tile
+// of dt, x, b, c is copied (cp.async, 16 or 8 bytes where rows allow; bf16
+// b and c through registers, widened after the walk) into one of two
 // buffers while the other is walked; y is stored from registers.
 template <typename In, int L, int SUBS, int NPL>
 __global__ void __launch_bounds__(kFwdThreads, 2)
@@ -339,11 +323,14 @@ ssm_fwd_kernel(const In* __restrict__ dt, const In* __restrict__ bm,
                const float* __restrict__ a, const float* __restrict__ h0,
                float* __restrict__ y, float* __restrict__ h_last,
                float* __restrict__ ckpt, int S, int D, int n, int per_group,
-               bool vec_d, bool vec_n) {
+               int dvec, bool vec_n) {
   using Geo = FwdGeo<L, SUBS, NPL>;
   constexpr int CPB = Geo::kCpb, T = Geo::kT, ST = Geo::kSt, CL = CPB * L;
+  constexpr int kBufBytes = Geo::template buf_bytes<In>();
+  constexpr bool kBf16 = !std::is_same<In, float>::value;
   extern __shared__ __align__(16) float smem[];
-  float* s_comp = smem + 2 * Geo::kBuf;              // [SUBS][CL][8]
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem);
+  float* s_comp = reinterpret_cast<float*>(base + 2 * kBufBytes);  // [SUBS][CL][8]
   float* s_carry = s_comp + kFwdThreads * 2 * kNpl;  // [2][CL][4]
   const int lane = threadIdx.x % L, cl = threadIdx.x % CL;
   const int ch = cl / L, sc = threadIdx.x / CL;
@@ -354,31 +341,55 @@ ssm_fwd_kernel(const In* __restrict__ dt, const In* __restrict__ bm,
   const float* ag = a + static_cast<int64_t>(bi / per_group) * D * n;
   const int nck = (S + kCkpt - 1) / kCkpt;
   const bool live = d < D;
-  // bf16 rows that are 8-byte aligned stage here, one tile, laid out as a
-  // tile's dt, x, b, c
-  constexpr bool kBf16 = !std::is_same<In, float>::value;
-  __nv_bfloat16* g_dt = reinterpret_cast<__nv_bfloat16*>(
-      smem + 2 * Geo::kBuf + Geo::kComp);
-  __nv_bfloat16* g_x = g_dt + T * CPB;
-  __nv_bfloat16* g_b = g_x + T * CPB;
-  __nv_bfloat16* g_c = g_b + T * ST;
+  // tile buffer p: dt, x [T][CPB] of In, then b, c [T][ST] of fp32
+  auto dt_of = [&](int p) {
+    return reinterpret_cast<In*>(base + p * kBufBytes);
+  };
+  auto b_of = [&](int p) {
+    return reinterpret_cast<float*>(base + p * kBufBytes +
+                                    Geo::kDtx * static_cast<int>(sizeof(In)));
+  };
 
-  // Issue the copies of tile ``tile`` into ``buf`` (zeros outside S, D, n);
-  // staged bf16 rows into the staging tile instead.
-  auto issue = [&](int tile, float* buf) {
+  // bf16 b and c of the next tile (8-byte rows): this thread's 4
+  // of each, loaded into registers by issue() before the walk and widened
+  // into the tile's buffer by land() after it, so the loads' latency hides
+  // behind the walk
+  uint2 pend_b = make_uint2(0u, 0u), pend_c = make_uint2(0u, 0u);
+  auto land = [&](int p) {
+    if (!kBf16 || !vec_n || threadIdx.x >= T * ST / 4) return;
+    float* s_b = b_of(p);
+    *reinterpret_cast<float4*>(s_b + 4 * threadIdx.x) = widen_bf16x4(pend_b);
+    *reinterpret_cast<float4*>(s_b + T * ST + 4 * threadIdx.x) =
+        widen_bf16x4(pend_c);
+  };
+
+  // Issue the copies of tile ``tile`` into buffer ``p`` (zeros outside S,
+  // D, n); bf16 b and c to be widened go to pend_b, pend_c (land()).  dt
+  // and x rows are copied ``dvec`` elements at a time: 4 (16 bytes of fp32,
+  // 8 of bf16) or 8 (16 bytes of bf16), or, in rows that allow neither, one
+  // at a time (cp.async for fp32, plain loads for bf16).
+  auto issue = [&](int tile, int p) {
     const int t0 = tile * T;
-    float* s_dt = buf;
-    float* s_x = s_dt + T * CPB;
-    float* s_b = s_x + T * CPB;
+    In* s_dt = dt_of(p);
+    In* s_x = s_dt + T * CPB;
+    float* s_b = b_of(p);
     float* s_c = s_b + T * ST;
-    if (vec_d) {
+    if (kBf16 && dvec == 8) {
+      for (int i = threadIdx.x; i < T * CPB / 8; i += kFwdThreads) {
+        const int t = t0 + i / (CPB / 8), dd = d0 + 8 * (i % (CPB / 8));
+        const bool ok = t < S && dd < D;
+        const int64_t off = ok ? seq + static_cast<int64_t>(t) * D + dd : 0;
+        cp_async16(s_dt + 8 * i, dt + off, ok);
+        cp_async16(s_x + 8 * i, x + off, ok);
+      }
+    } else if (dvec == 4) {
       for (int i = threadIdx.x; i < T * CPB / 4; i += kFwdThreads) {
         const int t = t0 + i / (CPB / 4), dd = d0 + 4 * (i % (CPB / 4));
         const bool ok = t < S && dd < D;
         const int64_t off = ok ? seq + static_cast<int64_t>(t) * D + dd : 0;
         if constexpr (kBf16) {
-          cp_async8(g_dt + 4 * i, dt + off, ok);
-          cp_async8(g_x + 4 * i, x + off, ok);
+          cp_async8(s_dt + 4 * i, dt + off, ok);
+          cp_async8(s_x + 4 * i, x + off, ok);
         } else {
           cp_async16(s_dt + 4 * i, dt + off, ok);
           cp_async16(s_x + 4 * i, x + off, ok);
@@ -390,8 +401,8 @@ ssm_fwd_kernel(const In* __restrict__ dt, const In* __restrict__ bm,
         const bool ok = t < S && dd < D;
         const int64_t off = ok ? seq + static_cast<int64_t>(t) * D + dd : 0;
         if constexpr (kBf16) {
-          widen1(s_dt + i, dt + off, ok);
-          widen1(s_x + i, x + off, ok);
+          s_dt[i] = ok ? dt[off] : __float2bfloat16_rn(0.f);
+          s_x[i] = ok ? x[off] : __float2bfloat16_rn(0.f);
         } else {
           cp_async4(s_dt + i, dt + off, ok);
           cp_async4(s_x + i, x + off, ok);
@@ -404,8 +415,10 @@ ssm_fwd_kernel(const In* __restrict__ dt, const In* __restrict__ bm,
         const bool ok = t < S && j < n;
         const int64_t off = ok ? seq_n + static_cast<int64_t>(t) * n + j : 0;
         if constexpr (kBf16) {
-          cp_async8(g_b + 4 * i, bm + off, ok);
-          cp_async8(g_c + 4 * i, cm + off, ok);
+          pend_b = ok ? *reinterpret_cast<const uint2*>(bm + off)
+                      : make_uint2(0u, 0u);
+          pend_c = ok ? *reinterpret_cast<const uint2*>(cm + off)
+                      : make_uint2(0u, 0u);
         } else {
           cp_async16(s_b + 4 * i, bm + off, ok);
           cp_async16(s_c + 4 * i, cm + off, ok);
@@ -455,28 +468,16 @@ ssm_fwd_kernel(const In* __restrict__ dt, const In* __restrict__ bm,
     h[j] = ok ? h0[chan + st] : 0.f;
   }
   const int ntile = (S + T - 1) / T;
-  issue(0, smem);
+  issue(0, 0);
+  land(0);
   for (int tile = 0, p = 0; tile < ntile; ++tile, p ^= 1) {
-    float* s_dt = smem + p * Geo::kBuf;
-    float* s_x = s_dt + T * CPB;
-    float* s_b = s_x + T * CPB;
-    float* s_c = s_b + T * ST;
+    const In* s_dt = dt_of(p);
+    const In* s_x = s_dt + T * CPB;
+    const float* s_b = b_of(p);
+    const float* s_c = s_b + T * ST;
     cp_async_wait_all();
-    // the staged chunks this thread copied, widened into the tile (the
-    // walk two tiles back, the last to read it, ended before the last
-    // barrier)
-    if (kBf16 && vec_d)
-      for (int i = threadIdx.x; i < T * CPB / 4; i += kFwdThreads) {
-        widen4(s_dt + 4 * i, g_dt + 4 * i);
-        widen4(s_x + 4 * i, g_x + 4 * i);
-      }
-    if (kBf16 && vec_n)
-      for (int i = threadIdx.x; i < T * ST / 4; i += kFwdThreads) {
-        widen4(s_b + 4 * i, g_b + 4 * i);
-        widen4(s_c + 4 * i, g_c + 4 * i);
-      }
     __syncthreads();    // this tile landed; the last tile's reads are done
-    if (tile + 1 < ntile) issue(tile + 1, smem + (p ^ 1) * Geo::kBuf);
+    if (tile + 1 < ntile) issue(tile + 1, p ^ 1);
     const int t0 = tile * T;
     if constexpr (SUBS == 1) {
 #pragma unroll 1
@@ -526,6 +527,7 @@ ssm_fwd_kernel(const In* __restrict__ dt, const In* __restrict__ bm,
           if (lane * NPL + j < n) h_last[chan + lane * NPL + j] = h[j];
       }
     }
+    if (tile + 1 < ntile) land(p ^ 1);  // before the next tile's barrier
   }
   if (SUBS == 1 && live) {
 #pragma unroll
@@ -842,8 +844,7 @@ int launch_fwd_subs(const In* dt, const In* b, const In* c,
                     float* h_last, float* ckpt, int64_t B, int64_t S,
                     int64_t D, int64_t n, int64_t G, cudaStream_t st) {
   using Geo = FwdGeo<L, SUBS, NPL>;
-  constexpr int smem = Geo::kSmemBytes +
-                       (std::is_same<In, float>::value ? 0 : Geo::kStageBytes);
+  constexpr int smem = Geo::template smem_bytes<In>();
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -855,7 +856,12 @@ int launch_fwd_subs(const In* dt, const In* b, const In* c,
   auto al16 = [](const void* q) {
     return reinterpret_cast<uintptr_t>(q) % 16 == 0;
   };
-  const bool vec_d = D % 4 == 0 && al16(dt) && al16(x);
+  // dt and x rows in 16-byte copies of 4 fp32 or 8 bf16 elements, or in
+  // 8-byte copies of 4 bf16
+  const int dvec = D % 4 != 0 || !al16(dt) || !al16(x)
+                       ? 0
+                       : (!std::is_same<In, float>::value && D % 8 == 0 ? 8
+                                                                       : 4);
   const bool vec_n = n % 4 == 0 && al16(b) && al16(c) &&
                      (ckpt == nullptr || al16(ckpt));
   const dim3 grid(static_cast<unsigned>((D + Geo::kCpb - 1) / Geo::kCpb),
@@ -863,7 +869,7 @@ int launch_fwd_subs(const In* dt, const In* b, const In* c,
   ssm_fwd_kernel<In, L, SUBS, NPL><<<grid, kFwdThreads, smem, st>>>(
       dt, b, c, x, a, h0, y, h_last, ckpt, static_cast<int>(S),
       static_cast<int>(D), static_cast<int>(n), static_cast<int>(B / G),
-      vec_d, vec_n);
+      dvec, vec_n);
   return static_cast<int>(cudaGetLastError());
 }
 

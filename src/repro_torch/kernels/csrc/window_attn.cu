@@ -115,6 +115,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kTile = 64;          // queries or keys per tile
@@ -186,66 +188,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// cp.async of ``bytes`` (0 or the full size) with the rest zero-filled
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// x = hi + lo + r: hi = cvt.rna.tf32.f32(x), x rounded to TF32 (11
-// significant bits, to nearest, ties away); lo = cvt.rna.tf32.f32(x - hi)
-// (x - hi is exact in fp32); |r| <= 2^-23 |x|.  Both roundings are done on
-// the integer pipe: adding half a TF32 ulp (0x1000) to the bit pattern and
-// dropping the 13 low bits is cvt.rna for finite x.  The mask is needed on
-// hi, whose value forms the residual; lo keeps its low bits, which the
-// tensor core does not read (CUTLASS's round_half_ulp_truncate relies on
-// the same).  Four instructions, where cvt.rna.tf32.f32 compiles to a
-// finiteness test, a predicated add and a mask for each of the two.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// An fp32 operand fragment as its TF32 parts.
-struct FragA {
-  uint32_t hi[4], lo[4];
-};
-struct FragB {
-  uint32_t hi[2], lo[2];
-};
-
-// d += a b in 3xTF32: a_lo b_hi + a_hi b_lo, then a_hi b_hi (a_lo b_lo,
-// about 2^-22 of the product, is dropped).
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
-                                     const FragB& b) {
-  mma_tf32(d, a.lo, b.hi[0], b.hi[1]);
-  mma_tf32(d, a.hi, b.lo[0], b.lo[1]);
-  mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
-}
-
 // A fragment at rows r0 + gq, r0 + gq + 8 (r0 % 8 == 0) of a [rows][LD]
 // tile; ``row`` points at row r0 + gq, ``col`` = (8 kk + 2 tq) ^ swz(gq).
 template <int LD>
@@ -291,8 +233,7 @@ __device__ __forceinline__ void stage_tile(float* dst,
       const int r = idx / kG, c = (idx % kG) * 4, t = t0 + r;
       const bool ok = t < S && c < hd;
       cp_async16(dst + r * HDP + (c ^ swz(r)),
-                 ok ? src + static_cast<int64_t>(t) * ss + c : src,
-                 ok ? 16 : 0);
+                 ok ? src + static_cast<int64_t>(t) * ss + c : src, ok);
     }
   } else {
 #pragma unroll 4
@@ -300,7 +241,7 @@ __device__ __forceinline__ void stage_tile(float* dst,
       const int r = idx / HDP, c = idx % HDP, t = t0 + r;
       const bool ok = t < S && c < hd;
       cp_async4(dst + r * HDP + (c ^ swz(r)),
-                ok ? src + static_cast<int64_t>(t) * ss + c : src, ok ? 4 : 0);
+                ok ? src + static_cast<int64_t>(t) * ss + c : src, ok);
     }
   }
 }
@@ -313,8 +254,8 @@ __device__ __forceinline__ void stage_rows(float* sL, float* sD,
   if (threadIdx.x < kTile) {
     const int qi = q0 + threadIdx.x;
     const bool ok = qi < S;
-    cp_async4(sL + threadIdx.x, ok ? lse + bh * S + qi : lse, ok ? 4 : 0);
-    cp_async4(sD + threadIdx.x, ok ? delta + bh * S + qi : delta, ok ? 4 : 0);
+    cp_async4(sL + threadIdx.x, ok ? lse + bh * S + qi : lse, ok);
+    cp_async4(sD + threadIdx.x, ok ? delta + bh * S + qi : delta, ok);
   }
 }
 
@@ -386,8 +327,7 @@ __device__ __forceinline__ void stage_kv(float* dst,
   for (int i = 0; i < kTile / kRows; ++i) {
     const int r = r0 + i * kRows;
     const bool ok = t0 + r < S && c < hd;
-    cp_async16(dst + r * HDP + (c ^ swz(r)), ok ? p + i * step : src,
-               ok ? 16 : 0);
+    cp_async16(dst + r * HDP + (c ^ swz(r)), ok ? p + i * step : src, ok);
   }
 }
 
@@ -639,10 +579,8 @@ __device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
     for (int idx = threadIdx.x; idx < kTile * kG; idx += 128) {
       const int r = idx / kG, c = (idx % kG) * 8, t = t0 + r;
       const bool ok = t < S && c < hd;
-      cp_async16(reinterpret_cast<float*>(dst + r * LD + c),
-                 reinterpret_cast<const float*>(
-                     ok ? src + static_cast<int64_t>(t) * ss + c : src),
-                 ok ? 16 : 0);
+      cp_async16(dst + r * LD + c,
+                 ok ? src + static_cast<int64_t>(t) * ss + c : src, ok);
     }
   } else {
     for (int idx = threadIdx.x; idx < kTile * HDP; idx += 128) {

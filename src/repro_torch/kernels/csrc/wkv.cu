@@ -127,6 +127,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kMaxN = 64;
@@ -209,43 +211,8 @@ __device__ __forceinline__ float pick(const float (&x)[RPT], int m) {
 
 // 4 bytes into shared memory, or zeros when ``ok`` is false (nothing is
 // read then).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-// 8 bytes (4 bf16) into shared memory by cp.async, or zeros when ``ok`` is
-// false; 4 staged bf16 widened into an fp32 tile; and one bf16 element
-// widened into an fp32 tile by a plain load (zero when ``ok`` is false)
-__device__ __forceinline__ void cp_async8(void* dst, const void* src,
-                                          bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 8 : 0));
-}
-__device__ __forceinline__ void widen4(float* dst, const __nv_bfloat16* src) {
-  const uint2 u = *reinterpret_cast<const uint2*>(src);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  *reinterpret_cast<float4*>(dst) = make_float4(lo.x, lo.y, hi.x, hi.y);
-}
+// one bf16 element widened into an fp32 tile by a plain load (zero when
+// ``ok`` is false)
 __device__ __forceinline__ void widen1(float* dst, const __nv_bfloat16* src,
                                        bool ok) {
   *dst = ok ? __bfloat162float(*src) : 0.f;

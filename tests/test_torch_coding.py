@@ -400,3 +400,92 @@ def test_coding_wrappers_reject_other_dtypes():
     assert K.is_bf16(torch.zeros(2, dtype=torch.bfloat16)) == 1
     with pytest.raises(TypeError, match="share one dtype"):
         K.operand_dtype(a=torch.zeros(2), b=torch.zeros(2).bfloat16())
+
+
+# --------------------------------------- encode_decode's CUDA arithmetic, emulated
+
+def _fma32(a, b, c):
+    """fp32 fused multiply-add on float32 tensors: the product is exact in
+    float64 and the sum rounds once to float32 (a second rounding of the
+    float64 sum can differ from the card's single one only on a float64
+    tie, which these inputs do not meet)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _ffma_arithmetic(enc, dec, w):
+    """``encode_decode_kernel``'s arithmetic (csrc/coded_matmul.cu): S
+    padded to SMAX (4, 8 or 16) with zero rows, and for every client in
+    ascending order coded = fma over s ascending from 0, then out[s] =
+    fma(dec[s, c], coded, out[s]).  float32 tensors in, (S, P) out."""
+    c, s = enc.shape
+    smax = 4 if s <= 4 else (8 if s <= 8 else 16)
+    x = torch.zeros(smax, w.shape[1])
+    x[:s] = w
+    e = torch.zeros(c, smax)
+    e[:, :s] = enc
+    d = torch.zeros(smax, c)
+    d[:s] = dec
+    acc = torch.zeros(smax, w.shape[1])
+    for ci in range(c):
+        coded = torch.zeros(w.shape[1])
+        for si in range(smax):
+            coded = _fma32(e[ci, si].expand_as(coded), x[si], coded)
+        acc = _fma32(d[:, ci:ci + 1].expand_as(acc), coded.expand_as(acc), acc)
+    return acc[:s]
+
+
+def _operators(s, c, ids):
+    enc, dec = tc.encode_decode_operators(tc.CodingScheme(s, c), ids)
+    return (torch.from_numpy(enc.astype(np.float32)),
+            torch.from_numpy(dec.astype(np.float32)))
+
+
+@pytest.mark.parametrize("s,c,p,ids", [(4, 20, 1027, None),
+                                       (4, 20, 1027, [1, 6, 12, 19]),
+                                       (4, 100, 3000, None),
+                                       (4, 100, 3000, [0, 17, 42, 99]),
+                                       (2, 20, 1027, None),
+                                       (3, 20, 1026, [2, 5, 11])])
+def test_encode_decode_kernel_arithmetic_matches_reference(s, c, p, ids):
+    """The CUDA register-tile route's arithmetic, emulated on the CPU,
+    against the reference's fused Pallas kernel (interpret mode) and the
+    plain version, 1e-5 + 1e-5|r|: the CNN's operators (S 4, C 20, all
+    clients and ids [1, 6, 12, 19]), the reference benchmark's (C 100, S 4,
+    P cut to 3,000, all clients and four ids), and S 2 and 3, which the
+    kernel pads to 4 with zero rows (P 1026: not a multiple of 4)."""
+    enc, dec = _operators(s, c, ids)
+    w = torch.from_numpy(_w((s, p), s + c + p))
+    got = _ffma_arithmetic(enc, dec, w)
+    ref = j_ed_kernel(*(jnp.asarray(t.numpy()) for t in (enc, dec, w)))
+    np.testing.assert_allclose(got.numpy(), _np(ref), **TOL)
+    np.testing.assert_allclose(got.numpy(),
+                               coded_encode_decode(enc, dec, w).numpy(), **TOL)
+
+
+@pytest.mark.parametrize("c,ids", [(20, None), (100, [3, 31, 64, 97])])
+def test_encode_decode_kernel_arithmetic_bf16_tables(c, ids):
+    """bf16 tables and w, which the kernel widens exactly: the emulation on
+    the widened operands against the reference's kernel on the same bf16
+    operands, 1e-5 + 1e-5|r|."""
+    enc, dec = (t.bfloat16().float() for t in _operators(4, c, ids))
+    w = torch.from_numpy(_w((4, 1027), 5)).bfloat16().float()
+    got = _ffma_arithmetic(enc, dec, w)
+    ref = j_ed_kernel(*(jnp.asarray(t.numpy()).astype(jnp.bfloat16)
+                        for t in (enc, dec, w)))
+    np.testing.assert_allclose(got.numpy(), _np(ref), **TOL)
+
+
+@pytest.mark.parametrize("s,c", [(8, 20), (16, 40), (12, 30), (8, 64)])
+def test_encode_decode_kernel_arithmetic_deeper_codes(s, c):
+    """At S 8 and 16 the all-clients operators can be ill-conditioned
+    (their round trip amplifies rounding), so a fixed tolerance would say
+    little: the built route's arithmetic is held within twice the plain
+    fp32 version's own distance to a float64 evaluation of dec @ (enc @
+    w), max over the output."""
+    enc, dec = _operators(s, c, None)
+    w = torch.from_numpy(_w((s, 777), s + c))
+    exact = dec.double() @ (enc.double() @ w.double())
+    plain = float((coded_encode_decode(enc, dec, w).double() - exact)
+                  .abs().max())
+    got = _ffma_arithmetic(enc, dec, w)
+    assert float((got.double() - exact).abs().max()) <= 2 * plain
