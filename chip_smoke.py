@@ -88,12 +88,25 @@ Phases (any failed check raises, and the script exits non-zero):
    fp32 case's tolerance and bit for bit against the fp32 kernel on the
    widened operands (widening in the load is exact), one case's backward
    (the fp32 kernels on the widened saved operands, gradients cast);
-   ``window_attention``'s bf16 route (bf16 ``mma.sync.m16n8k16``, P
-   rounded to bf16) at gemma3-27b's layer, the local model's shape, window
-   1, hd 27 and hd 128 with window >= S against its plain version's bf16
-   arithmetic within 2^-8 (max|v| + |r|), two launches bit-identical,
+   ``window_attention``'s two bf16 routes (P rounded to bf16): wgmma and
+   TMA (``window_attn_tma.cu``) at gemma3-27b's layer, window 1 (hd 64),
+   hd 128 with window >= S at H / KV 1 and ragged S, hd 64 at H / KV 4
+   and ragged S, and q, k, v as strided views of one (B, S, (H + 2 KV) hd)
+   projection; ``mma.sync.m16n8k16`` at the local model's hd 16 and at
+   hd 27; each case against its plain version's bf16 arithmetic within
+   2^-8 (max|v| + |r|), two launches bit-identical; each wgmma case's
+   mma.sync route held the same way and timed against it in turns in the
+   same call (``parent_ms``: the route every bf16 call took before); each
    timed beside its bound at the bf16 tensor-core rate (989 TFLOP/s) and
-   F.scaled_dot_product_attention at bf16.  These rows join the
+   F.scaled_dot_product_attention at bf16; ``sass`` counts the wgmma
+   kernel's HGMMA and UTMALDG instructions in ``cuobjdump -sass`` of the
+   built library (the script fails on none).  ``coded_matmul_rounds`` at
+   the CNN stage's shape (P = 2 mod 4: the pair route), bf16 and fp32
+   operands: bit for bit the 4-column route on the same data padded to P
+   + 2, the single-column route and ``coded_matmul`` on each round copied
+   contiguous, within 1e-5 of the plain version, and timed in turns with
+   the single-column route every such call took before (``parent_ms``).
+   These rows join the
    ``kernels`` line as ``<kernel>_bf16``.  Beside them: each recurrence
    case's bf16 and fp32 route (on the widened inputs) timed in turns in
    the same call (``bf16_over_fp32``; at jamba's shape the scan's two
@@ -636,6 +649,23 @@ def timed(fn, iters: int, floor_ms: float = 0.0,
                 "(no full trace)", "event_ms": ev}
     return {"ms": ev, "timer": "events (no trace at or over the bound)",
             "event_ms": ev}
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """The host's time to issue one call of ``fn`` (the wrapper's checks,
+    allocations, argument set-up and the launch), in microseconds: the
+    wall-clock time of ``calls`` calls issued back to back with no
+    synchronization between them, over ``calls``, after a warm-up; the
+    card is synchronized before the first and after the last."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def timed_pair(a, b, iters: int, floor_ms: float) -> tuple:
@@ -1385,7 +1415,9 @@ def bf16_coding(torch, K) -> dict:
     ulp) and bit for bit against the fp32 kernels on the widened operands
     (widening is exact, and the kernels widen as they load); calibrate
     with bf16 operands (widened in its wrapper) too.  Times beside the
-    bytes bound at 2 bytes a bf16 element.  Returns the routes' rows."""
+    bytes bound at 2 bytes a bf16 element.  The rounds at the CNN stage's
+    shape, bf16 and fp32 operands, also by route (``rounds_routes``).
+    Returns the routes' rows."""
     from repro_torch.kernels.calibrate.ops import calibrate_update
     from repro_torch.kernels.calibrate.ref import calibrate_update_ref
     from repro_torch.kernels.coded_matmul.ops import (coded_encode_decode,
@@ -1429,6 +1461,11 @@ def bf16_coding(torch, K) -> dict:
                   [randn(c, s), randn(g_rounds, s, p_shard)], {},
                   2 * g_rounds * c * s * p_shard, 20,
                   "coded_matmul_rounds_bf16"))
+    cases.append(("stage_encode_fp32", coded_matmul_rounds,
+                  coded_matmul_rounds_ref,
+                  [randn(c, s, dtype=f32), randn(g_rounds, s, p_shard,
+                                                 dtype=f32)], {},
+                  2 * g_rounds * c * s * p_shard, 20, None))
     cases.append(("ragged_bf16_in", coded_matmul_rounds,
                   coded_matmul_rounds_ref, [randn(3, 2), randn(2, 2, 5)], {},
                   2 * 2 * 3 * 2 * 5, 20, None))
@@ -1473,7 +1510,11 @@ def bf16_coding(torch, K) -> dict:
         row = times(lambda: fn(*args, **kw), lambda: plain(*args, **kw),
                     library, iters, bnd)
         row.update(lib_note)
-        row.update(kernel=name + ("" if name == "calibrate" else "_bf16"),
+        if label.startswith("stage_encode"):
+            row.update(rounds_routes(torch, *args, got, iters, bnd))
+        bf16_in = any(a.dtype == bf for a in args)
+        row.update(kernel=name + ("_bf16" if bf16_in and name != "calibrate"
+                                  else ""),
                    case=label, shape=[list(a.shape) for a in args],
                    dtypes=[str(a.dtype) for a in args],
                    out_dtype=str(got.dtype),
@@ -1486,6 +1527,41 @@ def bf16_coding(torch, K) -> dict:
     del cases
     torch.cuda.empty_cache()
     return heads
+
+
+def rounds_routes(torch, coeff, w, got, iters: int, bnd) -> dict:
+    """``coded_matmul_rounds`` at the CNN stage's shape (P = 2 mod 4) by
+    its route (``load_width``): bit for bit the 4-column route on the same
+    data padded to a multiple of 4 columns, the single-column route, and
+    ``coded_matmul`` on each round copied contiguous; timed in turns with
+    the single-column route, which every such call took before
+    (``parent_ms``)."""
+    from repro_torch.kernels.coded_matmul import ops
+    g, p = w.shape[0], w.shape[2]
+    width = ops.load_width(p, w, got)
+    pad = (-p) % 4
+    padded = ops._launch(coeff, torch.nn.functional.pad(w, (0, pad)),
+                         torch.float32)
+    if ops.load_width(p + pad, w, padded) != 4 or not torch.equal(
+            got, padded[..., :p]):
+        raise AssertionError("coded_matmul_rounds: the route differs from "
+                             "the 4-column route on the padded data")
+    del padded
+    if not torch.equal(got, ops._launch(coeff, w, torch.float32, width=1)):
+        raise AssertionError("coded_matmul_rounds: the route differs from "
+                             "the single-column route")
+    for r in range(g):
+        if not torch.equal(got[r], ops.coded_matmul(coeff,
+                                                    w[r].contiguous())):
+            raise AssertionError(f"coded_matmul_rounds: round {r} differs "
+                                 f"from coded_matmul on the round")
+    (new_ms, new_t), (old_ms, old_t) = timed_pair(
+        lambda: ops._launch(coeff, w, torch.float32),
+        lambda: ops._launch(coeff, w, torch.float32, width=1), iters, bnd[0])
+    return {"load_width": width, "bit_identical_to_vector_route": True,
+            "pair_ms": new_ms, "pair_timers": new_t, "parent_ms": old_ms,
+            "parent_timers": old_t, "parent_route": "single columns",
+            "parent_over_route": old_ms / new_ms}
 
 
 def bf16_recurrence(torch, K, name: str) -> dict:
@@ -1588,33 +1664,82 @@ def bf16_recurrence(torch, K, name: str) -> dict:
     return head
 
 
+def wgmma_sass(torch, K) -> dict:
+    """HGMMA and UTMALDG instructions in ``cuobjdump -sass`` of the built
+    library's wgmma window forward, each of its two instantiations (hd 64
+    and 128); fails on a missing one or on none."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", K.BUILD_INFO["path"]],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode:
+        raise RuntimeError(f"cuobjdump failed: {out.stderr[-2000:]}")
+    counts = {}
+    for part in out.stdout.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if "wattn_fwd_bf16_tma_kernel" in name:
+            # keyed by the template arguments (ILi64E..., ILi128E...)
+            counts[name.split("wattn_fwd_bf16_tma_kernel")[1][:10]] = {
+                "HGMMA": part.count("HGMMA"), "UTMALDG": part.count("UTMALDG")}
+    if len(counts) != 2 or not all(c["HGMMA"] and c["UTMALDG"]
+                                   for c in counts.values()):
+        raise AssertionError(f"the wgmma window forward's SASS lacks HGMMA "
+                             f"or UTMALDG: {counts}")
+    return counts
+
+
 def bf16_window(torch, K) -> dict:
-    """Phase 3d's bf16 cases: ``window_attention``'s bf16 route (one-pass
-    bf16 mma.sync with fp32 accumulation, P rounded to bf16 before P V,
-    output in bf16) against the plain version's bf16 arithmetic (P rounded
+    """Phase 3d's bf16 cases: ``window_attention``'s bf16 routes (bf16
+    products with fp32 accumulation, P rounded to bf16 before P V, output
+    in bf16; wgmma and TMA where ``bf16_route`` allows, else
+    ``mma.sync``) against the plain version's bf16 arithmetic (P rounded
     at the row's max, not the running max): |k - r| <= 2^-8 (max|v| +
     |r|), the bound of two roundings of P to bf16 (2^-9 each, relative)
-    and of O (half an ulp each); two launches bit-identical; at
-    gemma3-27b's layer, the local model's shape, window 1, hd 27 (element
-    loads) and hd 128 with window >= S; timed beside its bound at the bf16
-    tensor-core rate and F.scaled_dot_product_attention at bf16 (boolean
-    window mask, kv heads expanded).  One case's backward (the fp32
-    kernels on the widened saved tensors, gradients cast).  Returns the
-    gemma3 row."""
+    and of O (half an ulp each); two launches bit-identical.  The wgmma
+    route at gemma3-27b's layer, window 1 (hd 64), hd 128 with window >= S
+    (H / KV 1, ragged S), hd 64 at H / KV 4 (ragged S) and on strided
+    views of one fused (B, S, (H + 2 KV) hd) projection; each of these
+    also held and timed on the mma.sync route, the parent's, in turns in
+    the same call (``parent_ms``).  The mma.sync route at the local model's
+    hd 16 and at hd 27 (element loads).  Timed beside the bound at the
+    bf16 tensor-core rate and F.scaled_dot_product_attention at bf16
+    (boolean window mask, kv heads expanded); each wgmma case's host cost
+    a call on both routes (``host_us``).  One case's backward (the
+    fp32 kernels on the widened saved tensors, gradients cast).  Returns
+    the gemma3 row."""
     import torch.nn.functional as F
     from repro_torch.kernels.window_attn import ops
     from repro_torch.kernels.window_attn.ref import window_attention_ref
     from repro_torch.roofline.analysis import window_work
     gen = torch.Generator(device="cuda").manual_seed(10)
     bf, head = torch.bfloat16, None
-    cases = [("gemma3_full_width_bf16", 2, 4096, 32, 16, 128, 1024, 5),
-             ("local_small_bf16", 4, 64, 4, 2, 16, 16, 50),
-             ("window1_bf16", 2, 100, 4, 2, 64, 1, 20),
-             ("ragged_hd27_bf16", 1, 130, 6, 3, 27, 70, 20),
-             ("hd128_window_ge_s_bf16", 1, 300, 4, 4, 128, 512, 20)]
-    for label, b, s, h, kv, hd, window, iters in cases:
-        q, k, v = (torch.randn(b, s, n, hd, generator=gen,
-                               device="cuda").to(bf) for n in (h, kv, kv))
+    log("wgmma_sass", kernels=wgmma_sass(torch, K))
+    # label, B, S, H, KV, hd, window, iters, the route, fused q, k, v
+    cases = [("gemma3_full_width_bf16", 2, 4096, 32, 16, 128, 1024, 5, "tma",
+              False),
+             ("local_small_bf16", 4, 64, 4, 2, 16, 16, 50, "mma_sync", False),
+             ("window1_bf16", 2, 100, 4, 2, 64, 1, 20, "tma", False),
+             ("ragged_hd27_bf16", 1, 130, 6, 3, 27, 70, 20, "mma_sync",
+              False),
+             ("hd128_window_ge_s_bf16", 1, 300, 4, 4, 128, 512, 20, "tma",
+              False),
+             ("hd64_gqa4_ragged_bf16", 2, 1000, 16, 4, 64, 256, 20, "tma",
+              False),
+             ("fused_qkv_views_bf16", 2, 2048, 8, 4, 128, 512, 10, "tma",
+              True)]
+    for label, b, s, h, kv, hd, window, iters, route, fused in cases:
+        if fused:
+            x = torch.randn(b, s, (h + 2 * kv) * hd, generator=gen,
+                            device="cuda").to(bf)
+            q = x[..., :h * hd].unflatten(-1, (h, hd))
+            k = x[..., h * hd:(h + kv) * hd].unflatten(-1, (kv, hd))
+            v = x[..., (h + kv) * hd:].unflatten(-1, (kv, hd))
+        else:
+            q, k, v = (torch.randn(b, s, n, hd, generator=gen,
+                                   device="cuda").to(bf) for n in (h, kv, kv))
+        if ops.bf16_route(q, k, v) != route:
+            raise AssertionError(f"window_attention_bf16/{label}: route "
+                                 f"{ops.bf16_route(q, k, v)}, not {route}")
         pos = torch.arange(s, device="cuda")
         mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] >
                                                  pos[:, None] - window)
@@ -1623,38 +1748,66 @@ def bf16_window(torch, K) -> dict:
 
         def library():
             return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask)
+        # the call's own route first, then (wgmma cases) the parent's
+        routes = [route] + (["mma_sync"] if route == "tma" else [])
         with torch.no_grad():
-            got, again = ops._fwd(q, k, v, window), ops._fwd(q, k, v, window)
-            if not _same(torch, got, again) or got[0].dtype != bf:
-                raise AssertionError(f"window_attention_bf16/{label}: two "
-                                     f"runs differ, or O is not bf16")
             want = window_attention_ref(q, k, v, window)
-            diff = (got[0].float() - want.float()).abs()
-            tol = 2.0 ** -8 * (float(v.float().abs().max())
-                               + want.float().abs())
-            if not bool((diff <= tol).all()):
-                raise AssertionError(f"window_attention_bf16/{label}: "
-                                     f"{float(diff.max())} from the plain "
-                                     f"version, past 2^-8 (max|v| + |r|)")
-            err = {"max_abs_err": float(diff.max()),
-                   "tol": "2^-8 (max|v| + |r|)"}
             exact = window_attention_ref(q.float(), k.float(), v.float(),
                                          window)
-            err.update(kernel_vs_fp32_max_abs=float(
-                (got[0].float() - exact).abs().max()),
+            tol = 2.0 ** -8 * (float(v.float().abs().max())
+                               + want.float().abs())
+            err = {"tol": "2^-8 (max|v| + |r|)"}
+            for rt in routes:
+                got = ops._fwd(q, k, v, window, route=rt)
+                again = ops._fwd(q, k, v, window, route=rt)
+                if not _same(torch, got, again) or got[0].dtype != bf:
+                    raise AssertionError(f"window_attention_bf16/{label}/"
+                                         f"{rt}: two runs differ, or O is "
+                                         f"not bf16")
+                diff = (got[0].float() - want.float()).abs()
+                if not bool((diff <= tol).all()):
+                    raise AssertionError(
+                        f"window_attention_bf16/{label}/{rt}: "
+                        f"{float(diff.max())} from the plain version, past "
+                        f"2^-8 (max|v| + |r|)")
+                pre = "" if rt == route else "parent_"
+                err[pre + "max_abs_err"] = float(diff.max())
+                err[pre + "kernel_vs_fp32_max_abs"] = float(
+                    (got[0].float() - exact).abs().max())
+                del got, again, diff
+            err.update(
                 plain_vs_fp32_max_abs=float((want.float() - exact).abs()
                                             .max()),
                 library_vs_fp32_max_abs=float(
                     (library().transpose(1, 2).float() - exact).abs().max()))
-            del got, again, want, diff, tol, exact
+            del want, tol, exact
             bnd = bound(*window_work(b, s, h, kv, hd, window, False,
                                      in_bytes=2),
                         flops_per_s=BF16_FLOPS_PER_S)
             row = times(lambda: ops._fwd(q, k, v, window),
                         lambda: window_attention_ref(q, k, v, window),
                         library, iters, bnd)
-        row.update(kernel="window_attention_bf16", case=label,
-                   shape=[b, s, h, kv, hd, window], bit_identical=True, **err)
+            if route == "tma":
+                (new_ms, new_t), (old_ms, old_t) = timed_pair(
+                    lambda: ops._fwd(q, k, v, window),
+                    lambda: ops._fwd(q, k, v, window, route="mma_sync"),
+                    iters, bnd[0])
+                row.update(pair_ms=new_ms, pair_timers=new_t,
+                           parent_ms=old_ms, parent_timers=old_t,
+                           parent_route="mma_sync",
+                           parent_over_route=old_ms / new_ms,
+                           parent_share=bnd[0] / old_ms)
+                # the host's cost of a call on each route, in turns
+                hosts = {0: [], 1: []}
+                for r in (0, 1, 1, 0):
+                    hosts[r].append(host_us(
+                        lambda rt=("tma", "mma_sync")[r]:
+                        ops._fwd(q, k, v, window, route=rt)))
+                row.update(host_us=min(hosts[0]),
+                           parent_host_us=min(hosts[1]))
+        row.update(kernel="window_attention_bf16", case=label, route=route,
+                   shape=[b, s, h, kv, hd, window], fused_views=fused,
+                   bit_identical=True, **err)
         share(row, bnd)
         if label == "local_small_bf16":
             leaves = [t.detach().clone().requires_grad_(True)
@@ -1676,6 +1829,8 @@ def bf16_window(torch, K) -> dict:
         if head is None:
             head = row
         del q, k, v, lq, lk, lv, mask
+        if fused:
+            del x
         torch.cuda.empty_cache()
     return head
 
@@ -5338,12 +5493,15 @@ def main() -> int:
     log("build", build_s=K.BUILD_INFO["build_s"], ptxas=ptxas)
     # the kernels redesigned last (the recurrence backwards, then their
     # forwards, then the window forward, then encode_decode's register
-    # tile and the scan forward's bf16 staging): registers and spills
+    # tile and the scan forward's bf16 staging, then the wgmma window
+    # forward and coded_matmul's pair route): registers and spills
     redesigned = [r for r in ptxas if any(
         k in r[0] for k in ("ssm_bwd_kernel", "wkv_bwd_a_kernel",
                             "wkv_bwd_b_kernel", "ssm_fwd_kernel",
                             "wkv_fwd_kernel", "wattn_fwd_kernel",
-                            "encode_decode_kernel"))]
+                            "encode_decode_kernel",
+                            "wattn_fwd_bf16_tma_kernel",
+                            "coded_matmul_kernel"))]
     log("ptxas_redesigned", kernels=redesigned)
     spilled = [r[0] for r in redesigned
                if not r[2].startswith("0 bytes stack frame")]
@@ -5412,8 +5570,8 @@ def main() -> int:
                               "serve_bf16"),
             "wkv_bf16": (cu + "wkv.cu", "src/repro/kernels/wkv/kernel.py:55",
                          None),
-            "window_attention_bf16": (cu + "window_attn.cu", window_tpu,
-                                      None)}
+            "window_attention_bf16": (cu + "window_attn_tma.cu",
+                                      window_tpu, None)}
     sources = {"coded_matmul": (cu + "coded_matmul.cu", coded + ":47", "cnn"),
                "coded_matmul_rounds": (cu + "coded_matmul.cu", coded + ":82",
                                        "cnn"),
@@ -5461,6 +5619,9 @@ def main() -> int:
                      "launches": launches[path][name] if path else 0,
                      **{k: head[k] for k in keys},
                      **{k: head[k] for k in train_keys if k in head},
+                     # the route every such call took before, in turns
+                     **{k: head[k] for k in ("parent_ms", "parent_route")
+                        if k in head},
                      "by_path": by_path, **({"note": note} if note else {})})
     log("done", total_s=time.perf_counter() - T_START)
     print(json.dumps({"kernels": rows}))

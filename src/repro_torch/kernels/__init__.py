@@ -21,8 +21,9 @@ window_attention_bwd — its backward (FlashAttention-2 form: one kernel
 bf16 operands, as the TPU kernels take them: the coding kernels read bf16
 coefficients and w through widening loads; ``calibrate`` widens in its
 wrapper; the two recurrence forwards widen bf16 inputs as they load them;
-``window_attention`` has a bf16 route of its own (bf16 tensor-core
-products, P rounded to bf16, output in bf16).  A launch with bf16
+``window_attention`` has bf16 routes of its own (bf16 tensor-core
+products, P rounded to bf16, output in bf16: wgmma and TMA where TMA can
+address the operands, else mma.sync).  A launch with bf16
 operands counts under the kernel's name with ``_bf16`` appended
 (``BF16_ROUTES``); the backward kernels stay fp32 and count as before.
 
@@ -256,6 +257,9 @@ def _build_and_load() -> ctypes.CDLL:
     lib.repro_window_attn_fwd_bf16.argtypes = \
         lib.repro_window_attn_fwd.argtypes
     lib.repro_window_attn_fwd_bf16.restype = i32
+    lib.repro_window_attn_fwd_bf16_tma.argtypes = \
+        lib.repro_window_attn_fwd.argtypes
+    lib.repro_window_attn_fwd_bf16_tma.restype = i32
     lib.repro_window_attn_bwd.argtypes = ([ptr] * 10 + [i64] * 6 + [f32]
                                           + [i64] * 9 + [ptr])
     lib.repro_window_attn_bwd.restype = i32

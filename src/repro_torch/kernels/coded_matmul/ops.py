@@ -21,10 +21,32 @@ from repro_torch.kernels.coded_matmul.ref import (coded_encode_decode_ref,
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 
+# load_width -> the C interface's ``vec`` flag
+_VEC_FLAG = {4: 1, 2: 2, 1: 0}
 
-def _launch(coeff: torch.Tensor, w: torch.Tensor,
-            out_dtype: torch.dtype) -> torch.Tensor:
-    """coeff (C,S), w (G,S,P) on one CUDA device -> (G,C,P)."""
+
+def _aligned(t: torch.Tensor, n: int) -> bool:
+    return t.data_ptr() % (n * t.element_size()) == 0
+
+
+def load_width(p: int, w: torch.Tensor, out: torch.Tensor) -> int:
+    """Columns a thread of ``coded_matmul_kernel`` loads and stores at once:
+    4 when every row of w and out starts on 16 bytes (P % 4 == 0 and both
+    buffers 16-byte aligned), 2 when P is even and both buffers are aligned
+    to two of their elements (the rows then start on 8 bytes of fp32, 4 of
+    bf16), else 1.  Every width gives the same bits."""
+    if p % 4 == 0 and K.aligned16(w, out):
+        return 4
+    if p % 2 == 0 and _aligned(w, 2) and _aligned(out, 2):
+        return 2
+    return 1
+
+
+def _launch(coeff: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
+            width: Optional[int] = None) -> torch.Tensor:
+    """coeff (C,S), w (G,S,P) on one CUDA device -> (G,C,P); ``width``
+    overrides ``load_width`` (a narrower width is always valid: the
+    chip check times the routes against each other)."""
     c, s = coeff.shape
     g, s2, p = w.shape
     if s != s2:
@@ -36,10 +58,10 @@ def _launch(coeff: torch.Tensor, w: torch.Tensor,
     if out_dtype not in _OUT_DTYPES:
         raise TypeError(f"out_dtype must be one of {_OUT_DTYPES}")
     out = torch.empty((g, c, p), dtype=out_dtype, device=w.device)
-    vec = p % 4 == 0 and K.aligned16(w, out)
+    width = load_width(p, w, out) if width is None else width
     err = K.load_library().repro_coded_matmul(
         coeff.data_ptr(), w.data_ptr(), out.data_ptr(), g, c, s, p,
-        int(out_dtype == torch.bfloat16), int(vec), K.is_bf16(coeff),
+        int(out_dtype == torch.bfloat16), _VEC_FLAG[width], K.is_bf16(coeff),
         K.is_bf16(w), K.stream_of(w))
     K.check_launch(err, "coded_matmul")
     return out

@@ -15,11 +15,21 @@
 //   * grid (P tiles, C tiles, G rounds); 256 threads, 4 columns each, so a
 //     block covers 1024 columns of P;
 //   * the (block_c x S) coefficient tile sits in shared memory;
-//   * each thread reads its 4-column strip of all S rows of w once into
-//     registers (16-byte float4 loads when P % 4 == 0 and the buffers are
-//     16-byte aligned, else coalesced scalar loads strided by the block),
-//     then writes block_c = 32 output rows, each a coalesced store, so w is
-//     read from device memory once for C <= 32;
+//   * each thread reads its 4 columns of all S rows of w once into
+//     registers, then writes block_c = 32 output rows, each a coalesced
+//     store, so w is read from device memory once for C <= 32.  How wide a
+//     thread's loads and stores are follows the rows' alignment (kW, the
+//     wrapper's choice, ``coded_matmul/ops.py::load_width``): a row of w
+//     starts at element (g S + s) P and a row of out at (g C + c) P, so
+//     when P % 4 == 0 (and the buffers are 16-byte aligned) every row is,
+//     and a thread's 4 columns are one float4 (fp32; 8 bytes of bf16); when
+//     P is only even, the rows alternate between two alignments, and a
+//     thread's columns are two pairs 512 columns apart, each one 8-byte
+//     load or store (fp32; 4 bytes of bf16), a warp's pairs contiguous; at
+//     odd P a thread reads and writes 4 single columns 256 apart.  At the
+//     CNN stage's rounds (P = 5 x 206,922 = 2 mod 4) the pairs replace the
+//     single columns: the fp32 output, most of the bytes, leaves in half
+//     as many stores and 256 contiguous bytes a warp;
 //   * bf16 output rounds with __float2bfloat16_rn / __floats2bfloat162_rn,
 //     round-to-nearest-even like torch's and XLA's casts;
 //   * 64-bit element offsets throughout (G*C*P passes 2^31 at real sizes);
@@ -115,7 +125,17 @@ __device__ __forceinline__ void store4(__nv_bfloat16* o, const float* a) {
   *reinterpret_cast<uint2*>(o) = u;
 }
 
-template <typename OutT, typename WT, bool kVec>
+__device__ __forceinline__ void store2(float* o, const float* a) {
+  *reinterpret_cast<float2*>(o) = make_float2(a[0], a[1]);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* o, const float* a) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a[0], a[1]);
+}
+
+// kW: columns a load or store, 4 (P % 4 == 0, 16-byte aligned buffers),
+// 2 (P even, buffers aligned to two elements) or 1.  Every route sums over
+// s in ascending order from 0 by fmaf, so all three give the same bits.
+template <typename OutT, typename WT, int kW>
 __global__ void __launch_bounds__(kThreads)
 coded_matmul_kernel(const void* __restrict__ coeff, bool coeff_bf16,
                     const WT* __restrict__ w, OutT* __restrict__ out,
@@ -134,7 +154,7 @@ coded_matmul_kernel(const void* __restrict__ coeff, bool coeff_bf16,
   const int64_t tile = static_cast<int64_t>(blockIdx.x) * kTileP;
   float x[kMaxS][kCols];
 
-  if (kVec) {
+  if (kW == 4) {
     // P % 4 == 0: a thread's 4 columns are all in range or all out
     const int64_t p = tile + static_cast<int64_t>(threadIdx.x) * kCols;
     if (p >= P) return;
@@ -153,6 +173,40 @@ coded_matmul_kernel(const void* __restrict__ coeff, bool coeff_bf16,
         }
       }
       store4(og + (c0 + c) * P + p, acc);
+    }
+  } else if (kW == 2) {
+    // P even: pairs at tile + 2 threadIdx.x + j * 2 kThreads, each in range
+    // or out as a whole; a warp's pairs are contiguous
+    int64_t p[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      p[j] = tile + 2 * static_cast<int64_t>(threadIdx.x) + j * 2 * kThreads;
+#pragma unroll
+    for (int s = 0; s < kMaxS; ++s) {
+      if (s < S) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float2 v = p[j] < P ? wload2(wg + s * P + p[j])
+                                    : make_float2(0.f, 0.f);
+          x[s][2 * j] = v.x;
+          x[s][2 * j + 1] = v.y;
+        }
+      }
+    }
+    for (int c = 0; c < nc; ++c) {
+      float acc[kCols] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int s = 0; s < kMaxS; ++s) {
+        if (s < S) {
+          const float k = sc[c * S + s];
+#pragma unroll
+          for (int j = 0; j < kCols; ++j) acc[j] = fmaf(k, x[s][j], acc[j]);
+        }
+      }
+      OutT* orow = og + (c0 + c) * P;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if (p[j] < P) store2(orow + p[j], acc + 2 * j);
     }
   } else {
     // columns tile + threadIdx.x + j*kThreads: each warp access is contiguous
@@ -184,13 +238,6 @@ coded_matmul_kernel(const void* __restrict__ coeff, bool coeff_bf16,
       }
     }
   }
-}
-
-__device__ __forceinline__ void store2(float* o, const float* a) {
-  *reinterpret_cast<float2*>(o) = make_float2(a[0], a[1]);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* o, const float* a) {
-  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(a[0], a[1]);
 }
 
 // S > 16: a register tile like coded_matmul_kernel's, walked over S in
@@ -275,10 +322,13 @@ coded_matmul_deep_kernel(const void* __restrict__ coeff, bool coeff_bf16,
   }
 }
 
+// width: columns a load, 4, 2 or 1 (the C interface's ``vec``)
 template <typename OutT, typename WT>
 void launch(const void* coeff, bool cb, const WT* w, void* out, int64_t G,
-            int64_t C, int S, int64_t P, bool vec, cudaStream_t st) {
+            int64_t C, int S, int64_t P, int width, cudaStream_t st) {
   OutT* o = static_cast<OutT*>(out);
+  // the deep kernel's vector route reads 2 columns a thread
+  const bool vec = width >= 2;
   if (S > kMaxS) {
     const dim3 grid(static_cast<unsigned>((P + kDeepTileP - 1) / kDeepTileP),
                     static_cast<unsigned>((C + kBlockC - 1) / kBlockC),
@@ -294,12 +344,15 @@ void launch(const void* coeff, bool cb, const WT* w, void* out, int64_t G,
   const dim3 grid(static_cast<unsigned>((P + kTileP - 1) / kTileP),
                   static_cast<unsigned>((C + kBlockC - 1) / kBlockC),
                   static_cast<unsigned>(G));
-  if (vec)
-    coded_matmul_kernel<OutT, WT, true><<<grid, kThreads, 0, st>>>(coeff, cb, w, o,
-                                                                   C, S, P);
+  if (width == 4)
+    coded_matmul_kernel<OutT, WT, 4><<<grid, kThreads, 0, st>>>(coeff, cb, w, o,
+                                                                C, S, P);
+  else if (width == 2)
+    coded_matmul_kernel<OutT, WT, 2><<<grid, kThreads, 0, st>>>(coeff, cb, w, o,
+                                                                C, S, P);
   else
-    coded_matmul_kernel<OutT, WT, false><<<grid, kThreads, 0, st>>>(coeff, cb, w, o,
-                                                                    C, S, P);
+    coded_matmul_kernel<OutT, WT, 1><<<grid, kThreads, 0, st>>>(coeff, cb, w, o,
+                                                                C, S, P);
 }
 
 // The round trip as two register-tiled products per block of kEdTileP
@@ -767,21 +820,23 @@ void encode_decode(const void* enc, const void* dec, bool eb, bool db,
 
 template <typename WT>
 void coded(const void* coeff, bool cb, const void* w, void* out, int64_t G,
-           int64_t C, int S, int64_t P, bool out_bf16, bool vec,
+           int64_t C, int S, int64_t P, bool out_bf16, int width,
            cudaStream_t st) {
   const WT* wt = static_cast<const WT*>(w);
   if (out_bf16)
-    launch<__nv_bfloat16>(coeff, cb, wt, out, G, C, S, P, vec, st);
+    launch<__nv_bfloat16>(coeff, cb, wt, out, G, C, S, P, width, st);
   else
-    launch<float>(coeff, cb, wt, out, G, C, S, P, vec, st);
+    launch<float>(coeff, cb, wt, out, G, C, S, P, width, st);
 }
 
 }  // namespace
 
 // coeff (C,S), w (G,S,P), each fp32 or (coeff_bf16, w_bf16) bf16; out
 // (G,C,P) f32 or bf16; all contiguous on the device.  vec = 1 only when
-// P % 4 == 0 and w and out are 16-byte aligned (coeff is read an element at
-// a time).  Returns cudaGetLastError() after the launch.
+// P % 4 == 0 and w and out are 16-byte aligned; vec = 2 only when P is even
+// and w and out are aligned to two of their elements; else 0 (coeff is
+// read an element at a time).  Returns cudaGetLastError() after the
+// launch.
 extern "C" int repro_coded_matmul(const void* coeff, const void* w,
                                   void* out, int64_t G, int64_t C, int64_t S,
                                   int64_t P, int out_bf16, int vec,
@@ -791,13 +846,16 @@ extern "C" int repro_coded_matmul(const void* coeff, const void* w,
       (P + kTileP - 1) / kTileP > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec < 0 || vec > 2 || (vec == 1 && P % 4) || (vec == 2 && P % 2))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int s = static_cast<int>(S);
+  const int width = vec == 1 ? 4 : vec == 2 ? 2 : 1;
   if (w_bf16)
     coded<__nv_bfloat16>(coeff, coeff_bf16 != 0, w, out, G, C, s, P,
-                         out_bf16 != 0, vec != 0, st);
+                         out_bf16 != 0, width, st);
   else
     coded<float>(coeff, coeff_bf16 != 0, w, out, G, C, s, P, out_bf16 != 0,
-                 vec != 0, st);
+                 width, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,6 @@
 // Device helpers shared by the kernels of this directory: cp.async groups,
-// bf16 widening loads and the 3xTF32 tensor-core product.  Each .cu file
+// bf16 widening loads and packing, base-2 exponentials and the 3xTF32
+// tensor-core product.  Each .cu file
 // includes this header before its own anonymous namespace, so every
 // translation unit gets its own copy of these inline functions.
 #pragma once
@@ -9,6 +10,28 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// a shared-memory pointer as the 32-bit address PTX takes
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 2^x on the special-function unit (ex2.approx.ftz: relative error about
+// 2^-22, results under 2^-126 flushed to 0), where exp2f adds range tests
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// (lo, hi) rounded to bf16 (to nearest even) in one register
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
 // ---- cp.async --------------------------------------------------------------
 //

@@ -119,8 +119,6 @@ constexpr int kMaxN = 16;
 constexpr int kCkpt = 8;         // steps between forward checkpoints
 constexpr int kBwdCpb = 64;      // channels per backward block
 constexpr int kBwdT = 16;        // steps per backward tile
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 int lanes_for(int64_t n) { return n <= 4 ? 1 : (n <= 8 ? 2 : 4); }
 

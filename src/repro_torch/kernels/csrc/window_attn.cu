@@ -93,13 +93,20 @@
 //    block of 8 warps per SM; the MMAs' issue rate and the operand splits
 //    on the CUDA cores bound it, not memory.
 //
-// Forward for bf16 operands (wattn_fwd_bf16_kernel), the TPU kernel's own
-// arithmetic at bf16: Q K^T as one-pass bf16 products with fp32
-// accumulation, P = exp(s - m) rounded to bf16 before P V (again bf16
-// products, fp32 accumulation), the online softmax's max and sum and the
-// log-sum-exp in fp32 (the sum over the unrounded P, as the TPU kernel's
-// l), O written in bf16 (the TPU wrapper's cast to q.dtype).  A simple
-// route first: a block of 4 warps owns one 64-query tile of one head; its
+// Forward for bf16 operands, the TPU kernel's own arithmetic at bf16: Q
+// K^T as one-pass bf16 products with fp32 accumulation, P = exp(s - m)
+// rounded to bf16 before P V (again bf16 products, fp32 accumulation), the
+// online softmax's max and sum and the log-sum-exp in fp32 (the sum over
+// the unrounded P, as the TPU kernel's l), O written in bf16 (the TPU
+// wrapper's cast to q.dtype).  It has two routes.  Where TMA can address
+// the operands and hd is 64 or 128 (gemma3-27b's layer, every aligned
+// model layout), wattn_fwd_bf16_tma_kernel in window_attn_tma.cu: wgmma
+// fed by TMA in FlashAttention-3's form (a producer warpgroup and two
+// consumer warpgroups; design and bound in that file's notes).  Every
+// other bf16 call (hd 16, 27, 32; unaligned views) takes
+// wattn_fwd_bf16_kernel here, on mma.sync, which reaches about a fifth of
+// the card's bf16 tensor-core rate (0.17 of its bound at gemma3's layer,
+// PERF.md): a block of 4 warps owns one 64-query tile of one head; its
 // Q, K and V tiles stage in shared memory as bf16 ([64][HDP + 8]: rows
 // padded by 16 bytes, so the 32-bit fragment loads of 8 rows x 4 columns
 // fall in 32 banks), half the fp32 route's bytes; K and V are
@@ -107,8 +114,8 @@
 // while P_j V_j does).  Every product is mma.sync.m16n8k16 bf16 -> fp32.  A
 // warp keeps its Q fragments in registers for the whole walk; P's A
 // fragments are the score accumulators of two n-tiles, packed to bf16 in
-// registers; V's B fragments come from ldmatrix.trans.  wgmma and TMA are
-// later work.  The backward takes bf16 inputs through the fp32 kernels:
+// registers; V's B fragments come from ldmatrix.trans.  The backward takes
+// bf16 inputs through the fp32 kernels:
 // the wrapper widens the saved operands (the TPU kernel had no backward).
 #include <cstdint>
 #include <initializer_list>
@@ -123,8 +130,6 @@ constexpr int kTile = 64;          // queries or keys per tile
 constexpr int kThreads = 256;
 constexpr int kMaxHd = 128;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {
   int64_t b, s, h;
@@ -182,10 +187,6 @@ wattn_bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ do
 
 __device__ __forceinline__ int swz(int r) {
   return ((((r & 3) << 1) ^ (((r >> 2) & 1) * 3))) << 2;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // A fragment at rows r0 + gq, r0 + gq + 8 (r0 % 8 == 0) of a [rows][LD]
@@ -296,14 +297,6 @@ __device__ __forceinline__ void frag_b_split(FragB& f, const float* hi,
   f.hi[1] = __float_as_uint(hi[LD + (n ^ x1)]);
   f.lo[0] = __float_as_uint(lo[n ^ x0]);
   f.lo[1] = __float_as_uint(lo[LD + (n ^ x1)]);
-}
-
-// 2^x on the special-function unit (ex2.approx.ftz: relative error about
-// 2^-22, results under 2^-126 flushed to 0), where exp2f adds range tests
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // stage_tile for the forward's K and V tiles: with ``vec``, one 64-bit
@@ -541,12 +534,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (lo, hi) rounded to bf16 (to nearest even) in one register
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {

@@ -10,9 +10,13 @@ through their strides, map query head h to kv head h // (H // KV) and mask
 ragged S and hd themselves, so nothing is copied or padded here.
 
 q, k and v may be bfloat16 (all three alike), as the TPU kernel takes
-them: bf16 operands take the forward's bf16 route, which computes what the
-TPU kernel computes at bf16 (bf16 products with fp32 accumulation, P
-rounded to bf16 before P V, the softmax in fp32) and returns bf16.  The
+them: bf16 operands take one of the forward's two bf16 routes, which
+compute what the TPU kernel computes at bf16 (bf16 products with fp32
+accumulation, P rounded to bf16 before P V, the softmax in fp32) and
+return bf16.  ``bf16_route`` picks wgmma and TMA
+(``csrc/window_attn_tma.cu``) where TMA can address the operands and the
+head dim is one its boxes tile (64 or 128), else mma.sync
+(``wattn_fwd_bf16_kernel`` in ``csrc/window_attn.cu``).  The
 backward for bf16 operands widens the saved q, k, v, O and dO and runs the
 float32 kernels (the TPU kernel had no backward); each gradient comes back
 in its operand's dtype.
@@ -53,14 +57,43 @@ def _strides(*ts):
     return [st for t in ts for st in t.stride()[:3]]
 
 
-def _fwd(q, k, v, window: int):
+TMA_HD = (64, 128)      # head dims the wgmma route's 64-column boxes tile
+
+
+def bf16_route(q, k, v) -> str:
+    """The bf16 forward's route for these operands: ``"tma"`` (wgmma and
+    TMA) when the head dim is 64 or 128, H % KV == 0, q, k and v start on 16
+    bytes and every stride but the head dim's is a positive multiple of 8
+    elements (TMA's global strides are multiples of 16 bytes; a dim of
+    extent 1 is never stepped, so its stride does not count), else
+    ``"mma_sync"``."""
+    hd = q.shape[3]
+    if hd not in TMA_HD or q.shape[2] % k.shape[2]:
+        return "mma_sync"
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            return "mma_sync"
+        for n, st in zip(t.shape[:3], t.stride()[:3]):
+            if n > 1 and (st <= 0 or st % 8 or st >= 1 << 39):
+                return "mma_sync"
+    return "tma"
+
+
+def _fwd(q, k, v, window: int, route=None):
+    """O and lse by the forward kernel; ``route`` overrides ``bf16_route``
+    for bf16 operands (``"mma_sync"`` takes any; the chip check times the
+    two routes against each other)."""
     bsz, s, h, hd = q.shape
     bf16 = q.dtype == torch.bfloat16
     o = torch.empty((bsz, s, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((bsz, h, s), dtype=torch.float32, device=q.device)
     lib = K.load_library()
-    launch = lib.repro_window_attn_fwd_bf16 if bf16 else \
-        lib.repro_window_attn_fwd
+    if not bf16:
+        launch = lib.repro_window_attn_fwd
+    elif (route or bf16_route(q, k, v)) == "tma":
+        launch = lib.repro_window_attn_fwd_bf16_tma
+    else:
+        launch = lib.repro_window_attn_fwd_bf16
     err = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), bsz, s, h, k.shape[2], hd, window, hd ** -0.5,

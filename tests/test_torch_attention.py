@@ -11,7 +11,11 @@ reference's interpret-mode Pallas kernel and its dense oracle (the
 tolerance ``chip_smoke.py`` holds the CUDA forward to), and so is the
 CUDA forward's arithmetic emulated in torch; its gradients at
 rtol 1e-4 / atol 1e-5 against ``jax.grad`` of the reference's
-``local_blockwise_attention``.
+``local_blockwise_attention``.  The bf16 routes' arithmetic (the mma.sync
+route's 64-key tiles and the wgmma / TMA route's 128-key tiles), emulated,
+at 2e-2 of the reference's bf16 kernel and within 2^-8 (max|v| + |r|) of
+the plain version; the route choice (head dim, alignment, strides of
+fused QKV views) on CPU tensors.
 """
 import jax
 import jax.numpy as jnp
@@ -321,37 +325,41 @@ def test_wrapper_checks_shapes_and_dtypes():
 
 # ---------------------------------------------------------------- bf16 operands
 
-def _kernel_arithmetic_bf16(q, k, v, window):
-    """The bf16 forward's arithmetic (``wattn_fwd_bf16_kernel``) on the CPU:
-    S = Q K^T of the bf16 operands with fp32 sums (each bf16 product exact
-    in fp32), the base-2 online softmax of ``_kernel_arithmetic`` over
-    64-key tiles and 16-row warps, P rounded to bf16 at the running max
-    before P V (over all 64 keys of a tile: masked keys have P = 0), the
-    sum over the unrounded P, O rounded to bf16."""
+def _kernel_arithmetic_bf16(q, k, v, window, qtile=64, ktile=64, rows=16):
+    """A bf16 forward route's arithmetic on the CPU: S = Q K^T of the bf16
+    operands with fp32 sums (each bf16 product exact in fp32), the base-2
+    online softmax of ``_kernel_arithmetic`` over ``ktile``-key tiles, P
+    rounded to bf16 at the running max before P V (over all keys of a tile:
+    masked keys have P = 0), the sum over the unrounded P, O rounded to
+    bf16.  A ``qtile``-query tile walks the key tiles from k_lo, and each
+    group of ``rows`` query rows skips a tile none of its rows sees.  The
+    defaults are ``wattn_fwd_bf16_kernel``'s (64-query tiles, 64-key tiles,
+    16-row warps); ``wattn_fwd_bf16_tma_kernel`` has 128-query tiles,
+    128-key tiles and 64-row consumer warpgroups."""
     b, s, h, hd = q.shape
     g = h // k.shape[2]
-    sp = -(-s // 64) * 64
+    sp = -(-s // qtile) * qtile
     pad = lambda x: torch.nn.functional.pad(x.float(),
-                                            (0, 0, 0, 0, 0, sp - s))
+                                            (0, 0, 0, 0, 0, sp + ktile - s))
     qt = pad(q).transpose(1, 2)
     kt, vt = (pad(x).repeat_interleave(g, 2).transpose(1, 2) for x in (k, v))
     c2 = hd ** -0.5 * 1.4426950408889634
-    pos = torch.arange(sp)
-    o = torch.zeros(b, h, sp, hd)
-    for q0 in range(0, sp, 64):
-        k_lo = max(0, q0 - window + 1) // 64 * 64
-        k_hi = min(s, q0 + 64)
-        for qw in range(q0, q0 + 64, 16):
-            rows = slice(qw, qw + 16)
-            kw_lo, kw_hi = qw - window + 1, min(qw + 15, s - 1)
-            m = torch.full((b, h, 16, 1), -torch.inf)
-            l = torch.zeros(b, h, 16, 1)
-            acc = torch.zeros(b, h, 16, hd)
-            for k0 in range(k_lo, k_hi, 64):
-                if not (qw < s and kw_lo <= k0 + 63 and kw_hi >= k0):
+    pos = torch.arange(sp + ktile)
+    o = torch.zeros(b, h, sp + ktile, hd)
+    for q0 in range(0, sp, qtile):
+        k_lo = max(0, q0 - window + 1) // ktile * ktile
+        k_hi = min(s, q0 + qtile)
+        for qw in range(q0, q0 + qtile, rows):
+            rs = slice(qw, qw + rows)
+            kw_lo, kw_hi = qw - window + 1, min(qw + rows - 1, s - 1)
+            m = torch.full((b, h, rows, 1), -torch.inf)
+            l = torch.zeros(b, h, rows, 1)
+            acc = torch.zeros(b, h, rows, hd)
+            for k0 in range(k_lo, k_hi, ktile):
+                if not (qw < s and kw_lo <= k0 + ktile - 1 and kw_hi >= k0):
                     continue
-                kj, qi = pos[k0:k0 + 64], pos[rows, None]
-                sc = qt[:, :, rows] @ kt[:, :, k0:k0 + 64].transpose(2, 3)
+                kj, qi = pos[k0:k0 + ktile], pos[rs, None]
+                sc = qt[:, :, rs] @ kt[:, :, k0:k0 + ktile].transpose(2, 3)
                 ok = (qi < s) & (kj < s) & (kj <= qi) & (kj > qi - window)
                 sc = torch.where(ok, sc, -torch.inf)
                 mn = torch.maximum(m, sc.amax(-1, keepdim=True) * c2)
@@ -359,9 +367,10 @@ def _kernel_arithmetic_bf16(q, k, v, window):
                 corr = torch.where(none, 1.0, _ex2(m - mn))
                 p = torch.where(none, 0.0, _ex2(sc * c2 - mn))
                 l = l * corr + p.sum(-1, keepdim=True)
-                acc = acc * corr + p.bfloat16().float() @ vt[:, :, k0:k0 + 64]
+                acc = acc * corr + (p.bfloat16().float()
+                                    @ vt[:, :, k0:k0 + ktile])
                 m = mn
-            o[:, :, rows] = acc / l
+            o[:, :, rs] = acc / l
     return o[:, :, :s].transpose(1, 2).bfloat16()
 
 
@@ -415,3 +424,112 @@ def test_window_attention_bf16_gradients_are_bf16():
         assert g.dtype == torch.bfloat16
         np.testing.assert_allclose(g.float().numpy(), w.numpy(), rtol=2e-2,
                                    atol=2e-2)
+
+
+# the wgmma / TMA route's tiles (csrc/window_attn_tma.cu)
+TMA_TILES = dict(qtile=128, ktile=128, rows=64)
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,window", [
+    (2, 70, 4, 2, 64, 50), (1, 130, 6, 3, 27, 70), (2, 100, 4, 2, 64, 1),
+    (1, 200, 2, 1, 32, 100),
+    (1, 300, 4, 2, 128, 200),    # hd 128, S not a multiple of 128
+    (1, 130, 2, 2, 128, 1),      # hd 128, window 1
+    (1, 260, 8, 2, 64, 300),     # H / KV 4, window >= S
+    (2, 384, 2, 2, 64, 129)])    # lower edge one key past a 128-key tile
+def test_window_attention_bf16_tma_route_arithmetic(b, s, h, kv, hd, window):
+    """The wgmma / TMA route's walk and rounding emulated on the CPU:
+    128-query tiles whose two 64-row halves walk 128-key tiles, P rounded
+    to bf16 at the running max of each 128-key tile.  Held to the
+    reference's interpret-mode Pallas kernel on the same bf16 operands at
+    tests/test_kernels.py's bf16 tolerance, 2e-2, and to the plain version
+    within ``chip_smoke.py``'s bound, 2^-8 (max|v| + |r|)."""
+    q, k, v = _bf16_qkv(b, s, h, kv, hd, seed=window + hd)
+    emu = _kernel_arithmetic_bf16(q, k, v, window, **TMA_TILES).float()
+    assert emu.shape == q.shape and torch.isfinite(emu).all()
+    want = j_window(*(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                      for t in (q, k, v)), window, blk=128)
+    np.testing.assert_allclose(emu.numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=2e-2, atol=2e-2)
+    plain = window_attention_ref(q, k, v, window).float()
+    bound = 2.0 ** -8 * (v.float().abs().max() + plain.abs())
+    assert bool(((emu - plain).abs() <= bound).all())
+
+
+def test_window_attention_bf16_tma_route_rounds_at_its_own_tiles():
+    """The two routes round P at the running max of their own key tiles
+    (64 and 128 keys), so where a row's max grows inside a 128-key tile
+    their results differ: the emulations are not the same bits, and each
+    is within the plain version's bound."""
+    q, k, v = _bf16_qkv(1, 256, 2, 1, 64, seed=3)
+    old = _kernel_arithmetic_bf16(q, k, v, 256).float()
+    new = _kernel_arithmetic_bf16(q, k, v, 256, **TMA_TILES).float()
+    assert not torch.equal(old, new)
+    plain = window_attention_ref(q, k, v, 256).float()
+    bound = 2.0 ** -8 * (v.float().abs().max() + plain.abs())
+    for emu in (old, new):
+        assert bool(((emu - plain).abs() <= bound).all())
+
+
+def _fused_qkv(b, s, h, kv, hd, extra=0, dtype=torch.bfloat16):
+    """q, k, v as views of one (B, S, (H + 2 KV) hd + extra) projection, as
+    a fused QKV linear layer returns them."""
+    w = (h + 2 * kv) * hd + extra
+    x = torch.randn(b, s, w, generator=torch.Generator().manual_seed(0)
+                    ).to(dtype)
+    q = x[..., :h * hd].unflatten(-1, (h, hd))
+    k = x[..., h * hd:(h + kv) * hd].unflatten(-1, (kv, hd))
+    v = x[..., (h + kv) * hd:(h + 2 * kv) * hd].unflatten(-1, (kv, hd))
+    return q, k, v
+
+
+@pytest.mark.parametrize("hd,h,kv,want", [
+    (64, 4, 2, "tma"), (128, 32, 16, "tma"), (128, 4, 4, "tma"),
+    (64, 8, 2, "tma"), (16, 4, 2, "mma_sync"), (27, 6, 3, "mma_sync"),
+    (32, 2, 1, "mma_sync"), (96, 4, 2, "mma_sync")])
+def test_window_attention_bf16_route_by_head_dim(hd, h, kv, want):
+    """Contiguous operands: the wgmma / TMA route at hd 64 and 128 at any
+    GQA ratio (1, 2, 4), mma.sync at every other head dim."""
+    q, k, v = (torch.zeros(2, 40, n, hd, dtype=torch.bfloat16)
+               for n in (h, kv, kv))
+    assert ops.bf16_route(q, k, v) == want
+
+
+def test_window_attention_bf16_route_by_alignment_and_strides():
+    """TMA needs a 16-byte aligned base and strides of multiples of 16
+    bytes: views of a fused QKV projection take it when the projection's
+    row is a multiple of 8 elements, not when it is padded by 4 or when a
+    view starts 2 bytes in; a dim of extent 1 does not count."""
+    q, k, v = _fused_qkv(2, 40, 4, 2, 64)
+    assert q.stride() == (40 * 512, 512, 64, 1)
+    assert ops.bf16_route(q, k, v) == "tma"
+    assert ops.bf16_route(*_fused_qkv(1, 40, 32, 16, 128)) == "tma"
+    assert ops.bf16_route(*_fused_qkv(2, 40, 4, 2, 64, extra=4)) == \
+        "mma_sync"
+    buf = torch.zeros(2 * 40 * 4 * 64 + 1, dtype=torch.bfloat16)
+    shifted = buf[1:].view(2, 40, 4, 64)
+    assert ops.bf16_route(shifted, k, v) == "mma_sync"
+    assert ops.bf16_route(q, k, shifted[:, :, :2]) == "mma_sync"
+    one = torch.zeros(1, 40, 4, 64, dtype=torch.bfloat16).as_strided(
+        (1, 40, 4, 64), (3, 256, 64, 1))
+    assert ops.bf16_route(one, k[:1], v[:1]) == "tma"
+    assert ops.bf16_route(q.transpose(1, 2).contiguous().transpose(1, 2),
+                          k, v) == "tma"
+
+
+@pytest.mark.parametrize("extra", [0, 4])
+def test_window_attention_bf16_on_fused_qkv_views(extra):
+    """Strided views of one fused projection on CPU tensors, which run the
+    plain version: ``window_attention`` reads the views through their
+    strides and gives the plain version's bits on contiguous copies.  On
+    the card these views take the wgmma route unpadded and the mma.sync
+    route padded by 4 (asserted here), each held to the plain version by
+    ``chip_smoke.py``'s phase 3e; the wgmma route's walk and rounding are
+    held by ``test_window_attention_bf16_tma_route_arithmetic``."""
+    q, k, v = _fused_qkv(2, 70, 4, 2, 64, extra=extra)
+    assert ops.bf16_route(q, k, v) == ("tma" if extra == 0 else "mma_sync")
+    got = window_attention(q, k, v, 50)
+    want = window_attention_ref(q.contiguous(), k.contiguous(),
+                                v.contiguous(), 50)
+    assert torch.equal(got, want)

@@ -489,3 +489,113 @@ def test_encode_decode_kernel_arithmetic_deeper_codes(s, c):
                   .abs().max())
     got = _ffma_arithmetic(enc, dec, w)
     assert float((got.double() - exact).abs().max()) <= 2 * plain
+
+
+# ----------------------------------- coded_matmul's routes by row alignment
+
+@pytest.mark.parametrize("p", [1001, 1002, 1003, 1004])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_coded_matmul_rounds_at_every_p_mod_4(p, bf16):
+    """``coded_matmul_rounds`` on CPU tensors, which run the plain version
+    (``ref.py``), at P = 1, 2, 3 and 0 mod 4, fp32 and bf16 operands,
+    against the reference's interpret-mode Pallas kernel on the same
+    operands (fp32 sums of exact products: 1e-5).  The CUDA kernel's
+    routes at these P are held on the card (``chip_smoke.py``, phase 3e);
+    which columns each of its threads reads and writes is held here by
+    ``test_coded_matmul_column_walk``."""
+    from repro.kernels.coded_matmul.ops import \
+        coded_matmul_rounds as j_cm_rounds
+    coeff, w = _w((20, 4), p), _w((3, 4, p), p + 1)
+    if bf16:
+        (tc_, jc_), (tw, jw) = _bf16(coeff), _bf16(w)
+    else:
+        tc_, tw = torch.from_numpy(coeff), torch.from_numpy(w)
+        jc_, jw = jnp.asarray(coeff), jnp.asarray(w)
+    got = coded_matmul_rounds(tc_, tw)
+    assert got.shape == (3, 20, p) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(j_cm_rounds(jc_, jw)),
+                               **TOL)
+
+
+def _at(n, offset, dtype):
+    """A contiguous (n,) tensor that starts ``offset`` elements into a
+    16-byte aligned buffer."""
+    buf = torch.zeros(n + 8, dtype=dtype)
+    assert buf.data_ptr() % 16 == 0
+    return buf[offset:offset + n]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_coded_matmul_load_width(dtype):
+    """The route choice: 4 columns a load when P % 4 == 0 and w and out
+    start on 16 bytes; 2 when P is even and both start on two elements
+    (the CNN stage's rounds: P = 5 x 206,922 = 2 mod 4); else 1."""
+    from repro_torch.kernels.coded_matmul.ops import load_width
+    out = torch.zeros(8, dtype=torch.float32)
+    assert load_width(5 * 206_922, _at(8, 0, dtype), out) == 2
+    assert load_width(1_034_612, _at(8, 0, dtype), out) == 4
+    for p, want in ((1004, 4), (1002, 2), (1001, 1), (1003, 1)):
+        assert load_width(p, _at(8, 0, dtype), out) == want
+    assert load_width(1004, _at(8, 2, dtype), out) == 2
+    assert load_width(1004, _at(8, 1, dtype), out) == 1
+    assert load_width(1002, _at(8, 1, dtype), out) == 1
+    assert load_width(1004, _at(8, 0, dtype), _at(8, 2, torch.float32)) == 2
+    assert load_width(1004, _at(8, 0, dtype),
+                      _at(8, 2, torch.bfloat16)) == 2
+    assert load_width(1002, _at(8, 0, dtype), _at(8, 1, torch.float32)) == 1
+
+
+# coded_matmul_kernel's walk over P (csrc/coded_matmul.cu): 256 threads a
+# block, 1,024 columns a block; kW columns a load
+_THREADS, _TILE_P = 256, 1024
+
+
+def _walk(p, width):
+    """(columns, in range) of every (block, thread, load) of
+    ``coded_matmul_kernel`` at load width ``width``, as the kernel indexes
+    them: 4 -> one 4-column load at tile + 4 t (a thread past P returns);
+    2 -> pairs at tile + 2 t + 512 j, j = 0, 1, each masked as a whole;
+    1 -> single columns at tile + t + 256 j, j = 0 .. 3, each masked."""
+    tile = np.arange(-(-p // _TILE_P))[:, None, None] * _TILE_P
+    t = np.arange(_THREADS)[None, :, None]
+    if width == 4:
+        first = tile + 4 * t
+    elif width == 2:
+        first = tile + 2 * t + np.arange(2)[None, None, :] * 2 * _THREADS
+    else:
+        first = tile + t + np.arange(4)[None, None, :] * _THREADS
+    first = np.broadcast_to(first, (tile.shape[0], _THREADS, first.shape[2]))
+    cols = first[..., None] + np.arange(width)
+    return cols, first < p
+
+
+@pytest.mark.parametrize("p,width", [
+    (1004, 4), (1004, 2), (1004, 1), (1002, 2), (1002, 1), (1001, 1),
+    (1003, 1), (1800, 2), (2050, 2)])
+def test_coded_matmul_column_walk(p, width):
+    """Each load width's walk (the pair route's at the CNN stage's P = 2
+    mod 4 included, with tails that mask a thread's second pair or both)
+    reads and writes every column of P once and none past it, each load
+    on its width's alignment in every row ((g S + s) P + column a multiple
+    of the width), a warp's loads contiguous; the output assembled from
+    the walk's loads, fp32 sums over s in ascending order, is the plain
+    version's."""
+    g, c, s = 3, 20, 4
+    cols, live = _walk(p, width)
+    used = cols[live]                                 # (loads, width)
+    assert used.max() < p
+    assert np.array_equal(np.sort(used.ravel()), np.arange(p))
+    for row in range(g * s):                          # every row of w
+        assert ((row * p + used[:, 0]) % width == 0).all()
+    warp0 = cols[0, :32, 0].ravel()                   # a warp's first loads
+    assert np.array_equal(warp0, warp0[0] + np.arange(32 * width))
+    coeff, w = _w((c, s), p), _w((g, s, p), p + 1)
+    out = np.full((g, c, p), np.nan, dtype=np.float32)
+    for load in used:
+        acc = np.zeros((g, c, width), dtype=np.float32)
+        for k in range(s):
+            acc += coeff[None, :, k, None] * w[:, None, k, load]
+        out[:, :, load] = acc
+    want = coded_matmul_rounds_ref(torch.from_numpy(coeff),
+                                   torch.from_numpy(w)).numpy()
+    np.testing.assert_allclose(out, want, **TOL)

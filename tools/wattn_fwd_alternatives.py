@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the window-attention forward against each design choice its notes
 weigh, removed or extended, on one GPU:
-``python3 tools/wattn_fwd_alternatives.py``.
+``python3 tools/wattn_fwd_alternatives.py [--bf16-tma [--against DIR]]``.
 
 Builds ``src/repro_torch/kernels/csrc/window_attn.cu`` as it stands and with
 the overrides it reads from the compiler's defines (the source is not
@@ -22,6 +22,14 @@ Each library's forward is checked against the plain version
 checked against CUDA events) at the cases of ``chip_smoke.check_window``;
 prints each variant's forward kernels' registers and spills, then one JSON
 line a case, with the card's name and power limit first.
+
+``--bf16-tma`` builds the bf16 wgmma / TMA forward
+(``window_attn_tma.cu``, its C entry called directly) as it stands and,
+with ``--against DIR``, the same file of another checkout (a ``git
+archive`` of another commit unpacked in DIR), and holds each to the plain
+version (2^-8 (max|v| + |r|)) at gemma3-27b's layer, on strided views of a
+fused projection and at the small window-1 case, timing them in turns, in
+order and then in reverse, both readings printed.
 """
 from __future__ import annotations
 
@@ -42,14 +50,24 @@ VARIANTS = {"committed": [],
             "no_hdp32": ["-DWATTN_FWD_HDP32=0"]}
 
 
-def build() -> dict:
+TMA_SRC = "src/repro_torch/kernels/csrc/window_attn_tma.cu"
+
+
+def build(tma: bool = False, against=None) -> dict:
     import chip_smoke as cs
     from repro_torch import kernels as K
     OUT.mkdir(parents=True, exist_ok=True)
+    if tma:
+        # name -> (source, defines): this checkout's file and another's
+        todo = {"tma": (ROOT / TMA_SRC, [])}
+        if against is not None:
+            todo["tma_against"] = (Path(against).resolve() / TMA_SRC, [])
+    else:
+        todo = {name: (SRC, d) for name, d in VARIANTS.items()}
     procs = {}
-    for name, defines in VARIANTS.items():
+    for name, (src, defines) in todo.items():
         procs[name] = subprocess.Popen(
-            [K._nvcc(), *K.NVCC_FLAGS, *defines, "-shared", str(SRC),
+            [K._nvcc(), *K.NVCC_FLAGS, *defines, "-shared", str(src),
              "-o", str(OUT / f"{name}.so")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
@@ -59,15 +77,74 @@ def build() -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
+        kernel = "wattn_fwd_bf16_tma_kernel" if tma else "wattn_fwd_kernel"
         print(json.dumps({"variant": name, "ptxas": [
-            r for r in cs.ptxas_summary(log) if "wattn_fwd_kernel" in r[0]]}),
-            flush=True)
+            r for r in cs.ptxas_summary(log) if kernel in r[0]],
+            "wgmma_notes": [ln.strip()[:200] for ln in log.splitlines()
+                            if "C75" in ln]}), flush=True)
         lib = ctypes.CDLL(str(OUT / f"{name}.so"))
-        lib.repro_window_attn_fwd.argtypes = ([ptr] * 5 + [i64] * 6 + [f32]
-                                              + [i64] * 9 + [ptr])
-        lib.repro_window_attn_fwd.restype = i32
-        libs[name] = lib
+        fn = lib.repro_window_attn_fwd_bf16_tma if tma else \
+            lib.repro_window_attn_fwd
+        fn.argtypes = [ptr] * 5 + [i64] * 6 + [f32] + [i64] * 9 + [ptr]
+        fn.restype = i32
+        libs[name] = fn
     return libs
+
+
+def tma_main(torch, K, cs, against) -> int:
+    """``--bf16-tma``: the wgmma forward, and another checkout's, at
+    gemma3-27b's layer, on fused-projection views and at window 1."""
+    from repro_torch.kernels.window_attn import ops
+    from repro_torch.kernels.window_attn.ref import window_attention_ref
+    libs = build(tma=True, against=against)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bf = torch.bfloat16
+
+    def fwd(fn, q, k, v, window):
+        b, s, h, hd = q.shape
+        o = torch.empty((b, s, h, hd), dtype=bf, device="cuda")
+        lse = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
+        K.check_launch(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          o.data_ptr(), lse.data_ptr(), b, s, h, k.shape[2],
+                          hd, window, hd ** -0.5, *ops._strides(q, k, v),
+                          K.stream_of(q)), "window_attention_bf16")
+        return o
+    for label, b, s, h, kv, hd, window, iters, fused in (
+            ("gemma3_full_width_bf16", 2, 4096, 32, 16, 128, 1024, 5, False),
+            ("fused_qkv_views_bf16", 2, 2048, 8, 4, 128, 512, 10, True),
+            ("window1_bf16", 2, 100, 4, 2, 64, 1, 20, False)):
+        if fused:
+            x = torch.randn(b, s, (h + 2 * kv) * hd, generator=gen,
+                            device="cuda").to(bf)
+            q = x[..., :h * hd].unflatten(-1, (h, hd))
+            k = x[..., h * hd:(h + kv) * hd].unflatten(-1, (kv, hd))
+            v = x[..., (h + kv) * hd:].unflatten(-1, (kv, hd))
+        else:
+            q, k, v = (torch.randn(b, s, n, hd, generator=gen,
+                                   device="cuda").to(bf) for n in (h, kv, kv))
+        row = {"case": label, "shape": [b, s, h, kv, hd, window]}
+        with torch.no_grad():
+            want = window_attention_ref(q, k, v, window).float()
+            tol = 2.0 ** -8 * (float(v.float().abs().max()) + want.abs())
+            for name in libs:
+                got = fwd(libs[name], q, k, v, window).float()
+                if not bool(((got - want).abs() <= tol).all()):
+                    raise AssertionError(f"{name}/{label}: past 2^-8 "
+                                         f"(max|v| + |r|) of the plain "
+                                         f"version")
+                row[f"{name}_max_abs_err"] = float((got - want).abs().max())
+            del want, tol, got
+            names = list(libs)
+            times = {n: [] for n in names}
+            for n in names + names[::-1]:
+                times[n].append(cs.timed(
+                    lambda fn=libs[n]: fwd(fn, q, k, v, window), iters,
+                    batch=True)["ms"])
+        row.update(times)
+        print(json.dumps(row), flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return 0
 
 
 def main() -> int:
@@ -82,6 +159,11 @@ def main() -> int:
     from repro_torch.kernels.window_attn.ref import window_attention_ref
     K.resolve_device("cuda")
     print(cs.nvidia_smi(), flush=True)
+    args = sys.argv[1:]
+    if "--bf16-tma" in args:
+        against = args[args.index("--against") + 1] \
+            if "--against" in args else None
+        return tma_main(torch, K, cs, against)
     libs = build()
     gen = torch.Generator(device="cuda").manual_seed(6)
     cases = [("ragged", 2, 200, 4, 2, 64, 50, 20),
